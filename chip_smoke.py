@@ -4,17 +4,36 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and nvcc, and imports nothing of JAX. Phases:
 
 1. device: CUDA must be present; prints the card's name and power limit;
-2. build: compiles ``karpenter_tpu_torch/solver/csrc/pack_solve.cu`` with
-   nvcc for sm_90a into ``build/kernels/`` (keyed by a hash of the sources);
-3. kernel parity: on each of the three problems below, at the slot budget
-   its solve reaches, each kernel against its plain PyTorch version on the
-   card; then CUDA-event timings at the 50k_full shapes (one warm-up,
-   median of five);
-4. slice: port ``encode`` and ``TorchSolver(device="cuda").solve`` on
+2. build: compiles ``karpenter_tpu_torch/solver/csrc/*.cu`` with nvcc for
+   sm_90a, one nvcc per source, started together, and links them into one
+   library under ``build/kernels/`` (keyed by a hash of the sources);
+3. kernel parity: on each of the three flat problems below, at the slot
+   budget its solve reaches, each packing kernel against its plain PyTorch
+   version on the card; then CUDA-event timings at the 50k_full shapes (one
+   warm-up, median of five);
+4. flat slice: port ``encode`` and ``TorchSolver(device="cuda").solve`` on
    50k_full, 10k_topology and 10k_crossgroup; every plan must validate, come
    from the kernels (launch counts taken around this phase), and cost what
    the JAX package computes;
-5. one JSON line of kernel results, the card's name and power limit, and the
+5. fleet kernel parity: five distinct cells of the 500k-pod fleet (the seed
+   cell and the cells of churn rounds 0-3) and three pad rows stacked on one
+   bucket (B=8): the batched K1, K2 and K3 row by row against their plain
+   versions, every row of the batched chain equal to that problem's B=1
+   buffer, the pad rows costing 0; ``fleet_stack`` against ``torch.stack``
+   and a ``stage_patch`` restage against ``index_copy_``; then timings of
+   the chain at B=1, 4, 8 and 16, of ``fleet_stack`` for a B=16 chunk and of
+   one churned cell's ``stage_patch`` restage;
+6. fleet slice: the sharded round on 20 per-cell ``TorchSolver``s over the
+   500k-pod fleet: a seed round (two dispatches, B=16 and B=4), two churn
+   rounds (``stage_patch`` restages, device-side stacks), and one churn
+   round through one shared solver (the host-stacked branch, whose buffers
+   must equal the device-stacked ones); launch counts taken around it. After
+   each round, every dispatch's ``[B, L]`` buffer is held row by row against
+   the plain version on the inputs it was given, at its own B and S, and
+   every device-side stack against ``torch.stack``. Every plan must
+   validate, cost what the JAX package computes and open the same nodes as a
+   fleet-free solve of the same cell;
+7. one JSON line of kernel results, the card's name and power limit, and the
    device JSON as the last line.
 
 Any failure exits non-zero with its traceback; nothing falls back to the CPU.
@@ -22,6 +41,9 @@ Any failure exits non-zero with its traceback; nothing falls back to the CPU.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import importlib
 import json
 import statistics
 import subprocess
@@ -32,6 +54,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+PACK_KERNELS = ("shared_precompute", "pack_member", "pack_epilogue")
 COST_RTOL = 1e-6  # slice costs against the JAX package's
 MEMBER_COST_RTOL = 1e-5  # f32 member-cost sums, taken in another order than the plain version's
 NEAR_TIE_RTOL = 1e-6  # rule for comparing fused buffers, see fused_agree()
@@ -111,16 +134,23 @@ def fused_agree(buf_a, buf_b, k: int) -> str:
     raise AssertionError(f"fused buffers differ at {np.flatnonzero(ints_a != ints_b)[:8]}")
 
 
+def device_problem(ts, solver, problem, bucket=None):
+    """``(PackInputs, orders, alphas, looks, rsvs, swaps)`` of a problem on
+    the card, uploaded whole (the stager is the solver's own business)."""
+    fields, orders, alphas, looks, rsvs, swaps, _, _ = solver._prepare(problem, bucket=bucket)
+    return ts.pack_inputs_from_numpy(
+        dict(fields, orders=orders, alphas=alphas, looks=looks, rsvs=rsvs, swaps=swaps), "cuda"
+    )
+
+
 def check(ts, name, problem, solver) -> dict:
     """Each kernel against its plain version on the card, at the slot
     budget the main path reaches on this problem. Returns what the timings
     need and the largest differences seen."""
     import torch
 
-    fields, orders, alphas, looks, rsvs, swaps, s_new, nz = solver._prepare(problem)
-    tensors = ts.pack_inputs_from_numpy(
-        dict(fields, orders=orders, alphas=alphas, looks=looks, rsvs=rsvs, swaps=swaps), "cuda"
-    )
+    _, orders, _, _, _, swaps, s_new, nz = solver._prepare(problem)
+    tensors = device_problem(ts, solver, problem)
     _, S, _ = solver._run_fused(tensors, orders, swaps, s_new, nz)
     inputs, o, a, l, r, sw = tensors
     G, O, E, R, Z = ts._dims(inputs)
@@ -173,6 +203,22 @@ def check(ts, name, problem, solver) -> dict:
     })
 
 
+def k1_op_count(G: int, O: int, R: int) -> int:
+    """K1's f32 operations: unit counts, residuals and the val_pair table."""
+    return 2 * G * O * R * 3 + G * O * G * R * 5 + G * O * G * 3
+
+
+def k2_op_count(inputs, looks, S: int) -> int:
+    """One K2 launch's operations on this data: the lookahead prices of the
+    members that look ahead, and per member the steps of groups with pods
+    (three option sweeps and one slot sweep each)."""
+    G, R = inputs.demand.shape[-2:]
+    O, E = inputs.price.shape[-1], inputs.ex_rem.shape[-2]
+    K = looks.shape[-1]
+    t_real = int((inputs.count > 0).sum())
+    return int(looks.sum()) * G * O * G * 2 + K * t_real * (3 * 2 * O * 3 + (E + S) * (4 * R + 20))
+
+
 def timings(ts, c: dict, errs: dict) -> list:
     """Kernel, plain-version and bound times at one problem's shapes;
     ``errs`` holds the largest differences over every checked problem."""
@@ -202,15 +248,14 @@ def timings(ts, c: dict, errs: dict) -> list:
                    inputs.opt_valid, inputs.ex_compat, inputs.ex_valid)
     k1_out = nbytes(sk.units, sk.units_rsv, sk.rsv_group, sk.lam, sk.zone_limited,
                     sk.val_pair, sk.exok_pad)
-    k1_ops = 2 * G * O * R * 3 + G * O * G * R * 5 + G * O * G * 3
+    k1_ops = k1_op_count(G, O, R)
     looks_used = bool(l.any())
     k2_in = nbytes(inputs.demand, inputs.demand_units, inputs.count, inputs.node_cap,
                    inputs.colocate, inputs.compat, inputs.alloc, inputs.price,
                    inputs.opt_zone, sk.units, sk.units_rsv, sk.quota, sk.exok_pad, o, a, l, r)
     k2_in += nbytes(sk.val_pair) if looks_used else 0
     k2_out = nbytes(mk.cost, mk.unplaced, mk.exhausted, mk.new_opt, mk.new_active, mk.ys)
-    t_real = int((inputs.count > 0).sum())
-    k2_ops = int(l.sum()) * G * O * G * 2 + K * t_real * (3 * 2 * O * 3 + NS * (4 * R + 20))
+    k2_ops = k2_op_count(inputs, l, S)
     k3_in = nbytes(mk.cost, mk2.cost, mk.exhausted, mk2.exhausted) + nbytes(mk.new_opt[0], mk.new_active[0], mk.ys[0])
     k3_out = nbytes(bk)
     bounds = {
@@ -261,17 +306,14 @@ def slice_phase(ts, problems, configs) -> dict:
             raise AssertionError(f"{name}: plan fails validation: {violations[:5]}")
         if result.stats.get("backend") != 1.0:
             raise AssertionError(f"{name}: backend {result.stats.get('backend')}")
-        if min(moved.values()) < 1:
+        if min(moved[k] for k in PACK_KERNELS) < 1:
             raise AssertionError(f"{name}: a kernel was not launched: {moved}")
         ref = configs.REFERENCE_COSTS.get(name)
         if ref is not None and abs(result.cost - ref) > COST_RTOL * ref:
             raise AssertionError(f"{name}: cost {result.cost!r}, JAX package {ref!r}")
         # device time of the fused chain at the slot budget the solve ended on
-        fields, orders, alphas, looks, rsvs, swaps, _, nz = solver._prepare(problem)
-        tensors = ts.pack_inputs_from_numpy(
-            dict(fields, orders=orders, alphas=alphas, looks=looks, rsvs=rsvs, swaps=swaps), "cuda"
-        )
-        S = int(result.stats["slots"])
+        tensors = device_problem(ts, solver, problem)
+        S, nz = int(result.stats["slots"]), tensors[0].rel_zone_bits.shape[-1]
         kernel_ms = time_ms(lambda: ts.pack_solve_fused(*tensors, S, nz), per=3)
         st = result.stats
         log(
@@ -285,6 +327,370 @@ def slice_phase(ts, problems, configs) -> dict:
             + f", launches {moved}"
         )
     return launches
+
+
+MEMBERS = ("orders", "alphas", "looks", "rsvs", "swaps")
+FLEET_S = 2048  # the slot budget every cell of the 500k-pod fleet ends at
+FLEET_REPLACES = {
+    "stage_patch": "karpenter_tpu/solver/staging.py:200",
+    "fleet_stack": "karpenter_tpu/solver/solver.py:1283",
+}
+
+
+def encode_cell(encode, cells, provs, catalog, c):
+    return encode(list(cells[c].values()), [(provs[c], catalog)])
+
+
+def stack_rows(ts, rows):
+    """Device tuples ``(PackInputs, orders, alphas, looks, rsvs, swaps)`` of
+    single problems stacked into one ``[B, ...]`` batch."""
+    import torch
+
+    return (ts._stack([r[0] for r in rows]),) + tuple(
+        torch.stack([r[j] for r in rows]) for j in range(1, 6)
+    )
+
+
+def leaf_rows(row) -> dict:
+    """One device tuple as the leaf mapping the staging kernels take."""
+    return {**row[0]._asdict(), **dict(zip(MEMBERS, row[1:6]))}
+
+
+def changed_rows(old, new) -> int:
+    diff = old != new
+    return int(diff.sum() if old.ndim == 1 else diff.reshape(old.shape[0], -1).any(axis=1).sum())
+
+
+def fleet_check(ts, st, configs, cells, provs, catalog) -> dict:
+    """Batched K1/K2/K3 against their plain versions row by row on five
+    distinct cells and three pad rows (B=8), every row of the batched chain
+    against that problem's B=1 chain; fleet_stack and stage_patch against
+    theirs. ``cells`` is left as it was."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.solver import TorchSolver, encode
+
+    solver = TorchSolver(device="cuda")
+    work = [dict(c) for c in cells]
+    problems = {"seed": encode_cell(encode, work, provs, catalog, 0)}
+    for r in range(4):
+        c = configs.churn_cells(work, r)[0]
+        problems[f"r{r}"] = encode_cell(encode, work, provs, catalog, c)
+    key = solver._bucket_key(problems["seed"])._replace(S=FLEET_S)
+    S, nz = key.S, key.Z
+    real = [device_problem(ts, solver, p, bucket=key) for p in problems.values()]
+    pad_fields, *pad_members = ts.fleet_padding(key)
+    pad = ts.pack_inputs_from_numpy(dict(pad_fields, **dict(zip(MEMBERS, pad_members))), "cuda")
+    batch = real + [pad] * 3
+    B = len(batch)
+    inputs, o, a, l, r, sw = stack_rows(ts, batch)
+    log(f"fleet check: {list(problems)} + 3 pad rows on {key._replace(B=B).label()}")
+
+    sk = ts.shared_precompute(inputs, S, nz)
+    mk = ts.pack_member(inputs, sk, o, a, l, r, S, nz)
+    mk2 = ts.pack_member(inputs, sk, o, a, l, r, S, nz, swaps=sw, seed_costs=mk.cost)
+    bk = ts.pack_epilogue(mk, mk2)
+    fleet = ts.pack_solve_fleet(inputs, o, a, l, r, sw, S, nz)
+    torch.cuda.synchronize()
+    k2_err = 0.0
+    for b in range(B):
+        row = ts._row(inputs, b)
+        sr = ts.shared_precompute_ref(row, S, nz)
+        for f in ts.Shared._fields:
+            # bit for bit, the pad rows' INF prices through lam and val_pair too
+            if not torch.equal(getattr(sk, f)[b], getattr(sr, f)):
+                raise AssertionError(f"fleet row {b}: batched K1 {f} differs from the plain version")
+        skb = ts._row(sk, b)
+        mr = ts.pack_member_ref(row, skb, o[b], a[b], l[b], r[b], S, nz)
+        o2, a2, l2, r2 = ts.phase2_members(o[b], a[b], l[b], r[b], sw[b], mk.cost[b])
+        mr2 = ts.pack_member_ref(row, skb, o2, a2, l2, r2, S, nz)
+        for tag, x, y in (("phase 1", ts._row(mk, b), mr), ("phase 2", ts._row(mk2, b), mr2)):
+            for f in ("unplaced", "exhausted", "new_opt", "new_active", "ys"):
+                if not torch.equal(getattr(x, f), getattr(y, f)):
+                    raise AssertionError(f"fleet row {b}: batched K2 {tag} {f} differs")
+            if not torch.allclose(x.cost, y.cost, rtol=MEMBER_COST_RTOL, atol=0):
+                raise AssertionError(f"fleet row {b}: batched K2 {tag} costs differ")
+            k2_err = max(k2_err, max_err(x.cost, y.cost))
+        if not torch.equal(bk[b], ts.pack_epilogue_ref(ts._row(mk, b), ts._row(mk2, b))):
+            raise AssertionError(f"fleet row {b}: batched K3 buffer differs from the plain version")
+        if not torch.equal(fleet[b], ts.pack_solve_fused(*batch[b], S, nz)):
+            raise AssertionError(f"fleet row {b}: batched chain differs from the B=1 chain")
+        if b >= len(real):
+            costs = fleet[b, 4 : 4 + 2 * key.K].view(torch.float32)
+            if int(fleet[b, 3]) != 0 or bool(costs.any()):
+                raise AssertionError(f"fleet pad row {b} places or costs something")
+    if len({bytes(fleet[b].cpu().numpy()) for b in range(len(real))}) != len(real):
+        raise AssertionError("the fleet rows are not distinct problems")
+
+    rows = [leaf_rows(x) for x in batch]
+    got, want = st.fleet_stack(rows), st.fleet_stack_ref(rows)
+    for name in want:
+        if not torch.equal(got[name], want[name]):
+            raise AssertionError(f"fleet_stack {name} differs from torch.stack")
+
+    # one churned cell's restage: the seed cell's resident leaves take the
+    # rows that churn round 0 changed
+    seed, churned = (solver._prepare(problems[k]) for k in ("seed", "r0"))
+    old = dict(seed[0], **dict(zip(MEMBERS, seed[1:6])))
+    new = dict(churned[0], **dict(zip(MEMBERS, churned[1:6])))
+    patches = []
+    for name in old:
+        n = changed_rows(old[name], new[name])
+        if 0 < n <= max(1, old[name].shape[0] // 2):
+            diff = (old[name] != new[name]).reshape(old[name].shape[0], -1).any(axis=1)
+            idx = np.flatnonzero(diff)
+            width = 1 << (len(idx) - 1).bit_length()
+            idx = np.concatenate([idx, np.full(width - len(idx), idx[0])]).astype(np.int64)
+            dst = torch.from_numpy(old[name]).cuda()
+            patches.append((name, dst, torch.from_numpy(idx).cuda(), torch.from_numpy(new[name][idx]).cuda()))
+    if not patches:
+        raise AssertionError("churn round 0 changed no leaf of the cell")
+    for name, dst, idx, src in patches:
+        got = st.stage_patch(dst.clone(), idx, src)
+        if not (torch.equal(got, st.stage_patch_ref(dst.clone(), idx, src))
+                and torch.equal(got.cpu(), torch.from_numpy(new[name]))):
+            raise AssertionError(f"stage_patch {name} differs from index_copy_")
+    log(f"fleet check: batched K1 bit-equal, K2 max_abs_err={k2_err}, K3 equal, "
+        f"every row equal to its B=1 chain, pad rows cost 0; fleet_stack equal over "
+        f"{len(rows)} rows x {len(rows[0])} leaves; stage_patch equal on "
+        f"{[(p[0], int(p[2].shape[0])) for p in patches]}")
+    return dict(real=real, key=key, rows=rows, patches=patches,
+                errs={"shared_precompute": 0.0, "pack_member": k2_err, "pack_epilogue": 0.0,
+                      "fleet_stack": 0.0, "stage_patch": 0.0})
+
+
+def fleet_timings(ts, st, fc: dict) -> list:
+    """The batched chain at B=1, 4, 8 and 16 (real rows, repeated for B > 5),
+    fleet_stack for one B=16 chunk, and one churned cell's stage_patch
+    restage, each beside its bound and its plain version."""
+    real, key = fc["real"], fc["key"]
+    S, nz = key.S, key.Z
+    chain, bounds = {}, {}
+    for B in (1, 4, 8, 16):
+        args = stack_rows(ts, [real[i % len(real)] for i in range(B)])
+        chain[B] = time_ms(lambda: ts.pack_solve_fleet(*args, S, nz) if B > 1
+                           else ts.pack_solve_fused(*real[0], S, nz))
+        if B == 4:
+            plain4 = time_ms(lambda: ts.pack_solve_fleet_ref(*args, S, nz), per=1, reps=3)
+        # least time: every input leaf read and the [B, L] buffer written
+        # once, against K1's and both K2 phases' operations
+        inputs, l = args[0], args[3]
+        G, O, E, R, Z = ts._dims(inputs)
+        buf_bytes = B * 4 * (4 + 4 * key.K + 2 * S + G * (E + S))
+        bounds[B] = bound(nbytes(*args[0], *args[1:]) + buf_bytes,
+                          B * k1_op_count(G, O, R) + 2 * k2_op_count(inputs, l, S))
+    log("timing: fused chain " + ", ".join(
+        f"B={b} {t:.4f} ms (bound {bounds[b][0]:.6f}, {bounds[b][1]})" for b, t in chain.items())
+        + f"; plain at B=4 {plain4:.4f} ms")
+
+    rows16 = [fc["rows"][i % len(real)] for i in range(16)]
+    stack_bytes = 2 * sum(nbytes(*r.values()) for r in rows16)
+    stack_ms = time_ms(lambda: st.fleet_stack(rows16))
+    stack_plain = time_ms(lambda: st.fleet_stack_ref(rows16), per=1)
+    patches = fc["patches"]
+    n = len(patches)
+
+    def patch_all(fn):
+        for _, dst, idx, src in patches:
+            fn(dst, idx, src)
+
+    patch_ms = time_ms(lambda: patch_all(st.stage_patch)) / n
+    patch_plain = time_ms(lambda: patch_all(st.stage_patch_ref), per=1) / n
+    patch_bytes = sum(2 * nbytes(src) + nbytes(idx) for _, _, idx, src in patches) / n
+    log(f"timing: fleet_stack B=16 ({len(rows16) * len(rows16[0])} rows) {stack_ms:.4f} ms, "
+        f"plain torch.stack x{len(rows16[0])} {stack_plain:.4f} ms; stage_patch "
+        f"{patch_ms:.4f} ms per launch over one churned cell's {n} launches, "
+        f"index_copy_ {patch_plain:.4f} ms")
+    out = []
+    for name, ms, plain, lib, work in (
+        ("stage_patch", patch_ms, patch_plain, patch_plain, patch_bytes),
+        ("fleet_stack", stack_ms, stack_plain, None, stack_bytes),
+    ):
+        b = bound(work, 0)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "karpenter_tpu_torch/solver/csrc/staging.cu",
+            "replaces": FLEET_REPLACES[name], "launches": None,
+            "max_abs_err": fc["errs"][name], "ms": ms, "plain_ms": plain,
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": lib,
+        })
+    return out
+
+
+def node_digest(result) -> str:
+    h = hashlib.sha256()
+    for node in sorted((n.option_index, tuple(sorted(n.pod_names))) for n in result.new_nodes):
+        h.update(repr(node).encode())
+    h.update(repr(sorted(result.unschedulable)).encode())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def recording(solver_mod):
+    """Record what ``stage_fleet`` hands the fleet kernels: each
+    ``fleet_stack`` call's rows and output, and each ``pack_solve_fleet``
+    call's arguments and buffer. The solver module's two names are wrapped
+    while it lasts; beneath them the wrappers launch and count as always."""
+    stacks, fleets = [], []
+    real_stack, real_fleet = solver_mod.fleet_stack, solver_mod.pack_solve_fleet
+
+    def stack(rows):
+        out = real_stack(rows)
+        stacks.append((rows, out))
+        return out
+
+    def fleet(*args):
+        buf = real_fleet(*args)
+        fleets.append((args, buf))
+        return buf
+
+    solver_mod.fleet_stack, solver_mod.pack_solve_fleet = stack, fleet
+    try:
+        yield stacks, fleets
+    finally:
+        solver_mod.fleet_stack, solver_mod.pack_solve_fleet = real_stack, real_fleet
+
+
+def hold_dispatches(ts, st, rnd, stacks, fleets) -> float:
+    """One round's fleet dispatches against the plain versions, on the very
+    inputs they were given: each device-side stack against ``torch.stack``,
+    each ``[B, L]`` buffer row by row against ``pack_solve_fleet_ref`` at
+    the dispatch's own B and S. Called before the next round's restage
+    patches the resident rows. Returns the largest member-cost difference."""
+    import torch
+
+    for rows, out in stacks:
+        want = st.fleet_stack_ref(rows)
+        for name in want:
+            if not torch.equal(out[name], want[name]):
+                raise AssertionError(f"round {rnd}: fleet_stack {name} (B={len(rows)}) "
+                                     f"differs from torch.stack")
+    err, held = 0.0, []
+    for args, buf in fleets:
+        *tensors, S, nz = args
+        B, K = buf.shape[0], tensors[1].shape[1]
+        ref = ts.pack_solve_fleet_ref(*tensors, S, nz)
+        verdicts = [fused_agree(buf[b], ref[b], K) for b in range(B)]
+        err = max(err, max_err(buf[:, 4 : 4 + 2 * K].view(torch.float32),
+                               ref[:, 4 : 4 + 2 * K].view(torch.float32)))
+        held.append(f"b{B}@S{S} " + ", ".join(f"{verdicts.count(v)} {v}" for v in sorted(set(verdicts))))
+    log(f"fleet round {rnd}: held against the plain versions: {len(stacks)} device-side "
+        f"stacks equal to torch.stack; buffers {held}")
+    return err
+
+
+def fleet_slice(ts, configs, cells, provs, catalog) -> dict:
+    """The sharded round's fleet path on the card: per-cell solvers,
+    prestage, stage_fleet, solve; then one churn round through one shared
+    solver. Launch counts are taken around it; each round's dispatches are
+    held against the plain versions after its timing, and the comparisons
+    with fleet-free solves come after the last round. Returns the launch
+    counts and the largest member-cost difference of the dispatches."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.solver import TorchSolver, encode, stage_fleet, validate
+    from karpenter_tpu_torch.solver import staging as st
+
+    solver_mod = importlib.import_module("karpenter_tpu_torch.solver.solver")
+    n = len(cells)
+    k2_err = 0.0
+    clones = [TorchSolver(device="cuda") for _ in range(n)]
+    shared = TorchSolver(device="cuda")
+    for counts in (ts.LAUNCHES, ts.BATCHED):
+        for k in counts:
+            counts[k] = 0
+    solved, previous, buffers = [], {}, []
+    for rnd in ("seed", 0, 1, 2):
+        t0 = time.perf_counter()
+        dirty = list(range(n)) if rnd == "seed" else configs.churn_cells(cells, rnd)
+        problems = [encode_cell(encode, cells, provs, catalog, c) for c in dirty]
+        t1 = time.perf_counter()
+        restaged = 0
+        if rnd == 2:
+            entries = [(shared, p) for p in problems]
+        else:
+            entries = [(clones[c], p) for c, p in zip(dirty, problems)]
+            for c, p in zip(dirty, problems):
+                clones[c].prestage(p)
+                if c in previous:
+                    info = clones[c]._stager.last_round
+                    if info["restage"] < 1:
+                        raise AssertionError(f"cell {c}: prestage restaged nothing: {info}")
+                    old, new = (clones[c]._prepare(q) for q in (previous[c], p))
+                    old = dict(old[0], **dict(zip(MEMBERS, old[1:6])))
+                    new = dict(new[0], **dict(zip(MEMBERS, new[1:6])))
+                    for name in new:  # the rows an independent host diff finds
+                        want = changed_rows(old[name], new[name])
+                        if want <= max(1, new[name].shape[0] // 2) and info["rows"].get(name, 0) != want:
+                            raise AssertionError(f"cell {c}: {name} restaged {info['rows']}, diff {want}")
+                    restaged += sum(info["rows"].values())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with recording(solver_mod) as (stacks, dispatched):
+            stats = stage_fleet(entries, max_batch=16)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        widths = sorted(int(b.rsplit("b", 1)[1]) for b in stats["buckets"])
+        want_widths, want_dev = ([4, 16], 2) if rnd == "seed" else ([4], 0 if rnd == 2 else 1)
+        if widths != want_widths or stats["device_stacked"] != want_dev or stats["cells_batched"] != n * (rnd == "seed") + 4 * (rnd != "seed"):
+            raise AssertionError(f"round {rnd}: stage_fleet {stats}")
+        if len(stacks) != want_dev or len(dispatched) != len(want_widths):
+            raise AssertionError(f"round {rnd}: recorded {len(stacks)} stacks, "
+                                 f"{len(dispatched)} dispatches")
+        fleets = {id(p.__dict__["_fleet_dispatch"].shared): p.__dict__["_fleet_dispatch"].shared
+                  for p in problems}
+        if rnd == 2:
+            buffers = [p.__dict__["_fleet_dispatch"] for p in problems]
+        results = [solver.solve(p) for solver, p in entries]
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        device_ms = sum(f.device_ms() for f in fleets.values())
+        exhausted = sum(int(res.stats["fleet_exhausted"]) for res in results)
+        passes = sorted({int(res.stats["fused_passes"]) - 1 for res in results})
+        log(f"fleet round {rnd}: {len(dirty)} cells, encode {t1 - t0:.4f} s, prestage "
+            f"{t2 - t1:.4f} s (restaged rows {restaged}), stage_fleet {t3 - t2:.4f} s "
+            f"({stats['buckets']}, device-stacked {stats['device_stacked']}), fleet device "
+            f"{device_ms:.4f} ms, rows exhausted {exhausted}, continuation passes per cell "
+            f"{passes}, solve {t4 - t3:.4f} s, round wall {t4 - t0:.4f} s")
+        k2_err = max(k2_err, hold_dispatches(ts, st, rnd, stacks, dispatched))
+        del stacks, dispatched
+        solved.extend((rnd, c, p, res) for c, p, res in zip(dirty, problems, results))
+        previous.update(zip(dirty, problems))
+    launches, batched = dict(ts.LAUNCHES), dict(ts.BATCHED)
+    log(f"fleet slice launches {launches}, with B > 1 {batched}")
+    if min(launches.values()) < 1 or min(batched.values()) < 1:
+        raise AssertionError("a kernel, or a batched launch, did not run on the fleet path")
+
+    # the shared solver's host-stacked buffers against device-stacked ones of
+    # the same problems on per-cell solvers
+    dirty = [c for rnd, c, _, _ in solved if rnd == 2]
+    copies = [encode_cell(encode, cells, provs, catalog, c) for c in dirty]
+    for c, q in zip(dirty, copies):
+        clones[c].prestage(q)
+    if stage_fleet([(clones[c], q) for c, q in zip(dirty, copies)])["device_stacked"] != 1:
+        raise AssertionError("round 2's copies did not take the device-side stack")
+    for slot, q in zip(buffers, copies):
+        other = q.__dict__.pop("_fleet_dispatch")
+        if not np.array_equal(slot.shared.materialize()[slot.row], other.shared.materialize()[other.row]):
+            raise AssertionError("host-stacked and device-stacked fleet buffers differ")
+
+    free = TorchSolver(device="cuda")
+    for rnd, c, p, res in solved:
+        violations = validate(p, res)
+        if violations:
+            raise AssertionError(f"round {rnd} cell {c}: plan fails validation: {violations[:5]}")
+        if res.stats.get("backend") != 1.0 or res.stats.get("fleet_b", 0) < 2:
+            raise AssertionError(f"round {rnd} cell {c}: not a fleet kernel answer: {res.stats}")
+        ref = configs.REFERENCE_COSTS["cells_seed" if rnd == "seed" else f"cells_r{rnd}"]
+        if abs(res.cost - ref) > COST_RTOL * ref:
+            raise AssertionError(f"round {rnd} cell {c}: cost {res.cost!r}, JAX package {ref!r}")
+        if node_digest(res) != node_digest(free.solve(p)):
+            raise AssertionError(f"round {rnd} cell {c}: plan differs from the fleet-free solve")
+    log(f"fleet slice: {len(solved)} plans valid, at the JAX package's costs "
+        f"({sorted({round(res.cost, 9) for *_, res in solved})}), equal to fleet-free solves")
+    return launches, k2_err
 
 
 def main() -> int:
@@ -305,12 +711,15 @@ def main() -> int:
     from karpenter_tpu_torch import configs
     from karpenter_tpu_torch.solver import TorchSolver, encode
     from karpenter_tpu_torch.solver import _build
+    from karpenter_tpu_torch.solver import staging as st
     from karpenter_tpu_torch.solver import torch_solver as ts
 
     t0 = time.perf_counter()
-    lib_path = _build.build()
-    log(f"build: {time.perf_counter() - t0:.2f} s ({'compiled' if _build.BUILD_SECONDS else 'cached'}) -> {lib_path}")
-    log((lib_path.parent / "ptxas.log").read_text().strip() if (lib_path.parent / "ptxas.log").exists() else "")
+    lib = _build.build()
+    log(f"build: {time.perf_counter() - t0:.2f} s "
+        f"({'compiled' if _build.BUILD_SECONDS else 'cached'}) -> {lib}")
+    ptxas = lib.with_name("ptxas.log")
+    log(ptxas.read_text().strip() if ptxas.exists() else "")
     _build.load_kernels()
 
     problems = {}
@@ -328,9 +737,24 @@ def main() -> int:
     errs = {k: max(c["errs"][k] for c in checked.values()) for k in checked["50k_full"]["errs"]}
     kernels = timings(ts, checked.pop("50k_full"), errs)
     del checked
-    launches = slice_phase(ts, problems, configs)
+    flat = slice_phase(ts, problems, configs)
+    log(f"flat slice launches {flat}")
+    del problems
+
+    t0 = time.perf_counter()
+    cells, provs, catalog = configs.config_cells()
+    log(f"fleet config: {sum(map(len, cells))} pods in {len(cells)} cells, "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    fc = fleet_check(ts, st, configs, cells, provs, catalog)
+    for entry in kernels:
+        entry["max_abs_err"] = max(entry["max_abs_err"], fc["errs"][entry["name"]])
+    kernels += fleet_timings(ts, st, fc)
+    del fc
+    launches, k2_err = fleet_slice(ts, configs, cells, provs, catalog)
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
+        if entry["name"] == "pack_member":
+            entry["max_abs_err"] = max(entry["max_abs_err"], k2_err)
         if entry["launches"] < 1:
             raise AssertionError(f"{entry['name']} was not launched on the main path")
     print(json.dumps({"kernels": kernels}))

@@ -8,6 +8,8 @@ existing_nodes)``, the arguments of ``solver.encode``.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 from .api import ObjectMeta, PodAffinityTerm, Pod, Provisioner, Resources, TopologySpreadConstraint
@@ -121,10 +123,83 @@ def config_50k_full():
     return config_full(50_000, 400)
 
 
+CELL_CPUS = ["100m", "250m", "500m", "1", "2", "4"]
+CELL_MEMS = ["256Mi", "512Mi", "1Gi", "2Gi", "4Gi", "8Gi"]
+
+
+@functools.lru_cache(maxsize=None)
+def _cell_requests(shape: int) -> Resources:
+    # one immutable vector per deployment shape: parsing it per pod would be
+    # most of the set-up time of 500k pods
+    return Resources(cpu=CELL_CPUS[shape % 6], memory=CELL_MEMS[(shape // 2) % 6])
+
+
+def _cell_pod(cell: int, name: str, shape: int) -> Pod:
+    return Pod(meta=ObjectMeta(name=name), requests=_cell_requests(shape),
+               node_selector={"bench.pool": f"p{cell}"})
+
+
+def config_cells(n_pods: int = 500_000, n_cells: int = 20, n_types: int = 60, n_deploys: int = 12):
+    """The sharded control plane's fleet (``bench.bench_cell_decompose``):
+    ``n_pods`` deployment-shaped pods in ``n_cells`` cells, each node-selected
+    onto its own provisioner ``cell-NN`` over one shared catalog, with
+    ``n_deploys`` deployments per cell. Returns ``(cells, provisioners,
+    catalog)``: ``cells[c]`` maps pod name to pod in creation order, and a
+    cell's problem is ``encode(list(cells[c].values()), [(provisioners[c],
+    catalog)])``."""
+    catalog = generate_catalog(n_types=n_types)
+    provs = []
+    for c in range(n_cells):
+        p = Provisioner(meta=ObjectMeta(name=f"cell-{c:02d}"), labels={"bench.pool": f"p{c}"})
+        p.meta.resource_version = c + 1
+        provs.append(p)
+    per_cell = n_pods // n_cells
+    per_dep = per_cell // n_deploys + 1
+    cells = []
+    for c in range(n_cells):
+        pods = {}
+        for d in range(n_deploys):
+            for i in range(per_dep):
+                if len(pods) >= per_cell:
+                    break
+                name = f"c{c}-d{d}-{i}"
+                pods[name] = _cell_pod(c, name, d)
+        cells.append(pods)
+    return cells, provs, catalog
+
+
+def churn_cells(cells, r: int, per_round: int = 4, n_pods: int = 500_000, n_deploys: int = 12):
+    """Churn round ``r`` of ``bench.bench_cell_decompose``, applied in place
+    to ``cells`` (``config_cells`` output) after rounds 0..r-1: in each of
+    ``per_round`` cells, 1% of the cell's pods move from deployment
+    ``d{r}`` to ``d{r+5}`` (removed from the one, added as new pods of the
+    other's shape). Returns the round's dirty cells."""
+    n_cells = len(cells)
+    n_churn = max(n_pods // n_cells // 100, 1)
+    serial = r * per_round * n_churn  # pods added by the earlier rounds
+    churned = [(r * per_round + j) % n_cells for j in range(per_round)]
+    down, up = r % n_deploys, (r + 5) % n_deploys
+    for c in churned:
+        pods = cells[c]
+        for name in [n for n in pods if n.startswith(f"c{c}-d{down}-")][:n_churn]:
+            del pods[name]
+        for i in range(n_churn):
+            name = f"c{c}-up{serial}-{i}"
+            pods[name] = _cell_pod(c, name, up)
+        serial += n_churn
+    return churned
+
+
 #: JAX-package costs of ``TPUSolver(auto_mesh=False)._solve_kernel`` on these
-#: configs, measured on a CPU; the port must reproduce them
+#: configs, measured on a CPU; the port must reproduce them. ``cells_seed`` is
+#: any cell of ``config_cells()``, ``cells_rN`` a cell churned in round N.
 REFERENCE_COSTS = {
     "50k_full": 1017.0072868143582,
     "10k_topology": 59.197231399244934,
     "10k_crossgroup": 57.778294472270225,
+    "cells_seed": 449.9105739783382,
+    "cells_r0": 460.99796498948336,
+    "cells_r1": 451.0820446316647,
+    "cells_r2": 448.2557354797225,
+    "cells_r3": 448.28029736577486,
 }

@@ -1,6 +1,7 @@
 from .encode import EncodedProblem, ExistingNode, LaunchOption, PodGroup, build_options, encode, group_pods
 from .result import NewNodeSpec, SolveResult
-from .solver import Solver, TorchSolver
+from .solver import Solver, TorchSolver, stage_fleet
+from .staging import DeviceStager
 from .validate import validate
 
 __all__ = [
@@ -15,5 +16,7 @@ __all__ = [
     "SolveResult",
     "Solver",
     "TorchSolver",
+    "DeviceStager",
+    "stage_fleet",
     "validate",
 ]

@@ -1,9 +1,10 @@
-"""Build and bind the packing kernels (``csrc/pack_solve.cu``).
+"""Build and bind the kernels (``csrc/pack_solve.cu``, ``csrc/staging.cu``).
 
-The source is compiled with nvcc for ``sm_90a`` into a shared library with a
-plain C interface, at first use, into ``build/kernels/<hash>/`` at the root of
-the checkout; the hash covers the sources and the flags, so an edit rebuilds.
-The library is loaded with ``ctypes``; the wrappers in ``torch_solver`` pass
+The sources are compiled for ``sm_90a`` at first use, one nvcc per source,
+all started together, and linked into one shared library with a plain C
+interface in ``build/kernels/<hash>/`` at the root of the checkout; the hash
+covers the sources and the flags, so an edit rebuilds. The library is loaded
+with ``ctypes``; the wrappers in ``torch_solver`` and ``staging`` pass
 ``data_ptr()`` pointers and the current stream. Nothing here runs on import.
 """
 
@@ -19,25 +20,27 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("pack_solve.cu",)
+SOURCES = ("pack_solve.cu", "staging.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
-    "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-O3", "--fmad=false", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: seconds the last build took in this process (None: the library was cached)
 BUILD_SECONDS: Optional[float] = None
 _LIB: Optional[ctypes.CDLL] = None
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    # 19 pointers, G O E R Z S, stream
-    "kts_shared_precompute": [_P] * 19 + [_I] * 6 + [_P],
-    # 43 pointers, K G O E R Z S, stream
-    "kts_pack_member": [_P] * 43 + [_I] * 7 + [_P],
-    # 13 pointers, K T NS S, stream
-    "kts_pack_epilogue": [_P] * 13 + [_I] * 4 + [_P],
+    # 19 pointers, B G O E R Z S, stream
+    "kts_shared_precompute": [_P] * 19 + [_I] * 7 + [_P],
+    # 43 pointers, B K G O E R Z S, stream
+    "kts_pack_member": [_P] * 43 + [_I] * 8 + [_P],
+    # 13 pointers, B K T NS S, stream
+    "kts_pack_epilogue": [_P] * 13 + [_I] * 5 + [_P],
+    # dst, src, idx, n, row_bytes, stream
+    "kts_stage_patch": [_P] * 3 + [_L] * 2 + [_P],
+    # table, n, max_bytes, stream
+    "kts_fleet_stack": [_P, _I, _L, _P],
 }
 
 
@@ -52,11 +55,11 @@ def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update((CSRC / name).read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16] / "libpack_solve.so"
+    return BUILD_ROOT / h.hexdigest()[:16] / "libkts.so"
 
 
 def build() -> Path:
-    """Compile the kernels unless this source's library exists. The
+    """Compile the kernels unless these sources' library exists. The
     compiler's resource report (``-Xptxas -v``) lands in ``ptxas.log``
     beside the library."""
     global BUILD_SECONDS
@@ -65,14 +68,25 @@ def build() -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    objs = [out.with_name(f"{Path(s).stem}.{os.getpid()}.o") for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    procs = [
+        subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(SOURCES, objs)
+    ]
+    log = "".join(p.communicate()[0] for p in procs)
+    if any(p.returncode for p in procs):
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    link = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
     os.replace(tmp, out)
     BUILD_SECONDS = time.perf_counter() - t0
-    (out.parent / "ptxas.log").write_text(proc.stdout + proc.stderr)
+    (out.parent / "ptxas.log").write_text(log)
     return out
 
 

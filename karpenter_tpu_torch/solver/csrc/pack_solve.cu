@@ -12,6 +12,17 @@
 // to the host. The plain PyTorch versions of all three live beside their
 // wrappers in solver/torch_solver.py.
 //
+// Batch axis. Every entry takes B stacked problems of one shape and solves
+// them in the same four launches: this is the fleet dispatch of the sharded
+// round (pack_solve_fleet, jax_solver.py:615-643, which runs the B=1 program
+// under vmap). Each block finds its row b (blockIdx.z for K1's two passes,
+// blockIdx.y for K2's (K, B) grid, blockIdx.x for K3's B blocks) and offsets
+// every input, output and scratch pointer by that row's size_t stride
+// (k1_row, k2_row, k3_row); the rest of the code is the B=1 code, so row b of
+// a batch computes what a B=1 launch of problem b computes, bit for bit.
+// Nothing is shared between rows: phase 2 takes the argmin of its own row's
+// phase-1 costs, and K3 reads only its own row's members.
+//
 // Numerics. Build with --fmad=false and without --use_fast_math: IEEE division,
 // no flush to zero, and no multiply-add contraction the source does not ask
 // for. XLA does contract five multiply-adds of the reference program (the
@@ -225,6 +236,31 @@ struct K1Args {
   int G, O, E, R, Z, S;
 };
 
+// K1Args of batch row b: every array advanced by b times its per-row size.
+__device__ __forceinline__ K1Args k1_row(K1Args a, size_t b) {
+  const size_t G = a.G, O = a.O, E = a.E, R = a.R, Z = a.Z, NS = a.E + a.S;
+  a.demand += b * G * R;
+  a.demand_units += b * G * R;
+  a.count += b * G;
+  a.node_cap += b * G;
+  a.quota += b * G * Z;
+  a.colocate += b * G;
+  a.compat += b * G * O;
+  a.alloc += b * O * R;
+  a.price += b * O;
+  a.opt_valid += b * O;
+  a.ex_compat += b * G * E;
+  a.ex_valid += b * E;
+  a.units += b * G * O;
+  a.units_rsv += b * G * O;
+  a.rsv_group += b * G;
+  a.lam += b * G;
+  a.zone_limited += b * G;
+  a.val_pair += b * G * O * G;
+  a.exok_pad += b * G * NS;
+  return a;
+}
+
 __device__ __forceinline__ int finish_units(int un, bool ok, int cap, bool coloc, int cnt) {
   un = min(un, cap);
   if (!ok) un = 0;
@@ -233,14 +269,15 @@ __device__ __forceinline__ int finish_units(int un, bool ok, int cap, bool coloc
 }
 
 // K1a replaces _shared_precompute's per-group part (jax_solver.py:206-243):
-// one block per group row g loops over the O options for the raw and
+// one block per (group row g, batch row b) loops over the O options for the raw and
 // reserve-sized unit counts, reduces row_fits over O, finishes both, and
 // reduces lam as a row min. Bound: the [G, O] reads of compat and the two
 // [G, O] unit writes, ~0.5 MB at 50k_full (G=32, O=4096), well under a
 // microsecond of bandwidth; the block's own latency dominates. The val_pair
 // table needs every group's lam, so it is a second pass (K1b).
-__global__ void __launch_bounds__(kK1Threads) k1_units(K1Args a) {
+__global__ void __launch_bounds__(kK1Threads) k1_units(K1Args p) {
   __shared__ Scratch sh;
+  const K1Args a = k1_row(p, blockIdx.z);
   const int g = blockIdx.x;
   const int O = a.O, R = a.R;
   float d[kMaxR], du[kMaxR];
@@ -294,10 +331,11 @@ __global__ void __launch_bounds__(kK1Threads) k1_units(K1Args a) {
 // K1b replaces the lookahead value table (jax_solver.py:245-264):
 // val_pair[g, o, g'] = whole pods of g' that fit in the residual of one (g, o)
 // node, times g''s cheapest per-pod rate. One thread per (o, g') element of a
-// row g, so the 16 MB table at 50k_full is written once, coalesced, by the
+// row g of batch row b (blockIdx.z), so the 16 MB table at 50k_full is written once, coalesced, by the
 // whole card. Bound: those bytes (about 5 us at 3.35 TB/s); the
 // G*O*G'*R divisions are far below the f32 rate.
-__global__ void __launch_bounds__(kK1Threads) k1_val_pair(K1Args a) {
+__global__ void __launch_bounds__(kK1Threads) k1_val_pair(K1Args p) {
+  const K1Args a = k1_row(p, blockIdx.z);
   const int g = blockIdx.y;
   const int O = a.O, G = a.G, R = a.R;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -368,8 +406,58 @@ struct K2Args {
   int K, G, O, E, R, Z, S;
 };
 
+// K2Args of batch row b: every array advanced by b times its per-row size.
+// Phase 1 passes null swaps and seed_costs, which stay null.
+__device__ __forceinline__ K2Args k2_row(K2Args a, size_t b) {
+  const size_t K = a.K, G = a.G, O = a.O, E = a.E, R = a.R, Z = a.Z, S = a.S, NS = a.E + a.S;
+  a.demand += b * G * R;
+  a.demand_units += b * G * R;
+  a.count += b * G;
+  a.node_cap += b * G;
+  a.colocate += b * G;
+  a.compat += b * G * O;
+  a.alloc += b * O * R;
+  a.price += b * O;
+  a.opt_zone += b * O;
+  a.ex_rem += b * E * R;
+  a.ex_zone += b * E;
+  a.ex_valid += b * E;
+  a.rel_set += b * G;
+  a.rel_host_forbid += b * G;
+  a.rel_host_need += b * G;
+  a.rel_zone_forbid += b * G;
+  a.rel_zone_need += b * G;
+  a.rel_slot_bits += b * E;
+  a.rel_zone_bits += b * Z;
+  a.units += b * G * O;
+  a.units_rsv += b * G * O;
+  a.rsv_group += b * G;
+  a.quota += b * G * Z;
+  a.zone_limited += b * G;
+  a.val_pair += b * G * O * G;
+  a.exok_pad += b * G * NS;
+  a.orders += b * K * G;
+  a.alphas += b * K;
+  a.looks += b * K;
+  a.rsvs += b * K;
+  if (a.swaps != nullptr) a.swaps += b * K * G;
+  if (a.seed_costs != nullptr) a.seed_costs += b * K;
+  a.cost += b * K;
+  a.unplaced += b * K;
+  a.exhausted += b * K;
+  a.new_opt += b * K * S;
+  a.new_active += b * K * S;
+  a.ys += b * K * G * NS;
+  a.order_s += b * K * G;
+  a.pos_s += b * K * G;
+  a.price_t += b * K * G * O;
+  a.slot_rem += b * K * NS * R;
+  a.slot_i += b * K * 6 * NS;
+  return a;
+}
+
 // K2 replaces _pack_member (jax_solver.py:295-535) for K members at once:
-// one block per member. The prologue derives the member's scan order (phase
+// one block per (member k, batch row b). The prologue derives the member's scan order (phase
 // 2: orders[argmin(phase-1 costs)][swaps[k]], on the device, so the phases
 // need no host sync) and builds price_t[T, O] (:318-328) into global scratch;
 // then the block runs the T steps of the scan with slot state in global
@@ -379,12 +467,13 @@ struct K2Args {
 //
 // Bound: bytes, by the prologue's read of val_pair[order] (16 MB per member at
 // 50k_full, read only by lookahead members); the scan itself is latency-bound
-// -- T dependent steps of block reductions on K of the 132 SMs. What the
-// design does about that: members run concurrently, one per SM; steps of
+// -- T dependent steps of block reductions on K*B of the 132 SMs. What the
+// design does about that: members and batch rows run concurrently, one block
+// per SM, so a fleet of B rows costs about what one row costs while K*B <= 132; steps of
 // groups with no pods, buckets with no want and tails with no remainder are
 // skipped (their results are never read); the step state is kept to a few
 // small vectors so each step is a handful of barriers.
-__global__ void __launch_bounds__(kK2Threads) k2_pack_member(K2Args a) {
+__global__ void __launch_bounds__(kK2Threads) k2_pack_member(K2Args p) {
   __shared__ Scratch sh;
   __shared__ float s_d[kMaxR], s_dfit[kMaxR];
   __shared__ int s_q[kMaxZ], s_zone_bits[kMaxZ], s_placed_z[kMaxZ], s_zhit[kMaxZ];
@@ -396,6 +485,7 @@ __global__ void __launch_bounds__(kK2Threads) k2_pack_member(K2Args a) {
   __shared__ int s_left, s_total_open, s_src, s_look, s_rsv, s_unplaced, s_exhausted;
   __shared__ float s_alpha;
 
+  const K2Args a = k2_row(p, blockIdx.y);
   const int k = blockIdx.x, tid = threadIdx.x, B = blockDim.x;
   const int G = a.G, O = a.O, E = a.E, R = a.R, Z = a.Z, Zb = a.Z + 1;
   const int NS = a.E + a.S, nseg = 2 * Zb;
@@ -802,13 +892,34 @@ struct K3Args {
   int K, T, NS, S;
 };
 
+// K3Args of batch row b: every array advanced by b times its per-row size.
+__device__ __forceinline__ K3Args k3_row(K3Args a, size_t b) {
+  const size_t K = a.K, S = a.S, Y = (size_t)a.K * a.T * a.NS;
+  a.c1 += b * K;
+  a.u1 += b * K;
+  a.ex1 += b * K;
+  a.no1 += b * K * S;
+  a.na1 += b * K * S;
+  a.ys1 += b * Y;
+  a.c2 += b * K;
+  a.u2 += b * K;
+  a.ex2 += b * K;
+  a.no2 += b * K * S;
+  a.na2 += b * K * S;
+  a.ys2 += b * Y;
+  a.buf += b * (4 + 4 * K + 2 * S + (size_t)a.T * a.NS);
+  return a;
+}
+
 // K3 replaces the tail of _pack_solve_fused_impl (jax_solver.py:585-604): the
 // argmin over both phases' 2K costs (first index wins) and the result buffer
-// in that function's layout, costs as f32 bits. One block. Bound: the copy of
+// in that function's layout, costs as f32 bits. One block per batch row.
+// Bound: the copy of
 // the winner's ys (T*(E+S) int32, 262 KB at 50k_full), a fraction of a
 // microsecond of bandwidth; one block's copy rate and the launch dominate.
-__global__ void __launch_bounds__(kK3Threads) k3_pack_epilogue(K3Args a) {
+__global__ void __launch_bounds__(kK3Threads) k3_pack_epilogue(K3Args p) {
   __shared__ int s_phase, s_b1, s_bk;
+  const K3Args a = k3_row(p, blockIdx.x);
   const int K = a.K;
   if (threadIdx.x == 0) {
     int best = 0, b1 = 0;
@@ -861,7 +972,9 @@ __global__ void __launch_bounds__(kK3Threads) k3_pack_epilogue(K3Args a) {
 
 // ---------------------------------------------------------------------------
 // C interface: each entry launches on `stream`, allocates nothing, and returns
-// cudaGetLastError() (0 when the launches were accepted).
+// cudaGetLastError() (0 when the launches were accepted). B is the batch
+// axis: every array holds B rows of the per-row shapes named in the Args
+// structs, back to back.
 // ---------------------------------------------------------------------------
 
 extern "C" {
@@ -873,16 +986,18 @@ int kts_shared_precompute(
     const int* quota, const bool* colocate, const bool* compat, const float* alloc,
     const float* price, const bool* opt_valid, const bool* ex_compat, const bool* ex_valid,
     int* units, int* units_rsv, bool* rsv_group, float* lam, bool* zone_limited,
-    float* val_pair, bool* exok_pad, int G, int O, int E, int R, int Z, int S, void* stream) {
+    float* val_pair, bool* exok_pad, int B, int G, int O, int E, int R, int Z, int S,
+    void* stream) {
   K1Args a{demand, demand_units, count, node_cap, quota, colocate, compat, alloc, price,
            opt_valid, ex_compat, ex_valid, units, units_rsv, rsv_group, lam, zone_limited,
            val_pair, exok_pad, G, O, E, R, Z, S};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  k1_units<<<G, kK1Threads, 0, st>>>(a);
+  k1_units<<<dim3(G, 1, B), kK1Threads, 0, st>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t row = (size_t)O * G;
-  dim3 grid(static_cast<unsigned>((row + kK1Threads - 1) / kK1Threads), static_cast<unsigned>(G));
+  dim3 grid(static_cast<unsigned>((row + kK1Threads - 1) / kK1Threads), static_cast<unsigned>(G),
+            static_cast<unsigned>(B));
   k1_val_pair<<<grid, kK1Threads, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -898,7 +1013,7 @@ int kts_pack_member(
     const int* orders, const float* alphas, const bool* looks, const bool* rsvs,
     const int* swaps, const float* seed_costs, float* cost, int* unplaced, bool* exhausted,
     int* new_opt, bool* new_active, int* ys, int* order_s, int* pos_s, float* price_t,
-    float* slot_rem, int* slot_i, int K, int G, int O, int E, int R, int Z, int S,
+    float* slot_rem, int* slot_i, int B, int K, int G, int O, int E, int R, int Z, int S,
     void* stream) {
   K2Args a{demand, demand_units, count, node_cap, colocate, compat, alloc, price, opt_zone,
            ex_rem, ex_zone, ex_valid, rel_set, rel_host_forbid, rel_host_need,
@@ -906,16 +1021,17 @@ int kts_pack_member(
            rsv_group, quota, zone_limited, val_pair, exok_pad, orders, alphas, looks, rsvs,
            swaps, seed_costs, cost, unplaced, exhausted, new_opt, new_active, ys, order_s,
            pos_s, price_t, slot_rem, slot_i, K, G, O, E, R, Z, S};
-  k2_pack_member<<<K, kK2Threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  k2_pack_member<<<dim3(K, B), kK2Threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 int kts_pack_epilogue(
     const float* c1, const int* u1, const bool* ex1, const int* no1, const bool* na1,
     const int* ys1, const float* c2, const int* u2, const bool* ex2, const int* no2,
-    const bool* na2, const int* ys2, int* buf, int K, int T, int NS, int S, void* stream) {
+    const bool* na2, const int* ys2, int* buf, int B, int K, int T, int NS, int S,
+    void* stream) {
   K3Args a{c1, u1, ex1, no1, na1, ys1, c2, u2, ex2, no2, na2, ys2, buf, K, T, NS, S};
-  k3_pack_epilogue<<<1, kK3Threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  k3_pack_epilogue<<<B, kK3Threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

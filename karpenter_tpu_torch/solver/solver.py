@@ -1,13 +1,19 @@
 """Solver backends behind one interface.
 
 ``TorchSolver`` is the port's counterpart of the JAX package's ``TPUSolver``
-kernel path: pad the encoded problem onto its bucket lattice, run the fused
+kernel path: pad the encoded problem onto its bucket lattice, keep its
+tensors resident on the device through a ``DeviceStager``, run the fused
 two-phase portfolio solve (``torch_solver.pack_solve_fused``: three CUDA
 kernels on the card, their plain PyTorch versions on the CPU), gate the raw
 answer with the count-level validator and decode it. The host race
 competitors of the reference are not part of this package yet, so the
 kernel answers every round; a problem the tensor path cannot express, or a
 kernel plan that fails validation, raises instead of falling back.
+
+``stage_fleet`` is the sharded round's fleet dispatch: the dirty cells'
+problems, each with the solver that will solve it, are grouped by bucket
+and each chunk is solved in one batched call (``pack_solve_fleet``); each
+cell's ``solve`` then decodes its row.
 """
 
 from __future__ import annotations
@@ -15,26 +21,33 @@ from __future__ import annotations
 import abc
 import math
 import time
-from typing import List, Optional
+from collections import OrderedDict
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .encode import EncodedProblem, sizing_demand
 from .result import NameSlice, NewNodeSpec, SolveResult
+from .staging import DeviceStager, fleet_stack
 from .torch_solver import (
     BucketKey,
+    PackInputs,
     bucket_existing,
+    bucket_fleet,
     bucket_groups,
     bucket_key,
     bucket_options,
     bucket_zones,
+    fleet_padding,
     make_orders,
-    pack_inputs_from_numpy,
+    pack_solve_fleet,
     pack_solve_fused,
     unpack_solve_fused,
 )
 from .validate import validate_counts
+
+_MEMBER_LEAVES = ("orders", "alphas", "looks", "rsvs", "swaps")
 
 
 def _next_pow2(n: int, floor: int = 8) -> int:
@@ -179,12 +192,155 @@ class Solver(abc.ABC):
     def solve(self, problem: EncodedProblem) -> SolveResult: ...
 
 
+class _FleetBuffer:
+    """The ``[B, L]`` device buffer of one fleet dispatch, shared by the
+    cells batched into it. The first cell that reads it copies it to the
+    host once; every later cell reads that copy. On the card, two events
+    around the dispatch give its device time."""
+
+    __slots__ = ("buf", "key", "events", "_host")
+
+    def __init__(self, buf: torch.Tensor, key: BucketKey, events=None):
+        self.buf = buf
+        self.key = key  # the fleet bucket (B > 1)
+        self.events = events
+        self._host: Optional[np.ndarray] = None
+
+    def materialize(self) -> np.ndarray:
+        if self._host is None:
+            self._host = self.buf.cpu().numpy()
+        return self._host
+
+    def device_ms(self) -> Optional[float]:
+        """Device time of the dispatch (None on the CPU); after materialize."""
+        return None if self.events is None else self.events[0].elapsed_time(self.events[1])
+
+
+class _FleetDispatch:
+    """One cell's share of a fleet dispatch: the shared buffer, this
+    problem's row and what unpacking it needs. Attached to the problem by
+    ``stage_fleet``; popped by ``solve``."""
+
+    __slots__ = ("shared", "row", "orders", "swaps", "s_new")
+
+    def __init__(self, shared, row, orders, swaps, s_new):
+        self.shared = shared
+        self.row = row
+        self.orders = orders
+        self.swaps = swaps
+        self.s_new = s_new
+
+
+def _fleet_eligible(problem: Optional[EncodedProblem]) -> bool:
+    return (
+        problem is not None and problem.G > 0
+        and not (problem.O == 0 and problem.E == 0)
+        and problem.rel_unsupported is None
+    )
+
+
+def stage_fleet(
+    entries: Sequence[Tuple["TorchSolver", EncodedProblem]], max_batch: int = 16,
+) -> dict:
+    """Batch same-bucket kernel dispatches into single device calls.
+
+    ``entries`` pairs each freshly encoded problem with the solver that will
+    solve it (the sharded round's per-cell clones, or one shared solver).
+    Problems are grouped by bucket; each group is cut into chunks of the
+    largest power of two <= ``max_batch``, each chunk is padded to its pow2
+    fleet width with inert rows and solved in one ``pack_solve_fleet`` call.
+    Each batched problem carries a ``_fleet_dispatch`` handle that its
+    ``solve`` consumes instead of dispatching on its own. A lone cell is left
+    to its own solve.
+
+    A chunk whose every problem is resident on its solver's device (after
+    ``prestage``) is stacked on the device by ``fleet_stack`` from the
+    resident rows and the pad row, staged once under ``("fleetpad",) +
+    fleet_key``; otherwise the chunk is stacked on the host and staged
+    through the first solver's stager under ``("fleet",) + fleet_key``.
+
+    Returns ``dispatches``, ``cells_batched``, ``eligible``, the fleet
+    ``buckets`` and how many chunks were ``device_stacked``."""
+    stats = {"dispatches": 0, "cells_batched": 0, "eligible": 0, "buckets": [],
+             "device_stacked": 0}
+    if max_batch < 2 or len(entries) < 2:
+        return stats
+    width_cap = 1 << (int(max_batch).bit_length() - 1)
+    groups: "OrderedDict[BucketKey, list]" = OrderedDict()
+    for solver, problem in entries:
+        if not _fleet_eligible(problem):
+            continue
+        stats["eligible"] += 1
+        groups.setdefault(solver._bucket_key(problem), []).append((solver, problem))
+    for key, members in groups.items():
+        for base in range(0, len(members), width_cap):
+            chunk = members[base : base + width_cap]
+            if len(chunk) < 2:
+                continue
+            fleet_key = key._replace(B=bucket_fleet(len(chunk)))
+            stats["device_stacked"] += _stage_fleet_chunk(chunk, key, fleet_key)
+            stats["dispatches"] += 1
+            stats["cells_batched"] += len(chunk)
+            stats["buckets"].append(fleet_key.label())
+    return stats
+
+
+def _stage_fleet_chunk(chunk, key: BucketKey, fleet_key: BucketKey) -> bool:
+    """Stack one chunk along the batch axis, dispatch it, and attach each
+    problem's row. Returns whether the stack was built on the device."""
+    B = fleet_key.B
+    owner = chunk[0][0]
+    preps = [solver._prepare(problem, bucket=key) for solver, problem in chunk]
+    resident = [solver._resident(problem) for solver, problem in chunk]
+    pad_fields, *pad_members = fleet_padding(key)
+    pad = {**pad_fields, **dict(zip(_MEMBER_LEAVES, pad_members))}
+    device_side = all(e is not None for e in resident)
+    if device_side:
+        # every row is already on the device: stack it there, with the pad
+        # row staged once per fleet bucket, so no byte crosses the host link
+        # twice
+        pad_d = owner._stager.stage(("fleetpad",) + tuple(fleet_key), pad)
+        rows = [
+            {**e[1]._asdict(), **dict(zip(_MEMBER_LEAVES, e[4:9]))} for e in resident
+        ]
+        staged = fleet_stack(rows + [pad_d] * (B - len(rows)))
+    else:
+        # host stack through the owner's stager: a repeat round whose chunk
+        # lines up the same cells re-uploads only the churned rows
+        rows = [{**prep[0], **dict(zip(_MEMBER_LEAVES, prep[1:6]))} for prep in preps]
+        rows += [pad] * (B - len(rows))
+        staged = owner._stager.stage(
+            ("fleet",) + tuple(fleet_key), {f: np.stack([r[f] for r in rows]) for f in pad}
+        )
+    args = (PackInputs(*(staged[f] for f in PackInputs._fields)),) + tuple(
+        staged[f] for f in _MEMBER_LEAVES
+    )
+    events = None
+    if owner.device.type == "cuda":
+        events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        events[0].record()
+    buf = pack_solve_fleet(*args, key.S, key.Z)
+    if events is not None:
+        events[1].record()
+    shared = _FleetBuffer(buf, fleet_key, events)
+    for row, ((_, problem), prep) in enumerate(zip(chunk, preps)):
+        problem.__dict__["_fleet_dispatch"] = _FleetDispatch(shared, row, prep[1], prep[5], key.S)
+    return device_side
+
+
 class TorchSolver(Solver):
     """The portfolio packing kernel on one device.
 
     ``device`` defaults to the card: ``TorchSolver()`` raises when CUDA is
     absent rather than running on the CPU. ``device="cpu"`` runs the plain
-    PyTorch versions of the kernels (the tests' path)."""
+    PyTorch versions of the kernels (the tests' path).
+
+    The solver keeps one problem resident on its device (``_device_inputs``:
+    staged through its ``DeviceStager`` under the tag ``("cell", Gp, Op, Ep,
+    Zp, R, K)``, so the next problem of that shape moves only its churned
+    rows). ``prestage`` stages a problem ahead of its solve; the sharded
+    round gives each cell its own solver so that every dirty cell stays
+    resident until ``stage_fleet``."""
 
     def __init__(
         self,
@@ -200,8 +356,13 @@ class TorchSolver(Solver):
         self.seed = seed
         self.max_slots = max_slots
         self.device = device
+        self._stager = DeviceStager(device=device)
+        self._device_cache: dict = {}
 
     def solve(self, problem: EncodedProblem) -> SolveResult:
+        # a fleet handle is consumed once, popped even where it is not read,
+        # so that it can never serve a later solve of the same problem
+        slot = problem.__dict__.pop("_fleet_dispatch", None)
         if problem.G == 0:
             return SolveResult(stats={"backend": 1.0})
         if problem.O == 0 and problem.E == 0:
@@ -213,29 +374,71 @@ class TorchSolver(Solver):
             raise NotImplementedError(
                 f"constraint shape outside the tensor path: {problem.rel_unsupported}"
             )
+        if slot is not None:
+            return self._solve_fleet_row(problem, slot)
         return self._solve_kernel(problem)
 
-    def _solve_kernel(self, problem: EncodedProblem) -> SolveResult:
+    def prestage(self, problem: EncodedProblem) -> None:
+        """Pad and stage this problem's tensors now, without solving: the
+        sharded round calls it right after each cell's encode, so that
+        ``stage_fleet`` finds every dirty cell resident and stacks the chunk
+        on the device. A no-op for problems the kernel would not solve."""
+        if _fleet_eligible(problem):
+            self._device_inputs(problem)
+
+    def _solve_fleet_row(self, problem: EncodedProblem, slot: _FleetDispatch) -> SolveResult:
+        """Decode this problem's row of a fleet dispatch. A row whose members
+        ran out of slots with pods left over goes on alone at twice the slot
+        budget, exactly as the fleet-free solve would after its first pass."""
         t0 = time.perf_counter()
-        fields, orders, alphas, looks, rsvs, swaps, s_new, n_zones = self._prepare(problem)
-        k = orders.shape[0]
-        t1 = time.perf_counter()
-        tensors = pack_inputs_from_numpy(
-            dict(fields, orders=orders, alphas=alphas, looks=looks, rsvs=rsvs, swaps=swaps),
-            self.device,
+        key = slot.shared.key
+        raw = slot.shared.materialize()[slot.row]
+        unpacked = unpack_solve_fused(
+            raw, slot.orders.shape[0], slot.s_new, key.G, key.E, slot.orders, slot.swaps
         )
-        unpacked, s_new, passes = self._run_fused(tensors, orders, swaps, s_new, n_zones)
+        _, unplaced, _, exhausted, _, _, _ = unpacked
+        if exhausted.any() and unplaced > 0 and slot.s_new < self.max_slots:
+            result = self._solve_kernel(problem, s_new=2 * slot.s_new, passes=1)
+            result.stats["fleet_exhausted"] = 1.0
+        else:
+            t1 = time.perf_counter()
+            result = self._finish(problem, unpacked, slot.s_new, 1, t0, t0, t1)
+            result.stats["fleet_exhausted"] = 0.0
+        result.stats["fleet_b"] = float(key.B)
+        result.stats["fleet_bucket"] = key.label()
+        return result
+
+    def _solve_kernel(self, problem: EncodedProblem, s_new: Optional[int] = None,
+                      passes: int = 0) -> SolveResult:
+        """Solve on the resident tensors from ``s_new`` slots (default: the
+        problem's current budget), doubling while members run out."""
+        t0 = time.perf_counter()
+        (inputs, orders, swaps, orders_d, alphas_d, looks_d, rsvs_d, swaps_d,
+         s_cached, n_zones) = self._device_inputs(problem)
+        if s_new is not None and s_new != s_cached:
+            self._set_slots(problem, s_new)
+        t1 = time.perf_counter()
+        unpacked, s_new, n = self._run_fused(
+            (inputs, orders_d, alphas_d, looks_d, rsvs_d, swaps_d), orders, swaps,
+            s_cached if s_new is None else s_new, n_zones, problem,
+        )
+        t2 = time.perf_counter()
+        return self._finish(problem, unpacked, s_new, passes + n, t0, t1, t2)
+
+    def _finish(self, problem, unpacked, s_new: int, passes: int, t0, t1, t2) -> SolveResult:
+        """Gate the kernel's answer with the count-level validator, decode
+        it, and record its stats."""
         order, unplaced, costs, exhausted, new_opt, new_active, ys = unpacked
         if not np.isfinite(np.asarray(costs, dtype=np.float64)).all():
             raise RuntimeError("kernel returned non-finite member costs")
-        t2 = time.perf_counter()
+        k = len(costs) // 2
         violations = validate_counts(problem, order, new_opt, new_active, ys)
         if violations:
             raise RuntimeError(f"kernel plan failed validation: {violations[:5]}")
         t3 = time.perf_counter()
         result = self._decode(problem, order, new_opt, new_active, ys)
         t4 = time.perf_counter()
-        # host-clock phases: padding and portfolio construction; upload, the
+        # host-clock phases: padding, portfolio construction and staging; the
         # fused passes and their result copies; count-level validation; decode
         result.stats.update(
             prepare_s=t1 - t0, device_s=t2 - t1, validate_s=t3 - t2, decode_s=t4 - t3,
@@ -249,11 +452,13 @@ class TorchSolver(Solver):
         result.stats["bucket"] = self._bucket_key(problem, s_new).label()
         return result
 
-    def _run_fused(self, tensors, orders: np.ndarray, swaps: np.ndarray, s_new: int, n_zones: int):
-        """The fused solve on ``tensors`` (``pack_inputs_from_numpy`` output),
-        doubling the slot budget while members ran out of slots. Returns the
-        unpacked result, the slot budget it was solved at and the number of
-        fused passes it took."""
+    def _run_fused(self, tensors, orders: np.ndarray, swaps: np.ndarray, s_new: int,
+                   n_zones: int, problem: Optional[EncodedProblem] = None):
+        """The fused solve on ``tensors`` (``(PackInputs, orders, alphas,
+        looks, rsvs, swaps)`` on the device), doubling the slot budget while
+        members ran out of slots; the resident entry of ``problem`` follows
+        the budget. Returns the unpacked result, the slot budget it was
+        solved at and the number of fused passes it took."""
         inputs = tensors[0]
         k, Gp, Ep = orders.shape[0], inputs.count.shape[0], inputs.ex_valid.shape[0]
         passes = 0
@@ -266,13 +471,56 @@ class TorchSolver(Solver):
             # with free slots are genuinely unschedulable
             if exhausted.any() and unplaced > 0 and s_new < self.max_slots:
                 s_new *= 2
+                if problem is not None:
+                    self._set_slots(problem, s_new)
                 continue
             return unpacked, s_new, passes
+
+    # -- residency --------------------------------------------------------------
+    def _resident(self, problem: EncodedProblem):
+        """This problem's device-cache entry, or None."""
+        cached = self._device_cache.get(id(problem))
+        return cached if cached is not None and cached[0] is problem else None
+
+    def _set_slots(self, problem: EncodedProblem, s_new: int) -> None:
+        cached = self._device_cache.get(id(problem))
+        if cached is not None and cached[0] is problem:
+            self._device_cache[id(problem)] = cached[:9] + (s_new,) + cached[10:]
+
+    def _device_inputs(self, problem: EncodedProblem):
+        """The problem's tensors on the device, cached by problem identity.
+        The entry holds the problem itself, so a recycled ``id()`` can never
+        alias another problem onto its tensors, and the host-side orders, so
+        a row is always decoded with its own. Entry layout: ``(problem,
+        inputs_d, orders, swaps, orders_d, alphas_d, looks_d, rsvs_d,
+        swaps_d, s_new, n_zones)``; returns it without the problem."""
+        cached = self._resident(problem)
+        if cached is not None:
+            return cached[1:]
+        fields, orders, alphas, looks, rsvs, swaps, s_new, n_zones = self._prepare(problem)
+        leaves = dict(fields, orders=orders, alphas=alphas, looks=looks, rsvs=rsvs, swaps=swaps)
+        Gp, R = fields["demand"].shape
+        tag = ("cell", Gp, fields["price"].shape[0], fields["ex_valid"].shape[0],
+               fields["rel_zone_bits"].shape[0], R, orders.shape[0])
+        staged = self._stager.stage(tag, leaves)
+        entry = (
+            problem, PackInputs(*(staged[f] for f in PackInputs._fields)), orders, swaps,
+            *(staged[f] for f in _MEMBER_LEAVES), s_new, n_zones,
+        )
+        self._device_cache.clear()  # hold at most one problem resident
+        self._device_cache[id(problem)] = entry
+        return entry[1:]
+
+    def _cached_s_new(self, problem: EncodedProblem) -> int:
+        """The problem's current slot budget: the resident entry's (grown by
+        the doubling), else the estimate."""
+        cached = self._resident(problem)
+        return cached[9] if cached is not None else self._estimate_slots(problem)
 
     def _bucket_key(self, problem: EncodedProblem, s_new: Optional[int] = None) -> BucketKey:
         return bucket_key(
             problem.G, problem.O, problem.E,
-            self._estimate_slots(problem) if s_new is None else s_new,
+            self._cached_s_new(problem) if s_new is None else s_new,
             max(len(problem.zones), 1), len(problem.resource_axes), self.portfolio,
         )
 
@@ -284,7 +532,22 @@ class TorchSolver(Solver):
         dims): a problem solved on a larger bucket gives the same answer as
         on its natural one. Returns ``(fields, orders, alphas, looks, rsvs,
         swaps, s_new, Zp)`` with ``fields`` the ``PackInputs`` arrays as
-        numpy."""
+        numpy.
+
+        Memoized on the problem per (lattice dims, solver knobs), so that
+        ``prestage`` and ``stage_fleet`` do not pad twice; the arrays are
+        shared and must not be written. The slot budget shapes no array."""
+        s_new = bucket.S if bucket else self._estimate_slots(problem)
+        memo_key = (
+            bucket.G if bucket else bucket_groups(problem.G),
+            bucket.O if bucket else bucket_options(problem.O),
+            bucket.E if bucket else bucket_existing(problem.E),
+            bucket.Z if bucket else bucket_zones(max(len(problem.zones), 1)),
+            self.seed, self.portfolio,
+        )
+        memo = problem.__dict__.get("_prep_memo")
+        if memo is not None and memo[0] == memo_key:
+            return memo[1] + (s_new, memo[2])
         G, O, E, R = problem.G, problem.O, problem.E, len(problem.resource_axes)
         Gp = bucket.G if bucket else bucket_groups(G)
         Op = bucket.O if bucket else bucket_options(O)
@@ -370,10 +633,21 @@ class TorchSolver(Solver):
             sizes, count.astype(np.float64), self.portfolio, self.seed, layer=layer,
             has_reserve=demand_units is not demand,
         )
-        s_new = bucket.S if bucket else self._estimate_slots(problem)
-        return fields, orders, alphas, looks, rsvs, swaps, s_new, Zp
+        out = (fields, orders, alphas, looks, rsvs, swaps)
+        problem.__dict__["_prep_memo"] = (memo_key, out, Zp)
+        return out + (s_new, Zp)
 
     def _estimate_slots(self, problem: EncodedProblem) -> int:
+        # memoized on the problem: deterministic per content and slot cap,
+        # and every bucket-key computation reads it
+        cached = problem.__dict__.get("_est_slots")
+        if cached is not None and cached[0] == self.max_slots:
+            return cached[1]
+        est = self._estimate_slots_uncached(problem)
+        problem.__dict__["_est_slots"] = (self.max_slots, est)
+        return est
+
+    def _estimate_slots_uncached(self, problem: EncodedProblem) -> int:
         if problem.O == 0:
             return 8
         # nodes if each group used its best-capacity compatible option alone,

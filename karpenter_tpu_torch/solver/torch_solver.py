@@ -15,10 +15,19 @@ On the card the program is three hand-written CUDA kernels
 * ``pack_epilogue`` (K3) replaces the argmin and buffer packing of
   ``_pack_solve_fused_impl``.
 
+Every kernel also takes a leading batch axis B: ``pack_solve_fleet`` solves B
+stacked problems of one bucket in the same four launches, as the JAX
+package's ``pack_solve_fleet`` runs the B=1 program under ``vmap``; row b of
+its ``[B, L]`` buffer equals the B=1 buffer of problem b, and a
+``fleet_padding`` row costs 0. A wrapper given unbatched tensors launches
+with B=1.
+
 Beside each kernel sits its plain PyTorch version (``*_ref``): the member
-axis is a batch dimension and the scan a Python loop over T. A wrapper takes
-the plain version only for tensors on the CPU; for CUDA tensors it launches
-the kernel or raises. ``LAUNCHES`` counts kernel launches per wrapper.
+axis is a batch dimension and the scan a Python loop over T; a batch runs
+row by row. A wrapper takes the plain version only for tensors on the CPU;
+for CUDA tensors it launches the kernel or raises. ``LAUNCHES`` counts kernel
+launches per wrapper (the staging kernels' wrappers in ``staging.py`` count
+there too), ``BATCHED`` the launches among them with B > 1.
 
 Numerics follow what XLA computes, including where it contracts a multiply
 and an add into one fused multiply-add (``_fma``): the residual capacity
@@ -31,7 +40,7 @@ rounded on its own, as in the kernels, which are built with ``--fmad=false``.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,7 +59,12 @@ _INF = float(INF)
 _IBIG = int(IBIG)
 
 #: kernel launches per wrapper, for showing that a run went through the card
-LAUNCHES: Dict[str, int] = {"shared_precompute": 0, "pack_member": 0, "pack_epilogue": 0}
+LAUNCHES: Dict[str, int] = {
+    "shared_precompute": 0, "pack_member": 0, "pack_epilogue": 0,
+    "stage_patch": 0, "fleet_stack": 0,
+}
+#: the launches of the packing kernels with a batch of more than one problem
+BATCHED: Dict[str, int] = {"shared_precompute": 0, "pack_member": 0, "pack_epilogue": 0}
 
 
 class PackInputs(NamedTuple):
@@ -120,9 +134,10 @@ class MemberOut(NamedTuple):
 def pack_inputs_from_numpy(fields: dict, device) -> Tuple[PackInputs, torch.Tensor, ...]:
     """Carry a packed problem across: ``fields`` holds the ``PackInputs``
     arrays as numpy (the JAX package's ``_prepare`` output, field by field)
-    plus ``orders``, ``alphas``, ``looks``, ``rsvs`` and ``swaps``. Returns
-    ``(PackInputs, orders, alphas, looks, rsvs, swaps)`` as contiguous tensors
-    of the reference dtypes on ``device``."""
+    plus ``orders``, ``alphas``, ``looks``, ``rsvs`` and ``swaps``, either of
+    one problem or stacked ``[B, ...]`` for a fleet. Returns ``(PackInputs,
+    orders, alphas, looks, rsvs, swaps)`` as contiguous tensors of the
+    reference dtypes on ``device``."""
 
     def put(name, dtype):
         arr = np.ascontiguousarray(np.asarray(fields[name]))
@@ -131,6 +146,21 @@ def pack_inputs_from_numpy(fields: dict, device) -> Tuple[PackInputs, torch.Tens
     inputs = PackInputs(**{f: put(f, dt) for f, dt in _FIELD_DTYPES.items()})
     members = tuple(put(f, dt) for f, dt in _MEMBER_DTYPES.items())
     return (inputs,) + members
+
+
+def _row(nt, b: int):
+    """Row ``b`` of a batched NamedTuple of tensors."""
+    return type(nt)(*(x[b] for x in nt))
+
+
+def _stack(items: Sequence):
+    """Stack NamedTuples of tensors along a new leading batch axis."""
+    return type(items[0])(*(torch.stack(xs) for xs in zip(*items)))
+
+
+def _batch(inputs: PackInputs) -> Optional[int]:
+    """B for stacked inputs, None for one problem."""
+    return inputs.demand.shape[0] if inputs.demand.dim() == 3 else None
 
 
 # ---------------------------------------------------------------------------
@@ -487,6 +517,18 @@ def pack_solve_fused_ref(
     return pack_epilogue_ref(m1, m2)
 
 
+def pack_solve_fleet_ref(
+    inputs: PackInputs, orders, alphas, looks, rsvs, swaps, s_new: int, n_zones: int,
+) -> torch.Tensor:
+    """B stacked problems, solved one row at a time by
+    ``pack_solve_fused_ref``: the ``[B, L]`` buffer of ``pack_solve_fleet``."""
+    return torch.stack([
+        pack_solve_fused_ref(_row(inputs, b), orders[b], alphas[b], looks[b], rsvs[b],
+                             swaps[b], s_new, n_zones)
+        for b in range(orders.shape[0])
+    ])
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -507,12 +549,18 @@ def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
 
 
 def _dims(inputs: PackInputs):
-    G, R = inputs.demand.shape
-    return G, inputs.price.shape[0], inputs.ex_rem.shape[0], R, inputs.rel_zone_bits.shape[0]
+    G, R = inputs.demand.shape[-2:]
+    return G, inputs.price.shape[-1], inputs.ex_rem.shape[-2], R, inputs.rel_zone_bits.shape[-1]
+
+
+def _lead(inputs: PackInputs) -> tuple:
+    b = _batch(inputs)
+    return () if b is None else (b,)
 
 
 def _check_inputs(inputs: PackInputs, n_zones: int) -> None:
     G, O, E, R, Z = _dims(inputs)
+    lead = _lead(inputs)
     shapes = {
         "demand": (G, R), "demand_units": (G, R), "count": (G,), "node_cap": (G,),
         "quota": (G, Z), "colocate": (G,), "compat": (G, O), "alloc": (O, R),
@@ -523,12 +571,13 @@ def _check_inputs(inputs: PackInputs, n_zones: int) -> None:
     }
     dev = inputs.demand.device
     for f in PackInputs._fields:
-        _check(f, getattr(inputs, f), _FIELD_DTYPES[f], shapes[f], dev)
+        _check(f, getattr(inputs, f), _FIELD_DTYPES[f], lead + shapes[f], dev)
     if n_zones != Z:
         raise ValueError(f"n_zones={n_zones} but the zone axis holds {Z}")
-    if R > 8 or Z > 32 or G > 65535 or min(G, O, R, Z) < 1:
+    if R > 8 or Z > 32 or G > 65535 or min(G, O, R, Z) < 1 or (lead and not 1 <= lead[0] <= 65535):
         raise ValueError(
-            f"kernels take R <= 8, Z <= 32, G <= 65535, none empty; got G={G} O={O} R={R} Z={Z}"
+            f"kernels take R <= 8, Z <= 32, G <= 65535, 1 <= B <= 65535, none empty; "
+            f"got G={G} O={O} R={R} Z={Z} B={lead}"
         )
 
 
@@ -542,10 +591,25 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+def _count(name: str, B: int) -> None:
+    LAUNCHES[name] += 1
+    if B > 1:
+        BATCHED[name] += 1
+
+
+def _unsqueeze(nt):
+    """One problem's NamedTuple of tensors as a batch of one."""
+    return type(nt)(*(x.unsqueeze(0) for x in nt))
+
+
 def shared_precompute(inputs: PackInputs, s_new: int, n_zones: int) -> Shared:
-    """K1 on CUDA tensors; the plain version on CPU tensors."""
+    """K1 on CUDA tensors; the plain version on CPU tensors. ``inputs`` may
+    be one problem or a ``[B, ...]`` stack."""
     if inputs.demand.device.type == "cpu":
-        return shared_precompute_ref(inputs, s_new, n_zones)
+        if _batch(inputs) is None:
+            return shared_precompute_ref(inputs, s_new, n_zones)
+        return _stack([shared_precompute_ref(_row(inputs, b), s_new, n_zones)
+                       for b in range(_batch(inputs))])
     _check_inputs(inputs, n_zones)
     from ._build import load_kernels
 
@@ -553,15 +617,19 @@ def shared_precompute(inputs: PackInputs, s_new: int, n_zones: int) -> Shared:
 
 
 def _launch_shared_precompute(lib, inputs: PackInputs, s_new: int, stream) -> Shared:
+    unbatched = _batch(inputs) is None
+    if unbatched:
+        inputs = _unsqueeze(inputs)
+    B = inputs.demand.shape[0]
     G, O, E, R, Z = _dims(inputs)
     dev = inputs.demand.device
-    units = torch.empty((G, O), dtype=_I32, device=dev)
-    units_rsv = torch.empty((G, O), dtype=_I32, device=dev)
-    rsv_group = torch.empty((G,), dtype=_BOOL, device=dev)
-    lam = torch.empty((G,), dtype=_F32, device=dev)
-    zone_limited = torch.empty((G,), dtype=_BOOL, device=dev)
-    val_pair = torch.empty((G, O, G), dtype=_F32, device=dev)
-    exok_pad = torch.empty((G, E + s_new), dtype=_BOOL, device=dev)
+    units = torch.empty((B, G, O), dtype=_I32, device=dev)
+    units_rsv = torch.empty((B, G, O), dtype=_I32, device=dev)
+    rsv_group = torch.empty((B, G), dtype=_BOOL, device=dev)
+    lam = torch.empty((B, G), dtype=_F32, device=dev)
+    zone_limited = torch.empty((B, G), dtype=_BOOL, device=dev)
+    val_pair = torch.empty((B, G, O, G), dtype=_F32, device=dev)
+    exok_pad = torch.empty((B, G, E + s_new), dtype=_BOOL, device=dev)
     rc = lib.kts_shared_precompute(
         _ptr(inputs.demand), _ptr(inputs.demand_units), _ptr(inputs.count),
         _ptr(inputs.node_cap), _ptr(inputs.quota), _ptr(inputs.colocate),
@@ -569,13 +637,14 @@ def _launch_shared_precompute(lib, inputs: PackInputs, s_new: int, stream) -> Sh
         _ptr(inputs.opt_valid), _ptr(inputs.ex_compat), _ptr(inputs.ex_valid),
         _ptr(units), _ptr(units_rsv), _ptr(rsv_group), _ptr(lam),
         _ptr(zone_limited), _ptr(val_pair), _ptr(exok_pad),
-        G, O, E, R, Z, s_new, stream,
+        B, G, O, E, R, Z, s_new, stream,
     )
-    LAUNCHES["shared_precompute"] += 1  # one call: k1_units, then k1_val_pair
+    _count("shared_precompute", B)  # one call: k1_units, then k1_val_pair
     _raise_on(lib, rc, "shared_precompute")
-    is_new = torch.arange(E + s_new, device=dev) >= E
-    return Shared(units, units_rsv, rsv_group, lam, inputs.quota, zone_limited,
-                  val_pair, exok_pad, is_new)
+    is_new = (torch.arange(E + s_new, device=dev) >= E).expand(B, E + s_new).contiguous()
+    out = Shared(units, units_rsv, rsv_group, lam, inputs.quota, zone_limited,
+                 val_pair, exok_pad, is_new)
+    return _row(out, 0) if unbatched else out
 
 
 def pack_member(
@@ -584,29 +653,41 @@ def pack_member(
 ) -> MemberOut:
     """K2: one phase of K members. With ``seed_costs`` (phase 2) member k
     scans ``orders[argmin(seed_costs)][swaps[k]]`` under the seed's config,
-    derived on the device. The plain version on CPU tensors."""
+    derived on the device. Every argument may carry a leading batch axis B
+    (then all do), and a row's phase 2 takes its own row's seed. The plain
+    version on CPU tensors."""
+    B = _batch(inputs)
     if inputs.demand.device.type == "cpu":
+        if B is not None:
+            return _stack([
+                pack_member(_row(inputs, b), _row(shared, b), orders[b], alphas[b], looks[b],
+                            rsvs[b], s_new, n_zones,
+                            None if seed_costs is None else swaps[b],
+                            None if seed_costs is None else seed_costs[b])
+                for b in range(B)
+            ])
         if seed_costs is not None:
             orders, alphas, looks, rsvs = phase2_members(orders, alphas, looks, rsvs, swaps, seed_costs)
         return pack_member_ref(inputs, shared, orders, alphas, looks, rsvs, s_new, n_zones)
     _check_inputs(inputs, n_zones)
     G, O, E, R, Z = _dims(inputs)
-    K = orders.shape[0]
+    lead = _lead(inputs)
+    K = orders.shape[-2]
     NS = E + s_new
     dev = inputs.demand.device
-    _check("orders", orders, _I32, (K, G), dev)
-    _check("alphas", alphas, _F32, (K,), dev)
-    _check("looks", looks, _BOOL, (K,), dev)
-    _check("rsvs", rsvs, _BOOL, (K,), dev)
+    _check("orders", orders, _I32, lead + (K, G), dev)
+    _check("alphas", alphas, _F32, lead + (K,), dev)
+    _check("looks", looks, _BOOL, lead + (K,), dev)
+    _check("rsvs", rsvs, _BOOL, lead + (K,), dev)
     if seed_costs is not None:
-        _check("swaps", swaps, _I32, (K, G), dev)
-        _check("seed_costs", seed_costs, _F32, (K,), dev)
+        _check("swaps", swaps, _I32, lead + (K, G), dev)
+        _check("seed_costs", seed_costs, _F32, lead + (K,), dev)
     for name, shape, dt in (
         ("units", (G, O), _I32), ("units_rsv", (G, O), _I32), ("rsv_group", (G,), _BOOL),
         ("zone_limited", (G,), _BOOL), ("val_pair", (G, O, G), _F32),
         ("exok_pad", (G, NS), _BOOL), ("quota", (G, Z), _I32),
     ):
-        _check(name, getattr(shared, name), dt, shape, dev)
+        _check(name, getattr(shared, name), dt, lead + shape, dev)
     from ._build import load_kernels
 
     return _launch_pack_member(
@@ -619,22 +700,27 @@ def _launch_pack_member(
     lib, inputs: PackInputs, shared: Shared, orders, alphas, looks, rsvs, s_new: int,
     swaps, seed_costs, stream,
 ) -> MemberOut:
+    unbatched = _batch(inputs) is None
+    if unbatched:
+        inputs, shared = _unsqueeze(inputs), _unsqueeze(shared)
+        orders, alphas, looks, rsvs = (x.unsqueeze(0) for x in (orders, alphas, looks, rsvs))
+        swaps, seed_costs = (None if x is None else x.unsqueeze(0) for x in (swaps, seed_costs))
     G, O, E, R, Z = _dims(inputs)
-    K = orders.shape[0]
+    B, K = orders.shape[0], orders.shape[1]
     NS = E + s_new
     dev = inputs.demand.device
-    cost = torch.empty((K,), dtype=_F32, device=dev)
-    unplaced = torch.empty((K,), dtype=_I32, device=dev)
-    exhausted = torch.empty((K,), dtype=_BOOL, device=dev)
-    new_opt = torch.empty((K, s_new), dtype=_I32, device=dev)
-    new_active = torch.empty((K, s_new), dtype=_BOOL, device=dev)
-    ys = torch.empty((K, G, NS), dtype=_I32, device=dev)
-    # per-member scratch: scan order, inverse positions, price_t, slot state
-    order_s = torch.empty((K, G), dtype=_I32, device=dev)
-    pos_s = torch.empty((K, G), dtype=_I32, device=dev)
-    price_t = torch.empty((K, G, O), dtype=_F32, device=dev)
-    slot_rem = torch.empty((K, NS, R), dtype=_F32, device=dev)
-    slot_i = torch.empty((K, 6, NS), dtype=_I32, device=dev)
+    cost = torch.empty((B, K), dtype=_F32, device=dev)
+    unplaced = torch.empty((B, K), dtype=_I32, device=dev)
+    exhausted = torch.empty((B, K), dtype=_BOOL, device=dev)
+    new_opt = torch.empty((B, K, s_new), dtype=_I32, device=dev)
+    new_active = torch.empty((B, K, s_new), dtype=_BOOL, device=dev)
+    ys = torch.empty((B, K, G, NS), dtype=_I32, device=dev)
+    # per-(row, member) scratch: scan order, inverse positions, price_t, slot state
+    order_s = torch.empty((B, K, G), dtype=_I32, device=dev)
+    pos_s = torch.empty((B, K, G), dtype=_I32, device=dev)
+    price_t = torch.empty((B, K, G, O), dtype=_F32, device=dev)
+    slot_rem = torch.empty((B, K, NS, R), dtype=_F32, device=dev)
+    slot_i = torch.empty((B, K, 6, NS), dtype=_I32, device=dev)
     rc = lib.kts_pack_member(
         _ptr(inputs.demand), _ptr(inputs.demand_units), _ptr(inputs.count),
         _ptr(inputs.node_cap), _ptr(inputs.colocate), _ptr(inputs.compat),
@@ -650,47 +736,56 @@ def _launch_pack_member(
         _ptr(swaps), _ptr(seed_costs),
         _ptr(cost), _ptr(unplaced), _ptr(exhausted), _ptr(new_opt), _ptr(new_active),
         _ptr(ys), _ptr(order_s), _ptr(pos_s), _ptr(price_t), _ptr(slot_rem), _ptr(slot_i),
-        K, G, O, E, R, Z, s_new, stream,
+        B, K, G, O, E, R, Z, s_new, stream,
     )
-    LAUNCHES["pack_member"] += 1
+    _count("pack_member", B)
     _raise_on(lib, rc, "pack_member")
-    return MemberOut(cost, unplaced, exhausted, new_opt, new_active, ys)
+    out = MemberOut(cost, unplaced, exhausted, new_opt, new_active, ys)
+    return _row(out, 0) if unbatched else out
 
 
 def pack_epilogue(m1: MemberOut, m2: MemberOut) -> torch.Tensor:
-    """K3: the cross-phase argmin and result buffer. The plain version on
-    CPU tensors."""
+    """K3: the cross-phase argmin and result buffer, ``[L]`` for one problem
+    or ``[B, L]`` for a batch. The plain version on CPU tensors."""
+    batched = m1.cost.dim() == 2
     if m1.cost.device.type == "cpu":
-        return pack_epilogue_ref(m1, m2)
-    K, T, NS = m1.ys.shape
-    S = m1.new_opt.shape[1]
+        if not batched:
+            return pack_epilogue_ref(m1, m2)
+        return torch.stack([pack_epilogue_ref(_row(m1, b), _row(m2, b))
+                            for b in range(m1.cost.shape[0])])
+    K, T, NS = m1.ys.shape[-3:]
+    S = m1.new_opt.shape[-1]
+    lead = tuple(m1.cost.shape[:-1])
     dev = m1.cost.device
     for m in (m1, m2):
-        _check("cost", m.cost, _F32, (K,), dev)
-        _check("unplaced", m.unplaced, _I32, (K,), dev)
-        _check("exhausted", m.exhausted, _BOOL, (K,), dev)
-        _check("new_opt", m.new_opt, _I32, (K, S), dev)
-        _check("new_active", m.new_active, _BOOL, (K, S), dev)
-        _check("ys", m.ys, _I32, (K, T, NS), dev)
+        _check("cost", m.cost, _F32, lead + (K,), dev)
+        _check("unplaced", m.unplaced, _I32, lead + (K,), dev)
+        _check("exhausted", m.exhausted, _BOOL, lead + (K,), dev)
+        _check("new_opt", m.new_opt, _I32, lead + (K, S), dev)
+        _check("new_active", m.new_active, _BOOL, lead + (K, S), dev)
+        _check("ys", m.ys, _I32, lead + (K, T, NS), dev)
     from ._build import load_kernels
 
     return _launch_pack_epilogue(load_kernels(), m1, m2, _stream())
 
 
 def _launch_pack_epilogue(lib, m1: MemberOut, m2: MemberOut, stream) -> torch.Tensor:
-    K, T, NS = m1.ys.shape
-    S = m1.new_opt.shape[1]
-    buf = torch.empty((4 + 4 * K + 2 * S + T * NS,), dtype=_I32, device=m1.cost.device)
+    unbatched = m1.cost.dim() == 1
+    if unbatched:
+        m1, m2 = _unsqueeze(m1), _unsqueeze(m2)
+    B, K, T, NS = m1.ys.shape
+    S = m1.new_opt.shape[2]
+    buf = torch.empty((B, 4 + 4 * K + 2 * S + T * NS), dtype=_I32, device=m1.cost.device)
     rc = lib.kts_pack_epilogue(
         _ptr(m1.cost), _ptr(m1.unplaced), _ptr(m1.exhausted), _ptr(m1.new_opt),
         _ptr(m1.new_active), _ptr(m1.ys),
         _ptr(m2.cost), _ptr(m2.unplaced), _ptr(m2.exhausted), _ptr(m2.new_opt),
         _ptr(m2.new_active), _ptr(m2.ys),
-        _ptr(buf), K, T, NS, S, stream,
+        _ptr(buf), B, K, T, NS, S, stream,
     )
-    LAUNCHES["pack_epilogue"] += 1
+    _count("pack_epilogue", B)
     _raise_on(lib, rc, "pack_epilogue")
-    return buf
+    return buf[0] if unbatched else buf
 
 
 def pack_solve_fused(
@@ -698,14 +793,29 @@ def pack_solve_fused(
 ) -> torch.Tensor:
     """The whole two-phase solve: K1, K2 (phase 1), K2 (phase 2), K3 on the
     current stream for CUDA tensors, with no host sync between them; the
-    plain version for CPU tensors."""
+    plain version for CPU tensors. With ``[B, ...]`` arguments the same four
+    launches solve the whole batch and return a ``[B, L]`` buffer."""
     if inputs.demand.device.type == "cpu":
+        if _batch(inputs) is not None:
+            return pack_solve_fleet_ref(inputs, orders, alphas, looks, rsvs, swaps, s_new, n_zones)
         return pack_solve_fused_ref(inputs, orders, alphas, looks, rsvs, swaps, s_new, n_zones)
     shared = shared_precompute(inputs, s_new, n_zones)
     m1 = pack_member(inputs, shared, orders, alphas, looks, rsvs, s_new, n_zones)
     m2 = pack_member(inputs, shared, orders, alphas, looks, rsvs, s_new, n_zones,
                      swaps=swaps, seed_costs=m1.cost)
     return pack_epilogue(m1, m2)
+
+
+def pack_solve_fleet(
+    inputs: PackInputs, orders, alphas, looks, rsvs, swaps, s_new: int, n_zones: int,
+) -> torch.Tensor:
+    """Fleet dispatch (``jax_solver.pack_solve_fleet``): B shape-identical
+    problems stacked on a leading axis, solved in one K1, K2, K2, K3 chain.
+    Row b of the ``[B, L]`` buffer equals the B=1 buffer of problem b;
+    ``fleet_padding`` rows pack nothing and cost 0."""
+    if _batch(inputs) is None:
+        raise ValueError("pack_solve_fleet takes [B, ...] stacked inputs")
+    return pack_solve_fused(inputs, orders, alphas, looks, rsvs, swaps, s_new, n_zones)
 
 
 def unpack_solve_fused(
@@ -756,6 +866,13 @@ def bucket_zones(z: int) -> int:
     return _pow2(max(z, 1), 1)
 
 
+def bucket_fleet(b: int) -> int:
+    """Fleet (batched-cell) axis bucket: pow2 with floor 2, so a sharded
+    round's varying dirty-cell count lands on a handful of fleet widths.
+    B=1 stays 1."""
+    return 1 if b <= 1 else _pow2(b, 2)
+
+
 class BucketKey(NamedTuple):
     """The padded-dimension tuple one problem shape quantizes to."""
 
@@ -766,9 +883,13 @@ class BucketKey(NamedTuple):
     Z: int  # padded zone axis
     R: int  # resource axes
     K: int  # portfolio members
+    # fleet width: B > 1 keys a dispatch of B stacked problems of this shape;
+    # B == 1 is the single-problem solve and keeps the plain label
+    B: int = 1
 
     def label(self) -> str:
-        return f"g{self.G}o{self.O}e{self.E}s{self.S}z{self.Z}r{self.R}k{self.K}"
+        base = f"g{self.G}o{self.O}e{self.E}s{self.S}z{self.Z}r{self.R}k{self.K}"
+        return f"{base}b{self.B}" if self.B > 1 else base
 
 
 def bucket_key(g: int, o: int, e: int, s_new: int, z: int, r: int, k: int) -> BucketKey:
@@ -826,3 +947,39 @@ def make_orders(
     if has_reserve:
         rsvs[::2] = True
     return orders, alphas, looks, rsvs, swaps
+
+
+def fleet_padding(key: BucketKey):
+    """One inert fleet row for padding a batch up to its pow2 width: a
+    zero-pod problem on ``key``'s shape (count all zero, no valid options at
+    INF price, no existing slots, IBIG quotas). Every scan step places,
+    wants and opens nothing, so its member costs are 0 and it cannot touch
+    the real rows. Orders and swaps are the identity. Returns ``(fields,
+    orders, alphas, looks, rsvs, swaps)`` as numpy, ``fields`` holding the
+    ``PackInputs`` arrays as ``TorchSolver._prepare`` does."""
+    G, O, E, Z, R, K = key.G, key.O, key.E, key.Z, key.R, key.K
+    fields = dict(
+        demand=np.zeros((G, R), np.float32),
+        demand_units=np.zeros((G, R), np.float32),
+        count=np.zeros((G,), np.int32),
+        node_cap=np.full((G,), IBIG, np.int32),
+        quota=np.full((G, Z), IBIG, np.int32),
+        colocate=np.zeros((G,), bool),
+        compat=np.zeros((G, O), bool),
+        alloc=np.zeros((O, R), np.float32),
+        price=np.full((O,), INF, np.float32),
+        opt_zone=np.zeros((O,), np.int32),
+        opt_valid=np.zeros((O,), bool),
+        ex_rem=np.zeros((E, R), np.float32),
+        ex_zone=np.zeros((E,), np.int32),
+        ex_compat=np.zeros((G, E), bool),
+        ex_valid=np.zeros((E,), bool),
+        **{f: np.zeros((n,), np.int32) for f, n in (
+            ("rel_set", G), ("rel_host_forbid", G), ("rel_host_need", G),
+            ("rel_zone_forbid", G), ("rel_zone_need", G), ("rel_slot_bits", E),
+            ("rel_zone_bits", Z),
+        )},
+    )
+    ident = np.tile(np.arange(G, dtype=np.int32), (K, 1))
+    return (fields, ident, np.ones((K,), np.float32), np.zeros((K,), bool),
+            np.zeros((K,), bool), ident.copy())

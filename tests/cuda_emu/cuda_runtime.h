@@ -1,8 +1,9 @@
 // CPU stand-in for the parts of the CUDA runtime and device language that
-// karpenter_tpu_torch/solver/csrc/pack_solve.cu uses, so that its kernels can
-// be compiled with a host C++20 compiler and run in the CPU tests.
+// the kernels under karpenter_tpu_torch/solver/csrc/ use, so that they can be
+// compiled with a host C++20 compiler and run in the CPU tests.
 //
-// A launch runs the grid's blocks one after another. Each block runs one OS
+// A launch runs the grid's blocks one after another, over all three grid
+// axes. Each block runs one OS
 // thread per CUDA thread; __syncthreads is a barrier over the block, and a
 // warp shuffle is an exchange through a buffer between two barriers over the
 // warp. __shared__ variables become function statics, which is sound because
@@ -30,7 +31,7 @@ struct emu_uint3 {
   unsigned x, y, z;
 };
 inline thread_local emu_uint3 threadIdx;
-inline emu_uint3 blockIdx, blockDim;
+inline emu_uint3 blockIdx, blockDim, gridDim;
 
 struct dim3 {
   unsigned x, y, z;
@@ -93,21 +94,23 @@ inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_S
 
 template <class Kernel, class Args>
 void emu_launch(Kernel kernel, dim3 grid, int block, int, cudaStream_t, Args args) {
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      EmuBlock b;
-      b.block = std::make_unique<std::barrier<>>(block);
-      for (int w = 0; w < block / 32; ++w) b.warps.push_back(std::make_unique<std::barrier<>>(32));
-      b.lanes.resize(block);
-      emu_block = &b;
-      blockIdx = {bx, by, 0};
-      blockDim = {static_cast<unsigned>(block), 1, 1};
-      std::vector<std::thread> threads;
-      for (int t = 0; t < block; ++t)
-        threads.emplace_back([&, t] {
-          threadIdx = {static_cast<unsigned>(t), 0, 0};
-          kernel(args);
-        });
-      for (auto& th : threads) th.join();
-    }
+  gridDim = {grid.x, grid.y, grid.z};
+  blockDim = {static_cast<unsigned>(block), 1, 1};
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx) {
+        EmuBlock b;
+        b.block = std::make_unique<std::barrier<>>(block);
+        for (int w = 0; w < block / 32; ++w) b.warps.push_back(std::make_unique<std::barrier<>>(32));
+        b.lanes.resize(block);
+        emu_block = &b;
+        blockIdx = {bx, by, bz};
+        std::vector<std::thread> threads;
+        for (int t = 0; t < block; ++t)
+          threads.emplace_back([&, t] {
+            threadIdx = {static_cast<unsigned>(t), 0, 0};
+            kernel(args);
+          });
+        for (auto& th : threads) th.join();
+      }
 }

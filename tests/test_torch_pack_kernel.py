@@ -36,6 +36,16 @@ IBIG = 1 << 30
 K = 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run on small tensors, as fast on one intra-op
+    thread; the other cores stay free for the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pods(shapes):
     return [
         Pod(

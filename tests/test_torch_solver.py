@@ -8,8 +8,11 @@ pods on each), report the same unschedulable pods and cost the same to 1e-9
 relative; the port's plan must validate and come from the kernel path.
 """
 
+import functools
+
 import numpy as np
 import pytest
+import torch
 
 import bench
 from karpenter_tpu.solver import TPUSolver
@@ -17,6 +20,16 @@ from karpenter_tpu.solver import encode as ref_encode
 from karpenter_tpu_torch import configs
 from karpenter_tpu_torch.solver import TorchSolver, encode, validate
 from karpenter_tpu_torch.solver import torch_solver as ts
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run on small tensors, as fast on one intra-op
+    thread; the other cores stay free for the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _plan(result):
@@ -179,9 +192,44 @@ def test_slot_budget_regrows_like_the_reference():
     assert validate(problem, result) == []
 
 
-@pytest.mark.parametrize("name,make", [("50k_full", bench.config_50k_full),
-                                       ("10k_topology", bench.config_10k_topology),
-                                       ("10k_crossgroup", bench.config_10k_crossgroup)])
+def _jax_cell(pods, prov):
+    """A cell of ``configs.config_cells`` rebuilt with the JAX package's API."""
+    import karpenter_tpu.api as rapi
+    from karpenter_tpu.cloudprovider import generate_catalog as rcat
+
+    rpods = [rapi.Pod(meta=rapi.ObjectMeta(name=p.name), requests=rapi.Resources(p.requests.to_dict()),
+                      node_selector=dict(p.node_selector)) for p in pods]
+    rprov = rapi.Provisioner(meta=rapi.ObjectMeta(name=prov.name), labels=dict(prov.labels))
+    return (rpods, [(rprov, rcat(n_types=60))])
+
+
+@functools.lru_cache(maxsize=None)
+def _fleet_after_three_rounds():
+    cells, provs, _ = configs.config_cells()
+    for r in range(3):
+        configs.churn_cells(cells, r)
+    return cells, provs
+
+
+def _cells_config(c):
+    """Cell ``c`` of the 500k-pod fleet after churn rounds 0-2: cell 19 is
+    still a seed cell, cells 0, 4 and 8 were churned once, in rounds 0, 1
+    and 2."""
+    def make():
+        cells, provs = _fleet_after_three_rounds()
+        return _jax_cell(list(cells[c].values()), provs[c])
+    return make
+
+
+@pytest.mark.parametrize("name,make", [
+    ("50k_full", bench.config_50k_full),
+    ("10k_topology", bench.config_10k_topology),
+    ("10k_crossgroup", bench.config_10k_crossgroup),
+    ("cells_seed", _cells_config(19)),
+    ("cells_r0", _cells_config(0)),
+    ("cells_r1", _cells_config(4)),
+    ("cells_r2", _cells_config(8)),
+])
 def test_reference_costs_are_pinned(name, make):
     """The constants chip_smoke.py holds the card's answers to are what the
     JAX package computes on the CPU."""

@@ -11,11 +11,22 @@ CUDA card and nvcc, and imports nothing of JAX. Phases:
    budget its solve reaches, each packing kernel against its plain PyTorch
    version on the card; then CUDA-event timings at the 50k_full shapes (one
    warm-up, median of five);
-4. flat slice: port ``encode`` and ``TorchSolver(device="cuda").solve`` on
-   50k_full, 10k_topology and 10k_crossgroup; every plan must validate, come
-   from the kernels (launch counts taken around this phase), and cost what
-   the JAX package computes;
-5. fleet kernel parity: five distinct cells of the 500k-pod fleet (the seed
+4. kernel-only solves: ``TorchSolver()._solve_kernel`` on 50k_full,
+   10k_topology and 10k_crossgroup must validate and cost what the JAX
+   package's kernel computes (the pinned costs);
+5. ``rtt_probe`` against ``x + 1`` on the card, its time beside
+   ``torch.add``'s, and ``device_rtt``;
+6. flat race (main path): ``TorchSolver().solve`` in latency mode (budget
+   0.1 s) on the same three configs, a first solve and a repeat on the same
+   problem object, launch counts taken around the phase and each solve. The
+   first solve must dispatch the kernel on the side stream and have it
+   answer before the deadline; the repeat must launch no kernel; every plan
+   must validate and cost at most the kernel-only answer; no solve may show
+   a fallback, a refused kernel plan, breaker evidence or a missed deadline;
+7. hazard: a side-stream dispatch held behind a spin while the same stager
+   restages a churned copy of its problem in place; its buffer must be the
+   plain chain's on the original inputs;
+8. fleet kernel parity: five distinct cells of the 500k-pod fleet (the seed
    cell and the cells of churn rounds 0-3) and three pad rows stacked on one
    bucket (B=8): the batched K1, K2 and K3 row by row against their plain
    versions, every row of the batched chain equal to that problem's B=1
@@ -23,18 +34,19 @@ CUDA card and nvcc, and imports nothing of JAX. Phases:
    and a ``stage_patch`` restage against ``index_copy_``; then timings of
    the chain at B=1, 4, 8 and 16, of ``fleet_stack`` for a B=16 chunk and of
    one churned cell's ``stage_patch`` restage;
-6. fleet slice: the sharded round on 20 per-cell ``TorchSolver``s over the
-   500k-pod fleet: a seed round (two dispatches, B=16 and B=4), two churn
-   rounds (``stage_patch`` restages, device-side stacks), and one churn
-   round through one shared solver (the host-stacked branch, whose buffers
-   must equal the device-stacked ones); launch counts taken around it. After
-   each round, every dispatch's ``[B, L]`` buffer is held row by row against
-   the plain version on the inputs it was given, at its own B and S, and
-   every device-side stack against ``torch.stack``. Every plan must
-   validate, cost what the JAX package computes and open the same nodes as a
-   fleet-free solve of the same cell;
-7. one JSON line of kernel results, the card's name and power limit, and the
-   device JSON as the last line.
+9. fleet race (main path): the sharded round on 20 per-cell
+   ``TorchSolver``s over the 500k-pod fleet: a seed round (two dispatches,
+   B=16 and B=4), two churn rounds (``stage_patch`` restages, device-side
+   stacks), and one churn round through one shared solver (the host-stacked
+   branch, whose buffers must equal the device-stacked ones); each cell's
+   ``solve`` races its row; launch counts taken around it. After each
+   round, every dispatch's ``[B, L]`` buffer is held row by row against the
+   plain version on the inputs it was given, at its own B and S, and every
+   device-side stack against ``torch.stack``. Every plan must validate and
+   cost at most the kernel-only answer, and every row that left pods
+   unplaced must have lost its race;
+10. one JSON line of kernel results, the card's name and power limit, and
+    the device JSON as the last line.
 
 Any failure exits non-zero with its traceback; nothing falls back to the CPU.
 """
@@ -42,7 +54,6 @@ Any failure exits non-zero with its traceback; nothing falls back to the CPU.
 from __future__ import annotations
 
 import contextlib
-import hashlib
 import importlib
 import json
 import statistics
@@ -280,53 +291,192 @@ def timings(ts, c: dict, errs: dict) -> list:
     ]
 
 
-def slice_phase(ts, problems, configs) -> dict:
-    """The main path: TorchSolver on the card, launch counts around it."""
+def kernel_only(ts, problems, configs) -> None:
+    """The kernel path alone (``TorchSolver._solve_kernel``) on the card,
+    outside the race: its plans must validate and cost what the JAX package's
+    kernel computes (the pinned costs the race is held under)."""
     import torch
 
     from karpenter_tpu_torch.solver import TorchSolver, validate
 
-    solver = TorchSolver(device="cuda")
-    for name in ts.LAUNCHES:
-        ts.LAUNCHES[name] = 0
-    results = {}
+    solver = TorchSolver()
     for name, (problem, encode_s) in problems.items():
-        before = dict(ts.LAUNCHES)
         t0 = time.perf_counter()
-        result = solver.solve(problem)
+        result = solver._solve_kernel(problem)
         torch.cuda.synchronize()
         solve_s = time.perf_counter() - t0
-        moved = {k: ts.LAUNCHES[k] - before[k] for k in before}
-        results[name] = (problem, result, encode_s, solve_s, moved)
-    launches = dict(ts.LAUNCHES)
-
-    for name, (problem, result, encode_s, solve_s, moved) in results.items():
-        violations = validate(problem, result)
-        if violations:
-            raise AssertionError(f"{name}: plan fails validation: {violations[:5]}")
-        if result.stats.get("backend") != 1.0:
-            raise AssertionError(f"{name}: backend {result.stats.get('backend')}")
-        if min(moved[k] for k in PACK_KERNELS) < 1:
-            raise AssertionError(f"{name}: a kernel was not launched: {moved}")
-        ref = configs.REFERENCE_COSTS.get(name)
-        if ref is not None and abs(result.cost - ref) > COST_RTOL * ref:
-            raise AssertionError(f"{name}: cost {result.cost!r}, JAX package {ref!r}")
-        # device time of the fused chain at the slot budget the solve ended on
-        tensors = device_problem(ts, solver, problem)
-        S, nz = int(result.stats["slots"]), tensors[0].rel_zone_bits.shape[-1]
-        kernel_ms = time_ms(lambda: ts.pack_solve_fused(*tensors, S, nz), per=3)
+        if validate(problem, result):
+            raise AssertionError(f"{name}: kernel plan fails validation")
+        ref = configs.REFERENCE_COSTS[name]
+        if result.stats.get("backend") != 1.0 or abs(result.cost - ref) > COST_RTOL * ref:
+            raise AssertionError(f"{name}: kernel-only cost {result.cost!r}, JAX package {ref!r}, "
+                                 f"stats {result.stats}")
         st = result.stats
-        log(
-            f"slice {name}: encode {encode_s:.4f} s, solve {solve_s:.4f} s "
+        log(f"kernel-only {name}: encode {encode_s:.4f} s, solve {solve_s:.4f} s "
             f"(prepare {st['prepare_s']:.4f}, device {st['device_s']:.4f} over "
-            f"{int(st['fused_passes'])} fused passes, validate {st['validate_s']:.4f}, "
-            f"decode {st['decode_s']:.4f}), "
-            f"kernels {kernel_ms:.4f} ms at S={S}, nodes {len(result.new_nodes)}, "
-            f"unschedulable {len(result.unschedulable)}, cost {result.cost!r}"
-            + (f" (JAX package {ref!r})" if ref is not None else "")
-            + f", launches {moved}"
-        )
+            f"{int(st['fused_passes'])} fused passes at final S={int(st['slots'])}, validate "
+            f"{st['validate_s']:.4f}, decode {st['decode_s']:.4f}), cost {result.cost!r} "
+            f"(JAX package {ref!r})")
+
+
+def probe_check(ts) -> dict:
+    """``rtt_probe`` against its plain version on the card, its time beside
+    ``torch.add(x, 1)``'s, and the solver's measured round trip."""
+    import torch
+
+    from karpenter_tpu_torch.solver import TorchSolver
+
+    x = torch.tensor([0, 1, -1, 7, 2**31 - 1, -2**31, 42, 5], dtype=torch.int32, device="cuda")
+    got, want = ts.rtt_probe(x), ts.rtt_probe_ref(x)
+    if not torch.equal(got, want):
+        raise AssertionError(f"rtt_probe {got.tolist()} differs from x + 1 {want.tolist()}")
+    err = max_err(got, want)
+    ms = time_ms(lambda: ts.rtt_probe(x))
+    plain = time_ms(lambda: ts.rtt_probe_ref(x))
+    library = time_ms(lambda: torch.add(x, 1))
+    TorchSolver._device_rtt_s = None
+    rtt = TorchSolver().device_rtt()
+    TorchSolver._device_rtt_s = None  # the race path measures it again, as a new process would
+    b = bound(2 * nbytes(x), 0)
+    log(f"rtt_probe: equal to x + 1; kernel {ms:.6f} ms, plain {plain:.6f} ms, torch.add "
+        f"{library:.6f} ms, bound {b[0]:.3e} ms ({b[1]}); device_rtt {rtt * 1e3:.4f} ms")
+    return {
+        "name": "rtt_probe", "route": "cuda", "source": "karpenter_tpu_torch/solver/csrc/probe.cu",
+        "replaces": "karpenter_tpu/solver/solver.py:1519", "launches": None, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain, "bound_ms": b[0], "bound_by": b[1], "library_ms": library,
+    }
+
+
+def zero_counts(ts) -> None:
+    for counts in (ts.LAUNCHES, ts.BATCHED):
+        for k in counts:
+            counts[k] = 0
+
+
+def hold_race(name, problem, result, validate) -> None:
+    """What no solve on the card may show: an invalid plan, a fallback, a
+    kernel plan the validator refused, breaker evidence, a missed deadline."""
+    from karpenter_tpu_torch.solver.solver import KERNEL_BOARD
+
+    violations = validate(problem, result)
+    if violations:
+        raise AssertionError(f"{name}: plan fails validation: {violations[:5]}")
+    for bad in ("fallback", "tpu_violations"):
+        if bad in result.stats:
+            raise AssertionError(f"{name}: {bad} in {result.stats}")
+    if KERNEL_BOARD.failures:
+        raise AssertionError(f"{name}: breaker evidence {KERNEL_BOARD.failures}")
+    if "_race_miss_count" in problem.__dict__:
+        raise AssertionError(f"{name}: the kernel missed the deadline")
+
+
+def race_phase(ts, problems, configs) -> dict:
+    """Main path, flat: ``TorchSolver().solve`` in latency mode (budget
+    0.1 s) on each config, a first solve and a repeat on the same problem
+    object; launch counts taken around the phase and around each solve."""
+    import torch
+
+    from karpenter_tpu_torch.solver import TorchSolver, validate
+    from karpenter_tpu_torch.solver.solver import KERNEL_BOARD
+
+    KERNEL_BOARD.reset()
+    solver = TorchSolver()
+    zero_counts(ts)
+    for name, (problem, _) in problems.items():
+        ref = configs.REFERENCE_COSTS[name]
+        for attempt in ("first", "repeat"):
+            before = dict(ts.LAUNCHES)
+            t0 = time.perf_counter()
+            result = solver.solve(problem)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            moved = {k: ts.LAUNCHES[k] - before[k] for k in before}
+            hold_race(f"race {name} {attempt}", problem, result, validate)
+            lost = problem.__dict__.get("_race_kernel_lost", False)
+            if attempt == "first":
+                if min(moved[k] for k in PACK_KERNELS) < 1:
+                    raise AssertionError(f"race {name}: the kernel was not dispatched: {moved}")
+                if not (result.stats.get("race_winner") or lost):
+                    raise AssertionError(f"race {name}: the kernel did not answer: {result.stats}")
+            elif any(moved[k] for k in PACK_KERNELS):
+                raise AssertionError(f"race {name}: the repeat launched a kernel: {moved}")
+            if result.cost > ref * (1 + COST_RTOL):
+                raise AssertionError(f"race {name}: cost {result.cost!r} above the kernel's {ref!r}")
+            st = result.stats
+            ready = problem.__dict__.pop("_dispatch_s", None)
+            log(f"race {name} {attempt}: backend {st['backend']}, cost {result.cost!r} "
+                f"(kernel-only {ref!r}), kernel {'lost' if lost else 'won'}, host path "
+                f"{st.get('race_host_s', 0.0):.4f} s, poll {st.get('race_poll_s', 0.0):.6f} s, "
+                f"kernel device {st.get('dispatch_device_ms')} ms, dispatch->ready "
+                f"{'ready at the first poll' if ready is None else f'{ready:.6f} s'}, solve "
+                f"{wall:.4f} s, launches {moved}")
+    launches = dict(ts.LAUNCHES)
+    for k in PACK_KERNELS + ("rtt_probe",):
+        if launches[k] < 1:
+            raise AssertionError(f"{k} was not launched on the flat race path: {launches}")
+    # the side-stream chain again, outside the race: a first dispatch pays
+    # for its stream's first allocations. The dispatch's events also count
+    # the gaps while the host enqueues the launches; behind a spin they do not
+    for name, (problem, _) in problems.items():
+        times = []
+        for _ in range(3):
+            d = solver._dispatch_async(problem)
+            d.pending.materialize()
+            times.append(d.pending.device_ms())
+        inputs, _, _, *members, s_new, nz = solver._device_inputs(problem)
+        with torch.cuda.stream(solver._side):
+            spun = time_ms(lambda: solver._launch_chain((inputs, *members), s_new, nz), per=3)
+        log(f"race {name}: side-stream chain again, device ms {times}; behind a spin "
+            f"{spun:.4f} ms at S={s_new}")
     return launches
+
+
+def hazard_check(ts, configs, cells, provs, catalog) -> None:
+    """A dispatch on the side stream, held behind a spin, while the same
+    stager restages a churned copy of its problem in place: the dispatch's
+    buffer must be the plain chain's on the ORIGINAL inputs. Without the
+    stager's fence the patch would land under the waiting chain. One
+    unmeasured round first fills the allocators' caches: an allocation that
+    reaches cudaMalloc or cudaHostAlloc can wait for the whole card, and the
+    spin would be over before the restage began."""
+    import torch
+
+    from karpenter_tpu_torch.solver import TorchSolver, encode
+
+    solver = TorchSolver()
+    work = [dict(c) for c in cells]
+    a = encode_cell(encode, work, provs, catalog, 0)
+    if 0 not in configs.churn_cells(work, 0):
+        raise AssertionError("churn round 0 does not touch cell 0")
+    b = encode_cell(encode, work, provs, catalog, 0)
+    # the chain runs at A's slot budget; on B's inputs at that budget it
+    # would give another buffer
+    S, K, Z = solver._estimate_slots(a), solver.portfolio, solver._bucket_key(a).Z
+    want_a = ts.pack_solve_fused_ref(*device_problem(ts, solver, a), S, Z)
+    want_b = ts.pack_solve_fused_ref(*device_problem(ts, solver, b), S, Z)
+    if torch.equal(want_a, want_b):
+        raise AssertionError("the churned copy solves alike: the check would prove nothing")
+    for held in (False, True):
+        solver._device_inputs(a)  # A resident again (a restage back from B after the first round)
+        torch.cuda.synchronize()
+        if held:
+            with torch.cuda.stream(solver._side):
+                torch.cuda._sleep(SPIN_CYCLES)
+        d = solver._dispatch_async(a)
+        pending_at_restage = not d.pending.is_ready()
+        t0 = time.perf_counter()
+        solver._device_inputs(b)
+        restage_s = time.perf_counter() - t0
+        info = solver._stager.last_round
+        got = torch.from_numpy(d.pending.materialize().copy())
+    if not pending_at_restage:
+        raise AssertionError("the chain ended before the restage began: the check would prove nothing")
+    if info["restage"] < 1:
+        raise AssertionError(f"the churned copy did not restage in place: {info}")
+    verdict = fused_agree(got, want_a, K)
+    log(f"hazard: restaged {info['rows']} while a side-stream dispatch of the original waited "
+        f"behind a spin; the restage returned to the host after {restage_s:.4f} s (it waits for "
+        f"the chain); the dispatch's buffer vs the plain chain on the original inputs: {verdict}")
 
 
 MEMBERS = ("orders", "alphas", "looks", "rsvs", "swaps")
@@ -518,14 +668,6 @@ def fleet_timings(ts, st, fc: dict) -> list:
     return out
 
 
-def node_digest(result) -> str:
-    h = hashlib.sha256()
-    for node in sorted((n.option_index, tuple(sorted(n.pod_names))) for n in result.new_nodes):
-        h.update(repr(node).encode())
-    h.update(repr(sorted(result.unschedulable)).encode())
-    return h.hexdigest()
-
-
 @contextlib.contextmanager
 def recording(solver_mod):
     """Record what ``stage_fleet`` hands the fleet kernels: each
@@ -580,27 +722,34 @@ def hold_dispatches(ts, st, rnd, stacks, fleets) -> float:
     return err
 
 
+# round wall times of the fleet path before it raced the host (every exhausted row went on
+# alone at 2S), NVIDIA H100 80GB HBM3, 700 W; PERF.md, section 5
+PRE_RACE_ROUND_WALL_S = {"seed": 2.7715, 0: 0.3872, 1: 2.6833, 2: 0.3909}
+
+
 def fleet_slice(ts, configs, cells, provs, catalog) -> dict:
-    """The sharded round's fleet path on the card: per-cell solvers,
-    prestage, stage_fleet, solve; then one churn round through one shared
+    """Main path, fleet: the sharded round on per-cell solvers (prestage,
+    stage_fleet, each cell's race), then one churn round through one shared
     solver. Launch counts are taken around it; each round's dispatches are
-    held against the plain versions after its timing, and the comparisons
-    with fleet-free solves come after the last round. Returns the launch
-    counts and the largest member-cost difference of the dispatches."""
+    held against the plain versions after its timing. Every cell's plan must
+    validate and cost at most the kernel-only answer; a row that left pods
+    unplaced must have lost its race. Returns the launch counts and the
+    largest member-cost difference of the dispatches."""
     import numpy as np
     import torch
 
     from karpenter_tpu_torch.solver import TorchSolver, encode, stage_fleet, validate
     from karpenter_tpu_torch.solver import staging as st
+    from karpenter_tpu_torch.solver.solver import KERNEL_BOARD
 
     solver_mod = importlib.import_module("karpenter_tpu_torch.solver.solver")
     n = len(cells)
     k2_err = 0.0
-    clones = [TorchSolver(device="cuda") for _ in range(n)]
-    shared = TorchSolver(device="cuda")
-    for counts in (ts.LAUNCHES, ts.BATCHED):
-        for k in counts:
-            counts[k] = 0
+    KERNEL_BOARD.reset()
+    TorchSolver._device_rtt_s = None  # this path measures it again, as a new process would
+    zero_counts(ts)
+    clones = [TorchSolver() for _ in range(n)]
+    shared = TorchSolver()
     solved, previous, buffers = [], {}, []
     for rnd in ("seed", 0, 1, 2):
         t0 = time.perf_counter()
@@ -639,29 +788,47 @@ def fleet_slice(ts, configs, cells, provs, catalog) -> dict:
         if len(stacks) != want_dev or len(dispatched) != len(want_widths):
             raise AssertionError(f"round {rnd}: recorded {len(stacks)} stacks, "
                                  f"{len(dispatched)} dispatches")
-        fleets = {id(p.__dict__["_fleet_dispatch"].shared): p.__dict__["_fleet_dispatch"].shared
-                  for p in problems}
+        slots = [p.__dict__["_fleet_dispatch"] for p in problems]
+        fleets = {id(slot.shared): slot.shared for slot in slots}
         if rnd == 2:
-            buffers = [p.__dict__["_fleet_dispatch"] for p in problems]
+            buffers = slots
+        before = dict(ts.LAUNCHES)
         results = [solver.solve(p) for solver, p in entries]
         torch.cuda.synchronize()
         t4 = time.perf_counter()
+        moved = {k: ts.LAUNCHES[k] - before[k] for k in before}
+        if any(moved[k] for k in PACK_KERNELS):
+            raise AssertionError(f"round {rnd}: a cell's race launched a kernel of its own: {moved}")
         device_ms = sum(f.device_ms() for f in fleets.values())
-        exhausted = sum(int(res.stats["fleet_exhausted"]) for res in results)
-        passes = sorted({int(res.stats["fused_passes"]) - 1 for res in results})
+        exhausted = won = 0
+        for slot, p, res in zip(slots, problems, results):
+            hold_race(f"fleet round {rnd}", p, res, validate)
+            unplaced = int(slot.shared.materialize()[slot.row][3])
+            lost = p.__dict__.get("_race_kernel_lost", False)
+            exhausted += unplaced > 0
+            won += res.stats.get("race_winner", 0.0) == 1.0
+            if not (lost or res.stats.get("race_winner")):
+                raise AssertionError(f"round {rnd}: a cell's row was never judged: {res.stats}")
+            if unplaced > 0 and not lost:
+                raise AssertionError(f"round {rnd}: an exhausted row did not lose its race")
         log(f"fleet round {rnd}: {len(dirty)} cells, encode {t1 - t0:.4f} s, prestage "
             f"{t2 - t1:.4f} s (restaged rows {restaged}), stage_fleet {t3 - t2:.4f} s "
             f"({stats['buckets']}, device-stacked {stats['device_stacked']}), fleet device "
-            f"{device_ms:.4f} ms, rows exhausted {exhausted}, continuation passes per cell "
-            f"{passes}, solve {t4 - t3:.4f} s, round wall {t4 - t0:.4f} s")
+            f"{device_ms:.4f} ms, rows exhausted {exhausted} (each lost its race), kernel rows "
+            f"won {won}, backends {sorted({r.stats['backend'] for r in results})}, host path "
+            f"{sum(r.stats.get('race_host_s', 0.0) for r in results):.4f} s in all, solve "
+            f"{t4 - t3:.4f} s, round wall {t4 - t0:.4f} s (before the race: {PRE_RACE_ROUND_WALL_S[rnd]} s)")
         k2_err = max(k2_err, hold_dispatches(ts, st, rnd, stacks, dispatched))
         del stacks, dispatched
         solved.extend((rnd, c, p, res) for c, p, res in zip(dirty, problems, results))
         previous.update(zip(dirty, problems))
     launches, batched = dict(ts.LAUNCHES), dict(ts.BATCHED)
     log(f"fleet slice launches {launches}, with B > 1 {batched}")
-    if min(launches.values()) < 1 or min(batched.values()) < 1:
-        raise AssertionError("a kernel, or a batched launch, did not run on the fleet path")
+    for k in PACK_KERNELS + ("stage_patch", "fleet_stack", "rtt_probe"):
+        if launches[k] < 1:
+            raise AssertionError(f"{k} was not launched on the fleet path: {launches}")
+    if min(batched.values()) < 1:
+        raise AssertionError("a batched launch did not run on the fleet path")
 
     # the shared solver's host-stacked buffers against device-stacked ones of
     # the same problems on per-cell solvers
@@ -676,20 +843,13 @@ def fleet_slice(ts, configs, cells, provs, catalog) -> dict:
         if not np.array_equal(slot.shared.materialize()[slot.row], other.shared.materialize()[other.row]):
             raise AssertionError("host-stacked and device-stacked fleet buffers differ")
 
-    free = TorchSolver(device="cuda")
     for rnd, c, p, res in solved:
-        violations = validate(p, res)
-        if violations:
-            raise AssertionError(f"round {rnd} cell {c}: plan fails validation: {violations[:5]}")
-        if res.stats.get("backend") != 1.0 or res.stats.get("fleet_b", 0) < 2:
-            raise AssertionError(f"round {rnd} cell {c}: not a fleet kernel answer: {res.stats}")
         ref = configs.REFERENCE_COSTS["cells_seed" if rnd == "seed" else f"cells_r{rnd}"]
-        if abs(res.cost - ref) > COST_RTOL * ref:
-            raise AssertionError(f"round {rnd} cell {c}: cost {res.cost!r}, JAX package {ref!r}")
-        if node_digest(res) != node_digest(free.solve(p)):
-            raise AssertionError(f"round {rnd} cell {c}: plan differs from the fleet-free solve")
-    log(f"fleet slice: {len(solved)} plans valid, at the JAX package's costs "
-        f"({sorted({round(res.cost, 9) for *_, res in solved})}), equal to fleet-free solves")
+        if res.cost > ref * (1 + COST_RTOL):
+            raise AssertionError(f"round {rnd} cell {c}: cost {res.cost!r} above the kernel's {ref!r}")
+    log(f"fleet slice: {len(solved)} plans valid, costs "
+        f"{sorted({round(res.cost, 9) for *_, res in solved})}, each at most its kernel-only "
+        f"cost")
     return launches, k2_err
 
 
@@ -705,7 +865,7 @@ def main() -> int:
         log("chip_smoke: CUDA is not available")
         return 3
     card = card_line()
-    log(f"device: {torch.cuda.get_device_name(0)} ({torch.cuda.device_count()} visible)")
+    log(f"device: {torch.cuda.get_device_name(0)} ({torch.cuda.device_count()} visible), {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from karpenter_tpu_torch import configs
@@ -732,27 +892,39 @@ def main() -> int:
         t0 = time.perf_counter()
         problems[name] = (encode(pods, provs, existing), time.perf_counter() - t0)
 
-    solver = TorchSolver(device="cuda")
+    solver = TorchSolver()
     checked = {name: check(ts, name, problem, solver) for name, (problem, _) in problems.items()}
     errs = {k: max(c["errs"][k] for c in checked.values()) for k in checked["50k_full"]["errs"]}
     kernels = timings(ts, checked.pop("50k_full"), errs)
     del checked
-    flat = slice_phase(ts, problems, configs)
-    log(f"flat slice launches {flat}")
+    kernel_only(ts, problems, configs)
+    kernels.append(probe_check(ts))
+    # fresh problem objects for the race: the kernel-only solves above leave
+    # nothing on them that the race reads, but a first solve should be one
+    for name, make in (
+        ("50k_full", configs.config_50k_full),
+        ("10k_topology", configs.config_10k_topology),
+        ("10k_crossgroup", configs.config_10k_crossgroup),
+    ):
+        problems[name] = (encode(*make()), problems[name][1])
+    flat = race_phase(ts, problems, configs)
+    log(f"flat race launches {flat}")
     del problems
 
     t0 = time.perf_counter()
     cells, provs, catalog = configs.config_cells()
     log(f"fleet config: {sum(map(len, cells))} pods in {len(cells)} cells, "
         f"built in {time.perf_counter() - t0:.2f} s")
+    hazard_check(ts, configs, cells, provs, catalog)
     fc = fleet_check(ts, st, configs, cells, provs, catalog)
     for entry in kernels:
-        entry["max_abs_err"] = max(entry["max_abs_err"], fc["errs"][entry["name"]])
+        entry["max_abs_err"] = max(entry["max_abs_err"], fc["errs"].get(entry["name"], 0.0))
     kernels += fleet_timings(ts, st, fc)
     del fc
-    launches, k2_err = fleet_slice(ts, configs, cells, provs, catalog)
+    fleet, k2_err = fleet_slice(ts, configs, cells, provs, catalog)
     for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
+        # the main path: the flat race and the fleet race, each counted alone
+        entry["launches"] = flat[entry["name"]] + fleet[entry["name"]]
         if entry["name"] == "pack_member":
             entry["max_abs_err"] = max(entry["max_abs_err"], k2_err)
         if entry["launches"] < 1:

@@ -1,4 +1,5 @@
-"""Build and bind the kernels (``csrc/pack_solve.cu``, ``csrc/staging.cu``).
+"""Build and bind the kernels (``csrc/pack_solve.cu``, ``csrc/staging.cu``,
+``csrc/probe.cu``).
 
 The sources are compiled for ``sm_90a`` at first use, one nvcc per source,
 all started together, and linked into one shared library with a plain C
@@ -20,7 +21,7 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("pack_solve.cu", "staging.cu")
+SOURCES = ("pack_solve.cu", "staging.cu", "probe.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-O3", "--fmad=false", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,6 +42,8 @@ _SIGNATURES = {
     "kts_stage_patch": [_P] * 3 + [_L] * 2 + [_P],
     # table, n, max_bytes, stream
     "kts_fleet_stack": [_P, _I, _L, _P],
+    # x, y, n, stream
+    "kts_rtt_probe": [_P, _P, _L, _P],
 }
 
 

@@ -1,35 +1,49 @@
 """Solver backends behind one interface.
 
-``TorchSolver`` is the port's counterpart of the JAX package's ``TPUSolver``
-kernel path: pad the encoded problem onto its bucket lattice, keep its
-tensors resident on the device through a ``DeviceStager``, run the fused
-two-phase portfolio solve (``torch_solver.pack_solve_fused``: three CUDA
-kernels on the card, their plain PyTorch versions on the CPU), gate the raw
-answer with the count-level validator and decode it. The host race
-competitors of the reference are not part of this package yet, so the
-kernel answers every round; a problem the tensor path cannot express, or a
-kernel plan that fails validation, raises instead of falling back.
+``TorchSolver`` is the port's counterpart of the JAX package's ``TPUSolver``:
+pad the encoded problem onto its bucket lattice, keep its tensors resident
+on the device through a ``DeviceStager``, run the fused two-phase portfolio
+solve (``torch_solver.pack_solve_fused``: four kernel launches on the card,
+their plain PyTorch versions on the CPU), and race it against the host
+paths (``host``, ``host_pack``, ``topo``, ``patterns``, ``repack``) with the
+reference's dispatch policy: the cheaper validated answer wins. Shapes the
+tensor path cannot express are answered by ``GreedySolver``.
+
+Two differences from the reference are deliberate. A card solver loads its
+kernel library when it is constructed, and the host competitors load with
+this module, so every bucket and host path is warm from the first solve.
+And a launch or build error of the port's own kernels raises:
+it is a fault of the program, not device evidence for the breaker to book
+while a host answer hides it.
 
 ``stage_fleet`` is the sharded round's fleet dispatch: the dirty cells'
 problems, each with the solver that will solve it, are grouped by bucket
 and each chunk is solved in one batched call (``pack_solve_fleet``); each
-cell's ``solve`` then decodes its row.
+cell's ``solve`` then polls its row in its race.
 """
 
 from __future__ import annotations
 
 import abc
+import dataclasses
 import math
 import time
 from collections import OrderedDict
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..utils.resilience import BreakerSet
 from .encode import EncodedProblem, sizing_demand
+from .greedy import GreedyPacker
+# the host competitors load with the solver, not at a first solve: their
+# scipy import takes seconds, which no solve's budget can pay
+from .host import solve_host
+from .host_pack import host_pack, host_shared
 from .result import NameSlice, NewNodeSpec, SolveResult
 from .staging import DeviceStager, fleet_stack
+from .topo import topo_improve
 from .torch_solver import (
     BucketKey,
     PackInputs,
@@ -43,6 +57,7 @@ from .torch_solver import (
     make_orders,
     pack_solve_fleet,
     pack_solve_fused,
+    rtt_probe,
     unpack_solve_fused,
 )
 from .validate import validate_counts
@@ -191,29 +206,218 @@ class Solver(abc.ABC):
     @abc.abstractmethod
     def solve(self, problem: EncodedProblem) -> SolveResult: ...
 
+    def prestage(self, problem: EncodedProblem) -> None:
+        """Backend hook: stage this problem's tensors ahead of its solve.
+        Host-only backends have nothing to stage."""
+
+
+class GreedySolver(Solver):
+    """Reference-semantics FFD (single ordering, host CPU)."""
+
+    def solve(self, problem: EncodedProblem) -> SolveResult:
+        t0 = time.perf_counter()
+        result = GreedyPacker(problem).solve()
+        result.stats["solve_s"] = time.perf_counter() - t0
+        result.stats["backend"] = 0.0
+        return result
+
+
+def _tensor_path_unsupported(problem: EncodedProblem) -> Optional[str]:
+    """Constraint shapes the tensor path cannot express: relation-bit
+    exhaustion, non-hostname/zone topology keys, and cyclic required-affinity
+    families. The greedy oracle answers them."""
+    return problem.rel_unsupported
+
+
+# ---------------------------------------------------------------------------
+# Kernel-backend circuit breaker
+# ---------------------------------------------------------------------------
+
+class KernelDispatchTimeout(Exception):
+    """A kernel dispatch missed its deadline: the buffer never became ready.
+    The host paths own the round; the breaker books the evidence."""
+
+
+class KernelBreakerBoard:
+    """Per-bucket circuit breakers for the device path, riding
+    ``utils.resilience``'s closed → open → half-open machinery.
+
+    Evidence: a bucket whose kernels produced an INVALID plan (the
+    count-level validator rejected it), a NON-FINITE plan, or a synchronous
+    fetch that timed out records a failure; a validated answer records
+    success. An open bucket does not dispatch until ``recovery_timeout_s``
+    has passed; the next dispatch is then the half-open probe. The port
+    builds one kernel library per source hash, not one executable per
+    bucket, so there is nothing to evict: quarantine only blocks the label.
+    ``failures`` counts the evidence by kind.
+
+    Process-global: bucket evidence from any solver indicts the bucket.
+    ``configure``/``reset`` serve the operator and tests."""
+
+    def __init__(self, failure_threshold: int = 3, recovery_timeout_s: float = 30.0):
+        self._make(failure_threshold, recovery_timeout_s, time.monotonic)
+
+    def _make(self, failure_threshold, recovery_timeout_s, clock) -> None:
+        self.failure_threshold = int(failure_threshold)
+        self.recovery_timeout_s = float(recovery_timeout_s)
+        self._clock = clock
+        self._set = BreakerSet(
+            failure_threshold=self.failure_threshold,
+            recovery_timeout_s=self.recovery_timeout_s, clock=clock,
+        )
+        self.failures: Dict[str, int] = {}
+
+    def configure(self, failure_threshold: Optional[int] = None,
+                  recovery_timeout_s: Optional[float] = None, clock=None) -> None:
+        """Rebuild the board with new thresholds (operator settings, a test
+        clock). Existing breaker state is dropped deliberately."""
+        self._make(
+            failure_threshold if failure_threshold is not None else self.failure_threshold,
+            recovery_timeout_s if recovery_timeout_s is not None else self.recovery_timeout_s,
+            clock if clock is not None else self._clock,
+        )
+
+    def reset(self) -> None:
+        self.configure()
+
+    def allows(self, label: str) -> bool:
+        """True when the bucket may dispatch: breaker closed, or half-open
+        (the dispatch is the probe)."""
+        return self._set.get(label).state != "open"
+
+    def state(self, label: str) -> str:
+        return self._set.get(label).state
+
+    def ok(self, label: str) -> None:
+        """A validated, finite kernel answer from this bucket. Ignored while
+        the breaker is OPEN: a stale in-flight answer from before the
+        quarantine must not cut the recovery timeout short (reading
+        ``state`` turns open into half-open once the timeout has passed, so
+        a genuine probe success still lands)."""
+        breaker = self._set.get(label)
+        if breaker.state != "open":
+            breaker.record_success()
+
+    def fail(self, label: str, kind: str) -> None:
+        """Device-path failure evidence of one ``kind``."""
+        self.failures[kind] = self.failures.get(kind, 0) + 1
+        self._set.get(label).record_failure()
+
+
+#: process-wide board
+KERNEL_BOARD = KernelBreakerBoard()
+
+
+# ---------------------------------------------------------------------------
+# Results on their way to the host
+# ---------------------------------------------------------------------------
+
+class _Pending:
+    """A packed result buffer on its way to the host.
+
+    On the card: two timing events around the chain that computed it, a copy
+    into pinned host memory enqueued on the same stream, and an event after
+    that copy. ``is_ready`` queries the event and never waits;
+    ``materialize`` waits on it and reads the pinned copy. The handle holds
+    the device buffer and the pinned copy until then. On the CPU the buffer
+    is already computed."""
+
+    __slots__ = ("buf", "host", "events", "done")
+
+    def __init__(self, buf: torch.Tensor, host=None, events=None, done=None):
+        self.buf = buf
+        self.host = host
+        self.events = events
+        self.done = done
+
+    @classmethod
+    def enqueue(cls, run, device: torch.device, stream=None) -> "_Pending":
+        """Run ``run()`` (which launches kernels and returns their result
+        buffer) on ``stream`` (default: the current stream), and enqueue the
+        copy to the host behind it."""
+        if device.type != "cuda":
+            return cls(run())
+        with torch.cuda.stream(stream or torch.cuda.current_stream(device)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            buf = run()
+            end.record()
+            host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+            host.copy_(buf, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        return cls(buf, host, (start, end), done)
+
+    def is_ready(self) -> bool:
+        return self.done is None or self.done.query()
+
+    def materialize(self) -> np.ndarray:
+        if self.done is None:
+            return self.buf.numpy()
+        self.done.synchronize()
+        return self.host.numpy()
+
+    def device_ms(self) -> Optional[float]:
+        """Device time of the chain (None on the CPU); once ready."""
+        return None if self.events is None else self.events[0].elapsed_time(self.events[1])
+
+
+def _fetch_bounded(buf: _Pending, timeout_s: float) -> np.ndarray:
+    """Fetch a dispatched buffer with a deadline: polls readiness and raises
+    :class:`KernelDispatchTimeout` instead of blocking the round on a hung
+    device. ``timeout_s <= 0`` disables the deadline."""
+    if timeout_s > 0:
+        deadline = time.perf_counter() + timeout_s
+        while not buf.is_ready():
+            if time.perf_counter() >= deadline:
+                raise KernelDispatchTimeout(f"kernel dispatch not ready within {timeout_s}s")
+            time.sleep(0.0005)
+    return buf.materialize()
+
+
+class _Dispatch(NamedTuple):
+    """One problem's asynchronous kernel dispatch and what unpacking it
+    needs."""
+
+    pending: _Pending
+    orders: np.ndarray
+    swaps: np.ndarray
+    s_new: int
+    n_zones: int
+    inputs: PackInputs
+    key: BucketKey
+    t_dispatch: float
+
 
 class _FleetBuffer:
-    """The ``[B, L]`` device buffer of one fleet dispatch, shared by the
-    cells batched into it. The first cell that reads it copies it to the
-    host once; every later cell reads that copy. On the card, two events
-    around the dispatch give its device time."""
+    """The ``[B, L]`` buffer of one fleet dispatch, shared by the cells
+    batched into it. The first cell that reads it copies it to the host
+    once; every later cell reads that copy. ``abandoned`` is set when a
+    cell's poll gave up at its deadline: siblings then take it only if it is
+    ready, and never wait on it."""
 
-    __slots__ = ("buf", "key", "events", "_host")
+    __slots__ = ("pending", "key", "t_dispatch", "width", "abandoned", "_host")
 
-    def __init__(self, buf: torch.Tensor, key: BucketKey, events=None):
-        self.buf = buf
+    def __init__(self, pending: _Pending, key: BucketKey, t_dispatch: float, width: int):
+        self.pending = pending
         self.key = key  # the fleet bucket (B > 1)
-        self.events = events
+        self.t_dispatch = t_dispatch
+        self.width = width  # real cells batched (<= key.B; the rest is padding)
+        self.abandoned = False
         self._host: Optional[np.ndarray] = None
+
+    def is_ready(self) -> bool:
+        return self._host is not None or self.pending.is_ready()
 
     def materialize(self) -> np.ndarray:
         if self._host is None:
-            self._host = self.buf.cpu().numpy()
+            self._host = self.pending.materialize()
         return self._host
 
     def device_ms(self) -> Optional[float]:
-        """Device time of the dispatch (None on the CPU); after materialize."""
-        return None if self.events is None else self.events[0].elapsed_time(self.events[1])
+        """Device time of the dispatch (None on the CPU); once ready."""
+        return self.pending.device_ms()
 
 
 class _FleetDispatch:
@@ -221,22 +425,15 @@ class _FleetDispatch:
     problem's row and what unpacking it needs. Attached to the problem by
     ``stage_fleet``; popped by ``solve``."""
 
-    __slots__ = ("shared", "row", "orders", "swaps", "s_new")
+    __slots__ = ("shared", "row", "orders", "swaps", "s_new", "n_zones")
 
-    def __init__(self, shared, row, orders, swaps, s_new):
+    def __init__(self, shared, row, orders, swaps, s_new, n_zones):
         self.shared = shared
         self.row = row
         self.orders = orders
         self.swaps = swaps
         self.s_new = s_new
-
-
-def _fleet_eligible(problem: Optional[EncodedProblem]) -> bool:
-    return (
-        problem is not None and problem.G > 0
-        and not (problem.O == 0 and problem.E == 0)
-        and problem.rel_unsupported is None
-    )
+        self.n_zones = n_zones
 
 
 def stage_fleet(
@@ -250,8 +447,16 @@ def stage_fleet(
     largest power of two <= ``max_batch``, each chunk is padded to its pow2
     fleet width with inert rows and solved in one ``pack_solve_fleet`` call.
     Each batched problem carries a ``_fleet_dispatch`` handle that its
-    ``solve`` consumes instead of dispatching on its own. A lone cell is left
-    to its own solve.
+    ``solve`` polls in the race instead of dispatching on its own. A lone
+    cell is left to its own solve.
+
+    Problems the per-cell race would not dispatch are skipped: tiny ones,
+    shapes only the greedy oracle takes, quality-mode solvers, problems whose
+    race memory says the kernel lost or already answered, problems whose
+    last fleet row went unread (``_fleet_skip``), and solvers whose race
+    breaker is open. So are chunks whose owner's device round trip
+    (``device_rtt``) exceeds its latency budget, and quarantined fleet
+    buckets.
 
     A chunk whose every problem is resident on its solver's device (after
     ``prestage``) is stacked on the device by ``fleet_stack`` from the
@@ -268,29 +473,67 @@ def stage_fleet(
     width_cap = 1 << (int(max_batch).bit_length() - 1)
     groups: "OrderedDict[BucketKey, list]" = OrderedDict()
     for solver, problem in entries:
-        if not _fleet_eligible(problem):
+        if problem is None or problem.G == 0:
             continue
+        if not hasattr(solver, "_bucket_key"):
+            continue  # host-only backend (greedy oracle): nothing to batch
+        if problem.O == 0 and problem.E == 0:
+            continue
+        if _tensor_path_unsupported(problem) is not None:
+            continue
+        if solver.latency_budget_s > 1.0:
+            continue  # quality mode solves synchronously; nothing to race
+        if int(problem.count.sum()) < solver.race_min_pods:
+            continue  # tiny problems never race the device
+        solver._expire_race_memory(problem)
+        if problem.__dict__.get("_race_kernel_lost", False):
+            continue
+        if problem.__dict__.get("_race_kernel_result") is not None:
+            continue
+        if problem.__dict__.get("_fleet_skip", False):
+            # this problem's last fleet row went unread (a cached plan served
+            # its solve): restaging would pay for a dispatch nobody polls
+            continue
+        if solver._race_fails >= 3:
+            continue  # open race breaker: the per-cell half-open probe retries
         stats["eligible"] += 1
         groups.setdefault(solver._bucket_key(problem), []).append((solver, problem))
+    cleared: set = set()
     for key, members in groups.items():
         for base in range(0, len(members), width_cap):
             chunk = members[base : base + width_cap]
             if len(chunk) < 2:
-                continue
+                continue  # a lone cell dispatches in its own race
             fleet_key = key._replace(B=bucket_fleet(len(chunk)))
-            stats["device_stacked"] += _stage_fleet_chunk(chunk, key, fleet_key)
+            owner = chunk[0][0]
+            if owner.device_rtt() >= owner.latency_budget_s:
+                continue
+            if not KERNEL_BOARD.allows(fleet_key.label()):
+                continue  # quarantined fleet bucket: the cells race one by one
+            stats["device_stacked"] += _stage_fleet_chunk(chunk, key, fleet_key, cleared)
             stats["dispatches"] += 1
             stats["cells_batched"] += len(chunk)
             stats["buckets"].append(fleet_key.label())
     return stats
 
 
-def _stage_fleet_chunk(chunk, key: BucketKey, fleet_key: BucketKey) -> bool:
+def _stage_fleet_chunk(chunk, key: BucketKey, fleet_key: BucketKey, cleared: set) -> bool:
     """Stack one chunk along the batch axis, dispatch it, and attach each
     problem's row. Returns whether the stack was built on the device."""
     B = fleet_key.B
     owner = chunk[0][0]
-    preps = [solver._prepare(problem, bucket=key) for solver, problem in chunk]
+    preps = []
+    for solver, problem in chunk:
+        prep = solver._prepare(problem, bucket=key)
+        # seed the host competitor's cache with the padded arrays, cleared
+        # once per solver per staging pass, so that one shared solver keeps
+        # every problem it stages
+        if id(solver) not in cleared:
+            cleared.add(id(solver))
+            solver._host_cache.clear()
+        solver._host_cache[id(problem)] = (problem, PackInputs(**prep[0]), *prep[1:4],
+                                          prep[6], prep[7], [None])
+        preps.append(prep)
     resident = [solver._resident(problem) for solver, problem in chunk]
     pad_fields, *pad_members = fleet_padding(key)
     pad = {**pad_fields, **dict(zip(_MEMBER_LEAVES, pad_members))}
@@ -315,25 +558,53 @@ def _stage_fleet_chunk(chunk, key: BucketKey, fleet_key: BucketKey) -> bool:
     args = (PackInputs(*(staged[f] for f in PackInputs._fields)),) + tuple(
         staged[f] for f in _MEMBER_LEAVES
     )
-    events = None
-    if owner.device.type == "cuda":
-        events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        events[0].record()
-    buf = pack_solve_fleet(*args, key.S, key.Z)
-    if events is not None:
-        events[1].record()
-    shared = _FleetBuffer(buf, fleet_key, events)
+    t_dispatch = time.perf_counter()
+    pending = _Pending.enqueue(lambda: pack_solve_fleet(*args, key.S, key.Z), owner.device)
+    shared = _FleetBuffer(pending, fleet_key, t_dispatch, len(chunk))
     for row, ((_, problem), prep) in enumerate(zip(chunk, preps)):
-        problem.__dict__["_fleet_dispatch"] = _FleetDispatch(shared, row, prep[1], prep[5], key.S)
+        problem.__dict__["_fleet_dispatch"] = _FleetDispatch(
+            shared, row, prep[1], prep[5], key.S, key.Z
+        )
+        # the fleet width this problem was dispatched at (the handle above is
+        # popped by solve)
+        problem.__dict__["_fleet_b"] = B
+        # round-budget share: batched cells split one round budget for the
+        # host path's adaptive polish (floored in solve); the kernel answer
+        # does not depend on it
+        problem.__dict__["_budget_share"] = 1.0 / len(chunk)
     return device_side
 
 
 class TorchSolver(Solver):
-    """The portfolio packing kernel on one device.
+    """The portfolio packing kernel on one device, raced against the host
+    paths.
 
     ``device`` defaults to the card: ``TorchSolver()`` raises when CUDA is
-    absent rather than running on the CPU. ``device="cpu"`` runs the plain
-    PyTorch versions of the kernels (the tests' path).
+    absent rather than running on the CPU, and loads (building if needed)
+    the kernel library, so that no build ever lands inside a solve's budget.
+    ``device="cpu"`` runs the plain PyTorch versions of the kernels (the
+    tests' path).
+
+    Dispatch policy, the reference's (``solve``):
+
+    * In latency mode (``latency_budget_s <= 1``) the fused kernel chain is
+      enqueued on the solver's side stream BEFORE the host path starts, so
+      the card computes while the host path runs; the kernel is polled
+      until the deadline, and the cheaper validated answer wins. Race
+      memory (``race_memory_ttl_s``) remembers per problem a kernel that
+      lost, missed twice, or won; three missed deadlines in a row open the
+      race breaker, which re-probes every ``_race_retry_interval_s``.
+    * LP-safe problems take the host fast path (``host.solve_host``); other
+      shapes take the numpy FFD member (``_solve_host_pack``) and the
+      zone-decomposed pattern CG (``topo.topo_improve``).
+    * In quality mode the kernel runs synchronously beside the host path
+      (``quality_race`` builds the host competitor for non-LP-safe shapes
+      too). Every bucket of the port is warm from construction, so the
+      kernel always answers inline.
+    * Shapes the tensor path cannot express go to ``GreedySolver``.
+
+    ``backend`` in a result's stats: 0 greedy oracle, 1 kernel, 2 host fast
+    path (LP, patterns, topology CG), 3 host FFD member.
 
     The solver keeps one problem resident on its device (``_device_inputs``:
     staged through its ``DeviceStager`` under the tag ``("cell", Gp, Op, Ep,
@@ -342,27 +613,109 @@ class TorchSolver(Solver):
     round gives each cell its own solver so that every dirty cell stays
     resident until ``stage_fleet``."""
 
+    #: problems below this many pods never race the device in latency mode
+    #: (the host paths answer in single-digit ms); shared by the per-cell
+    #: race and the fleet staging admission
+    race_min_pods: int = 450
+
+    #: floor (seconds) on a fleet cell's share of the host-polish budget: the
+    #: share never starves the host pipeline below its base LP, rounding and
+    #: first ruin-recreate pass
+    fleet_host_floor_s: float = 0.045
+
+    _device_rtt_s: Optional[float] = None  # class-level: one probe per process
+
     def __init__(
         self,
         portfolio: int = 8,
         seed: int = 0,
         max_slots: int = 1 << 15,
+        latency_budget_s: float = 0.1,
+        warmup_spike_s: float = 1.5,
+        race_memory_ttl_s: float = 30.0,
+        quality_race: bool = False,
+        dispatch_timeout_s: float = 2.0,
         device="cuda",
     ):
         device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("TorchSolver: CUDA is not available (pass device='cpu' for the CPU)")
+        self._side = None
+        if device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("TorchSolver: CUDA is not available (pass device='cpu' for the CPU)")
+            from ._build import load_kernels
+
+            load_kernels()
+            self._side = torch.cuda.Stream(device)
         self.portfolio = portfolio
         self.seed = seed
         self.max_slots = max_slots
+        self.latency_budget_s = latency_budget_s
+        # cap on the one-time deadline extension the adaptive closers
+        # (patterns.py CG warmup, topo.py plan build) may take on the first
+        # repeat solve of a problem; 0 disables warmup spikes
+        self.warmup_spike_s = warmup_spike_s
+        # per-problem race memory expires after this long: a kernel that
+        # lost is consulted again, a cached winning answer recomputed
+        self.race_memory_ttl_s = race_memory_ttl_s
+        self.quality_race = quality_race
+        # deadline on a synchronous kernel fetch: a hung dispatch raises
+        # KernelDispatchTimeout and the host answers; 0 waits without one
+        self.dispatch_timeout_s = dispatch_timeout_s
         self.device = device
         self._stager = DeviceStager(device=device)
         self._device_cache: dict = {}
+        self._host_cache: dict = {}  # numpy inputs for the host FFD competitor
+        self._fallback = GreedySolver()
+        self._race_fails = 0
+        # race breaker half-open probe: with >= 3 missed deadlines the device
+        # is still re-probed once per interval
+        self._race_retry_interval_s = 5.0
+        self._race_retry_at = 0.0
+
+    # -- the race -----------------------------------------------------------
+    def device_rtt(self) -> float:
+        """Measured round trip of a minimal kernel call: ``rtt_probe`` on
+        ``int32[8]`` launched on the current stream and read back to the
+        host (a real device-to-host read), median of 3 after one warm call.
+        Measured once per process and kept at class level."""
+        if TorchSolver._device_rtt_s is None:
+            x = torch.zeros((8,), dtype=torch.int32, device=self.device)
+            rtt_probe(x).cpu()
+            samples = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                rtt_probe(x).cpu()
+                samples.append(time.perf_counter() - t0)
+            TorchSolver._device_rtt_s = sorted(samples)[1]
+        return TorchSolver._device_rtt_s
+
+    @staticmethod
+    def _mark_kernel_lost(problem: EncodedProblem) -> None:
+        problem.__dict__["_race_kernel_lost"] = True
+        problem.__dict__["_race_memory_at"] = time.monotonic()
+        problem.__dict__.pop("_race_kernel_result", None)
+
+    def _expire_race_memory(self, problem: EncodedProblem) -> None:
+        """Race outcomes are conditions, not facts: after the TTL, a lost
+        race re-races and a cached winning result is recomputed."""
+        at = problem.__dict__.get("_race_memory_at")
+        if at is not None and time.monotonic() - at > self.race_memory_ttl_s:
+            for k in ("_race_kernel_lost", "_race_kernel_result", "_race_miss_count",
+                      "_race_memory_at"):
+                problem.__dict__.pop(k, None)
 
     def solve(self, problem: EncodedProblem) -> SolveResult:
-        # a fleet handle is consumed once, popped even where it is not read,
-        # so that it can never serve a later solve of the same problem
-        slot = problem.__dict__.pop("_fleet_dispatch", None)
+        t0 = time.perf_counter()
+        # a fleet handle is consumed once, popped even on paths that will not
+        # poll it, so that it can never serve a later solve of the problem
+        fleet_slot = problem.__dict__.pop("_fleet_dispatch", None)
+        # fleet cells split one round budget for host-path polish, floored
+        # so that the host pipeline always reaches its base pass
+        budget_share = problem.__dict__.pop("_budget_share", 1.0)
+        host_budget_s = max(
+            self.latency_budget_s * budget_share,
+            min(self.latency_budget_s, self.fleet_host_floor_s),
+        )
         if problem.G == 0:
             return SolveResult(stats={"backend": 1.0})
         if problem.O == 0 and problem.E == 0:
@@ -370,71 +723,423 @@ class TorchSolver(Solver):
                 unschedulable=[p.name for g in problem.groups for p in g.pods],
                 stats={"backend": 1.0},
             )
-        if problem.rel_unsupported is not None:
-            raise NotImplementedError(
-                f"constraint shape outside the tensor path: {problem.rel_unsupported}"
-            )
-        if slot is not None:
-            return self._solve_fleet_row(problem, slot)
-        return self._solve_kernel(problem)
+        if _tensor_path_unsupported(problem) is not None:
+            result = self._fallback.solve(problem)
+            result.stats["fallback"] = 1.0
+            return result
+
+        quality = self.latency_budget_s > 1.0
+        dispatched = None
+        # per-problem race memory: a kernel that already lost on THIS
+        # problem is not waited on again until the memory expires
+        self._expire_race_memory(problem)
+        kernel_hopeless = problem.__dict__.get("_race_kernel_lost", False)
+        # tiny problems never race the device: the host answers in ms
+        tiny = int(problem.count.sum()) < self.race_min_pods
+        # a kernel answer that won on this problem is replayed against the
+        # (still improving) host plan instead of dispatching again
+        kernel_cached = problem.__dict__.get("_race_kernel_result")
+        # pre-FFD probe: a finished topology pattern plan stands in as the
+        # host answer without running the FFD, and no dispatch is fired
+        topo_fast = None
+        if not quality and not tiny:
+            try:
+                topo_fast = topo_improve(
+                    problem, self, float("inf"),
+                    deadline=t0 + self.latency_budget_s * 0.85,
+                    probe_only=True,
+                )
+            except Exception:
+                topo_fast = None
+        if (
+            not quality
+            and not tiny
+            and not kernel_hopeless
+            and kernel_cached is None
+            and topo_fast is None
+        ):
+            if fleet_slot is not None:
+                # the kernel for this problem is already in flight as one row
+                # of a fleet dispatch: poll that
+                dispatched = fleet_slot
+            elif self._race_dispatch_affordable(problem):
+                # enqueue the kernel BEFORE the host path runs: the card
+                # computes while the host path does, and the poll below pays
+                # only the leftover wait
+                dispatched = self._dispatch_async(problem)
+        if fleet_slot is not None and dispatched is not fleet_slot:
+            # the fleet row goes unread: stage_fleet stops paying for it on
+            # repeat rounds of this problem
+            problem.__dict__["_fleet_skip"] = True
+        t_host = time.perf_counter()
+        host_result = topo_fast
+        if host_result is None:
+            try:
+                # adaptive polish on the budget left after a feasible plan:
+                # quality mode gets a fixed cap, fleet cells their share
+                host_deadline = t0 + min(host_budget_s * 0.85, 0.5)
+                host_result = solve_host(
+                    problem, deadline=host_deadline, spike_s=self.warmup_spike_s
+                )
+            except Exception:
+                host_result = None  # any host-path failure falls to the kernel
+        if host_result is None and (not quality or self.quality_race):
+            # non-LP-safe shapes: the numpy grouped-FFD member is the host
+            # competitor, so the device's round trip is never the latency floor
+            try:
+                host_result = self._solve_host_pack(problem)
+            except Exception:
+                host_result = None
+            if host_result is not None and not host_result.unschedulable:
+                # zone-decomposed pattern CG: engages on repeat solves and
+                # replaces the FFD answer only when strictly cheaper and valid
+                try:
+                    improved = topo_improve(
+                        problem, self, host_result.cost,
+                        deadline=t0 + host_budget_s * 0.85,
+                        incumbent=host_result,
+                    )
+                    if improved is not None:
+                        host_result = improved
+                except Exception:
+                    pass  # the FFD answer stands
+        host_s = time.perf_counter() - t_host
+        if host_result is not None:
+            # comparisons carry the kernel's unplaced penalty, so a host plan
+            # that strands pods never beats a complete kernel plan on price
+            host_cmp = host_result.cost + 1e6 * len(host_result.unschedulable)
+            t_poll = time.perf_counter()
+            if quality:
+                kernel_result = self._solve_kernel(problem)
+            elif kernel_hopeless or tiny:
+                kernel_result = None
+            elif kernel_cached is not None:
+                # a fresh shell each time: callers holding earlier returns
+                # keep their stats
+                kernel_result = dataclasses.replace(
+                    kernel_cached, stats=dict(kernel_cached.stats)
+                )
+            else:
+                kernel_result = self._poll_dispatch(
+                    problem, dispatched, deadline=t0 + self.latency_budget_s,
+                    host_cost=host_cmp,
+                )
+            race = {"race_host_s": host_s, "race_poll_s": time.perf_counter() - t_poll}
+            device_ms = problem.__dict__.pop("_dispatch_device_ms", None)
+            if device_ms is not None:
+                race["dispatch_device_ms"] = device_ms
+            if kernel_result is not None and (
+                kernel_result.cost + 1e6 * len(kernel_result.unschedulable) < host_cmp
+            ):
+                if not quality and kernel_cached is None:
+                    # cache a private copy whose stats nobody else mutates
+                    problem.__dict__["_race_kernel_result"] = dataclasses.replace(
+                        kernel_result, stats=dict(kernel_result.stats)
+                    )
+                    problem.__dict__["_race_memory_at"] = time.monotonic()
+                kernel_result.stats.update(race, race_winner=1.0,
+                                           total_solve_s=time.perf_counter() - t0)
+                return kernel_result
+            if kernel_result is not None and not quality:
+                # the kernel answered in time and still lost: repeat solves
+                # of this problem skip the wait
+                self._mark_kernel_lost(problem)
+            host_result.stats.update(race, total_solve_s=time.perf_counter() - t0)
+            return host_result
+        result = self._solve_kernel(problem)
+        if result is None:
+            result = self._fallback.solve(problem)
+            result.stats["fallback"] = 1.0
+        return result
+
+    def _solve_host_pack(self, problem: EncodedProblem) -> Optional[SolveResult]:
+        """A small portfolio of numpy FFD members (FFD / footprint orderings
+        × lookahead) over the kernel's own prepared arrays: the
+        topology-capable host competitor. Count-validated and decoded exactly
+        like kernel output; None when invalid."""
+        t0 = time.perf_counter()
+        key = id(problem)
+        cached = self._host_cache.get(key)
+        if cached is None or cached[0] is not problem:
+            fields, orders, alphas, looks, _rsvs, _swaps, s_new, n_zones = self._prepare(problem)
+            cached = (problem, PackInputs(**fields), orders, alphas, looks, s_new, n_zones, [None])
+            self._host_cache.clear()
+            self._host_cache[key] = cached
+        _, inputs, orders, alphas, looks, s_new, n_zones, shared_slot = cached
+        if shared_slot[0] is None:
+            shared_slot[0] = host_shared(inputs)
+        shared = shared_slot[0]
+        best = None
+        best_order = None
+        k = orders.shape[0]
+        grown = s_new
+        for mi in range(min(4, k)):
+            order = orders[mi]
+            sn = grown
+            out = None
+            while out is None and sn <= self.max_slots:
+                out = host_pack(
+                    inputs, shared, order, sn, n_zones,
+                    alpha=float(alphas[mi]), look=bool(looks[mi]),
+                )
+                if out is None:
+                    sn *= 2
+            grown = max(grown, min(sn, self.max_slots))
+            if out is None:
+                continue
+            new_opt, new_active, ys, unplaced = out
+            cost = float(np.sum(np.asarray(inputs.price)[new_opt[new_active]])) + unplaced * 1e6
+            if best is None or cost < best[0]:
+                best = (cost, new_opt, new_active, ys, unplaced)
+                best_order = order
+        if grown > s_new:
+            # persist the grown slot budget: repeat solves of a cached
+            # problem do not pay the doubling ladder again
+            entry = (problem, inputs, orders, alphas, looks, grown, n_zones, shared_slot)
+            if self._host_cache.get(key) is cached or key not in self._host_cache:
+                self._host_cache[key] = entry
+        if best is None:
+            return None
+        _, new_opt, new_active, ys, unplaced = best
+        if validate_counts(problem, best_order, new_opt, new_active, ys):
+            return None
+        result = self._decode(problem, best_order, new_opt, new_active, ys)
+        result.stats["backend"] = 3.0  # host FFD
+        result.stats["solve_s"] = time.perf_counter() - t0
+        return result
+
+    def _race_dispatch_affordable(self, problem: EncodedProblem) -> bool:
+        """Race admission: can a dispatch answer inside the budget? Judged
+        by the process's measured device round trip."""
+        return self.device_rtt() < self.latency_budget_s
 
     def prestage(self, problem: EncodedProblem) -> None:
         """Pad and stage this problem's tensors now, without solving: the
         sharded round calls it right after each cell's encode, so that
         ``stage_fleet`` finds every dirty cell resident and stacks the chunk
-        on the device. A no-op for problems the kernel would not solve."""
-        if _fleet_eligible(problem):
-            self._device_inputs(problem)
+        on the device. A no-op for problems the race would not dispatch."""
+        if (
+            problem.G == 0
+            or (problem.O == 0 and problem.E == 0)
+            or _tensor_path_unsupported(problem) is not None
+            or self.latency_budget_s > 1.0
+            or int(problem.count.sum()) < self.race_min_pods
+        ):
+            return
+        self._expire_race_memory(problem)
+        if (
+            problem.__dict__.get("_race_kernel_lost", False)
+            or problem.__dict__.get("_race_kernel_result") is not None
+            or not self._race_dispatch_affordable(problem)
+        ):
+            return
+        self._device_inputs(problem)
 
-    def _solve_fleet_row(self, problem: EncodedProblem, slot: _FleetDispatch) -> SolveResult:
-        """Decode this problem's row of a fleet dispatch. A row whose members
-        ran out of slots with pods left over goes on alone at twice the slot
-        budget, exactly as the fleet-free solve would after its first pass."""
-        t0 = time.perf_counter()
-        key = slot.shared.key
-        raw = slot.shared.materialize()[slot.row]
+    def _launch_chain(self, tensors, s_new: int, n_zones: int, side: bool = False) -> _Pending:
+        """Enqueue K1, K2, K2, K3 on ``tensors`` and the copy of the result
+        to the host, without waiting. ``side`` puts the chain on the solver's
+        side stream, ordered after everything already on the current stream
+        (staging copies and restage patches); the stager then orders its
+        next patch or upload after the chain, so that a resident tensor the
+        chain reads is never overwritten under it."""
+        stream = None
+        if side and self._side is not None:
+            stream = self._side
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            # the allocator must not hand a dropped input's memory to the
+            # current stream while the chain still reads it
+            for t in (*tensors[0], *tensors[1:]):
+                t.record_stream(stream)
+        pending = _Pending.enqueue(
+            lambda: pack_solve_fused(*tensors, s_new, n_zones), self.device, stream
+        )
+        if stream is not None:
+            self._stager.fence(pending.done)
+        return pending
+
+    def _dispatch_async(self, problem: EncodedProblem) -> Optional[_Dispatch]:
+        """Enqueue the fused kernel chain on the side stream without waiting.
+        Returns the dispatch, or None when the race breaker or the bucket's
+        quarantine says not to dispatch."""
+        if self._race_fails >= 3:
+            # the device has not answered inside the budget: the host path
+            # owns it, but it is re-probed once per interval
+            now = time.monotonic()
+            if now < self._race_retry_at:
+                return None
+            self._race_retry_at = now + self._race_retry_interval_s
+        (inputs, orders, swaps, orders_d, alphas_d, looks_d, rsvs_d, swaps_d,
+         s_new, n_zones) = self._device_inputs(problem)
+        key = self._bucket_key(problem, s_new)
+        if not KERNEL_BOARD.allows(key.label()):
+            return None
+        t_dispatch = time.perf_counter()
+        pending = self._launch_chain(
+            (inputs, orders_d, alphas_d, looks_d, rsvs_d, swaps_d), s_new, n_zones, side=True
+        )
+        return _Dispatch(pending, orders, swaps, s_new, n_zones, inputs, key, t_dispatch)
+
+    def _poll_dispatch(self, problem: EncodedProblem, dispatched, deadline: float,
+                       host_cost: float) -> Optional[SolveResult]:
+        """Wait (bounded) for an in-flight dispatch and decode it only when
+        its member cost already beats the host result."""
+        if dispatched is None:
+            return None
+        if isinstance(dispatched, _FleetDispatch):
+            return self._poll_fleet(problem, dispatched, deadline, host_cost)
+        pending = dispatched.pending
+        # a buffer ready at the first look says only that the card answered
+        # sometime during the host path; a transition seen while polling
+        # times the dispatch
+        ready_at = None
+        if pending.is_ready():
+            ready_at = 0.0
+        else:
+            while time.perf_counter() < deadline:
+                if pending.is_ready():
+                    ready_at = time.perf_counter()
+                    break
+                time.sleep(0.0005)
+        if ready_at is None:
+            self._race_fails += 1
+            # two deadline misses on the same problem and repeat solves stop
+            # waiting on the device for it
+            misses = problem.__dict__.get("_race_miss_count", 0) + 1
+            problem.__dict__["_race_miss_count"] = misses
+            if misses >= 2:
+                self._mark_kernel_lost(problem)
+            return None
+        self._race_fails = 0
+        problem.__dict__.pop("_race_miss_count", None)
+        raw = pending.materialize()
+        if ready_at:
+            problem.__dict__["_dispatch_s"] = ready_at - dispatched.t_dispatch
+        if pending.events is not None:
+            problem.__dict__["_dispatch_device_ms"] = pending.device_ms()
+        inputs = dispatched.inputs
+        unpacked = unpack_solve_fused(
+            raw, dispatched.orders.shape[0], dispatched.s_new, inputs.count.shape[0],
+            inputs.ex_valid.shape[0], dispatched.orders, dispatched.swaps,
+        )
+        return self._judge(problem, unpacked, dispatched.key, host_cost)
+
+    def _poll_fleet(self, problem: EncodedProblem, slot: _FleetDispatch, deadline: float,
+                    host_cost: float) -> Optional[SolveResult]:
+        """Fleet analogue of ``_poll_dispatch``: wait (bounded) on the shared
+        batch buffer, take this problem's row, and decode it only when its
+        cost beats the host result. The first cell's poll copies the whole
+        batch; every sibling's poll then reads that copy."""
+        shared = slot.shared
+        ready_at = None
+        if shared.is_ready():
+            ready_at = 0.0
+        elif not shared.abandoned:
+            while time.perf_counter() < deadline:
+                if shared.is_ready():
+                    ready_at = time.perf_counter()
+                    break
+                time.sleep(0.0005)
+        if ready_at is None:
+            shared.abandoned = True
+            # a fleet miss is bucket evidence, not device evidence: the
+            # per-cell race breaker is left alone
+            misses = problem.__dict__.get("_race_miss_count", 0) + 1
+            problem.__dict__["_race_miss_count"] = misses
+            if misses >= 2:
+                self._mark_kernel_lost(problem)
+            return None
+        self._race_fails = 0
+        problem.__dict__.pop("_race_miss_count", None)
+        raw = shared.materialize()[slot.row]
+        if ready_at:
+            problem.__dict__["_dispatch_s"] = ready_at - shared.t_dispatch
+        if shared.pending.events is not None:
+            problem.__dict__["_dispatch_device_ms"] = shared.device_ms()
+        key = shared.key
         unpacked = unpack_solve_fused(
             raw, slot.orders.shape[0], slot.s_new, key.G, key.E, slot.orders, slot.swaps
         )
-        _, unplaced, _, exhausted, _, _, _ = unpacked
-        if exhausted.any() and unplaced > 0 and slot.s_new < self.max_slots:
-            result = self._solve_kernel(problem, s_new=2 * slot.s_new, passes=1)
-            result.stats["fleet_exhausted"] = 1.0
-        else:
-            t1 = time.perf_counter()
-            result = self._finish(problem, unpacked, slot.s_new, 1, t0, t0, t1)
-            result.stats["fleet_exhausted"] = 0.0
-        result.stats["fleet_b"] = float(key.B)
-        result.stats["fleet_bucket"] = key.label()
+        result = self._judge(problem, unpacked, key, host_cost)
+        if result is not None:
+            result.stats["fleet_b"] = float(key.B)
+            result.stats["fleet_bucket"] = key.label()
         return result
 
-    def _solve_kernel(self, problem: EncodedProblem, s_new: Optional[int] = None,
-                      passes: int = 0) -> SolveResult:
-        """Solve on the resident tensors from ``s_new`` slots (default: the
-        problem's current budget), doubling while members run out."""
+    def _judge(self, problem: EncodedProblem, unpacked, key: BucketKey,
+               host_cost: float) -> Optional[SolveResult]:
+        """The race's verdict on a kernel answer that arrived in time: None
+        when it is non-finite (breaker evidence), leaves pods unplaced, costs
+        no less than the host answer, or fails validation; else the decoded
+        plan. A losing answer is remembered on the problem."""
+        order, unplaced, costs, exhausted, new_opt, new_active, ys = unpacked
+        label = key.label()
+        if not np.isfinite(np.asarray(costs, dtype=np.float64)).all():
+            # breaker evidence before any comparison: decode recomputes cost
+            # from real prices and would launder a degenerate plan
+            KERNEL_BOARD.fail(label, "nonfinite-plan")
+            self._mark_kernel_lost(problem)
+            return None
+        if unplaced > 0 or costs.min() >= host_cost:
+            # the device answered and lost on quality. A half-open breaker
+            # still needs its probe settled: a finite, in-time, count-valid
+            # answer is health evidence even when the host plan is cheaper
+            if KERNEL_BOARD.state(label) != "closed":
+                if validate_counts(problem, order, new_opt, new_active, ys):
+                    KERNEL_BOARD.fail(label, "invalid-plan")
+                else:
+                    KERNEL_BOARD.ok(label)
+            self._mark_kernel_lost(problem)
+            return None
+        if validate_counts(problem, order, new_opt, new_active, ys):
+            KERNEL_BOARD.fail(label, "invalid-plan")
+            self._mark_kernel_lost(problem)
+            return None
+        KERNEL_BOARD.ok(label)
+        result = self._decode(problem, order, new_opt, new_active, ys)
+        k = len(costs) // 2
+        idx = int(np.argmin(costs))
+        result.stats.update(
+            backend=1.0, portfolio_phase=float(idx >= k), portfolio_best=float(idx % k),
+            validated_counts=1.0, slots=float(new_opt.shape[0]), bucket=label,
+        )
+        return result
+
+    def _solve_kernel(self, problem: EncodedProblem) -> Optional[SolveResult]:
+        """Solve on the resident tensors synchronously, doubling the slot
+        budget while members run out of slots. None when the bucket is
+        quarantined, the plan is non-finite, or the fetch timed out; a plan
+        that fails validation is answered by the greedy oracle."""
         t0 = time.perf_counter()
         (inputs, orders, swaps, orders_d, alphas_d, looks_d, rsvs_d, swaps_d,
-         s_cached, n_zones) = self._device_inputs(problem)
-        if s_new is not None and s_new != s_cached:
-            self._set_slots(problem, s_new)
+         s_new, n_zones) = self._device_inputs(problem)
         t1 = time.perf_counter()
-        unpacked, s_new, n = self._run_fused(
-            (inputs, orders_d, alphas_d, looks_d, rsvs_d, swaps_d), orders, swaps,
-            s_cached if s_new is None else s_new, n_zones, problem,
-        )
+        try:
+            run = self._run_fused(
+                (inputs, orders_d, alphas_d, looks_d, rsvs_d, swaps_d), orders, swaps,
+                s_new, n_zones, problem,
+            )
+        except KernelDispatchTimeout:
+            # the host fallback answers this round instead of blocking it
+            KERNEL_BOARD.fail(self._bucket_key(problem).label(), "dispatch-timeout")
+            return None
+        if run is None:
+            return None  # quarantined bucket: the host paths answer
+        unpacked, s_new, passes = run
         t2 = time.perf_counter()
-        return self._finish(problem, unpacked, s_new, passes + n, t0, t1, t2)
-
-    def _finish(self, problem, unpacked, s_new: int, passes: int, t0, t1, t2) -> SolveResult:
-        """Gate the kernel's answer with the count-level validator, decode
-        it, and record its stats."""
         order, unplaced, costs, exhausted, new_opt, new_active, ys = unpacked
+        label = self._bucket_key(problem, s_new).label()
         if not np.isfinite(np.asarray(costs, dtype=np.float64)).all():
-            raise RuntimeError("kernel returned non-finite member costs")
-        k = len(costs) // 2
+            # refuse to decode a non-finite plan
+            KERNEL_BOARD.fail(label, "nonfinite-plan")
+            return None
         violations = validate_counts(problem, order, new_opt, new_active, ys)
         if violations:
-            raise RuntimeError(f"kernel plan failed validation: {violations[:5]}")
+            KERNEL_BOARD.fail(label, "invalid-plan")
+            result = self._fallback.solve(problem)
+            result.stats["fallback"] = 1.0
+            result.stats["tpu_violations"] = float(len(violations))
+            return result
+        KERNEL_BOARD.ok(label)
         t3 = time.perf_counter()
         result = self._decode(problem, order, new_opt, new_active, ys)
         t4 = time.perf_counter()
@@ -444,27 +1149,36 @@ class TorchSolver(Solver):
             prepare_s=t1 - t0, device_s=t2 - t1, validate_s=t3 - t2, decode_s=t4 - t3,
             solve_s=t2 - t0, backend=1.0, fused_passes=float(passes),
         )
+        k = len(costs) // 2
         idx = int(np.argmin(costs))
         result.stats["portfolio_phase"] = float(idx >= k)
         result.stats["portfolio_best"] = float(idx % k)
         result.stats["validated_counts"] = 1.0
         result.stats["slots"] = float(s_new)
-        result.stats["bucket"] = self._bucket_key(problem, s_new).label()
+        result.stats["bucket"] = label
         return result
 
     def _run_fused(self, tensors, orders: np.ndarray, swaps: np.ndarray, s_new: int,
                    n_zones: int, problem: Optional[EncodedProblem] = None):
         """The fused solve on ``tensors`` (``(PackInputs, orders, alphas,
         looks, rsvs, swaps)`` on the device), doubling the slot budget while
-        members ran out of slots; the resident entry of ``problem`` follows
-        the budget. Returns the unpacked result, the slot budget it was
+        members ran out of slots; with ``problem``, its resident entry
+        follows the budget, and a pass whose bucket is quarantined ends the
+        solve (None). Returns the unpacked result, the slot budget it was
         solved at and the number of fused passes it took."""
         inputs = tensors[0]
         k, Gp, Ep = orders.shape[0], inputs.count.shape[0], inputs.ex_valid.shape[0]
         passes = 0
         while True:
+            if problem is not None and not KERNEL_BOARD.allows(
+                    self._bucket_key(problem, s_new).label()):
+                return None
             passes += 1
-            buf = pack_solve_fused(*tensors, s_new, n_zones).cpu().numpy()
+            t_dispatch = time.perf_counter()
+            buf = _fetch_bounded(self._launch_chain(tensors, s_new, n_zones),
+                                 self.dispatch_timeout_s)
+            if problem is not None:
+                problem.__dict__["_dispatch_s"] = time.perf_counter() - t_dispatch
             unpacked = unpack_solve_fused(buf, k, s_new, Gp, Ep, orders, swaps)
             _, unplaced, _, exhausted, _, _, _ = unpacked
             # grow S only when members actually ran out of slots; leftover pods
@@ -498,6 +1212,12 @@ class TorchSolver(Solver):
         if cached is not None:
             return cached[1:]
         fields, orders, alphas, looks, rsvs, swaps, s_new, n_zones = self._prepare(problem)
+        # numpy copies for the host FFD competitor; its shared precompute
+        # slot fills on first use
+        self._host_cache.clear()
+        self._host_cache[id(problem)] = (
+            problem, PackInputs(**fields), orders, alphas, looks, s_new, n_zones, [None],
+        )
         leaves = dict(fields, orders=orders, alphas=alphas, looks=looks, rsvs=rsvs, swaps=swaps)
         Gp, R = fields["demand"].shape
         tag = ("cell", Gp, fields["price"].shape[0], fields["ex_valid"].shape[0],

@@ -16,7 +16,9 @@ A leaf is reused only when its bytes equal the retained host copy, so a
 stale tensor can never serve a changed problem. A restage patches the
 resident tensor in place: the tensors a tag handed out earlier change with
 it, so a caller holds one problem per tag at a time (``TorchSolver`` keeps
-one problem resident).
+one problem resident). Patches and uploads run on the current stream; a
+chain on another stream that reads resident tensors hands its last event to
+``fence``, and the stager's next write waits for it.
 
 ``fleet_stack`` builds the ``[B, ...]`` leaves of a fleet chunk on the device
 from B resident problems and the pad row (``stage_fleet``'s device-side
@@ -153,6 +155,20 @@ class DeviceStager:
         # the last stage() call's outcome: leaf counts per event, churned
         # rows per restaged leaf, and its bytes
         self.last_round: Dict[str, object] = {}
+        self._fence: Optional[torch.cuda.Event] = None
+
+    def fence(self, event: "torch.cuda.Event") -> None:
+        """Order the stager's next write after ``event``: a chain on another
+        stream that reads resident tensors records it after its launches,
+        and the next ``stage`` or ``invalidate`` makes the current stream
+        wait on it before it patches, uploads or drops a resident leaf, so
+        that no leaf is overwritten under a chain still reading it."""
+        self._fence = event
+
+    def _wait_fence(self) -> None:
+        if self._fence is not None:
+            torch.cuda.current_stream(self.device).wait_event(self._fence)
+            self._fence = None
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         # copy=True: on the CPU a tensor must not share the caller's memory
@@ -162,6 +178,7 @@ class DeviceStager:
         """Device tensors for ``leaves``, reusing or patching the resident
         entry of ``tag`` where the bytes allow. ``tag`` must pin every static
         of the padded shape (bucket dims, K, fleet width)."""
+        self._wait_fence()
         round_info: Dict[str, object] = {
             "hit": 0, "restage": 0, "full": 0, "rows": {},
             "bytes_total": 0, "bytes_transferred": 0,
@@ -267,6 +284,7 @@ class DeviceStager:
 
     def invalidate(self) -> None:
         """Drop all residency (a settings change, an explicit cache clear)."""
+        self._wait_fence()
         self.stats["invalidates"] += len(self._entries)
         self._entries.clear()
 

@@ -15,6 +15,9 @@ On the card the program is three hand-written CUDA kernels
 * ``pack_epilogue`` (K3) replaces the argmin and buffer packing of
   ``_pack_solve_fused_impl``.
 
+``rtt_probe`` (``csrc/probe.cu``) is the device round trip the race's
+admission measures (``TorchSolver.device_rtt``).
+
 Every kernel also takes a leading batch axis B: ``pack_solve_fleet`` solves B
 stacked problems of one bucket in the same four launches, as the JAX
 package's ``pack_solve_fleet`` runs the B=1 program under ``vmap``; row b of
@@ -61,7 +64,7 @@ _IBIG = int(IBIG)
 #: kernel launches per wrapper, for showing that a run went through the card
 LAUNCHES: Dict[str, int] = {
     "shared_precompute": 0, "pack_member": 0, "pack_epilogue": 0,
-    "stage_patch": 0, "fleet_stack": 0,
+    "stage_patch": 0, "fleet_stack": 0, "rtt_probe": 0,
 }
 #: the launches of the packing kernels with a batch of more than one problem
 BATCHED: Dict[str, int] = {"shared_precompute": 0, "pack_member": 0, "pack_epilogue": 0}
@@ -816,6 +819,29 @@ def pack_solve_fleet(
     if _batch(inputs) is None:
         raise ValueError("pack_solve_fleet takes [B, ...] stacked inputs")
     return pack_solve_fused(inputs, orders, alphas, looks, rsvs, swaps, s_new, n_zones)
+
+
+def rtt_probe_ref(x: torch.Tensor) -> torch.Tensor:
+    return x + 1
+
+
+def rtt_probe(x: torch.Tensor) -> torch.Tensor:
+    """``x + 1`` on a 1-D int32 tensor: the probe kernel on a CUDA tensor,
+    launched on the current stream; the plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return rtt_probe_ref(x)
+    _check("x", x, _I32, (x.shape[0] if x.dim() == 1 else -1,), x.device)
+    from ._build import load_kernels
+
+    return _launch_rtt_probe(load_kernels(), x, _stream())
+
+
+def _launch_rtt_probe(lib, x: torch.Tensor, stream) -> torch.Tensor:
+    y = torch.empty_like(x)
+    rc = lib.kts_rtt_probe(_ptr(x), _ptr(y), x.numel(), stream)
+    LAUNCHES["rtt_probe"] += 1
+    _raise_on(lib, rc, "rtt_probe")
+    return y
 
 
 def unpack_solve_fused(

@@ -10,8 +10,10 @@ exact. The fleet buffer is held to the JAX package's ``pack_solve_fleet``
 row by row with the rule of ``test_torch_pack_kernel.py``: every integer
 exact, member costs to rtol 1e-5 (f32 sums in another order). Within the
 port everything is exact: the device-stacked and host-stacked buffers are
-equal, and a cell's fleet plan equals its fleet-free plan; costs agree with
-the JAX package's ``_solve_kernel`` to 1e-9 relative.
+equal, and a fleet row is the fleet-free chain's buffer; kernel costs agree
+with the JAX package's ``_solve_kernel`` to 1e-9 relative. Each cell's
+``solve`` races its row against the host answer, as the reference's does: a
+row that ran out of slots with pods left loses.
 """
 
 import functools
@@ -76,15 +78,6 @@ def _ref_cost(cells_key):
     for r in range(rounds):
         _churn(cells, r)
     return TPUSolver(auto_mesh=False)._solve_kernel(_ref_encode(cells, provs, c)).cost
-
-
-def _plan(result):
-    nodes = sorted(
-        (n.option.instance_type.name, n.option.zone, n.option.capacity_type,
-         tuple(sorted(n.pod_names)))
-        for n in result.new_nodes
-    )
-    return nodes, sorted(result.unschedulable)
 
 
 def _leaves(solver, problem):
@@ -171,7 +164,9 @@ def test_pack_solve_fleet_matches_reference_row_by_row():
 def test_stage_fleet_device_and_host_stacks_match_serial_and_reference():
     """The controller's flow (per-cell solvers, prestage, stage_fleet,
     solve) over a seed round and a churn round, against the bench's fleet
-    arm (one shared solver, host-stacked) and each cell's fleet-free solve."""
+    arm (one shared solver, host-stacked) and each cell's fleet-free
+    chain; each cell's race takes the row only if it placed every pod and
+    beat the host answer."""
     n = 4
     cells, provs, catalog = _cells(n)
     clones = [TorchSolver(device="cpu") for _ in range(n)]
@@ -207,21 +202,32 @@ def test_stage_fleet_device_and_host_stacks_match_serial_and_reference():
 
         ref_cost = _ref_cost((n, 0 if rnd is None else rnd + 1, dirty[0]))
         for c, p, q in zip(dirty, problems, copies):
+            row = _buffer(p)
+            key = p.__dict__["_fleet_dispatch"].shared.key
+            fields, *members = clones[c]._prepare(p, bucket=key._replace(B=1))[:6]
+            alone = ts.pack_solve_fused(*ts.pack_inputs_from_numpy(
+                dict(fields, **dict(zip(MEMBERS, members))), "cpu"), key.S, key.Z).numpy()
+            assert np.array_equal(row, alone)  # the row is the fleet-free chain's buffer
             got = clones[c].solve(p)
-            assert "_fleet_dispatch" not in p.__dict__
-            assert got.stats["fleet_b"] == 4.0 and got.stats["backend"] == 1.0
-            serial = TorchSolver(device="cpu").solve(_encode(cells, provs, catalog, c))
-            assert "fleet_b" not in serial.stats
-            assert _plan(got) == _plan(serial) == _plan(shared.solve(q))
-            assert got.stats["fused_passes"] == serial.stats["fused_passes"]
-            assert validate(p, got) == []
-            assert got.cost == pytest.approx(ref_cost, rel=1e-9)
+            assert "_fleet_dispatch" not in p.__dict__ and p.__dict__["_fleet_b"] == 4
+            unplaced = int(row[3])
+            assert p.__dict__.get("_race_kernel_lost", False) == (got.stats["backend"] != 1.0)
+            if unplaced > 0:
+                assert got.stats["backend"] == 2.0  # the row lost to the host LP
+            elif got.stats["backend"] == 1.0:
+                assert got.stats["fleet_b"] == 4.0  # the row won its race
+            assert validate(p, got) == [] and validate(q, shared.solve(q)) == []
+            serial = TorchSolver(device="cpu")._solve_kernel(_encode(cells, provs, catalog, c))
+            assert serial.cost == pytest.approx(ref_cost, rel=1e-9)
 
 
-def test_exhausted_row_continues_per_cell_like_the_serial_solve():
+def test_exhausted_row_continues_per_cell_like_the_serial_solve(monkeypatch):
     """A slot budget far too small: every fleet row runs out of slots with
-    pods left over, goes on alone at twice the budget, and ends where the
-    fleet-free solve from the same budget ends."""
+    pods left over and loses its race to the host answer, with no second
+    pass, as the fleet-free race's exhausted dispatch does (and as the
+    reference's ``_poll_fleet`` does)."""
+    from karpenter_tpu_torch.solver import solver as solver_mod
+
     cells, provs, catalog = _cells(3)
     problems = [_encode(cells, provs, catalog, c) for c in range(3)]
     for p in problems:
@@ -229,21 +235,28 @@ def test_exhausted_row_continues_per_cell_like_the_serial_solve():
     solver = TorchSolver(device="cpu")
     stats = stage_fleet([(solver, p) for p in problems])
     assert stats["dispatches"] == 1 and stats["buckets"] == ["g16o512e1s16z4r3k8b4"]
+    chains = []
+    fused = solver_mod.pack_solve_fused
+    monkeypatch.setattr(solver_mod, "pack_solve_fused", lambda *a: chains.append(a) or fused(*a))
     for c, p in enumerate(problems):
+        assert int(_buffer(p)[3]) > 0  # the row left pods unplaced
         got = solver.solve(p)
-        assert got.stats["fleet_exhausted"] == 1.0 and got.stats["fused_passes"] >= 3
+        assert chains == []  # no second pass
+        assert got.stats["backend"] == 2.0 and p.__dict__["_race_kernel_lost"]
+        assert "fleet_b" not in got.stats and not got.unschedulable
+        assert validate(p, got) == []
         fresh = _encode(cells, provs, catalog, c)
         fresh.__dict__["_est_slots"] = (1 << 15, 16)
         serial = TorchSolver(device="cpu").solve(fresh)
-        assert _plan(got) == _plan(serial)
-        assert got.stats["slots"] == serial.stats["slots"]
-        assert got.stats["fused_passes"] == serial.stats["fused_passes"]
-        assert got.cost == pytest.approx(_ref_cost((3, 0, 0)), rel=1e-9)
+        assert len(chains) == 1  # the fleet-free race dispatches once, then loses alike
+        chains.clear()
+        assert serial.stats["backend"] == 2.0 and fresh.__dict__["_race_kernel_lost"]
+        assert validate(fresh, serial) == []
 
 
 def test_chunks_follow_max_batch():
     """Five same-bucket cells at max_batch=4: one B=4 dispatch and one lone
-    cell left to its own solve; every cell still solves alike."""
+    cell left to its own race; every cell's plan is valid."""
     cells, provs, catalog = _cells(5)
     problems = [_encode(cells, provs, catalog, c) for c in range(5)]
     solver = TorchSolver(device="cpu")
@@ -254,6 +267,7 @@ def test_chunks_follow_max_batch():
                      "buckets": ["g16o512e1s64z4r3k8b4"], "device_stacked": 0}
     assert [("_fleet_dispatch" in p.__dict__) for p in problems] == [True] * 4 + [False]
     assert stage_fleet([(solver, problems[4])])["dispatches"] == 0
-    results = [solver.solve(p) for p in problems]
-    assert [r.stats.get("fleet_b") for r in results] == [4.0] * 4 + [None]
-    assert len({round(r.cost, 9) for r in results}) == 1
+    assert [p.__dict__.get("_fleet_b") for p in problems] == [4] * 4 + [None]
+    assert [p.__dict__.get("_budget_share") for p in problems] == [0.25] * 4 + [None]
+    for p in problems:
+        assert validate(p, solver.solve(p)) == []

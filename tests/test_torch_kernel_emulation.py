@@ -1,7 +1,8 @@
 """The CUDA kernels' own source, run on the CPU.
 
-``csrc/pack_solve.cu`` and ``csrc/staging.cu`` are compiled with the host C++
-compiler against ``tests/cuda_emu/cuda_runtime.h``, which runs each block's
+``csrc/pack_solve.cu``, ``csrc/staging.cu`` and ``csrc/probe.cu`` are
+compiled with the host C++ compiler against ``tests/cuda_emu/cuda_runtime.h``,
+which runs each block's
 threads as OS threads with real barriers and warp exchanges, and with the
 blocks cut to 64 threads so that every block-wide scan and reduction spans
 several chunks. The kernels' launch entry points (``torch_solver._launch_*``,
@@ -247,3 +248,15 @@ def test_emulated_staging_kernels_match_plain_versions(emulated):
     assert set(got) == set(want)
     for name in want:
         assert torch.equal(got[name], want[name]), name
+
+
+def test_emulated_rtt_probe_matches_plain_version(emulated):
+    """``x + 1`` with int32 wrap-around, on the probe's own ``int32[8]``
+    (one block, most threads idle) and on 300 values (ten blocks of 32, the
+    last one partial)."""
+    rng = np.random.default_rng(5)
+    for n in (8, 300):
+        x = torch.from_numpy(rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32))
+        x[0], x[-1] = 2**31 - 1, -1
+        got = ts._launch_rtt_probe(emulated, x, NULL_STREAM)
+        assert torch.equal(got, ts.rtt_probe_ref(x)), n

@@ -9,8 +9,13 @@ CUDA card and nvcc, and imports nothing of JAX. Phases:
    library under ``build/kernels/`` (keyed by a hash of the sources);
 3. kernel parity: on each of the three flat problems below, at the slot
    budget its solve reaches, each packing kernel against its plain PyTorch
-   version on the card; then CUDA-event timings at the 50k_full shapes (one
-   warm-up, median of five);
+   version on the card; K2 again where its per-step state lies in global
+   memory: 10k_topology at S=8192, 50k_full at the least S whose state
+   does not fit beside the scan's static shared memory, and 10k_topology
+   with its staged groups in global memory too; K2's breakdown at 50k_full
+   and 10k_topology (phase 1, phase 1 without lookahead, phase 2, member by
+   member, and each of its two kernels from a profiler trace); then
+   CUDA-event timings at the 50k_full shapes (one warm-up, median of five);
 4. kernel-only solves: ``TorchSolver()._solve_kernel`` on 50k_full,
    10k_topology and 10k_crossgroup must validate and cost what the JAX
    package's kernel computes (the pinned costs);
@@ -186,14 +191,7 @@ def check(ts, name, problem, solver) -> dict:
     mk2 = ts.pack_member(inputs, sk, o, a, l, r, S, nz, swaps=sw, seed_costs=mk.cost)
     o2, a2, l2, r2 = ts.phase2_members(o, a, l, r, sw, mk.cost)
     mr2 = ts.pack_member_ref(inputs, sk, o2, a2, l2, r2, S, nz)
-    k2_err = 0.0
-    for tag, x, y in (("phase 1", mk, mr), ("phase 2", mk2, mr2)):
-        for f in ("unplaced", "exhausted", "new_opt", "new_active", "ys"):
-            if not torch.equal(getattr(x, f), getattr(y, f)):
-                raise AssertionError(f"{name}: K2 {tag} {f} differs from the plain version")
-        if not torch.allclose(x.cost, y.cost, rtol=MEMBER_COST_RTOL, atol=0):
-            raise AssertionError(f"{name}: K2 {tag} costs {x.cost.tolist()} vs {y.cost.tolist()}")
-        k2_err = max(k2_err, max_err(x.cost, y.cost))
+    k2_err = max(hold_members(f"{name} phase 1", mk, mr), hold_members(f"{name} phase 2", mk2, mr2))
 
     # K3
     bk = ts.pack_epilogue(mk, mk2)
@@ -289,6 +287,158 @@ def timings(ts, c: dict, errs: dict) -> list:
         }
         for name in ms
     ]
+
+
+def hold_members(tag, got, want) -> float:
+    """K2's outputs against the plain version's: integers equal, member costs
+    within MEMBER_COST_RTOL. Returns the largest cost difference."""
+    import torch
+
+    for f in ("unplaced", "exhausted", "new_opt", "new_active", "ys"):
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"{tag}: K2 {f} differs from the plain version")
+    if not torch.allclose(got.cost, want.cost, rtol=MEMBER_COST_RTOL, atol=0):
+        raise AssertionError(f"{tag}: K2 costs {got.cost.tolist()} vs {want.cost.tolist()}")
+    return max_err(got.cost, want.cost)
+
+
+def first_spill_s(ts, lib, inputs) -> int:
+    """The least slot budget at which K2's per-step state no longer fits in
+    the card's shared memory beside the scan's static shared memory."""
+    G, O, E, R, Z = ts._dims(inputs)
+    lo, hi = 1, 1 << 16  # the state fits at lo, not at hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if ts.pack_member_scratch(lib, G, O, R, Z, E + mid) else (mid, hi)
+    return hi
+
+
+def least_smem_limit(ts, lib, inputs, S: int) -> int:
+    """The least shared memory a block under which K2 still has a plan: its
+    partials alone in shared memory, the staged groups and the per-step
+    state in global scratch."""
+    G, O, E, R, Z = ts._dims(inputs)
+    lo, hi = 0, 1 << 18  # no plan at lo, one at hi
+
+    def fits(limit):
+        try:
+            ts.pack_member_scratch(lib, G, O, R, Z, E + S, limit)
+            return True
+        except RuntimeError:
+            return False
+
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if fits(mid) else (mid, hi)
+    return hi
+
+
+def k2_global_check(ts, problems, solver) -> float:
+    """K2 with its scan's memory partly in global memory, both phases
+    against the plain version: 10k_topology at S=8192 (the per-step state
+    there); 50k_full at the least S whose state does not fit in shared
+    memory (an S at which the scan's memory fits only if its static shared
+    memory is left out); and 10k_topology at S=1024 planned against the
+    least shared memory that has a plan (the staged groups there too, as
+    for more groups than a block's shared memory holds). Returns the largest
+    cost difference."""
+    from karpenter_tpu_torch.solver import _build
+
+    lib = _build.load_kernels()
+    err = 0.0
+    for name, S, least in (("10k_topology", 8192, False), ("50k_full", None, False),
+                           ("10k_topology", 1024, True)):
+        inputs, o, a, l, r, sw = device_problem(ts, solver, problems[name][0])
+        G, O, E, R, Z = ts._dims(inputs)
+        S = S or first_spill_s(ts, lib, inputs)
+        limit = least_smem_limit(ts, lib, inputs, S) if least else None
+        scratch = ts.pack_member_scratch(lib, G, O, R, Z, E + S, limit)
+        if not scratch:
+            raise AssertionError(f"{name} S={S}: K2's scan memory fits in shared memory")
+        sk = ts.shared_precompute(inputs, S, Z)
+        m1 = ts._launch_pack_member(lib, inputs, sk, o, a, l, r, S, None, None, ts._stream(),
+                                    smem_limit=limit)
+        m2 = ts._launch_pack_member(lib, inputs, sk, o, a, l, r, S, sw, m1.cost, ts._stream(),
+                                    smem_limit=limit)
+        where = f"{name} S={S}" + (f" in {limit} B of shared memory" if least else "")
+        err = max(err, hold_members(f"{where}, phase 1", m1,
+                                    ts.pack_member_ref(inputs, sk, o, a, l, r, S, Z)))
+        o2, a2, l2, r2 = ts.phase2_members(o, a, l, r, sw, m1.cost)
+        err = max(err, hold_members(f"{where}, phase 2", m2,
+                                    ts.pack_member_ref(inputs, sk, o2, a2, l2, r2, S, Z)))
+        log(f"k2 global memory: {where} ({scratch} bytes of global scratch a member): "
+            f"both phases equal to the plain version, max_abs_err={err}")
+    return err
+
+
+def k2_parts_ms(fn, calls: int = 10) -> dict:
+    """Device ms per call of each ``__global__`` kernel ``fn`` launches, by
+    name, from a ``torch.profiler`` trace of ``calls`` calls (after one
+    warm-up); empty when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
+        for part in ("k2_prices", "k2_scan"):
+            if part in ev.key and us:
+                out[part] = out.get(part, 0.0) + us / 1e3 / calls
+    return out
+
+
+def k2_breakdown(ts, problems, solver) -> dict:
+    """K2's time split at 50k_full and 10k_topology, each at the slot budget
+    its solve reaches: phase 1 as the portfolio has it, phase 1 with every
+    ``looks`` flag false (the lookahead prices' share), phase 2 seeded by
+    phase 1's costs, and phase 1 one member at a time; then each phase's
+    two kernels (the lookahead prices, the scan) alone, from a profiler
+    trace. Returns the times."""
+    from karpenter_tpu_torch.solver import _build
+
+    out = {}
+    for name in ("50k_full", "10k_topology"):
+        problem = problems[name][0]
+        _, orders, _, _, _, swaps, s_new, nz = solver._prepare(problem)
+        tensors = device_problem(ts, solver, problem)
+        _, S, _ = solver._run_fused(tensors, orders, swaps, s_new, nz)
+        inputs, o, a, l, r, sw = tensors
+        sk = ts.shared_precompute(inputs, S, nz)
+        m1 = ts.pack_member(inputs, sk, o, a, l, r, S, nz)
+        no_look = l.clone().fill_(False)
+        t = {
+            "phase1": time_ms(lambda: ts.pack_member(inputs, sk, o, a, l, r, S, nz)),
+            "phase1_no_look": time_ms(lambda: ts.pack_member(inputs, sk, o, a, no_look, r, S, nz)),
+            "phase2": time_ms(lambda: ts.pack_member(inputs, sk, o, a, l, r, S, nz, swaps=sw,
+                                                     seed_costs=m1.cost)),
+        }
+        t["members"] = [
+            time_ms(lambda: ts.pack_member(inputs, sk, o[k:k + 1], a[k:k + 1], l[k:k + 1],
+                                           r[k:k + 1], S, nz), reps=3)
+            for k in range(o.shape[0])
+        ]
+        t["parts1"] = k2_parts_ms(lambda: ts.pack_member(inputs, sk, o, a, l, r, S, nz))
+        t["parts2"] = k2_parts_ms(lambda: ts.pack_member(inputs, sk, o, a, l, r, S, nz, swaps=sw,
+                                                         seed_costs=m1.cost))
+        steps = int((inputs.count > 0).sum())
+        G, O, E, R, Z = ts._dims(inputs)
+        scratch = ts.pack_member_scratch(_build.load_kernels(), G, O, R, Z, E + S)
+        log(f"k2 plan {name}: {scratch} bytes of global scratch a member "
+            f"({'none: all in shared memory' if not scratch else 'the rest in shared memory'})")
+        log(f"k2 breakdown {name} (S={S}, {steps} steps with pods, looks {l.tolist()}): phase 1 "
+            f"{t['phase1']:.4f} ms, without lookahead {t['phase1_no_look']:.4f} ms, phase 2 "
+            f"{t['phase2']:.4f} ms; phase 1 member by member "
+            f"{[round(x, 4) for x in t['members']]} ms; by kernel (profiler, ms a call) phase 1 "
+            f"{t['parts1'] or 'no device time traced'}, phase 2 "
+            f"{t['parts2'] or 'no device time traced'}")
+        out[name] = dict(t, S=S, steps=steps)
+    return out
 
 
 def kernel_only(ts, problems, configs) -> None:
@@ -556,12 +706,7 @@ def fleet_check(ts, st, configs, cells, provs, catalog) -> dict:
         o2, a2, l2, r2 = ts.phase2_members(o[b], a[b], l[b], r[b], sw[b], mk.cost[b])
         mr2 = ts.pack_member_ref(row, skb, o2, a2, l2, r2, S, nz)
         for tag, x, y in (("phase 1", ts._row(mk, b), mr), ("phase 2", ts._row(mk2, b), mr2)):
-            for f in ("unplaced", "exhausted", "new_opt", "new_active", "ys"):
-                if not torch.equal(getattr(x, f), getattr(y, f)):
-                    raise AssertionError(f"fleet row {b}: batched K2 {tag} {f} differs")
-            if not torch.allclose(x.cost, y.cost, rtol=MEMBER_COST_RTOL, atol=0):
-                raise AssertionError(f"fleet row {b}: batched K2 {tag} costs differ")
-            k2_err = max(k2_err, max_err(x.cost, y.cost))
+            k2_err = max(k2_err, hold_members(f"fleet row {b}, batched {tag}", x, y))
         if not torch.equal(bk[b], ts.pack_epilogue_ref(ts._row(mk, b), ts._row(mk2, b))):
             raise AssertionError(f"fleet row {b}: batched K3 buffer differs from the plain version")
         if not torch.equal(fleet[b], ts.pack_solve_fused(*batch[b], S, nz)):
@@ -895,6 +1040,8 @@ def main() -> int:
     solver = TorchSolver()
     checked = {name: check(ts, name, problem, solver) for name, (problem, _) in problems.items()}
     errs = {k: max(c["errs"][k] for c in checked.values()) for k in checked["50k_full"]["errs"]}
+    errs["pack_member"] = max(errs["pack_member"], k2_global_check(ts, problems, solver))
+    k2_breakdown(ts, problems, solver)
     kernels = timings(ts, checked.pop("50k_full"), errs)
     del checked
     kernel_only(ts, problems, configs)

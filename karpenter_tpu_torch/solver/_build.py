@@ -34,8 +34,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # 19 pointers, B G O E R Z S, stream
     "kts_shared_precompute": [_P] * 19 + [_I] * 7 + [_P],
-    # 43 pointers, B K G O E R Z S, stream
-    "kts_pack_member": [_P] * 43 + [_I] * 8 + [_P],
+    # 40 pointers, B K G O E R Z S smem_limit, stream
+    "kts_pack_member": [_P] * 40 + [_I] * 9 + [_P],
     # 13 pointers, B K T NS S, stream
     "kts_pack_epilogue": [_P] * 13 + [_I] * 5 + [_P],
     # dst, src, idx, n, row_bytes, stream
@@ -101,6 +101,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.kts_error_string.argtypes = [ctypes.c_int]
     lib.kts_error_string.restype = ctypes.c_char_p
+    # G O R Z NS smem_limit -> bytes of scratch a member
+    lib.kts_pack_member_scratch.argtypes = [_I] * 6
+    lib.kts_pack_member_scratch.restype = _L
     return lib
 
 

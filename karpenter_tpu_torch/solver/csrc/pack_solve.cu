@@ -4,7 +4,9 @@
 //
 //   K1 shared_precompute  <- _shared_precompute (jax_solver.py:193-281)
 //   K2 pack_member        <- _pack_member under vmap (jax_solver.py:295-535),
-//                            launched once per search phase
+//                            launched once per search phase as two kernels:
+//                            k2_prices (the lookahead members' prices, grid
+//                            wide) then k2_scan (one block per member)
 //   K3 pack_epilogue      <- the argmin and buffer packing of
 //                            _pack_solve_fused_impl (jax_solver.py:538-604)
 //
@@ -15,10 +17,10 @@
 // Batch axis. Every entry takes B stacked problems of one shape and solves
 // them in the same four launches: this is the fleet dispatch of the sharded
 // round (pack_solve_fleet, jax_solver.py:615-643, which runs the B=1 program
-// under vmap). Each block finds its row b (blockIdx.z for K1's two passes,
-// blockIdx.y for K2's (K, B) grid, blockIdx.x for K3's B blocks) and offsets
-// every input, output and scratch pointer by that row's size_t stride
-// (k1_row, k2_row, k3_row); the rest of the code is the B=1 code, so row b of
+// under vmap). Each block finds its row b (blockIdx.z for K1's two passes and
+// k2_prices, blockIdx.y for k2_scan's (K, B) grid, blockIdx.x for K3's B
+// blocks) and offsets every input, output and scratch pointer by that row's
+// size_t stride (k1_row, k2_row, k3_row); the rest is the B=1 code, so row b of
 // a batch computes what a B=1 launch of problem b computes, bit for bit.
 // Nothing is shared between rows: phase 2 takes the argmin of its own row's
 // phase-1 costs, and K3 reads only its own row's members.
@@ -35,6 +37,8 @@
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include <mutex>
 
 namespace {
 
@@ -55,7 +59,8 @@ constexpr int kIntMax = 0x7fffffff;
 constexpr unsigned kFull = 0xffffffffu;
 
 constexpr int kK1Threads = 256;
-constexpr int kK2Threads = 1024;
+constexpr int kK2Threads = 1024;       // K2's scan: one block per (member, row)
+constexpr int kK2PriceThreads = 256;   // K2's lookahead prices
 constexpr int kK3Threads = 1024;
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
@@ -140,60 +145,6 @@ __device__ float block_min(float v, Scratch& sh) {
   const float r = sh.f[32];
   __syncthreads();
   return r;
-}
-
-// Index of the largest value, lowest index on ties.
-__device__ int block_argmax(float v, int i, Scratch& sh) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) {
-    const float v2 = __shfl_xor_sync(kFull, v, o);
-    const int i2 = __shfl_xor_sync(kFull, i, o);
-    arg_better(v, i, v2, i2);
-  }
-  if (lane == 0) {
-    sh.f[wid] = v;
-    sh.i[wid] = i;
-  }
-  __syncthreads();
-  if (wid == 0) {
-    float x = lane < nw ? sh.f[lane] : neg_inf();
-    int j = lane < nw ? sh.i[lane] : kIntMax;
-    for (int o = 16; o > 0; o >>= 1) {
-      const float x2 = __shfl_xor_sync(kFull, x, o);
-      const int j2 = __shfl_xor_sync(kFull, j, o);
-      arg_better(x, j, x2, j2);
-    }
-    if (lane == 0) sh.i[32] = j;
-  }
-  __syncthreads();
-  const int r = sh.i[32];
-  __syncthreads();
-  return r;
-}
-
-// Inclusive prefix sum over the block; *total gets the block's sum.
-__device__ int block_scan(int v, Scratch& sh, int* total) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  unsigned x = static_cast<unsigned>(v);
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) sh.i[wid] = static_cast<int>(x);
-  __syncthreads();
-  if (wid == 0) {
-    unsigned w = lane < nw ? static_cast<unsigned>(sh.i[lane]) : 0u;
-    for (int o = 1; o < 32; o <<= 1) {
-      const unsigned y = __shfl_up_sync(kFull, w, o);
-      if (lane >= o) w += y;
-    }
-    sh.i[lane] = static_cast<int>(w);
-  }
-  __syncthreads();
-  if (wid > 0) x += static_cast<unsigned>(sh.i[wid - 1]);
-  *total = sh.i[nw - 1];
-  __syncthreads();
-  return static_cast<int>(x);
 }
 
 __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }  // a >= 0, b >= 1
@@ -398,16 +349,52 @@ struct K2Args {
   int* new_opt;                 // [K, S]
   bool* new_active;             // [K, S]
   int* ys;                      // [K, T=G, E+S]
-  int* order_s;                 // scratch [K, G]
-  int* pos_s;                   // scratch [K, G]
-  float* price_t;               // scratch [K, G, O]
-  float* slot_rem;              // scratch [K, E+S, R]
-  int* slot_i;                  // scratch [K, 6, E+S]
+  float* price_t;               // scratch [K, G, O], written for lookahead members only
+  unsigned char* state;         // scratch [K, k2_scratch_bytes], or null when spill is 0
+  int spill;                    // what the scan keeps in global scratch (k2_plan)
   int K, G, O, E, R, Z, S;
 };
 
+// Per-group words staged in shared memory by the scan's prologue.
+enum { kGiCount, kGiCap, kGiColoc, kGiHostForbid, kGiHostNeed, kGiZoneForbid, kGiZoneNeed,
+       kGiSet, kGiZoneLimited, kGiRsvGroup, kGi };
+
+__host__ __device__ __forceinline__ size_t round16(size_t b) { return (b + 15) & ~static_cast<size_t>(15); }
+
+// Words of one slot's record in the scan's per-step state: opt, zone, bits,
+// fit, place, active, then rem[R].
+enum { kSlOpt, kSlZone, kSlBits, kSlFit, kSlPlace, kSlAct, kSlRem };
+
+// The scan's memory is three regions, in this order: the per-warp partials of
+// the option rounds, the staged groups (with the scan order), and the
+// per-step state. The partials are always in dynamic shared memory; what
+// does not fit beside them under the card's limit goes to global scratch,
+// the state first (spill 1), then the groups too (spill 2), and the same
+// code runs on it (k2_plan).
+__host__ __device__ __forceinline__ size_t k2_partial_bytes(int Z, int nw) {
+  return static_cast<size_t>(nw) * (Z + 1) * 12 * 4;
+}
+
+__host__ __device__ __forceinline__ size_t k2_group_bytes(int G, int R, int Z) {
+  return round16(static_cast<size_t>(G) * (1 + kGi + 2 * R + Z) * 4);
+}
+
+// One member's per-step state: the step's option scores [O][lump (then tail),
+// rate] f32, each written and read by the thread that owns the option (o =
+// tid + j * blockDim); then the slots' records [NS][kSlRem + R].
+__host__ __device__ __forceinline__ size_t k2_state_bytes(int NS, int R, int O) {
+  return round16(8 * static_cast<size_t>(O)) + round16(static_cast<size_t>(NS) * (kSlRem + R) * 4);
+}
+
+// One member's global scratch under a spill level.
+__host__ __device__ __forceinline__ size_t k2_scratch_bytes(int spill, int G, int O, int R, int Z,
+                                                            int NS) {
+  return (spill >= 2 ? k2_group_bytes(G, R, Z) : 0) + (spill >= 1 ? k2_state_bytes(NS, R, O) : 0);
+}
+
 // K2Args of batch row b: every array advanced by b times its per-row size.
-// Phase 1 passes null swaps and seed_costs, which stay null.
+// Phase 1 passes null swaps and seed_costs, and a scan with nothing in global
+// scratch a null state; those stay null.
 __device__ __forceinline__ K2Args k2_row(K2Args a, size_t b) {
   const size_t K = a.K, G = a.G, O = a.O, E = a.E, R = a.R, Z = a.Z, S = a.S, NS = a.E + a.S;
   a.demand += b * G * R;
@@ -448,436 +435,615 @@ __device__ __forceinline__ K2Args k2_row(K2Args a, size_t b) {
   a.new_opt += b * K * S;
   a.new_active += b * K * S;
   a.ys += b * K * G * NS;
-  a.order_s += b * K * G;
-  a.pos_s += b * K * G;
   a.price_t += b * K * G * O;
-  a.slot_rem += b * K * NS * R;
-  a.slot_i += b * K * 6 * NS;
+  if (a.state != nullptr) a.state += b * K * k2_scratch_bytes(a.spill, a.G, a.O, a.R, a.Z, NS);
   return a;
 }
 
-// K2 replaces _pack_member (jax_solver.py:295-535) for K members at once:
-// one block per (member k, batch row b). The prologue derives the member's scan order (phase
-// 2: orders[argmin(phase-1 costs)][swaps[k]], on the device, so the phases
-// need no host sync) and builds price_t[T, O] (:318-328) into global scratch;
-// then the block runs the T steps of the scan with slot state in global
-// scratch. Cumsums over slots are chunked block scans with a carried prefix;
-// each argmin is a min reduction then a (value, index) argmax over the
-// candidates, lower index on ties.
-//
-// Bound: bytes, by the prologue's read of val_pair[order] (16 MB per member at
-// 50k_full, read only by lookahead members); the scan itself is latency-bound
-// -- T dependent steps of block reductions on K*B of the 132 SMs. What the
-// design does about that: members and batch rows run concurrently, one block
-// per SM, so a fleet of B rows costs about what one row costs while K*B <= 132; steps of
-// groups with no pods, buckets with no want and tails with no remainder are
-// skipped (their results are never read); the step state is kept to a few
-// small vectors so each step is a handful of barriers.
-__global__ void __launch_bounds__(kK2Threads) k2_pack_member(K2Args p) {
+// The member whose scoring config member k runs under: k itself in phase 1,
+// the phase-1 winner (argmin, first index on ties) in phase 2.
+__device__ __forceinline__ int k2_source(const K2Args& a, int k) {
+  if (a.seed_costs == nullptr) return k;
+  float best = a.seed_costs[0];
+  int src = 0;
+  for (int j = 1; j < a.K; ++j)
+    if (a.seed_costs[j] < best) {
+      best = a.seed_costs[j];
+      src = j;
+    }
+  return src;
+}
+
+// Member k's group at step t: phase 2 permutes the winner's order by swaps[k].
+__device__ __forceinline__ int k2_order(const K2Args& a, int k, int src, int t) {
+  return a.seed_costs != nullptr ? a.orders[(size_t)src * a.G + a.swaps[(size_t)k * a.G + t]]
+                                 : a.orders[(size_t)k * a.G + t];
+}
+
+// Issue a load of one line into L1 and go on: the next step's option rows
+// arrive while this step works.
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+#ifdef __CUDA_ARCH__
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+#endif
+}
+
+// A float's bits as an int of the same order (the kernels make no NaN), so
+// that a warp's min and max are one redux.sync each.
+__device__ __forceinline__ int ordered(float f) {
+  const int i = __float_as_int(f);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+__device__ __forceinline__ float unordered(int i) { return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff); }
+
+__device__ __forceinline__ float warp_min_r(float v) {
+  return unordered(__reduce_min_sync(kFull, ordered(v)));
+}
+
+// The warp's largest (v, i), lowest i on ties: what arg_better keeps.
+__device__ __forceinline__ void warp_argmax_r(float& v, int& i) {
+  const int m = __reduce_max_sync(kFull, ordered(v));
+  i = __reduce_min_sync(kFull, ordered(v) == m ? i : kIntMax);
+  v = unordered(m);
+}
+
+// Inclusive prefix sums over the warp; unsigned, so they wrap like XLA's int32 sums.
+template <class T>
+__device__ __forceinline__ T warp_scan(T x) {
+  const int lane = threadIdx.x & 31;
+  for (int o = 1; o < 32; o <<= 1) {
+    const T y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  return x;
+}
+
+
+// K2a replaces the lookahead prices of _pack_member (jax_solver.py:318-328):
+// price_t[k, t, o] = max(price[o] - 0.9 * max over the groups g' after step t
+// of val_pair[order[t], o, g'], 0.25 * price[o]). Grid (tiles of T*O, K, B),
+// one thread per (t, o). Each block derives its member's scan order and
+// positions itself, in dynamic shared memory; the blocks of members that do
+// not look ahead return at once, and the scan then reads price directly.
+// Bound: bytes, the val_pair rows of the lookahead members (16.8 MB each at
+// 50k_full), which K1 has just written and the 50 MB L2 still holds; read by
+// the whole card rather than through one SM per member.
+__global__ void __launch_bounds__(kK2PriceThreads) k2_prices(K2Args p) {
+  extern __shared__ __align__(16) unsigned char k2p_dyn[];
+  __shared__ int s_src, s_look;
+  const K2Args a = k2_row(p, blockIdx.z);
+  const int k = blockIdx.y, G = a.G, O = a.O;
+  if (threadIdx.x == 0) {
+    const int src = k2_source(a, k);
+    s_src = src;
+    s_look = a.looks[src];
+  }
+  __syncthreads();
+  if (!s_look) return;
+  const int src = s_src;
+  int* order = reinterpret_cast<int*>(k2p_dyn);
+  int* pos = order + G;
+  for (int t = threadIdx.x; t < G; t += blockDim.x) order[t] = k2_order(a, k, src, t);
+  __syncthreads();
+  for (int t = threadIdx.x; t < G; t += blockDim.x) pos[order[t]] = t;
+  __syncthreads();
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)G * O) return;
+  const int t = static_cast<int>(i / O), o = static_cast<int>(i % O);
+  const float pr = a.price[o];
+  const float* vp = a.val_pair + ((size_t)order[t] * O + o) * G;
+  float m = 0.0f;
+  if ((G & 3) == 0) {
+    for (int g2 = 0; g2 < G; g2 += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(vp + g2);
+      if (pos[g2] > t) m = fmaxf(m, v.x);
+      if (pos[g2 + 1] > t) m = fmaxf(m, v.y);
+      if (pos[g2 + 2] > t) m = fmaxf(m, v.z);
+      if (pos[g2 + 3] > t) m = fmaxf(m, v.w);
+    }
+  } else {
+    for (int g2 = 0; g2 < G; ++g2)
+      if (pos[g2] > t) m = fmaxf(m, vp[g2]);
+  }
+  a.price_t[(size_t)k * G * O + i] = fmaxf(__fmaf_rn(m, -kDiscount, pr), kFloor * pr);
+}
+
+// K2b replaces the scan of _pack_member (jax_solver.py:330-535): one block per
+// (member k, batch row b) runs the T steps. Bound: latency, T dependent steps
+// of block-wide rounds on K*B SMs (the bytes it must move take ~2 us at
+// 50k_full); on the card each step costs the length of its instruction path,
+// every warp walking it (PERF.md, K2 findings). What the design does about it:
+//  - state on chip: each thread owns a contiguous run of slots, whose records
+//    only it touches, in dynamic shared memory (in global scratch through the
+//    same code when they do not fit); the groups' scalars, demand and quota
+//    rows are staged in shared memory once, so no step waits on a global load
+//    before its first round, and the next step's option rows are prefetched.
+//    Groups too many for shared memory are staged in global scratch by the
+//    instance kGroupsShared = false, the same code with generic pointers to
+//    them (which in the other instance would cost registers and spills);
+//  - one barrier per round, never a broadcast: a round writes per-warp
+//    partials, and after its barrier every warp reduces them itself, lanes
+//    over warps, each reduction one redux.sync; every thread derives the
+//    wants, and the placed and opened counts, from the rounds' totals. A step
+//    with pods is one scan of (fit, free) over the slots, the lump and rate
+//    minima of every bucket, their argmaxes, the tail's minimum and argmax
+//    (only when a bucket has a remainder), and the segments (warp 0): 6
+//    barriers, 4 without a tail (and a zone-quota scan and a placed-per-zone
+//    sum for zone-limited groups, a barrier before reading zone bits for
+//    relation groups), where a block reduction per choice took ~48;
+//  - a short path: the four option rounds are one loop, emitted once, and the
+//    minimum rounds keep each option's scores so that the argmax rounds
+//    divide nothing.
+// Every min, argmax and int32 sum is exact and order-free, so the outputs
+// are the plain version's bit for bit; the member cost is an f32 sum in
+// block order.
+template <bool kGroupsShared>
+__global__ void __launch_bounds__(kK2Threads) k2_scan(K2Args p) {
+  extern __shared__ __align__(16) unsigned char k2_dyn[];
   __shared__ Scratch sh;
-  __shared__ float s_d[kMaxR], s_dfit[kMaxR];
-  __shared__ int s_q[kMaxZ], s_zone_bits[kMaxZ], s_placed_z[kMaxZ], s_zhit[kMaxZ];
-  __shared__ int s_want[kMaxZb];
-  __shared__ int s_o_lump[kMaxZb], s_o_rate[kMaxZb], s_o_tail[kMaxZb];
-  __shared__ float s_c_lump[kMaxZb], s_b_rate[kMaxZb], s_b_tail[kMaxZb];
-  __shared__ int s_seg_opt[kMaxSeg], s_seg_c[kMaxSeg], s_seg_want[kMaxSeg], s_seg_start[kMaxSeg];
-  __shared__ int s_g, s_cnt, s_cap, s_coloc, s_hf, s_hn, s_zf, s_zn, s_zl, s_sm;
-  __shared__ int s_left, s_total_open, s_src, s_look, s_rsv, s_unplaced, s_exhausted;
+  __shared__ int zbits[kMaxZ], placed_z[kMaxZ];
+  __shared__ int seg_opt[kMaxSeg], seg_c[kMaxSeg], seg_want[kMaxSeg], seg_start[kMaxSeg];
+  __shared__ unsigned s_scan_f[32];
+  __shared__ int s_scan_free[32], s_scan_high[32];
+  __shared__ int s_src, s_look, s_rsv, s_total_open, s_opened;
   __shared__ float s_alpha;
 
   const K2Args a = k2_row(p, blockIdx.y);
-  const int k = blockIdx.x, tid = threadIdx.x, B = blockDim.x;
+  const int k = blockIdx.x, tid = threadIdx.x, BT = blockDim.x;
+  const int lane = tid & 31, wid = tid >> 5, nw = BT >> 5;
   const int G = a.G, O = a.O, E = a.E, R = a.R, Z = a.Z, Zb = a.Z + 1;
   const int NS = a.E + a.S, nseg = 2 * Zb;
-  const bool phase2 = a.seed_costs != nullptr;
-  int* order = a.order_s + (size_t)k * G;
-  int* pos = a.pos_s + (size_t)k * G;
-  float* price_t = a.price_t + (size_t)k * G * O;
-  float* rem = a.slot_rem + (size_t)k * NS * R;
-  int* sopt = a.slot_i + (size_t)k * 6 * NS;
-  int* szone = sopt + NS;
-  int* sact = szone + NS;
-  int* sbits = sact + NS;
-  int* sfit = sbits + NS;
-  int* splace = sfit + NS;
-  int* ys = a.ys + (size_t)k * G * NS;
 
-  // ---- prologue: scan order, scoring config, lookahead prices, slot state ----
+  // ---- carve the dynamic shared memory ----
+  // per-warp partials of the option rounds, [lump and rate, then tail][nw][Zb][2]:
+  // the minima, and the argmaxes' values and indices
+  float* pmin = reinterpret_cast<float*>(k2_dyn);
+  float* pargv = pmin + (size_t)nw * Zb * 4;
+  int* pargi = reinterpret_cast<int*>(pargv + (size_t)nw * Zb * 4);
+  unsigned* zpart = reinterpret_cast<unsigned*>(pmin);  // [nw][Z], the zone-quota scan's partials
+  auto pidx = [&](int w, int b, int j) { return (w * Zb + b) * 2 + j; };
+  // the groups and the state follow in shared memory, or start this member's
+  // global scratch as far as they spill
+  unsigned char* gl = a.state != nullptr ? a.state + (size_t)k * k2_scratch_bytes(a.spill, G, O, R, Z, NS)
+                                         : nullptr;
+  unsigned char* groups = kGroupsShared ? k2_dyn + k2_partial_bytes(Z, nw) : gl;
+  unsigned char* state = a.spill == 1 ? gl : groups + k2_group_bytes(G, R, Z);
+  int* order = reinterpret_cast<int*>(groups);
+  int* gi = order + G;
+  float* gd = reinterpret_cast<float*>(gi + (size_t)G * kGi);
+  float* gdu = gd + (size_t)G * R;
+  int* gq = reinterpret_cast<int*>(gdu + (size_t)G * R);
+  float* sc = reinterpret_cast<float*>(state);  // [O][lump or tail, rate]
+  int* slots = reinterpret_cast<int*>(state + round16(8 * static_cast<size_t>(O)));
+  const int W = kSlRem + R;
+  auto slot = [&](int s) { return slots + (size_t)s * W; };
+  auto srem = [&](int s) { return reinterpret_cast<float*>(slots + (size_t)s * W + kSlRem); };
+  // this thread's slots [s0, s1): NS/BT of them or one more, so every warp
+  // holds slots however small NS is
+  const int s0 = static_cast<int>((long long)tid * NS / BT);
+  const int s1 = static_cast<int>((long long)(tid + 1) * NS / BT);
+
+  // ---- prologue: scoring config, staged groups, slot state, scan order ----
   if (tid == 0) {
-    int src = k;
-    if (phase2) {  // phase-1 winner: argmin, first index on ties
-      float best = a.seed_costs[0];
-      src = 0;
-      for (int j = 1; j < a.K; ++j)
-        if (a.seed_costs[j] < best) {
-          best = a.seed_costs[j];
-          src = j;
-        }
-    }
+    const int src = k2_source(a, k);
     s_src = src;
     s_alpha = a.alphas[src];
     s_look = a.looks[src];
     s_rsv = a.rsvs[src];
-    s_unplaced = 0;
-    s_exhausted = 0;
+  }
+  for (int g = tid; g < G; g += BT) {
+    int* w = gi + (size_t)g * kGi;
+    w[kGiCount] = a.count[g];
+    w[kGiCap] = a.node_cap[g];
+    w[kGiColoc] = a.colocate[g];
+    w[kGiHostForbid] = a.rel_host_forbid[g];
+    w[kGiHostNeed] = a.rel_host_need[g];
+    w[kGiZoneForbid] = a.rel_zone_forbid[g];
+    w[kGiZoneNeed] = a.rel_zone_need[g];
+    w[kGiSet] = a.rel_set[g];
+    w[kGiZoneLimited] = a.zone_limited[g];
+    w[kGiRsvGroup] = a.rsv_group[g];
+  }
+  for (int i = tid; i < G * R; i += BT) {
+    gd[i] = a.demand[i];
+    gdu[i] = a.demand_units[i];
+  }
+  for (int i = tid; i < G * Z; i += BT) gq[i] = a.quota[i];
+  for (int z = tid; z < Z; z += BT) zbits[z] = a.rel_zone_bits[z];
+  for (int s = s0; s < s1; ++s) {
+    const bool ex = s < E;
+    for (int r = 0; r < R; ++r) srem(s)[r] = ex ? a.ex_rem[(size_t)s * R + r] : 0.0f;
+    slot(s)[kSlOpt] = -1;
+    slot(s)[kSlZone] = ex ? a.ex_zone[s] : 0;
+    slot(s)[kSlAct] = ex ? static_cast<int>(a.ex_valid[s]) : 0;
+    slot(s)[kSlBits] = ex ? a.rel_slot_bits[s] : 0;
   }
   __syncthreads();
   const int src = s_src;
-  const bool look = s_look, rsv = s_rsv;
-  const float alpha = s_alpha;
-  for (int t = tid; t < G; t += B) {
-    order[t] = phase2 ? a.orders[(size_t)src * G + a.swaps[(size_t)k * G + t]]
-                      : a.orders[(size_t)k * G + t];
-    pos[t] = 0;
-  }
+  const bool look = s_look, rsv = s_rsv, prefer_big = s_alpha >= 1.0f;
+  for (int t = tid; t < G; t += BT) order[t] = k2_order(a, k, src, t);
   __syncthreads();
-  for (int t = tid; t < G; t += B) pos[order[t]] = t;
-  __syncthreads();
-  for (size_t i = tid; i < (size_t)G * O; i += B) {
-    const int t = static_cast<int>(i / O), o = static_cast<int>(i % O);
-    const float p = a.price[o];
-    float v = p;
-    if (look) {
-      // price minus the discounted residual value to groups later in the order
-      const float* vp = a.val_pair + ((size_t)order[t] * O + o) * G;
-      float m = 0.0f;
-      for (int g2 = 0; g2 < G; ++g2)
-        if (pos[g2] > t) m = fmaxf(m, vp[g2]);
-      v = fmaxf(__fmaf_rn(m, -kDiscount, p), kFloor * p);
-    }
-    price_t[i] = v;
-  }
-  for (int s = tid; s < NS; s += B) {
-    const bool ex = s < E;
-    for (int r = 0; r < R; ++r) rem[(size_t)s * R + r] = ex ? a.ex_rem[(size_t)s * R + r] : 0.0f;
-    sopt[s] = -1;
-    szone[s] = ex ? a.ex_zone[s] : 0;
-    sact[s] = ex ? static_cast<int>(a.ex_valid[s]) : 0;
-    sbits[s] = ex ? a.rel_slot_bits[s] : 0;
-  }
-  for (int z = tid; z < Z; z += B) s_zone_bits[z] = a.rel_zone_bits[z];
-  __syncthreads();
+
+  const int* units_base = rsv ? a.units_rsv : a.units;
+  const float* price_k = a.price_t + (size_t)k * G * O;
+  int unplaced = 0;  // thread 0's
+  bool exhausted = false;
 
   // ---- the scan over groups ----
   for (int t = 0; t < G; ++t) {
-    if (tid == 0) {
-      const int g = order[t];
-      s_g = g;
-      s_cnt = a.count[g];
-      s_cap = a.node_cap[g];
-      s_coloc = a.colocate[g];
-      s_hf = a.rel_host_forbid[g];
-      s_hn = a.rel_host_need[g];
-      s_zf = a.rel_zone_forbid[g];
-      s_zn = a.rel_zone_need[g];
-      s_sm = a.rel_set[g];
-      const bool fit_rsv = rsv && a.rsv_group[g];
-      for (int r = 0; r < R; ++r) {
-        s_d[r] = a.demand[(size_t)g * R + r];
-        s_dfit[r] = fit_rsv ? a.demand_units[(size_t)g * R + r] : s_d[r];
-      }
-      // relation-eligible zones: no forbidden bits, every needed bit present
-      for (int z = 0; z < Z; ++z) {
-        const int zb = s_zone_bits[z];
-        const bool rel_ok = (zb & s_zf) == 0 && (zb & s_zn) == s_zn;
-        s_q[z] = rel_ok ? a.quota[(size_t)g * Z + z] : 0;
-        s_placed_z[z] = 0;
-        s_zhit[z] = 0;
-      }
-      s_zl = a.zone_limited[g] || s_zf != 0 || s_zn != 0;
+    const int g = order[t];
+    const int* w = gi + (size_t)g * kGi;
+    const int cnt = w[kGiCount];
+    int* yrow = a.ys + ((size_t)k * G + t) * NS;
+    if (t + 1 < G) {
+      // the next step's units, prices and compat rows, one line per thread
+      const int gn = order[t + 1];
+      const int l4 = (O + 31) / 32, l1 = (O + 127) / 128;
+      const int* un = units_base + (size_t)gn * O;
+      const float* pn = look ? price_k + (size_t)(t + 1) * O : a.price;
+      const bool* cn = a.compat + (size_t)gn * O;
+      for (int l = tid; l < 2 * l4 + l1; l += BT)
+        prefetch_l1(l < l4 ? static_cast<const void*>(un + (size_t)l * 32)
+                    : l < 2 * l4 ? static_cast<const void*>(pn + (size_t)(l - l4) * 32)
+                                 : static_cast<const void*>(cn + (size_t)(l - 2 * l4) * 128));
     }
-    __syncthreads();
-    const int g = s_g, cnt = s_cnt;
-    int* yrow = ys + (size_t)t * NS;
     if (cnt == 0) {
       // a group with no pods places, wants and opens nothing
-      for (int s = tid; s < NS; s += B) yrow[s] = 0;
-      __syncthreads();
+      for (int s = s0; s < s1; ++s) yrow[s] = 0;
       continue;
     }
-    const int cap = s_cap, hf = s_hf, hn = s_hn, zf = s_zf, zn = s_zn;
-    const bool coloc = s_coloc, zl = s_zl;
-    const int* urow = (rsv ? a.units_rsv : a.units) + (size_t)g * O;
-    const float* pe = price_t + (size_t)t * O;
+    const int cap = w[kGiCap], hf = w[kGiHostForbid], hn = w[kGiHostNeed];
+    const int zf = w[kGiZoneForbid], zn = w[kGiZoneNeed], sm = w[kGiSet];
+    const bool coloc = w[kGiColoc] != 0, rel = (zf | zn) != 0;
+    const bool zl = w[kGiZoneLimited] != 0 || rel;
+    const float* d = gd + (size_t)g * R;
+    const float* dfit = rsv && w[kGiRsvGroup] ? gdu + (size_t)g * R : d;
+    const int* urow = units_base + (size_t)g * O;
+    const float* pe = look ? price_k + (size_t)t * O : a.price;
+    const int* qrow = gq + (size_t)g * Z;
+    if (rel) __syncthreads();  // the zone bits the last step published
+    if (tid < Z) placed_z[tid] = 0;
+    // relation-eligible zones (no forbidden bit, every needed bit) keep their quota
+    auto quota_of = [&](int z) -> int {
+      if (!rel) return qrow[z];
+      const int zb = zbits[z];
+      return (zb & zf) == 0 && (zb & zn) == zn ? qrow[z] : 0;
+    };
 
-    // ---- fill open capacity: per-slot fit under compat and relation bits ----
-    for (int s = tid; s < NS; s += B) {
+    // ---- fit open capacity: per-slot fit under compat and relation bits ----
+    for (int s = s0; s < s1; ++s) {
       bool comp;
       if (s >= E) {
-        const int so = sopt[s];
-        comp = so >= 0 && sact[s] && a.compat[(size_t)g * O + min(max(so, 0), O - 1)];
+        const int so = slot(s)[kSlOpt];
+        comp = so >= 0 && slot(s)[kSlAct] && a.compat[(size_t)g * O + min(max(so, 0), O - 1)];
       } else {
         comp = a.exok_pad[(size_t)g * NS + s];
       }
       if (comp) {
-        const int sb = sbits[s];
-        const int zb = s_zone_bits[min(max(szone[s], 0), Z - 1)];
-        comp = (sb & hf) == 0 && (sb & hn) == hn && (zb & zf) == 0 && (zb & zn) == zn;
+        const int sb = slot(s)[kSlBits];
+        comp = (sb & hf) == 0 && (sb & hn) == hn;
+        if (comp && rel) {
+          const int zb = zbits[min(max(slot(s)[kSlZone], 0), Z - 1)];
+          comp = (zb & zf) == 0 && (zb & zn) == zn;
+        }
       }
-      sfit[s] = comp ? min(fit_units(rem + (size_t)s * R, s_dfit, R), cap) : 0;
+      slot(s)[kSlFit] = comp ? min(fit_units(srem(s), dfit, R), cap) : 0;
     }
-    __syncthreads();
     if (zl) {
       // zone quotas: a slot takes at most what its zone's quota leaves after
-      // the slots before it in that zone
+      // the slots before it in that zone; one scan for every zone at once
       for (int z = 0; z < Z; ++z) {
-        int carry = 0;
-        for (int base = 0; base < NS; base += B) {
-          const int s = base + tid;
-          const bool in = s < NS && szone[s] == z;
-          const int f = in ? sfit[s] : 0;
-          int tot;
-          const int incl = block_scan(f, sh, &tot);
-          if (in) sfit[s] = min(f, max(s_q[z] - (carry + incl - f), 0));
-          carry += tot;
+        unsigned v = 0;
+        for (int s = s0; s < s1; ++s)
+          if (slot(s)[kSlZone] == z) v += static_cast<unsigned>(slot(s)[kSlFit]);
+        const unsigned incl = warp_scan(v);
+        if (lane == 31) zpart[wid * Z + z] = incl;
+        unsigned run = incl - v;
+        for (int s = s0; s < s1; ++s)
+          if (slot(s)[kSlZone] == z) {
+            slot(s)[kSlPlace] = static_cast<int>(run);  // the slots before s in zone z, within the warp
+            run += static_cast<unsigned>(slot(s)[kSlFit]);
+          }
+      }
+      __syncthreads();
+      for (int s = s0; s < s1; ++s) {
+        const int z = slot(s)[kSlZone];
+        if (z < 0 || z >= Z) {
+          slot(s)[kSlFit] = 0;
+          continue;
+        }
+        unsigned before = static_cast<unsigned>(slot(s)[kSlPlace]);
+        for (int j = 0; j < wid; ++j) before += zpart[j * Z + z];
+        const int allow = static_cast<int>(static_cast<unsigned>(quota_of(z)) - before);
+        slot(s)[kSlFit] = min(slot(s)[kSlFit], max(allow, 0));
+      }
+    }
+    // colocated groups take a slot only whole; count the free slots too
+    unsigned lf = 0, high = 0;  // lf wraps like the int32 cumsum
+    int lfree = 0;
+    for (int s = s0; s < s1; ++s) {
+      int f = slot(s)[kSlFit];
+      if (coloc) f = f >= cnt ? cnt : 0;
+      slot(s)[kSlFit] = f;
+      lf += static_cast<unsigned>(f);
+      high |= static_cast<unsigned>(f);
+      lfree += (s >= E && !slot(s)[kSlAct]) ? 1 : 0;
+    }
+    // ---- round 1: one scan of (fit, free) over the slots ----
+    const unsigned xf = warp_scan(lf);
+    const int xfree = warp_scan(lfree);
+    // when no fit and no thread's sum reaches 2^21, no sum over the block
+    // (of at most 1024 threads) reaches 2^31
+    const unsigned high_w = __reduce_or_sync(kFull, (lf | high) >> 21);
+    if (lane == 31) {
+      s_scan_f[wid] = xf;
+      s_scan_free[wid] = xfree;
+      s_scan_high[wid] = high_w;
+    }
+    __syncthreads();
+    unsigned before_f, tot_f;
+    int before_free, n_free;
+    bool wraps;
+    {
+      const unsigned pf = lane < nw ? s_scan_f[lane] : 0u;
+      const int pfree = lane < nw ? s_scan_free[lane] : 0;
+      before_f = xf - lf + __reduce_add_sync(kFull, lane < wid ? pf : 0u);
+      tot_f = __reduce_add_sync(kFull, pf);
+      before_free = xfree - lfree + __reduce_add_sync(kFull, lane < wid ? pfree : 0);
+      n_free = __reduce_add_sync(kFull, pfree);
+      wraps = __reduce_or_sync(kFull, lane < nw ? static_cast<unsigned>(s_scan_high[lane]) : 0u) != 0;
+    }
+    // greedy fill front to back
+    unsigned placed_local = 0;
+    {
+      unsigned b = before_f;
+      for (int s = s0; s < s1; ++s) {
+        const int f = slot(s)[kSlFit];
+        const int pl = min(max(static_cast<int>(static_cast<unsigned>(cnt) - b), 0), f);
+        b += static_cast<unsigned>(f);
+        slot(s)[kSlPlace] = pl;
+        placed_local += static_cast<unsigned>(pl);
+        if (pl != 0) {
+          float* rs = srem(s);
+          for (int r = 0; r < R; ++r) rs[r] = __fmaf_rn(static_cast<float>(pl), -d[r], rs[r]);
+          const int z = slot(s)[kSlZone];
+          if (zl && z >= 0 && z < Z) atomicAdd(&placed_z[z], pl);
         }
       }
-      for (int s = tid; s < NS; s += B)
-        if (szone[s] < 0 || szone[s] >= Z) sfit[s] = 0;
-      __syncthreads();
     }
-    // greedy fill front to back; colocated groups take a slot only whole
-    int placed_local = 0;
-    {
-      int carry = 0;
-      for (int base = 0; base < NS; base += B) {
-        const int s = base + tid;
-        int f = 0;
-        if (s < NS) {
-          f = sfit[s];
-          if (coloc) f = f >= cnt ? cnt : 0;
+    // without wrap-around the greedy fill places min(cnt, total fit); with
+    // it, the places are summed as the plain version sums them
+    const int placed = !wraps ? min(cnt, static_cast<int>(tot_f))
+                           : static_cast<int>(block_sum(static_cast<int>(placed_local), sh));
+    if (zl) __syncthreads();  // placed_z
+    const int left = cnt - placed;
+    // want of bucket b (zone buckets, then the unrestricted one), taken in
+    // bucket order: acc carries the zone wants before b
+    auto want_of = [&](int b, unsigned& acc) -> int {
+      if (hn != 0) return 0;  // hostname-need groups cannot open fresh nodes
+      if (!zl) return b == Z ? left : 0;
+      if (b == Z) return 0;
+      const int wz = min(max(quota_of(b) - placed_z[b], 0), left);
+      const int r = max(min(wz, static_cast<int>(static_cast<unsigned>(left) - acc)), 0);
+      acc += static_cast<unsigned>(wz);
+      return r;
+    };
+    auto in_bucket = [&](int b, int o) { return b == Z || a.opt_zone[o] == b; };
+    const int b_first = zl ? 0 : Z;  // other groups want only in the unrestricted bucket
+    // a round's block-wide value: every warp reduces the per-warp partials
+    auto red_min = [&](const float* part, int b, int j) {
+      return warp_min_r(lane < nw ? part[pidx(lane, b, j)] : kInf);
+    };
+    auto red_arg = [&](const float* pv, const int* pi, int b, int j) {
+      float v = lane < nw ? pv[pidx(lane, b, j)] : neg_inf();
+      int i = lane < nw ? pi[pidx(lane, b, j)] : kIntMax;
+      warp_argmax_r(v, i);
+      return i;
+    };
+    // the remainder of the rate option's full nodes in bucket b
+    auto tail_want = [&](int b, int want) {
+      const int c_rate = urow[red_arg(pargv, pargi, b, 1)];
+      return want - (want / max(c_rate, 1)) * c_rate;
+    };
+
+    // ---- rounds 2-5 over the options: the lump and rate minima of every
+    // bucket with a want, their argmaxes within the tie band, the tail's
+    // minimum and argmax where a bucket has a remainder. One loop, so its
+    // code is emitted once and the per-step path stays short. The minimum
+    // rounds keep each option's scores in
+    // the per-step state (an option lies in at most one bucket with a
+    // want), so the argmax rounds divide nothing ----
+    bool tails = false;
+    for (int round = 0; round < 4; ++round) {
+      const bool argmax = (round & 1) != 0, tail = round >= 2;
+      const size_t half = tail ? (size_t)nw * Zb * 2 : 0;
+      float* pm = pmin + half;
+      float* pv = pargv + half;
+      int* pi = pargi + half;
+      bool any = false;
+      unsigned acc = 0;
+      for (int b = b_first; b < Zb; ++b) {
+        int w = want_of(b, acc);
+        if (w <= 0) continue;
+        if (tail) {
+          w = tail_want(b, w);
+          if (w <= 0) continue;
         }
-        int tot;
-        const int incl = block_scan(f, sh, &tot);
-        if (s < NS) {
-          const int p = min(max(cnt - (carry + incl - f), 0), f);
-          splace[s] = p;
-          placed_local += p;
-          if (p != 0) {
-            float* rs = rem + (size_t)s * R;
-            for (int r = 0; r < R; ++r) rs[r] = __fmaf_rn(static_cast<float>(p), -s_d[r], rs[r]);
-            const int z = szone[s];
-            if (z >= 0 && z < Z) atomicAdd(&s_placed_z[z], p);
+        any = true;
+        const float band0 = argmax ? red_min(pm, b, 0) * kTieBand : 0.0f;
+        const float band1 = argmax && !tail ? red_min(pm, b, 1) * kTieBand : 0.0f;
+        float a0 = argmax ? neg_inf() : kInf, a1 = a0;
+        int i0 = kIntMax, i1 = kIntMax;
+        for (int o = tid; o < O; o += BT) {
+          const int u = urow[o];
+          const bool inb = in_bucket(b, o);
+          if (!argmax) {
+            const float pr = pe[o];
+            const float s0 = inb && u > 0 ? static_cast<float>(ceil_div(w, u)) * pr : kInf;
+            const float s1 =
+                !tail && inb && u > 0 && u <= w ? pr / fmaxf(static_cast<float>(u), 1.0f) : kInf;
+            if (inb) {
+              sc[2 * o] = s0;
+              sc[2 * o + 1] = s1;
+            }
+            a0 = fminf(a0, s0);
+            a1 = fminf(a1, s1);
+          } else {
+            const float pref = prefer_big ? static_cast<float>(u) : -static_cast<float>(u);
+            arg_better(a0, i0, inb && sc[2 * o] <= band0 ? pref : -kInf, o);
+            arg_better(a1, i1, inb && sc[2 * o + 1] <= band1 ? pref : -kInf, o);
           }
         }
-        carry += tot;
-      }
-    }
-    const int placed = block_sum(placed_local, sh);
-
-    // ---- bucket wants: zone buckets, then the unrestricted bucket ----
-    if (tid == 0) {
-      const int left = cnt - placed;
-      int acc = 0;
-      for (int z = 0; z < Z; ++z) {
-        const int w = min(max(s_q[z] - s_placed_z[z], 0), left);
-        s_want[z] = max(min(w, left - acc), 0);
-        acc += w;
-      }
-      if (zl) {
-        s_want[Z] = 0;
-      } else {
-        for (int z = 0; z < Z; ++z) s_want[z] = 0;
-        s_want[Z] = left;
-      }
-      // hostname-need groups cannot open fresh nodes
-      if (hn != 0)
-        for (int b = 0; b < Zb; ++b) s_want[b] = 0;
-      s_left = left;
-    }
-    __syncthreads();
-
-    // ---- per-bucket option choice: lump vs mixed ----
-    for (int b = 0; b < Zb; ++b) {
-      const int want = s_want[b];
-      if (want <= 0) {
-        // no want: the bucket's segments are empty and never read
-        if (tid == 0) {
-          s_o_lump[b] = 0;
-          s_c_lump[b] = kInf;
-          s_o_rate[b] = 0;
-          s_b_rate[b] = kInf;
-          s_o_tail[b] = 0;
-          s_b_tail[b] = kInf;
+        if (!argmax) {
+          a0 = warp_min_r(a0);
+          a1 = warp_min_r(a1);
+          if (lane == 0) {
+            pm[pidx(wid, b, 0)] = a0;
+            pm[pidx(wid, b, 1)] = a1;
+          }
+        } else {
+          warp_argmax_r(a0, i0);
+          warp_argmax_r(a1, i1);
+          if (lane == 0) {
+            pv[pidx(wid, b, 0)] = a0;
+            pi[pidx(wid, b, 0)] = i0;
+            pv[pidx(wid, b, 1)] = a1;
+            pi[pidx(wid, b, 1)] = i1;
+          }
         }
-        continue;
       }
-      // lump: ceil(want / u) nodes of one option
-      float m = kInf;
-      for (int o = tid; o < O; o += B) {
-        const int u = urow[o];
-        if (u > 0 && (b == Z || a.opt_zone[o] == b))
-          m = fminf(m, static_cast<float>(ceil_div(want, u)) * pe[o]);
-      }
-      const float best_l = block_min(m, sh);
-      float v = neg_inf();
-      int vi = kIntMax;
-      for (int o = tid; o < O; o += B) {
-        const int u = urow[o];
-        const float sc = (u > 0 && (b == Z || a.opt_zone[o] == b))
-                             ? static_cast<float>(ceil_div(want, u)) * pe[o]
-                             : kInf;
-        const float pref = alpha >= 1.0f ? static_cast<float>(u) : -static_cast<float>(u);
-        arg_better(v, vi, sc <= best_l * kTieBand ? pref : -kInf, o);
-      }
-      const int o_lump = block_argmax(v, vi, sh);
-      // mixed: full nodes of the rate-best option that fits in the want
-      m = kInf;
-      for (int o = tid; o < O; o += B) {
-        const int u = urow[o];
-        if (u > 0 && u <= want && (b == Z || a.opt_zone[o] == b))
-          m = fminf(m, pe[o] / fmaxf(static_cast<float>(u), 1.0f));
-      }
-      const float best_r = block_min(m, sh);
-      v = neg_inf();
-      vi = kIntMax;
-      for (int o = tid; o < O; o += B) {
-        const int u = urow[o];
-        const float sc = (u > 0 && u <= want && (b == Z || a.opt_zone[o] == b))
-                             ? pe[o] / fmaxf(static_cast<float>(u), 1.0f)
-                             : kInf;
-        const float pref = alpha >= 1.0f ? static_cast<float>(u) : -static_cast<float>(u);
-        arg_better(v, vi, sc <= best_r * kTieBand ? pref : -kInf, o);
-      }
-      const int o_rate = block_argmax(v, vi, sh);
-      const int c_rate = urow[o_rate];
-      const int rem_w = want - (want / max(c_rate, 1)) * c_rate;
-      // ... plus one tail of the remainder
-      int o_tail = 0;
-      float best_t = kInf;
-      if (rem_w > 0) {
-        m = kInf;
-        for (int o = tid; o < O; o += B) {
-          const int u = urow[o];
-          if (u > 0 && (b == Z || a.opt_zone[o] == b))
-            m = fminf(m, static_cast<float>(ceil_div(rem_w, u)) * pe[o]);
-        }
-        best_t = block_min(m, sh);
-        v = neg_inf();
-        vi = kIntMax;
-        for (int o = tid; o < O; o += B) {
-          const int u = urow[o];
-          const float sc = (u > 0 && (b == Z || a.opt_zone[o] == b))
-                               ? static_cast<float>(ceil_div(rem_w, u)) * pe[o]
-                               : kInf;
-          const float pref = alpha >= 1.0f ? static_cast<float>(u) : -static_cast<float>(u);
-          arg_better(v, vi, sc <= best_t * kTieBand ? pref : -kInf, o);
-        }
-        o_tail = block_argmax(v, vi, sh);
-      }
-      if (tid == 0) {
-        s_o_lump[b] = o_lump;
-        s_c_lump[b] = best_l;
-        s_o_rate[b] = o_rate;
-        s_b_rate[b] = best_r;
-        s_o_tail[b] = o_tail;
-        s_b_tail[b] = best_t;
-      }
+      if (round == 2) tails = any;
+      if (!any) break;  // no bucket wants (round 0) or has a remainder (round 2)
+      __syncthreads();
     }
-    __syncthreads();
 
-    // ---- segments: (full or lump) + tail per bucket ----
-    if (tid == 0) {
-      int seg_n[kMaxSeg];
-      for (int b = 0; b < Zb; ++b) {
-        const int want = s_want[b];
-        const int o_rate = s_o_rate[b];
-        const int c_rate = urow[o_rate];
-        const int n_full = want / max(c_rate, 1);
-        const int rem_w = want - n_full * c_rate;
-        const float tail_cost = rem_w > 0 ? s_b_tail[b] : 0.0f;
-        const float cost_mixed =
-            s_b_rate[b] < kInf ? __fmaf_rn(static_cast<float>(n_full), pe[o_rate], tail_cost) : kInf;
-        const float cost_lump = s_c_lump[b];
-        const bool lump = cost_lump <= cost_mixed;
-        const bool feasible = want > 0 && fminf(cost_lump, cost_mixed) < kInf;
-        const int a_opt = lump ? s_o_lump[b] : o_rate;
-        const int a_c = max(urow[a_opt], 1);
-        const int a_want = feasible ? (lump ? want : n_full * c_rate) : 0;
-        s_seg_opt[b] = a_opt;
-        s_seg_c[b] = a_c;
-        s_seg_want[b] = a_want;
-        seg_n[b] = ceil_div(a_want, a_c);
-        const int t_opt = s_o_tail[b];
-        const int t_c = max(urow[t_opt], 1);
-        const int t_want = (feasible && !lump) ? rem_w : 0;
-        s_seg_opt[Zb + b] = t_opt;
-        s_seg_c[Zb + b] = t_c;
-        s_seg_want[Zb + b] = t_want;
-        seg_n[Zb + b] = ceil_div(t_want, t_c);
+    // ---- segments: (full or lump) + tail per bucket, by warp 0, lane b
+    // for bucket b; the warp-wide reductions go one bucket with a want at a
+    // time ----
+    if (wid == 0) {
+      for (int b0 = 0; b0 < Zb; b0 += 32) {
+        int want = 0, o_lump = 0, o_rate = 0, o_tail = 0;
+        float c_lump = kInf, b_rate = kInf, b_tail = kInf;
+        unsigned acc = 0;
+        for (int b = b_first; b < min(Zb, b0 + 32); ++b) {
+          const int wb = want_of(b, acc);
+          if (b < b0 || wb <= 0) continue;
+          const float cl = red_min(pmin, b, 0), br = red_min(pmin, b, 1);
+          const int ol = red_arg(pargv, pargi, b, 0), orr = red_arg(pargv, pargi, b, 1);
+          float bt = kInf;
+          int ot = 0;
+          if (tails && tail_want(b, wb) > 0) {
+            const size_t half = (size_t)nw * Zb * 2;
+            bt = red_min(pmin + half, b, 0);
+            ot = red_arg(pargv + half, pargi + half, b, 0);
+          }
+          if (lane == b - b0) {
+            want = wb;
+            c_lump = cl;
+            b_rate = br;
+            o_lump = ol;
+            o_rate = orr;
+            b_tail = bt;
+            o_tail = ot;
+          }
+        }
+        const int b = b0 + lane;
+        if (b < Zb) {
+          const int c_rate = urow[o_rate];
+          const int n_full = want / max(c_rate, 1);
+          const int rem_w = want - n_full * c_rate;
+          const float tail_cost = rem_w > 0 ? b_tail : 0.0f;
+          const float cost_mixed =
+              b_rate < kInf ? __fmaf_rn(static_cast<float>(n_full), pe[o_rate], tail_cost) : kInf;
+          const bool lump = c_lump <= cost_mixed;
+          const bool feasible = want > 0 && fminf(c_lump, cost_mixed) < kInf;
+          const int a_opt = lump ? o_lump : o_rate;
+          seg_opt[b] = a_opt;
+          seg_c[b] = max(urow[a_opt], 1);
+          seg_want[b] = feasible ? (lump ? want : n_full * c_rate) : 0;
+          seg_opt[Zb + b] = o_tail;
+          seg_c[Zb + b] = max(urow[o_tail], 1);
+          seg_want[Zb + b] = (feasible && !lump) ? rem_w : 0;
+        }
       }
-      int acc = 0;
-      for (int j = 0; j < nseg; ++j) {
-        s_seg_start[j] = acc;
-        acc += seg_n[j];
+      __syncwarp();
+      // starts in rank order, and what the free slots take of each segment
+      int carry = 0, opened = 0;
+      for (int j0 = 0; j0 < nseg; j0 += 32) {
+        const int j = j0 + lane;
+        const int n = j < nseg ? ceil_div(seg_want[j], seg_c[j]) : 0;
+        const int start = carry + warp_scan(n) - n;
+        int took = 0;
+        if (j < nseg) {
+          seg_start[j] = start;
+          const long long taken = min(max(n_free - start, 0), n);
+          took = static_cast<int>(min(static_cast<long long>(seg_want[j]), taken * seg_c[j]));
+        }
+        carry += __reduce_add_sync(kFull, n);
+        opened += __reduce_add_sync(kFull, took);
       }
-      s_total_open = acc;
+      if (lane == 0) {
+        s_total_open = carry;
+        s_opened = opened;
+      }
     }
     __syncthreads();
 
     // ---- allocate free slots to segments, in rank order ----
     const int total_open = s_total_open;
-    int opened_local = 0;
-    int n_free = 0;
-    for (int base = 0; base < NS; base += B) {
-      const int s = base + tid;
-      const int is_free = (s < NS && s >= E && !sact[s]) ? 1 : 0;
-      int tot;
-      const int fr = n_free + block_scan(is_free, sh, &tot);  // 1-based rank
-      n_free += tot;
-      if (s < NS) {
+    {
+      int r0 = before_free;  // 0-based rank of this thread's first free slot
+      for (int s = s0; s < s1; ++s) {
         int fill = 0;
-        if (is_free && fr <= total_open) {
-          const int r0 = fr - 1;
-          int sid = -1;  // segment starts <= rank, minus one: skips empty segments
-          for (int j = 0; j < nseg; ++j) sid += r0 >= s_seg_start[j] ? 1 : 0;
-          sid = min(max(sid, 0), nseg - 1);
-          const int o_i = s_seg_opt[sid], c_i = s_seg_c[sid];
-          fill = min(max(s_seg_want[sid] - (r0 - s_seg_start[sid]) * c_i, 0), c_i);
-          const float* c = a.alloc + (size_t)o_i * R;
-          float* rs = rem + (size_t)s * R;
-          for (int r = 0; r < R; ++r) rs[r] = __fmaf_rn(static_cast<float>(fill), -s_d[r], c[r]);
-          sopt[s] = o_i;
-          szone[s] = a.opt_zone[o_i];
-          sact[s] = 1;
+        if (s >= E && !slot(s)[kSlAct]) {
+          if (r0 < total_open) {
+            int sid = -1;  // segment starts <= rank, minus one: skips empty segments
+            for (int j = 0; j < nseg; ++j) sid += r0 >= seg_start[j] ? 1 : 0;
+            sid = min(max(sid, 0), nseg - 1);
+            const int o_i = seg_opt[sid], c_i = seg_c[sid];
+            const unsigned used = static_cast<unsigned>(r0 - seg_start[sid]) * static_cast<unsigned>(c_i);
+            fill = min(max(static_cast<int>(static_cast<unsigned>(seg_want[sid]) - used), 0), c_i);
+            const float* c = a.alloc + (size_t)o_i * R;
+            float* rs = srem(s);
+            for (int r = 0; r < R; ++r) rs[r] = __fmaf_rn(static_cast<float>(fill), -d[r], c[r]);
+            slot(s)[kSlOpt] = o_i;
+            slot(s)[kSlZone] = a.opt_zone[o_i];
+            slot(s)[kSlAct] = 1;
+          }
+          ++r0;
         }
-        opened_local += fill;
-        const int y = splace[s] + fill;
+        const int y = slot(s)[kSlPlace] + fill;
         yrow[s] = y;
         if (y > 0) {
           // publish the group's presence bits on its slots and zones
-          sbits[s] |= s_sm;
-          const int z = szone[s];
-          if (z >= 0 && z < Z) s_zhit[z] = 1;
+          slot(s)[kSlBits] |= sm;
+          const int z = slot(s)[kSlZone];
+          if (sm != 0 && z >= 0 && z < Z) atomicOr(&zbits[z], sm);
         }
       }
     }
-    const int opened = block_sum(opened_local, sh);
     if (tid == 0) {
-      const int left = s_left - opened;
-      s_unplaced += left;
+      const int l2 = left - s_opened;
+      unplaced += l2;
       // exhaustion compares against the free count before this step's take
-      if (left > 0 && total_open > n_free) s_exhausted = 1;
-      for (int z = 0; z < Z; ++z)
-        if (s_zhit[z]) s_zone_bits[z] |= s_sm;
+      if (l2 > 0 && total_open > n_free) exhausted = true;
     }
-    __syncthreads();
   }
 
   // ---- member result ----
   float csum = 0.0f;
-  for (int s = E + tid; s < NS; s += B) {
-    const int so = sopt[s];
-    const bool act = sact[s] && so >= 0;
+  for (int s = max(s0, E); s < s1; ++s) {
+    const int so = slot(s)[kSlOpt];
+    const bool act = slot(s)[kSlAct] && so >= 0;
     a.new_opt[(size_t)k * a.S + (s - E)] = so;
     a.new_active[(size_t)k * a.S + (s - E)] = act;
     if (act) csum += a.price[min(max(so, 0), O - 1)];
   }
   const float total = block_sum_f(csum, sh);
   if (tid == 0) {
-    a.cost[k] = __fmaf_rn(static_cast<float>(s_unplaced), kPenalty, total);
-    a.unplaced[k] = s_unplaced;
-    a.exhausted[k] = s_exhausted != 0;
+    a.cost[k] = __fmaf_rn(static_cast<float>(unplaced), kPenalty, total);
+    a.unplaced[k] = unplaced;
+    a.exhausted[k] = exhausted;
   }
 }
 
@@ -968,6 +1134,79 @@ __global__ void __launch_bounds__(kK3Threads) k3_pack_epilogue(K3Args p) {
   for (size_t i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
 }
 
+// K2's memory plan. The card's opt-in limit of shared memory a block caps a
+// kernel's static and dynamic shared memory together, so each kernel's
+// dynamic limit is the opt-in limit less its static bytes (ptxas's figure,
+// read back from the runtime). Both are read, and each kernel's attribute set
+// to its whole dynamic limit, once per device; a launch then needs no
+// attribute call, and concurrent launches of different sizes cannot undo
+// each other's setting.
+struct K2Limits {
+  size_t optin, scan_static, prices_static;  // scan_static: the larger of k2_scan's two instances
+};
+
+constexpr int kMaxDevices = 64;
+
+cudaError_t k2_limits(K2Limits* out) {
+  static std::mutex mu;
+  static K2Limits cache[kMaxDevices];
+  static bool ready[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(mu);
+  if (!ready[dev]) {
+    int optin = 0;
+    cudaFuncAttributes scan, scan_g, prices;
+    if ((err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) ||
+        (err = cudaFuncGetAttributes(&scan, k2_scan<true>)) ||
+        (err = cudaFuncGetAttributes(&scan_g, k2_scan<false>)) ||
+        (err = cudaFuncGetAttributes(&prices, k2_prices)))
+      return err;
+    const K2Limits lim{static_cast<size_t>(optin),
+                       scan.sharedSizeBytes > scan_g.sharedSizeBytes ? scan.sharedSizeBytes
+                                                                     : scan_g.sharedSizeBytes,
+                       prices.sharedSizeBytes};
+    const int scan_dyn = static_cast<int>(lim.optin - lim.scan_static);
+    if ((err = cudaFuncSetAttribute(k2_scan<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, scan_dyn)) ||
+        (err = cudaFuncSetAttribute(k2_scan<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, scan_dyn)) ||
+        (err = cudaFuncSetAttribute(k2_prices, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(lim.optin - lim.prices_static))))
+      return err;
+    cache[dev] = lim;
+    ready[dev] = true;
+  }
+  *out = cache[dev];
+  return cudaSuccess;
+}
+
+// k2_prices' dynamic shared memory: its member's scan order and positions.
+size_t k2_price_bytes(int G) { return 2 * sizeof(int) * static_cast<size_t>(G); }
+
+struct K2Plan {
+  int spill;    // 0: all in shared memory; 1: the state in global scratch; 2: the groups too
+  size_t smem;  // the scan's dynamic shared memory a block
+};
+
+// The least spill whose shared part fits beside k2_scan's static shared
+// memory under `smem_limit` (the card's opt-in limit when 0); false when
+// none does or k2_prices' order and positions do not fit.
+bool k2_plan(const K2Limits& lim, int G, int O, int R, int Z, int NS, int smem_limit,
+             K2Plan* out) {
+  const size_t limit = smem_limit > 0 ? static_cast<size_t>(smem_limit) : lim.optin;
+  if (k2_price_bytes(G) + lim.prices_static > lim.optin) return false;
+  const size_t part = k2_partial_bytes(Z, kK2Threads / 32), groups = k2_group_bytes(G, R, Z);
+  const size_t shared[3] = {part + groups + k2_state_bytes(NS, R, O), part + groups, part};
+  for (int spill = 0; spill < 3; ++spill) {
+    if (shared[spill] + lim.scan_static <= limit) {
+      *out = K2Plan{spill, shared[spill]};
+      return true;
+    }
+  }
+  return false;
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -1012,17 +1251,41 @@ int kts_pack_member(
     const int* quota, const bool* zone_limited, const float* val_pair, const bool* exok_pad,
     const int* orders, const float* alphas, const bool* looks, const bool* rsvs,
     const int* swaps, const float* seed_costs, float* cost, int* unplaced, bool* exhausted,
-    int* new_opt, bool* new_active, int* ys, int* order_s, int* pos_s, float* price_t,
-    float* slot_rem, int* slot_i, int B, int K, int G, int O, int E, int R, int Z, int S,
-    void* stream) {
+    int* new_opt, bool* new_active, int* ys, float* price_t, unsigned char* state,
+    int B, int K, int G, int O, int E, int R, int Z, int S, int smem_limit, void* stream) {
+  K2Limits lim;
+  cudaError_t err = k2_limits(&lim);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  K2Plan plan;
+  if (!k2_plan(lim, G, O, R, Z, E + S, smem_limit, &plan) || (plan.spill != 0 && state == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   K2Args a{demand, demand_units, count, node_cap, colocate, compat, alloc, price, opt_zone,
            ex_rem, ex_zone, ex_valid, rel_set, rel_host_forbid, rel_host_need,
            rel_zone_forbid, rel_zone_need, rel_slot_bits, rel_zone_bits, units, units_rsv,
            rsv_group, quota, zone_limited, val_pair, exok_pad, orders, alphas, looks, rsvs,
-           swaps, seed_costs, cost, unplaced, exhausted, new_opt, new_active, ys, order_s,
-           pos_s, price_t, slot_rem, slot_i, K, G, O, E, R, Z, S};
-  k2_pack_member<<<dim3(K, B), kK2Threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+           swaps, seed_costs, cost, unplaced, exhausted, new_opt, new_active, ys, price_t,
+           plan.spill != 0 ? state : nullptr, plan.spill, K, G, O, E, R, Z, S};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t tiles = ((size_t)G * O + kK2PriceThreads - 1) / kK2PriceThreads;
+  k2_prices<<<dim3(static_cast<unsigned>(tiles), K, B), kK2PriceThreads, k2_price_bytes(G), st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void (*scan)(K2Args) = plan.spill >= 2 ? k2_scan<false> : k2_scan<true>;
+  scan<<<dim3(K, B), kK2Threads, plan.smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of global scratch one member of K2 needs at these widths (0 when the
+// scan keeps everything in shared memory), planned against `smem_limit`
+// bytes of shared memory a block, or the card's opt-in limit when it is 0;
+// -1 when the card's limits cannot be read, -2 when no plan fits (the
+// lookahead prices' 8 bytes a group, or the scan's partials, over the limit).
+long long kts_pack_member_scratch(int G, int O, int R, int Z, int NS, int smem_limit) {
+  K2Limits lim;
+  if (k2_limits(&lim) != cudaSuccess) return -1;
+  K2Plan plan;
+  if (!k2_plan(lim, G, O, R, Z, NS, smem_limit, &plan)) return -2;
+  return static_cast<long long>(k2_scratch_bytes(plan.spill, G, O, R, Z, NS));
 }
 
 int kts_pack_epilogue(

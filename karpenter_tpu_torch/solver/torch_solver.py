@@ -10,8 +10,9 @@ On the card the program is three hand-written CUDA kernels
 (``csrc/pack_solve.cu``):
 
 * ``shared_precompute`` (K1) replaces ``_shared_precompute``;
-* ``pack_member`` (K2) replaces the vmapped ``_pack_member`` scan, one block
-  per member, launched once per phase;
+* ``pack_member`` (K2) replaces the vmapped ``_pack_member``, launched once
+  per phase: a grid-wide kernel for the lookahead members' prices, then the
+  scan, one block per member with its per-step state in shared memory;
 * ``pack_epilogue`` (K3) replaces the argmin and buffer packing of
   ``_pack_solve_fused_impl``.
 
@@ -699,9 +700,28 @@ def pack_member(
     )
 
 
+def pack_member_scratch(lib, G: int, O: int, R: int, Z: int, NS: int,
+                        smem_limit: Optional[int] = None) -> int:
+    """Bytes of global scratch one member of K2 needs: 0 when the scan keeps
+    its staged groups and per-step state in shared memory, else what spills
+    (the state, then the groups too), which the same code then reads from
+    global memory. The plan is the kernels' own (``kts_pack_member_scratch``),
+    against the card's opt-in limit of shared memory a block less the scan's
+    static shared memory; ``smem_limit`` plans against a smaller limit in
+    its place, which is how the tests force each placement."""
+    n = int(lib.kts_pack_member_scratch(G, O, R, Z, NS, smem_limit or 0))
+    if n == -1:
+        raise RuntimeError("pack_member: cannot read the device's shared memory limits")
+    if n < 0:
+        where = f"{smem_limit} bytes" if smem_limit else "the card's opt-in limit"
+        raise RuntimeError(f"pack_member: no memory plan fits G={G} groups, Z={Z} zones "
+                           f"in {where} of shared memory a block")
+    return n
+
+
 def _launch_pack_member(
     lib, inputs: PackInputs, shared: Shared, orders, alphas, looks, rsvs, s_new: int,
-    swaps, seed_costs, stream,
+    swaps, seed_costs, stream, smem_limit: Optional[int] = None,
 ) -> MemberOut:
     unbatched = _batch(inputs) is None
     if unbatched:
@@ -718,12 +738,11 @@ def _launch_pack_member(
     new_opt = torch.empty((B, K, s_new), dtype=_I32, device=dev)
     new_active = torch.empty((B, K, s_new), dtype=_BOOL, device=dev)
     ys = torch.empty((B, K, G, NS), dtype=_I32, device=dev)
-    # per-(row, member) scratch: scan order, inverse positions, price_t, slot state
-    order_s = torch.empty((B, K, G), dtype=_I32, device=dev)
-    pos_s = torch.empty((B, K, G), dtype=_I32, device=dev)
+    # scratch: the lookahead members' prices, and what of the scan's memory
+    # does not fit in shared memory
     price_t = torch.empty((B, K, G, O), dtype=_F32, device=dev)
-    slot_rem = torch.empty((B, K, NS, R), dtype=_F32, device=dev)
-    slot_i = torch.empty((B, K, 6, NS), dtype=_I32, device=dev)
+    scratch = pack_member_scratch(lib, G, O, R, Z, NS, smem_limit)
+    state = torch.empty((B, K, scratch), dtype=torch.uint8, device=dev) if scratch else None
     rc = lib.kts_pack_member(
         _ptr(inputs.demand), _ptr(inputs.demand_units), _ptr(inputs.count),
         _ptr(inputs.node_cap), _ptr(inputs.colocate), _ptr(inputs.compat),
@@ -738,10 +757,10 @@ def _launch_pack_member(
         _ptr(orders), _ptr(alphas), _ptr(looks), _ptr(rsvs),
         _ptr(swaps), _ptr(seed_costs),
         _ptr(cost), _ptr(unplaced), _ptr(exhausted), _ptr(new_opt), _ptr(new_active),
-        _ptr(ys), _ptr(order_s), _ptr(pos_s), _ptr(price_t), _ptr(slot_rem), _ptr(slot_i),
-        B, K, G, O, E, R, Z, s_new, stream,
+        _ptr(ys), _ptr(price_t), _ptr(state),
+        B, K, G, O, E, R, Z, s_new, smem_limit or 0, stream,
     )
-    _count("pack_member", B)
+    _count("pack_member", B)  # one call: k2_prices, then k2_scan
     _raise_on(lib, rc, "pack_member")
     out = MemberOut(cost, unplaced, exhausted, new_opt, new_active, ys)
     return _row(out, 0) if unbatched else out

@@ -9,7 +9,9 @@
 // warp. __shared__ variables become function statics, which is sound because
 // only one block runs at a time. Kernel launches are rewritten from
 // `kernel<<<grid, block, smem, stream>>>(args);` to
-// `emu_launch(kernel, grid, block, smem, stream, args);` before compiling.
+// `emu_launch(kernel, grid, block, smem, stream, args);` before compiling. A
+// launch that asks for more dynamic shared memory than the kernel may have
+// is refused, as the card refuses it.
 #pragma once
 #include <math.h>
 
@@ -17,12 +19,15 @@
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __shared__ static
 #define __launch_bounds__(x)
@@ -38,19 +43,77 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 
+struct float4 {
+  float x, y, z, w;
+};
+
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0 };
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-inline const char* cudaGetErrorString(cudaError_t) { return "no error"; }
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101 };
+// the launch errors the runtime would report, kept until cudaGetLastError
+inline cudaError_t emu_last_error = cudaSuccess;
+inline cudaError_t cudaGetLastError() {
+  const cudaError_t err = emu_last_error;
+  emu_last_error = cudaSuccess;
+  return err;
+}
+inline const char* cudaGetErrorString(cudaError_t err) {
+  return err == cudaSuccess ? "no error" : err == cudaErrorInvalidValue ? "invalid argument" : "invalid device ordinal";
+}
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+
+// Shared memory limits as on an H100: a block may opt in to 232448 bytes,
+// static and dynamic together, and without opting in has 48 KiB. Every
+// kernel is taken to hold emu_static_smem() bytes of static shared memory, a
+// stand-in for ptxas's figure, so that a plan that leaves it out fails here
+// as it fails on the card.
+constexpr int kEmuOptin = 232448;
+constexpr int kEmuDefaultSmem = 48 * 1024;
+extern "C" __attribute__((used)) inline int emu_static_smem() { return 1984; }
+
+enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin };
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = kEmuOptin;
+  return cudaSuccess;
+}
+struct cudaFuncAttributes {
+  size_t sharedSizeBytes;
+};
+template <class Kernel>
+cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* attr, Kernel) {
+  attr->sharedSizeBytes = static_cast<size_t>(emu_static_smem());
+  return cudaSuccess;
+}
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+inline std::mutex emu_attr_mu;
+inline std::map<const void*, int> emu_max_dynamic;  // by kernel, what cudaFuncSetAttribute allowed
+template <class Kernel>
+cudaError_t cudaFuncSetAttribute(Kernel kernel, cudaFuncAttribute, int bytes) {
+  if (bytes < 0 || bytes + emu_static_smem() > kEmuOptin) return cudaErrorInvalidValue;
+  std::lock_guard<std::mutex> hold(emu_attr_mu);
+  emu_max_dynamic[reinterpret_cast<const void*>(kernel)] = bytes;
+  return cudaSuccess;
+}
+template <class Kernel>
+int emu_dynamic_limit(Kernel kernel) {
+  std::lock_guard<std::mutex> hold(emu_attr_mu);
+  const auto it = emu_max_dynamic.find(reinterpret_cast<const void*>(kernel));
+  return it != emu_max_dynamic.end() ? it->second : kEmuDefaultSmem - emu_static_smem();
+}
 
 struct EmuBlock {
   std::unique_ptr<std::barrier<>> block;
   std::vector<std::unique_ptr<std::barrier<>>> warps;
   std::vector<uint32_t> lanes;
+  std::vector<uint64_t> smem;  // dynamic shared memory, 8-byte aligned
 };
 inline EmuBlock* emu_block;
 
 inline void __syncthreads() { emu_block->block->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_block->warps[threadIdx.x >> 5]->arrive_and_wait(); }
+inline unsigned char* emu_dynamic_smem() { return reinterpret_cast<unsigned char*>(emu_block->smem.data()); }
 
 // Lane `src` of the caller's warp sends its value; src < 0 keeps the caller's.
 template <class T>
@@ -90,10 +153,47 @@ inline int __float_as_int(float f) {
 inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
+inline long long min(long long a, long long b) { return a < b ? a : b; }
+inline long long max(long long a, long long b) { return a > b ? a : b; }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline int atomicOr(int* p, int v) { return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST); }
+// redux.sync: every lane gets the warp's reduction of its lanes' values
+template <class T, class F>
+T emu_reduce(T v, F op) {
+  static_assert(sizeof(T) == 4, "32-bit reductions only");
+  const int warp = threadIdx.x >> 5;
+  uint32_t bits;
+  std::memcpy(&bits, &v, 4);
+  emu_block->lanes[threadIdx.x] = bits;
+  emu_block->warps[warp]->arrive_and_wait();
+  T out{};
+  for (int l = 0; l < 32; ++l) {
+    T x;
+    const uint32_t got = emu_block->lanes[(warp << 5) | l];
+    std::memcpy(&x, &got, 4);
+    out = l == 0 ? x : op(out, x);
+  }
+  emu_block->warps[warp]->arrive_and_wait();
+  return out;
+}
+inline int __reduce_min_sync(unsigned, int v) { return emu_reduce(v, [](int a, int b) { return a < b ? a : b; }); }
+inline int __reduce_max_sync(unsigned, int v) { return emu_reduce(v, [](int a, int b) { return a > b ? a : b; }); }
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  return emu_reduce(v, [](unsigned a, unsigned b) { return a + b; });
+}
+inline int __reduce_add_sync(unsigned, int v) {
+  return static_cast<int>(__reduce_add_sync(0u, static_cast<unsigned>(v)));
+}
+inline unsigned __reduce_or_sync(unsigned, unsigned v) {
+  return emu_reduce(v, [](unsigned a, unsigned b) { return a | b; });
+}
 
 template <class Kernel, class Args>
-void emu_launch(Kernel kernel, dim3 grid, int block, int, cudaStream_t, Args args) {
+void emu_launch(Kernel kernel, dim3 grid, int block, size_t smem, cudaStream_t, Args args) {
+  if (smem > static_cast<size_t>(emu_dynamic_limit(kernel))) {
+    emu_last_error = cudaErrorInvalidValue;  // refused: more shared memory than allowed
+    return;
+  }
   gridDim = {grid.x, grid.y, grid.z};
   blockDim = {static_cast<unsigned>(block), 1, 1};
   for (unsigned bz = 0; bz < grid.z; ++bz)
@@ -103,6 +203,7 @@ void emu_launch(Kernel kernel, dim3 grid, int block, int, cudaStream_t, Args arg
         b.block = std::make_unique<std::barrier<>>(block);
         for (int w = 0; w < block / 32; ++w) b.warps.push_back(std::make_unique<std::barrier<>>(32));
         b.lanes.resize(block);
+        b.smem.assign((smem + 7) / 8, 0xA5A5A5A5A5A5A5A5ull);
         emu_block = &b;
         blockIdx = {bx, by, bz};
         std::vector<std::thread> threads;

@@ -62,10 +62,12 @@ def emulated(tmp_path_factory):
     for name in _build.SOURCES:
         src = (_build.CSRC / name).read_text()
         src = re.sub(r"(\w+)<<<(.*?)>>>\((\w+)\);", r"emu_launch(\1, \2, \3);", src, flags=re.S)
+        src = re.sub(r"extern __shared__ __align__\(16\) unsigned char (\w+)\[\];",
+                     r"unsigned char* \1 = emu_dynamic_smem();", src)
         src, n = re.subn(r"constexpr int (k\w*Threads) = \d+;", r"constexpr int \1 = 64;", src)
         # few blocks, so that the grid-stride loops wrap
         src = re.sub(r"constexpr long long kMaxBlocks = \d+;", "constexpr long long kMaxBlocks = 2;", src)
-        assert n >= 1 and "<<<" not in src
+        assert n >= 1 and "<<<" not in src and "extern __shared__" not in src
         units.append(out / f"{Path(name).stem}.cpp")
         units[-1].write_text(src)
     # one library from every source, as nvcc builds it
@@ -133,9 +135,26 @@ def _ties():
     return [("x", 40, "1", "2Gi", od), ("y", 60, "500m", "1Gi", od), ("z", 30, "2", "4Gi", od)], []
 
 
+def _relations():
+    # a colocated group (required self-affinity on hostname), and zone-key
+    # affinity and anti-affinity across groups (zone need and forbid words)
+    return [
+        ("co", 6, "250m", "256Mi", {"labels": {"app": "co"},
+                                    "affinity": [PodAffinityTerm({"app": "co"}, wk.HOSTNAME)]}),
+        ("zb", 20, "500m", "1Gi", {"labels": {"app": "zb"}}),
+        ("za", 20, "500m", "1Gi", {"labels": {"app": "za"},
+                                   "affinity": [PodAffinityTerm({"app": "zb"}, wk.ZONE, anti=True)]}),
+        ("zc", 15, "1", "2Gi", {"labels": {"app": "zc"},
+                                "affinity": [PodAffinityTerm({"app": "zb"}, wk.ZONE)]}),
+    ], []
+
+
+CASES = {"topology": _small_topology, "crossgroup": _small_crossgroup, "existing": _existing,
+         "exhaustion": _plain, "ties": _ties, "relations": _relations}
+
+
 def _inputs(case):
-    shapes, existing = {"topology": _small_topology, "crossgroup": _small_crossgroup,
-                        "existing": _existing, "exhaustion": _plain, "ties": _ties}[case]()
+    shapes, existing = CASES[case]()
     problem = encode(configs.pods_from_shapes(shapes),
                      [(Provisioner(meta=ObjectMeta(name="default")),
                        generate_catalog(n_types=12))], existing)
@@ -146,13 +165,56 @@ def _inputs(case):
     return tensors, (8 if case == "exhaustion" else s_new), nz
 
 
+MemberFields = ts.MemberOut._fields
+
+
 def _assert_members(got, want):
     for f in ("unplaced", "exhausted", "new_opt", "new_active", "ys"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     torch.testing.assert_close(got.cost, want.cost, rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("case", ["topology", "crossgroup", "existing", "exhaustion", "ties"])
+def _zones_opened_in_one_step(inputs, m) -> int:
+    """The most zones any one step of any member opened fresh slots in: a
+    fresh slot takes its first pods at that step."""
+    E = inputs.ex_rem.shape[0]
+    zones = inputs.opt_zone[m.new_opt.clamp(min=0).long()]
+    ys = m.ys[:, :, E:]
+    before = ys.cumsum(dim=1) - ys  # pods each slot took at earlier steps
+    opened = (ys > 0) & (before == 0)
+    return max(len(set(zones[k][opened[k, t]].tolist()))
+               for k in range(ys.shape[0]) for t in range(ys.shape[1]))
+
+
+#: warps a block of the emulated kernels holds (their 64 threads)
+EMU_WARPS = 2
+
+
+def _k2_regions(G, O, R, Z, NS):
+    """Bytes of K2's scan's three memory regions, as pack_solve.cu lays them
+    out: the per-warp partials, the staged groups, one member's per-step
+    state."""
+    r16 = lambda b: (b + 15) // 16 * 16
+    return (EMU_WARPS * (Z + 1) * 12 * 4, r16(G * (1 + 10 + 2 * R + Z) * 4),
+            r16(8 * O) + r16(NS * (6 + R) * 4))
+
+
+def _spill_limits(lib, G, O, R, Z, NS):
+    """The shared-memory limits at which the scan keeps its state (spill 1),
+    then its groups too (spill 2), in global scratch, each checked against
+    the scratch bytes the kernels' own plan asks for."""
+    part, groups, state = _k2_regions(G, O, R, Z, NS)
+    static = lib.emu_static_smem()
+    limits = {1: static + part + groups, 2: static + part}
+    assert ts.pack_member_scratch(lib, G, O, R, Z, NS) == 0
+    assert ts.pack_member_scratch(lib, G, O, R, Z, NS, static + part + groups + state) == 0
+    assert ts.pack_member_scratch(lib, G, O, R, Z, NS, limits[1]) == state
+    assert ts.pack_member_scratch(lib, G, O, R, Z, NS, limits[2]) == groups + state
+    return limits
+
+
+@pytest.mark.parametrize("case", ["topology", "crossgroup", "existing", "exhaustion", "ties",
+                                  "relations"])
 def test_emulated_kernels_match_plain_versions(emulated, case):
     (inputs, o, a, l, r, sw), S, nz = _inputs(case)
     sk = ts._launch_shared_precompute(emulated, inputs, S, NULL_STREAM)
@@ -174,6 +236,107 @@ def test_emulated_kernels_match_plain_versions(emulated, case):
         assert bool(inputs.ex_valid.any()) and bool(m1.ys[:, :, :6].any())
     if case == "crossgroup":
         assert bool(r.any()) and bool(inputs.rel_host_need.any())
+    if case == "topology":
+        # zone-limited groups open fresh slots from several zone buckets in one step
+        assert bool(sr.zone_limited.any()) and _zones_opened_in_one_step(inputs, m1) >= 2
+    if case == "relations":
+        assert bool(inputs.colocate.any())
+        assert bool(inputs.rel_zone_forbid.any()) and bool(inputs.rel_zone_need.any())
+
+
+@pytest.mark.parametrize("case", ["topology", "crossgroup", "existing", "relations"])
+def test_emulated_k2_state_in_global_memory(emulated, case):
+    """K2's scan with its per-step state in global scratch, and with its
+    staged groups there too (as on the card when they do not fit in shared
+    memory): the same code, the plain version's outputs, both phases."""
+    (inputs, o, a, l, r, sw), S, nz = _inputs(case)
+    G, O, E, R, Z = ts._dims(inputs)
+    sr = ts.shared_precompute_ref(inputs, S, nz)
+    for spill, limit in _spill_limits(emulated, G, O, R, Z, E + S).items():
+        m1 = ts._launch_pack_member(emulated, inputs, sr, o, a, l, r, S, None, None, NULL_STREAM,
+                                    smem_limit=limit)
+        _assert_members(m1, ts.pack_member_ref(inputs, sr, o, a, l, r, S, nz))
+        m2 = ts._launch_pack_member(emulated, inputs, sr, o, a, l, r, S, sw, m1.cost, NULL_STREAM,
+                                    smem_limit=limit)
+        o2, a2, l2, r2 = ts.phase2_members(o, a, l, r, sw, m1.cost)
+        _assert_members(m2, ts.pack_member_ref(inputs, sr, o2, a2, l2, r2, S, nz))
+
+
+def test_emulated_k2_plan_counts_static_shared_memory(emulated):
+    """The card's opt-in limit caps a block's static and dynamic shared
+    memory together. At the widths of 50k_full (G=32, O=4096, R=3, Z=4),
+    every NS whose scan memory fits under the limit only when the scan's
+    static shared memory is left out must put its state in global memory;
+    groups that do not fit at all go there too. A run at a limit inside that
+    window launches, and matches the plain version."""
+    static = emulated.emu_static_smem()
+    assert static > 0
+    optin = 232448  # the emulated card's, as an H100's
+    G, O, R, Z = 32, 4096, 3, 4
+    part, groups, state0 = _k2_regions(G, O, R, Z, 0)
+    first = next(ns for ns in range(4096, 8192)
+                 if part + groups + _k2_regions(G, O, R, Z, ns)[2] + static > optin)
+    window = [ns for ns in range(first, first + 128)
+              if part + groups + _k2_regions(G, O, R, Z, ns)[2] <= optin]
+    assert len(window) >= 40
+    assert ts.pack_member_scratch(emulated, G, O, R, Z, first - 1) == 0
+    for ns in window:
+        assert ts.pack_member_scratch(emulated, G, O, R, Z, ns) == _k2_regions(G, O, R, Z, ns)[2]
+    big = 4096  # groups alone over the limit
+    assert part + _k2_regions(big, O, R, Z, 0)[1] + static > optin
+    assert ts.pack_member_scratch(emulated, big, O, R, Z, 2048) == sum(_k2_regions(big, O, R, Z, 2048)[1:])
+    with pytest.raises(RuntimeError, match="G=32 groups"):
+        ts.pack_member_scratch(emulated, G, O, R, Z, 2048, static + part - 1)
+
+    (inputs, o, a, l, r, sw), S, nz = _inputs("existing")
+    G, O, E, R, Z = ts._dims(inputs)
+    part, groups, state = _k2_regions(G, O, R, Z, E + S)
+    limit = part + groups + state  # fits without the static bytes only
+    assert ts.pack_member_scratch(emulated, G, O, R, Z, E + S, limit) == state
+    sr = ts.shared_precompute_ref(inputs, S, nz)
+    m1 = ts._launch_pack_member(emulated, inputs, sr, o, a, l, r, S, None, None, NULL_STREAM,
+                                smem_limit=limit)
+    _assert_members(m1, ts.pack_member_ref(inputs, sr, o, a, l, r, S, nz))
+
+
+def test_emulated_k2_tie_band_prefers_by_alpha(emulated):
+    """One group of 8 pods and two options of 2 and 4 pods a node at the same
+    per-pod rate, every other option priced out: lump and rate scores tie
+    exactly, and only the portfolio's preference decides. Members with
+    alpha >= 1 must open the larger nodes, the others the smaller ones."""
+    (inputs, o, a, l, r, sw), S, nz = _inputs("ties")
+    g = int(torch.argmax(inputs.count))
+    small, large = (int(x) for x in torch.nonzero(inputs.compat[g] & inputs.opt_valid)[:2, 0])
+    count = torch.zeros_like(inputs.count)
+    count[g] = 8
+    price = torch.ones_like(inputs.price)
+    price[small], price[large] = 2e-3, 4e-3
+    inputs = inputs._replace(count=count, price=price)
+    sr = ts.shared_precompute_ref(inputs, S, nz)
+    units = sr.units.clone()
+    units[g, small], units[g, large] = 2, 4
+    sr = sr._replace(units=units, units_rsv=units)
+    m1 = ts._launch_pack_member(emulated, inputs, sr, o, a, l, r, S, None, None, NULL_STREAM)
+    want = ts.pack_member_ref(inputs, sr, o, a, l, r, S, nz)
+    _assert_members(m1, want)
+    for k in range(o.shape[0]):
+        opened = set(want.new_opt[k][want.new_active[k]].tolist())
+        assert opened == ({large} if float(a[k]) >= 1.0 else {small}), (k, float(a[k]), opened)
+
+
+def test_emulated_k2_wrapping_fit_sums(emulated):
+    """A group that demands nothing fits 2^30 pods on every open slot, so the
+    int32 sums of its fits wrap, as the plain version's cumsum does: K2 then
+    sums its places instead of taking min(count, total fit)."""
+    (inputs, o, a, l, r, sw), S, nz = _inputs("existing")
+    g = int(torch.argmax(inputs.count))
+    inputs = inputs._replace(demand=inputs.demand.clone(), demand_units=inputs.demand_units.clone())
+    inputs.demand[g] = 0.0
+    inputs.demand_units[g] = 0.0
+    sr = ts.shared_precompute_ref(inputs, S, nz)
+    assert int(sr.units[g].max()) == 1 << 30
+    m1 = ts._launch_pack_member(emulated, inputs, sr, o, a, l, r, S, None, None, NULL_STREAM)
+    _assert_members(m1, ts.pack_member_ref(inputs, sr, o, a, l, r, S, nz))
 
 
 def _fleet_inputs():
@@ -211,6 +374,13 @@ def test_emulated_batched_kernels_match_plain_versions(emulated):
     _assert_members(m1, ts.pack_member(inputs, sr, o, a, l, r, S, nz))
     m2 = ts._launch_pack_member(emulated, inputs, sk, o, a, l, r, S, sw, m1.cost, NULL_STREAM)
     _assert_members(m2, ts.pack_member(inputs, sr, o, a, l, r, S, nz, swaps=sw, seed_costs=m1.cost))
+    # the groups and per-step state in global scratch, each row at its own offset
+    G, O, E, R, Z = ts._dims(inputs)
+    limit = _spill_limits(emulated, G, O, R, Z, E + S)[2]
+    g2 = ts._launch_pack_member(emulated, inputs, sk, o, a, l, r, S, sw, m1.cost, NULL_STREAM,
+                                smem_limit=limit)
+    for f in MemberFields:
+        assert torch.equal(getattr(g2, f), getattr(m2, f)), f
     buf = ts._launch_pack_epilogue(emulated, m1, m2, NULL_STREAM)
     assert buf.shape[0] == 4
     assert torch.equal(buf, ts.pack_epilogue(m1, m2))

@@ -1,7 +1,11 @@
 """Drive the PyTorch/CUDA port on one NVIDIA H100.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
-CUDA card and nvcc, and imports nothing of JAX. Phases:
+CUDA card and nvcc, and imports nothing of JAX. ``python3 chip_smoke.py
+--compare DIR`` instead times this checkout's K1 and K3 against those of
+the checkout at DIR (built from its own sources), in one process, at each
+config and on the fleet bucket at B=1, 4, 8 and 16, in turns DIR, this,
+this, DIR, with the chain and each of its kernels (``compare``). Phases:
 
 1. device: CUDA must be present; prints the card's name and power limit;
 2. build: compiles ``karpenter_tpu_torch/solver/csrc/*.cu`` with nvcc for
@@ -9,8 +13,12 @@ CUDA card and nvcc, and imports nothing of JAX. Phases:
    library under ``build/kernels/`` (keyed by a hash of the sources);
 3. kernel parity: on each of the three flat problems below, at the slot
    budget its solve reaches, each packing kernel against its plain PyTorch
-   version on the card; K2 again where its per-step state lies in global
-   memory: 10k_topology at S=8192, 50k_full at the least S whose state
+   version on the card (K1 and K3 bit for bit); the three again on 50k_full
+   cut to 26 groups and 2,310 options, a multiple of none of K1's tiles;
+   K3 and K2's phase-2 seed on member costs holding NaN, +-inf and ties;
+   one chain's device events in a profiler trace, which must be K1, K2, K2
+   and K3's own kernels and nothing else; K2 again where its per-step
+   state lies in global memory: 10k_topology at S=8192, 50k_full at the least S whose state
    does not fit beside the scan's static shared memory, and 10k_topology
    with its staged groups in global memory too; K2's breakdown at 50k_full
    and 10k_topology (phase 1, phase 1 without lookahead, phase 2, member by
@@ -35,8 +43,12 @@ CUDA card and nvcc, and imports nothing of JAX. Phases:
    cell and the cells of churn rounds 0-3) and three pad rows stacked on one
    bucket (B=8): the batched K1, K2 and K3 row by row against their plain
    versions, every row of the batched chain equal to that problem's B=1
-   buffer, the pad rows costing 0; ``fleet_stack`` against ``torch.stack``
-   and a ``stage_patch`` restage against ``index_copy_``; then timings of
+   buffer, the pad rows costing 0; the eight rows twice over at B=16, K1 and
+   K3 bit for bit on every row and the chain's device events;
+   ``fleet_stack`` against ``torch.stack`` and a ``stage_patch`` restage
+   against ``index_copy_``; K1's breakdown (its two kernels from a
+   profiler trace) at 50k_full, 10k_topology and on the fleet bucket at B=1
+   and 16; then timings of
    the chain at B=1, 4, 8 and 16, of ``fleet_stack`` for a B=16 chunk and of
    one churned cell's ``stage_patch`` restage;
 9. fleet race (main path): the sharded round on 20 per-cell
@@ -173,17 +185,9 @@ def check(ts, name, problem, solver) -> dict:
     K = o.shape[0]
     log(f"check {name}: G={G} O={O} E={E} R={R} Z={Z} K={K} S={S}")
 
-    # K1
+    # K1, every field bit for bit
     sk = ts.shared_precompute(inputs, S, nz)
-    sr = ts.shared_precompute_ref(inputs, S, nz)
-    torch.cuda.synchronize()
-    for f in ("units", "units_rsv", "rsv_group", "zone_limited", "exok_pad"):
-        if not torch.equal(getattr(sk, f), getattr(sr, f)):
-            raise AssertionError(f"{name}: K1 {f} differs from the plain version")
-    k1_err = max(max_err(sk.lam, sr.lam), max_err(sk.val_pair, sr.val_pair))
-    if not (torch.allclose(sk.lam, sr.lam, rtol=1e-6, atol=0)
-            and torch.allclose(sk.val_pair, sr.val_pair, rtol=1e-6, atol=0)):
-        raise AssertionError(f"{name}: K1 lam/val_pair differ: max abs {k1_err}")
+    k1_err = hold_shared(name, sk, ts.shared_precompute_ref(inputs, S, nz))
 
     # K2, both phases
     mk = ts.pack_member(inputs, sk, o, a, l, r, S, nz)
@@ -193,12 +197,10 @@ def check(ts, name, problem, solver) -> dict:
     mr2 = ts.pack_member_ref(inputs, sk, o2, a2, l2, r2, S, nz)
     k2_err = max(hold_members(f"{name} phase 1", mk, mr), hold_members(f"{name} phase 2", mk2, mr2))
 
-    # K3
+    # K3, bit for bit
+    hold_epilogue(ts, name, mk, mk2)
     bk = ts.pack_epilogue(mk, mk2)
-    br = ts.pack_epilogue_ref(mk, mk2)
-    if not torch.equal(bk, br):
-        raise AssertionError(f"{name}: K3 buffer differs from the plain version")
-    k3_err = max_err(bk, br)
+    k3_err = 0.0
 
     # K1-K2-K2-K3 against the whole plain program
     verdict = fused_agree(
@@ -289,6 +291,17 @@ def timings(ts, c: dict, errs: dict) -> list:
     ]
 
 
+def hold_shared(tag, got, want) -> float:
+    """K1's outputs against the plain version's, every field bit for bit.
+    Returns the largest difference (0)."""
+    import torch
+
+    for f in got._fields:
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"{tag}: K1 {f} differs from the plain version")
+    return max(max_err(got.lam, want.lam), max_err(got.val_pair, want.val_pair))
+
+
 def hold_members(tag, got, want) -> float:
     """K2's outputs against the plain version's: integers equal, member costs
     within MEMBER_COST_RTOL. Returns the largest cost difference."""
@@ -371,25 +384,225 @@ def k2_global_check(ts, problems, solver) -> float:
     return err
 
 
-def k2_parts_ms(fn, calls: int = 10) -> dict:
-    """Device ms per call of each ``__global__`` kernel ``fn`` launches, by
-    name, from a ``torch.profiler`` trace of ``calls`` calls (after one
-    warm-up); empty when the trace holds no device time."""
+GROUP_FIELDS = ("demand", "demand_units", "count", "node_cap", "quota", "colocate", "ex_compat",
+                "rel_set", "rel_host_forbid", "rel_host_need", "rel_zone_forbid", "rel_zone_need")
+OPTION_FIELDS = ("alloc", "price", "opt_zone", "opt_valid")
+
+
+def shrink(ts, tensors, G: int, O: int):
+    """A problem's device tuple cut to its first G groups and O options; each
+    order and swap pattern keeps its entries below G, in their order, so
+    each is a permutation of range(G) again."""
+    import torch
+
+    inputs, o, a, l, r, sw = tensors
+    cut = {}
+    for f in inputs._fields:
+        x = getattr(inputs, f)
+        if f == "compat":
+            x = x[:G, :O]
+        elif f in GROUP_FIELDS:
+            x = x[:G]
+        elif f in OPTION_FIELDS:
+            x = x[:O]
+        cut[f] = x.contiguous()
+
+    def keep(m):
+        return torch.stack([row[row < G] for row in m]).contiguous()
+
+    return (type(inputs)(**cut), keep(o), a, l, r, keep(sw))
+
+
+def awkward_check(ts, problem, solver, G: int, O: int) -> None:
+    """K1, K2 and K3 against their plain versions on a problem cut to G
+    groups and O options, neither a multiple of the kernels' tiles (K1's
+    256 and 64 options, its chunks of 64 groups, a warp): K1 and K3 bit for
+    bit, K2's integers equal."""
+    _, orders, _, _, _, swaps, s_new, nz = solver._prepare(problem)
+    tensors = device_problem(ts, solver, problem)
+    _, S, _ = solver._run_fused(tensors, orders, swaps, s_new, nz)
+    inputs, o, a, l, r, sw = shrink(ts, tensors, G, O)
+    if G % 32 == 0 or O % 64 == 0 or int((inputs.count > 0).sum()) == 0:
+        raise AssertionError(f"the awkward shape G={G} O={O} is not awkward")
+    sk = ts.shared_precompute(inputs, S, nz)
+    hold_shared(f"awkward G={G} O={O}", sk, ts.shared_precompute_ref(inputs, S, nz))
+    m1 = ts.pack_member(inputs, sk, o, a, l, r, S, nz)
+    m2 = ts.pack_member(inputs, sk, o, a, l, r, S, nz, swaps=sw, seed_costs=m1.cost)
+    hold_members(f"awkward G={G} O={O} phase 1", m1, ts.pack_member_ref(inputs, sk, o, a, l, r, S, nz))
+    o2, a2, l2, r2 = ts.phase2_members(o, a, l, r, sw, m1.cost)
+    hold_members(f"awkward G={G} O={O} phase 2", m2,
+                 ts.pack_member_ref(inputs, sk, o2, a2, l2, r2, S, nz))
+    hold_epilogue(ts, f"awkward G={G} O={O}", m1, m2)
+    log(f"awkward shape G={G} O={O} S={S}: K1 bit-equal, K2 equal, K3 bit-equal")
+
+
+def hold_epilogue(ts, tag, m1, m2) -> None:
+    """K3's buffer against the plain version's, bit for bit, row by row."""
+    import torch
+
+    buf = ts.pack_epilogue(m1, m2)
+    rows = [(m1, m2, buf)] if buf.dim() == 1 else [
+        (ts._row(m1, b), ts._row(m2, b), buf[b]) for b in range(buf.shape[0])]
+    for b, (x1, x2, got) in enumerate(rows):
+        if not torch.equal(got, ts.pack_epilogue_ref(x1, x2)):
+            raise AssertionError(f"{tag}: K3 buffer of row {b} differs from the plain version")
+
+
+def nan_costs(K: int) -> list:
+    """Phase-1 and phase-2 member costs on which a `<` scan and torch.argmin
+    disagree: NaN first and later, ±inf, ties within and across phases,
+    -0.0 beside +0.0."""
+    nan, inf = float("nan"), float("inf")
+    base = [3.0 + k for k in range(K)]
+
+    def put(xs, at):
+        out = list(xs)
+        for k, v in at.items():
+            out[k % K] = v
+        return out
+
+    return [
+        (put(base, {1: 1.0, 2: nan, 3: 0.5, 4: nan}), base),
+        (base, put(base, {0: nan, 5: -inf})),
+        (put(base, {2: -inf, 6: -inf}), put(base, {1: -inf})),
+        (put(base, {3: 1.0, 5: 1.0}), put(base, {0: 1.0})),
+        (put(base, {1: inf, 2: 0.0}), put(base, {4: -0.0})),
+        ([nan] * K, [nan] * K),
+    ]
+
+
+def nan_check(ts, c: dict) -> None:
+    """K3, and K2's phase-2 seed, on member costs holding NaN, ±inf and ties
+    (``nan_costs``): the first NaN, else the first minimum, as torch.argmin
+    and jnp.argmin pick it; held against the plain versions."""
+    import torch
+
+    inputs, o, a, l, r, sw = c["tensors"]
+    S, nz, sk, mk, mk2 = c["S"], c["nz"], c["sk"], c["mk"], c["mk2"]
+    K = o.shape[0]
+    for i, (c1, c2) in enumerate(nan_costs(K)):
+        m1 = mk._replace(cost=torch.tensor(c1, dtype=torch.float32, device="cuda"))
+        m2 = mk2._replace(cost=torch.tensor(c2, dtype=torch.float32, device="cuda"))
+        hold_epilogue(ts, f"K3 on costs {i}", m1, m2)
+        got = ts.pack_member(inputs, sk, o, a, l, r, S, nz, swaps=sw, seed_costs=m1.cost)
+        o2, a2, l2, r2 = ts.phase2_members(o, a, l, r, sw, m1.cost)
+        hold_members(f"K2 seeded by costs {i}", got, ts.pack_member_ref(inputs, sk, o2, a2, l2, r2, S, nz))
+    log(f"nan costs: K3 and K2's phase-2 seed equal to the plain versions on {len(nan_costs(K))} "
+        f"cost sets with NaN, +-inf and ties")
+
+
+CHAIN_ORDER = ("k1_units", "k1_val_pair", "k2_prices", "k2_scan", "k2_prices", "k2_scan",
+               "k3_pack_epilogue")
+
+
+def chain_ops_check(ts, tag, args, S: int, nz: int, calls: int = 4) -> None:
+    """``pack_solve_fused`` enqueues the chain's own kernels and nothing
+    else: in a profiler trace of ``calls`` calls, the device events in the
+    order they ran are CHAIN_ORDER once a call, with no PyTorch op, copy or
+    memset between K1, K2, K2 and K3. The trace may miss the first call's
+    first launches, so the events must be a tail of that sequence holding
+    at least ``calls - 1`` whole chains."""
+    names = [name for name, _ in device_trace(lambda: ts.pack_solve_fused(*args, S, nz), calls)]
+    seq = []
+    for name in names:
+        part = next((p for p in CHAIN_ORDER if p in name), None)
+        if part is None:
+            raise AssertionError(f"{tag}: the chain enqueued {name!r} beside its kernels")
+        seq.append(part)
+    want = list(CHAIN_ORDER) * calls
+    if len(seq) < (calls - 1) * len(CHAIN_ORDER) or seq != want[len(want) - len(seq):]:
+        raise AssertionError(f"{tag}: the chain's device events ran as {seq}")
+    log(f"chain {tag}: {calls} pack_solve_fused calls enqueued {CHAIN_ORDER} each and nothing "
+        f"else ({len(want) - len(seq)} events of the first call not in the trace)")
+
+
+def device_trace(fn, calls: int = 10):
+    """The device events of ``calls`` calls of ``fn`` (after one warm-up),
+    from a ``torch.profiler`` trace, in the order they ran: ``[(name, ms)]``.
+    The calls queue behind a spin on the card. The trace may miss the
+    events of the first call's first launches (on the card it missed one
+    or two kernels of the first call in some windows): ``kernel_parts_ms``
+    and ``chain_ops_check`` allow for that."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SPIN_CYCLES)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    events = [ev for ev in prof.events()
+              if str(ev.device_type).endswith("CUDA") and "spin_kernel" not in ev.name]
+    events.sort(key=lambda ev: ev.time_range.start)
+    return [(ev.name, ev.time_range.elapsed_us() / 1e3) for ev in events]
+
+
+def kernel_parts_ms(fn, parts, calls: int = 10) -> dict:
+    """Device ms per call of each ``__global__`` kernel in ``parts`` that
+    ``fn`` launches (matched by name), and of everything else it enqueues
+    under "other": each name's mean time a launch times its launches a
+    call. Empty when the trace holds no device events."""
+    total, count = {}, {}
+    for name, ms in device_trace(fn, calls):
+        part = next((p for p in parts if p in name), "other")
+        total[part] = total.get(part, 0.0) + ms
+        count[part] = count.get(part, 0) + 1
+    return {p: total[p] / count[p] * max(1, round(count[p] / calls)) for p in total}
+
+
+K1_PARTS = ("k1_units", "k1_val_pair")
+K2_PARTS = ("k2_prices", "k2_scan")
+
+
+def sass_counts(lib, parts) -> dict:
+    """Instructions of each kernel in ``parts`` (summed over its instances)
+    in the built library, from ``cuobjdump -sass``; empty without the tool."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    dump = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, cur = {}, None
+    for line in dump.splitlines():
+        if "Function :" in line:
+            cur = next((p for p in parts if p in line), None)
+        elif cur and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[cur] = counts.get(cur, 0) + 1
+    return counts
+
+
+def k1_breakdown(ts, problems, solver, real, key) -> dict:
+    """K1's time split at 50k_full and 10k_topology (each at the slot budget
+    its solve reaches) and on the fleet bucket at B=1 and B=16: the whole
+    call behind a spin, then what it enqueues from a profiler trace, its
+    two kernels and any other device work of the wrapper under "other".
+    Returns the times."""
+    shapes = {}
+    for name in ("50k_full", "10k_topology"):
+        problem = problems[name][0]
+        _, orders, _, _, _, swaps, s_new, nz = solver._prepare(problem)
+        tensors = device_problem(ts, solver, problem)
+        _, S, _ = solver._run_fused(tensors, orders, swaps, s_new, nz)
+        shapes[name] = (tensors[0], S, nz)
+    for B in (1, 16):
+        rows = stack_rows(ts, [real[i % len(real)] for i in range(B)]) if B > 1 else real[0]
+        shapes[f"fleet B={B}"] = (rows[0], key.S, key.Z)
     out = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
-        for part in ("k2_prices", "k2_scan"):
-            if part in ev.key and us:
-                out[part] = out.get(part, 0.0) + us / 1e3 / calls
+    for name, (inputs, S, nz) in shapes.items():
+        def call():
+            return ts.shared_precompute(inputs, S, nz)
+
+        t = dict(ms=time_ms(call), parts=kernel_parts_ms(call, K1_PARTS))
+        G, O, E, R, Z = ts._dims(inputs)
+        log(f"k1 breakdown {name} (G={G} O={O} NS={E + S} R={R} B={ts._batch(inputs) or 1}): "
+            f"call {t['ms']:.4f} ms; by kernel (profiler, ms a call) "
+            f"{t['parts'] or 'no device time traced'}")
+        out[name] = t
     return out
 
 
@@ -423,9 +636,11 @@ def k2_breakdown(ts, problems, solver) -> dict:
                                            r[k:k + 1], S, nz), reps=3)
             for k in range(o.shape[0])
         ]
-        t["parts1"] = k2_parts_ms(lambda: ts.pack_member(inputs, sk, o, a, l, r, S, nz))
-        t["parts2"] = k2_parts_ms(lambda: ts.pack_member(inputs, sk, o, a, l, r, S, nz, swaps=sw,
-                                                         seed_costs=m1.cost))
+        t["parts1"] = kernel_parts_ms(lambda: ts.pack_member(inputs, sk, o, a, l, r, S, nz),
+                                      K2_PARTS)
+        t["parts2"] = kernel_parts_ms(lambda: ts.pack_member(inputs, sk, o, a, l, r, S, nz,
+                                                             swaps=sw, seed_costs=m1.cost),
+                                      K2_PARTS)
         steps = int((inputs.count > 0).sum())
         G, O, E, R, Z = ts._dims(inputs)
         scratch = ts.pack_member_scratch(_build.load_kernels(), G, O, R, Z, E + S)
@@ -661,14 +876,11 @@ def changed_rows(old, new) -> int:
     return int(diff.sum() if old.ndim == 1 else diff.reshape(old.shape[0], -1).any(axis=1).sum())
 
 
-def fleet_check(ts, st, configs, cells, provs, catalog) -> dict:
-    """Batched K1/K2/K3 against their plain versions row by row on five
-    distinct cells and three pad rows (B=8), every row of the batched chain
-    against that problem's B=1 chain; fleet_stack and stage_patch against
-    theirs. ``cells`` is left as it was."""
-    import numpy as np
-    import torch
-
+def fleet_rows(ts, configs, cells, provs, catalog):
+    """Five distinct cells of the 500k-pod fleet (the seed cell and the
+    cells of churn rounds 0-3) on the card, on one bucket at S=FLEET_S, and
+    one pad row. Returns ``(solver, problems, key, real rows, pad row)``;
+    ``cells`` is left as it was."""
     from karpenter_tpu_torch.solver import TorchSolver, encode
 
     solver = TorchSolver(device="cuda")
@@ -678,10 +890,22 @@ def fleet_check(ts, st, configs, cells, provs, catalog) -> dict:
         c = configs.churn_cells(work, r)[0]
         problems[f"r{r}"] = encode_cell(encode, work, provs, catalog, c)
     key = solver._bucket_key(problems["seed"])._replace(S=FLEET_S)
-    S, nz = key.S, key.Z
     real = [device_problem(ts, solver, p, bucket=key) for p in problems.values()]
     pad_fields, *pad_members = ts.fleet_padding(key)
     pad = ts.pack_inputs_from_numpy(dict(pad_fields, **dict(zip(MEMBERS, pad_members))), "cuda")
+    return solver, problems, key, real, pad
+
+
+def fleet_check(ts, st, configs, cells, provs, catalog) -> dict:
+    """Batched K1/K2/K3 against their plain versions row by row on five
+    distinct cells and three pad rows (B=8), every row of the batched chain
+    against that problem's B=1 chain; fleet_stack and stage_patch against
+    theirs. ``cells`` is left as it was."""
+    import numpy as np
+    import torch
+
+    solver, problems, key, real, pad = fleet_rows(ts, configs, cells, provs, catalog)
+    S, nz = key.S, key.Z
     batch = real + [pad] * 3
     B = len(batch)
     inputs, o, a, l, r, sw = stack_rows(ts, batch)
@@ -717,6 +941,17 @@ def fleet_check(ts, st, configs, cells, provs, catalog) -> dict:
                 raise AssertionError(f"fleet pad row {b} places or costs something")
     if len({bytes(fleet[b].cpu().numpy()) for b in range(len(real))}) != len(real):
         raise AssertionError("the fleet rows are not distinct problems")
+    # the eight rows twice over at B=16: K1 and K3 bit for bit on every row,
+    # and the chain's launches
+    args16 = stack_rows(ts, [batch[i % B] for i in range(16)])
+    i16, o16, a16, l16, r16, sw16 = args16
+    s16 = ts.shared_precompute(i16, S, nz)
+    for b in range(16):
+        hold_shared(f"fleet B=16 row {b}", ts._row(s16, b), ts.shared_precompute_ref(ts._row(i16, b), S, nz))
+    n1 = ts.pack_member(i16, s16, o16, a16, l16, r16, S, nz)
+    hold_epilogue(ts, "fleet B=16", n1,
+                  ts.pack_member(i16, s16, o16, a16, l16, r16, S, nz, swaps=sw16, seed_costs=n1.cost))
+    chain_ops_check(ts, "fleet B=16", args16, S, nz)
 
     rows = [leaf_rows(x) for x in batch]
     got, want = st.fleet_stack(rows), st.fleet_stack_ref(rows)
@@ -746,8 +981,8 @@ def fleet_check(ts, st, configs, cells, provs, catalog) -> dict:
         if not (torch.equal(got, st.stage_patch_ref(dst.clone(), idx, src))
                 and torch.equal(got.cpu(), torch.from_numpy(new[name]))):
             raise AssertionError(f"stage_patch {name} differs from index_copy_")
-    log(f"fleet check: batched K1 bit-equal, K2 max_abs_err={k2_err}, K3 equal, "
-        f"every row equal to its B=1 chain, pad rows cost 0; fleet_stack equal over "
+    log(f"fleet check: batched K1 bit-equal (B=8 and B=16), K2 max_abs_err={k2_err}, K3 equal "
+        f"(B=8 and B=16), every row equal to its B=1 chain, pad rows cost 0; fleet_stack equal over "
         f"{len(rows)} rows x {len(rows[0])} leaves; stage_patch equal on "
         f"{[(p[0], int(p[2].shape[0])) for p in patches]}")
     return dict(real=real, key=key, rows=rows, patches=patches,
@@ -998,6 +1233,100 @@ def fleet_slice(ts, configs, cells, provs, catalog) -> dict:
     return launches, k2_err
 
 
+def load_tree(root: Path, tag: str):
+    """Another checkout's ``torch_solver`` module and kernel library, built
+    from its own sources by its own ``_build`` (into its own ``build/``),
+    under module names of their own."""
+    import ctypes
+    import importlib.util
+
+    mods = {}
+    for name in ("_build", "torch_solver"):
+        path = root / "karpenter_tpu_torch" / "solver" / f"{name}.py"
+        spec = importlib.util.spec_from_file_location(f"{tag}_{name}", path)
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    build = mods["_build"]
+    return mods["torch_solver"], build.bind(ctypes.CDLL(str(build.build())))
+
+
+COMPARE_PARTS = K1_PARTS + K2_PARTS + ("k3_pack_epilogue",)
+
+
+def compare(ts, other: Path) -> None:
+    """This tree's K1 and K3 against those of the checkout at ``other``, in
+    one process on one card: at 50k_full, 10k_topology and 10k_crossgroup
+    (each at the slot budget its solve reaches) and on the fleet bucket at
+    B=1, 4, 8 and 16, in turns other, this, this, other. Each turn times K1,
+    K3 and the whole chain behind a spin, and each kernel of the chain from
+    a profiler trace (k2_prices reads the table K1 has just written). Both
+    trees' chains must give the same buffer. Logs each turn and the mean of
+    each tree's two turns."""
+    import torch
+
+    from karpenter_tpu_torch import configs
+    from karpenter_tpu_torch.solver import TorchSolver, _build, encode
+
+    sides = {"other": load_tree(other, "other"), "this": (ts, _build.load_kernels())}
+    solver = TorchSolver()
+    shapes = {}
+    for name, make in (("50k_full", configs.config_50k_full),
+                       ("10k_topology", configs.config_10k_topology),
+                       ("10k_crossgroup", configs.config_10k_crossgroup)):
+        problem = encode(*make())
+        _, orders, _, _, _, swaps, s_new, nz = solver._prepare(problem)
+        tensors = device_problem(ts, solver, problem)
+        _, S, _ = solver._run_fused(tensors, orders, swaps, s_new, nz)
+        shapes[name] = (tensors, S)
+    cells, provs, catalog = configs.config_cells()
+    _, _, key, real, _ = fleet_rows(ts, configs, cells, provs, catalog)
+    for B in (1, 4, 8, 16):
+        shapes[f"fleet B={B}"] = (stack_rows(ts, [real[i % len(real)] for i in range(B)])
+                                  if B > 1 else real[0], key.S)
+
+    def runners(side, args, S):
+        sts, lib = sides[side]
+        inputs, o, a, l, r, sw = args
+
+        def k1():
+            return sts._launch_shared_precompute(lib, inputs, S, ts._stream())
+
+        def chain():
+            sh = k1()
+            m1 = sts._launch_pack_member(lib, inputs, sh, o, a, l, r, S, None, None, ts._stream())
+            m2 = sts._launch_pack_member(lib, inputs, sh, o, a, l, r, S, sw, m1.cost, ts._stream())
+            return sts._launch_pack_epilogue(lib, m1, m2, ts._stream())
+
+        return k1, chain
+
+    results = {}
+    for name, (args, S) in shapes.items():
+        inputs, o, a, l, r, sw = args
+        nz = inputs.rel_zone_bits.shape[-1]
+        sk = ts.shared_precompute(inputs, S, nz)
+        m1 = ts.pack_member(inputs, sk, o, a, l, r, S, nz)
+        m2 = ts.pack_member(inputs, sk, o, a, l, r, S, nz, swaps=sw, seed_costs=m1.cost)
+        bufs = {side: runners(side, args, S)[1]() for side in sides}
+        if not torch.equal(bufs["this"], bufs["other"]):
+            raise AssertionError(f"compare {name}: the two trees' chains give different buffers")
+        for turn, side in enumerate(("other", "this", "this", "other")):
+            sts, lib = sides[side]
+            k1, chain = runners(side, args, S)
+            t = {
+                "k1": time_ms(k1),
+                "k3": time_ms(lambda: sts._launch_pack_epilogue(lib, m1, m2, ts._stream())),
+                "chain": time_ms(chain),
+                **kernel_parts_ms(chain, COMPARE_PARTS),
+            }
+            results.setdefault(name, {}).setdefault(side, []).append(t)
+            log(f"compare {name} turn {turn} {side}: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+    log("compare, ms (mean of two turns; this / other):")
+    for name, by in results.items():
+        keys = by["this"][0].keys()
+        mean = {side: {k: statistics.mean(t.get(k, 0.0) for t in by[side]) for k in keys} for side in by}
+        log(f"  {name}: " + "; ".join(f"{k} {mean['this'][k]:.4f} / {mean['other'][k]:.4f}" for k in keys))
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "karpenter_tpu_torch" / "solver" / "csrc" / "pack_solve.cu").is_file():
@@ -1012,6 +1341,12 @@ def main() -> int:
     card = card_line()
     log(f"device: {torch.cuda.get_device_name(0)} ({torch.cuda.device_count()} visible), {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if sys.argv[1:2] == ["--compare"]:
+        from karpenter_tpu_torch.solver import torch_solver as ts
+
+        compare(ts, Path(sys.argv[2]).resolve())
+        log(card)
+        return 0
 
     from karpenter_tpu_torch import configs
     from karpenter_tpu_torch.solver import TorchSolver, encode
@@ -1025,6 +1360,8 @@ def main() -> int:
         f"({'compiled' if _build.BUILD_SECONDS else 'cached'}) -> {lib}")
     ptxas = lib.with_name("ptxas.log")
     log(ptxas.read_text().strip() if ptxas.exists() else "")
+    log(f"instructions (cuobjdump -sass): "
+        f"{sass_counts(lib, K1_PARTS + K2_PARTS + ('k3_pack_epilogue',)) or 'no cuobjdump'}")
     _build.load_kernels()
 
     problems = {}
@@ -1040,6 +1377,10 @@ def main() -> int:
     solver = TorchSolver()
     checked = {name: check(ts, name, problem, solver) for name, (problem, _) in problems.items()}
     errs = {k: max(c["errs"][k] for c in checked.values()) for k in checked["50k_full"]["errs"]}
+    awkward_check(ts, problems["50k_full"][0], solver, 26, 2310)
+    nan_check(ts, checked["10k_crossgroup"])
+    c = checked["50k_full"]
+    chain_ops_check(ts, "50k_full", c["tensors"], c["S"], c["nz"])
     errs["pack_member"] = max(errs["pack_member"], k2_global_check(ts, problems, solver))
     k2_breakdown(ts, problems, solver)
     kernels = timings(ts, checked.pop("50k_full"), errs)
@@ -1056,7 +1397,7 @@ def main() -> int:
         problems[name] = (encode(*make()), problems[name][1])
     flat = race_phase(ts, problems, configs)
     log(f"flat race launches {flat}")
-    del problems
+    problems = {name: problems[name] for name in ("50k_full", "10k_topology")}  # K1's breakdown
 
     t0 = time.perf_counter()
     cells, provs, catalog = configs.config_cells()
@@ -1064,6 +1405,8 @@ def main() -> int:
         f"built in {time.perf_counter() - t0:.2f} s")
     hazard_check(ts, configs, cells, provs, catalog)
     fc = fleet_check(ts, st, configs, cells, provs, catalog)
+    k1_breakdown(ts, problems, solver, fc["real"], fc["key"])
+    del problems
     for entry in kernels:
         entry["max_abs_err"] = max(entry["max_abs_err"], fc["errs"].get(entry["name"], 0.0))
     kernels += fleet_timings(ts, st, fc)

@@ -32,8 +32,8 @@ _LIB: Optional[ctypes.CDLL] = None
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    # 19 pointers, B G O E R Z S, stream
-    "kts_shared_precompute": [_P] * 19 + [_I] * 7 + [_P],
+    # 21 pointers, B G O E R Z S, stream
+    "kts_shared_precompute": [_P] * 21 + [_I] * 7 + [_P],
     # 40 pointers, B K G O E R Z S smem_limit, stream
     "kts_pack_member": [_P] * 40 + [_I] * 9 + [_P],
     # 13 pointers, B K T NS S, stream
@@ -104,6 +104,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # G O R Z NS smem_limit -> bytes of scratch a member
     lib.kts_pack_member_scratch.argtypes = [_I] * 6
     lib.kts_pack_member_scratch.restype = _L
+    # B G O -> bytes of K1's scratch
+    lib.kts_shared_precompute_scratch.argtypes = [_I] * 3
+    lib.kts_shared_precompute_scratch.restype = _L
     return lib
 
 

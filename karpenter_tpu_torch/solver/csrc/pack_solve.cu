@@ -2,7 +2,10 @@
 //
 // Three kernels replace the XLA program of karpenter_tpu/solver/jax_solver.py:
 //
-//   K1 shared_precompute  <- _shared_precompute (jax_solver.py:193-281)
+//   K1 shared_precompute  <- _shared_precompute (jax_solver.py:193-281),
+//                            launched as two kernels: k1_units (the unit
+//                            counts and partial minima, grid wide) then
+//                            k1_val_pair (lam, units_rsv and the table)
 //   K2 pack_member        <- _pack_member under vmap (jax_solver.py:295-535),
 //                            launched once per search phase as two kernels:
 //                            k2_prices (the lookahead members' prices, grid
@@ -18,8 +21,8 @@
 // them in the same four launches: this is the fleet dispatch of the sharded
 // round (pack_solve_fleet, jax_solver.py:615-643, which runs the B=1 program
 // under vmap). Each block finds its row b (blockIdx.z for K1's two passes and
-// k2_prices, blockIdx.y for k2_scan's (K, B) grid, blockIdx.x for K3's B
-// blocks) and offsets every input, output and scratch pointer by that row's
+// k2_prices, blockIdx.y for k2_scan's (K, B) grid and K3's (tiles, B) grid)
+// and offsets every input, output and scratch pointer by that row's
 // size_t stride (k1_row, k2_row, k3_row); the rest is the B=1 code, so row b of
 // a batch computes what a B=1 launch of problem b computes, bit for bit.
 // Nothing is shared between rows: phase 2 takes the argmin of its own row's
@@ -33,7 +36,9 @@
 // `sum + unplaced*penalty`); those are written here as explicit __fmaf_rn so
 // that every rounding matches. Every float literal carries its `f`. Ceil
 // division of non-negative ints is (a + b - 1) / b: C++ `/` truncates toward
-// zero. Every argmin/argmax resolves ties to the lower index, as jnp does.
+// zero. Every argmin/argmax resolves ties to the lower index, as jnp does, and
+// the argmins over member costs pick the first NaN before any number, as
+// jnp.argmin and torch.argmin do (argmin_before).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -61,7 +66,8 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kK1Threads = 256;
 constexpr int kK2Threads = 1024;       // K2's scan: one block per (member, row)
 constexpr int kK2PriceThreads = 256;   // K2's lookahead prices
-constexpr int kK3Threads = 1024;
+constexpr int kK3Threads = 256;       // K3: one 16-byte copy a thread
+constexpr int kK3Tile = 4 * kK3Threads;  // K3: ints of the buffer a block writes
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
@@ -99,6 +105,39 @@ __device__ __forceinline__ void arg_better(float& v, int& i, float v2, int i2) {
   }
 }
 
+// (v2, i2) comes before (v, i) under jnp.argmin and torch.argmin: the first
+// NaN, else the first minimum. With unique indices this orders any set of
+// candidates totally, so a scan in index order and a warp's butterfly
+// reduction pick the same one.
+__device__ __forceinline__ bool argmin_before(float v2, int i2, float v, int i) {
+  const bool nan2 = v2 != v2, nan = v != v;
+  if (nan2 != nan) return nan2;
+  return nan2 ? i2 < i : v2 < v || (v2 == v && i2 < i);
+}
+
+// The warp's argmin_before-first index among cost(0..n-1), on every lane.
+template <class F>
+__device__ __forceinline__ int warp_argmin(F cost, int n) {
+  float v = 0.0f;
+  int i = kIntMax;  // no candidate yet
+  for (int j = threadIdx.x & 31; j < n; j += 32) {
+    const float c = cost(j);
+    if (i == kIntMax || argmin_before(c, j, v, i)) {
+      v = c;
+      i = j;
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const float v2 = __shfl_xor_sync(kFull, v, o);
+    const int i2 = __shfl_xor_sync(kFull, i, o);
+    if (i2 != kIntMax && (i == kIntMax || argmin_before(v2, i2, v, i))) {
+      v = v2;
+      i = i2;
+    }
+  }
+  return i;
+}
+
 __device__ int block_sum(int v, Scratch& sh) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
   v = warp_sum(v);
@@ -123,22 +162,6 @@ __device__ float block_sum_f(float v, Scratch& sh) {
   if (wid == 0) {
     float x = lane < nw ? sh.f[lane] : 0.0f;
     x = warp_sum_f(x);
-    if (lane == 0) sh.f[32] = x;
-  }
-  __syncthreads();
-  const float r = sh.f[32];
-  __syncthreads();
-  return r;
-}
-
-__device__ float block_min(float v, Scratch& sh) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  v = warp_min(v);
-  if (lane == 0) sh.f[wid] = v;
-  __syncthreads();
-  if (wid == 0) {
-    float x = lane < nw ? sh.f[lane] : kInf;
-    x = warp_min(x);
     if (lane == 0) sh.f[32] = x;
   }
   __syncthreads();
@@ -184,12 +207,26 @@ struct K1Args {
   bool* zone_limited;         // [G]
   float* val_pair;            // [G, O, G]
   bool* exok_pad;             // [G, E+S]
+  bool* is_new;               // [E+S]
+  float* part_min;            // scratch [G, k1_tiles(O)]: each k1_units block's rate minimum
+  int* part_fit;              // scratch [G, k1_tiles(O)]: and whether an option fits the reserve
   int G, O, E, R, Z, S;
+  int pair_rows;              // groups g a k1_val_pair block takes (k1_pair_rows)
 };
+
+// k1_units' tiles of the option axis: runs of whole blocks' worth of
+// options, at most kK1MaxTiles of them, so that one warp's lanes reduce a
+// group's partials.
+constexpr int kK1MaxTiles = 32;
+__host__ __device__ __forceinline__ int k1_span(int O) {
+  const int blocks = (O + kK1Threads - 1) / kK1Threads;
+  return kK1Threads * ((blocks + kK1MaxTiles - 1) / kK1MaxTiles);
+}
+__host__ __device__ __forceinline__ int k1_tiles(int O) { return (O + k1_span(O) - 1) / k1_span(O); }
 
 // K1Args of batch row b: every array advanced by b times its per-row size.
 __device__ __forceinline__ K1Args k1_row(K1Args a, size_t b) {
-  const size_t G = a.G, O = a.O, E = a.E, R = a.R, Z = a.Z, NS = a.E + a.S;
+  const size_t G = a.G, O = a.O, E = a.E, R = a.R, Z = a.Z, NS = a.E + a.S, NT = k1_tiles(a.O);
   a.demand += b * G * R;
   a.demand_units += b * G * R;
   a.count += b * G;
@@ -209,6 +246,9 @@ __device__ __forceinline__ K1Args k1_row(K1Args a, size_t b) {
   a.zone_limited += b * G;
   a.val_pair += b * G * O * G;
   a.exok_pad += b * G * NS;
+  a.is_new += b * NS;
+  a.part_min += b * G * NT;
+  a.part_fit += b * G * NT;
   return a;
 }
 
@@ -219,91 +259,337 @@ __device__ __forceinline__ int finish_units(int un, bool ok, int cap, bool coloc
   return un;
 }
 
-// K1a replaces _shared_precompute's per-group part (jax_solver.py:206-243):
-// one block per (group row g, batch row b) loops over the O options for the raw and
-// reserve-sized unit counts, reduces row_fits over O, finishes both, and
-// reduces lam as a row min. Bound: the [G, O] reads of compat and the two
-// [G, O] unit writes, ~0.5 MB at 50k_full (G=32, O=4096), well under a
-// microsecond of bandwidth; the block's own latency dominates. The val_pair
-// table needs every group's lam, so it is a second pass (K1b).
+// A read-only load through the non-coherent global path: the compiler may
+// issue it ahead of shared-memory stores, so that a block's loads fly
+// together. For data the kernel does not write (or wrote in an earlier
+// launch).
+template <class T>
+__device__ __forceinline__ T ldg(const T* p) { return __ldg(p); }
+__device__ __forceinline__ bool ldg(const bool* p) {
+  return __ldg(reinterpret_cast<const unsigned char*>(p)) != 0;
+}
+
+// fit_units on a row, unrolled over kMaxR, so that no row lands in local
+// memory: the same operations.
+__device__ __forceinline__ int fit_units_r(const float* c, const float (&d)[kMaxR], int R) {
+  float m = kInf;
+#pragma unroll
+  for (int r = 0; r < kMaxR; ++r) {
+    if (r < R) {
+      const float s = d[r] > 0.0f ? c[r] / fmaxf(d[r], kTiny) : kInf;
+      m = r == 0 ? s : fminf(m, s);
+    }
+  }
+  const float u = floorf(m + kEps);
+  return static_cast<int>(fminf(fmaxf(u, 0.0f), kIBigF));
+}
+
+// K1a replaces _shared_precompute's per-group part (jax_solver.py:206-243).
+// Grid (tiles of O, G, B), one option a thread (a tile is one block's worth
+// of options up to 8,192 options, a few beyond), so the whole card takes
+// the G*O unit counts. A block issues every load it needs in one round
+// (its options' alloc rows coalesced into shared memory); it writes units
+// (finished: it does not depend on row_fits) and the raw reserve-sized
+// count, and one partial rate minimum and one partial "fits the reserve"
+// flag for its (b, g, tile), which k1_val_pair reduces. fminf and OR are
+// exact and order-free, so any split gives the same lam and row_fits bit
+// for bit, and the scratch needs no atomics and no initialisation. The
+// blocks of a row g also write its exok_pad row (and those of g = 0
+// is_new), grid-stride over the row's tiles; the last tile's last warp
+// writes zone_limited and rsv_group. Bound: the [G, O] compat reads and the
+// two [G, O] unit writes, ~1 MB at 50k_full; on the card a launch and one
+// round of loads take more (PERF.md, K1 findings).
+template <int kR>  // R when it is kR (> 0), so that its loops unroll; any R when 0
 __global__ void __launch_bounds__(kK1Threads) k1_units(K1Args p) {
-  __shared__ Scratch sh;
+  __shared__ float s_alloc[kK1Threads * kMaxR];
+  __shared__ float s_min[32];
+  __shared__ unsigned s_fit[32];
   const K1Args a = k1_row(p, blockIdx.z);
-  const int g = blockIdx.x;
-  const int O = a.O, R = a.R;
+  const int tile = blockIdx.x, nt = gridDim.x, g = blockIdx.y;
+  const int O = a.O, R = kR > 0 ? kR : a.R, Z = a.Z, tid = threadIdx.x, BT = blockDim.x;
+  const int lane = tid & 31, wid = tid >> 5, nw = BT >> 5;
   float d[kMaxR], du[kMaxR];
-  for (int r = 0; r < R; ++r) {
-    d[r] = a.demand[(size_t)g * R + r];
-    du[r] = a.demand_units[(size_t)g * R + r];
+#pragma unroll
+  for (int r = 0; r < kMaxR; ++r) {
+    d[r] = r < R ? ldg(a.demand + (size_t)g * R + r) : 0.0f;
+    du[r] = r < R ? ldg(a.demand_units + (size_t)g * R + r) : 0.0f;
   }
-  const int cnt = a.count[g], cap = a.node_cap[g];
-  const bool coloc = a.colocate[g];
-  int fits = 0;
-  for (int o = threadIdx.x; o < O; o += blockDim.x) {
-    const float* c = a.alloc + (size_t)o * R;
-    const int ur = fit_units(c, d, R);
-    const int uv = fit_units(c, du, R);
-    const bool ok = a.compat[(size_t)g * O + o] && a.opt_valid[o];
-    fits |= (uv > 0 && ok) ? 1 : 0;
-    a.units[(size_t)g * O + o] = ur;
-    a.units_rsv[(size_t)g * O + o] = uv;
-  }
-  // an option that cannot hold one provider pod plus its reserve stays 0 for
-  // reserve members, unless no option fits the reserve at all
-  const bool row_fits = block_sum(fits, sh) > 0;
-  float lmin = kInf;
-  for (int o = threadIdx.x; o < O; o += blockDim.x) {
+  const int cap = ldg(a.node_cap + g), cnt = ldg(a.count + g);
+  const bool coloc = ldg(a.colocate + g);
+  // the last tile's last warp: zone_limited and rsv_group (Z <= 32)
+  const bool flags = tile == nt - 1 && wid == nw - 1;
+  const unsigned zl = flags && lane < Z && ldg(a.quota + (size_t)g * Z + lane) < kIBig ? 1u : 0u;
+  const int span = k1_span(O), o_end = min(O, (tile + 1) * span);
+  float rate = kInf;
+  unsigned fits = 0;
+  for (int o0 = tile * span; o0 < o_end; o0 += BT) {
+    const int n = min(BT, o_end - o0);
+    // every load first, each into a register of its own, so that they fly
+    // together; then the stores to shared memory
+    constexpr int kSlots = kR > 0 ? kR : kMaxR;  // alloc words a thread stages
+    float av[kSlots];
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      const int i = tid + k * BT;
+      av[k] = i < n * R ? ldg(a.alloc + (size_t)o0 * R + i) : 0.0f;
+    }
+    const int o = o0 + tid;
     const size_t go = (size_t)g * O + o;
-    const bool ok = a.compat[go] && a.opt_valid[o];
-    int ur = a.units[go], uv = a.units_rsv[go];
-    if (!row_fits && ur > 0) uv = ur;
-    ur = finish_units(ur, ok, cap, coloc, cnt);
-    uv = finish_units(uv, ok, cap, coloc, cnt);
-    a.units[go] = ur;
-    a.units_rsv[go] = uv;
-    if (ur > 0) lmin = fminf(lmin, a.price[o] / fmaxf(static_cast<float>(ur), 1.0f));
+    const bool live = tid < n;
+    const bool comp = live && ldg(a.compat + go), valid = live && ldg(a.opt_valid + o);
+    const float pr = live ? ldg(a.price + o) : 0.0f;
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      const int i = tid + k * BT;
+      if (i < n * R) s_alloc[i] = av[k];
+    }
+    const bool ok = comp & valid;
+    __syncthreads();
+    if (live) {
+      const float* c = s_alloc + tid * R;
+      const int ur = fit_units_r(c, d, R), uv = fit_units_r(c, du, R);
+      fits |= uv > 0 && ok ? 1u : 0u;
+      const int un = finish_units(ur, ok, cap, coloc, cnt);
+      a.units[go] = un;
+      a.units_rsv[go] = uv;  // raw: k1_val_pair finishes it once row_fits is known
+      if (un > 0) rate = fminf(rate, pr / fmaxf(static_cast<float>(un), 1.0f));
+    }
+    __syncthreads();  // s_alloc restages
   }
-  const float lam_raw = block_min(lmin, sh);
-  if (threadIdx.x == 0) {
-    a.lam[g] = lam_raw < kInf ? lam_raw : 0.0f;
-    bool zl = false;
-    for (int z = 0; z < a.Z; ++z) zl |= a.quota[(size_t)g * a.Z + z] < kIBig;
-    a.zone_limited[g] = zl;
-    bool rg = false;
-    for (int r = 0; r < R; ++r) rg |= a.demand_units[(size_t)g * R + r] != a.demand[(size_t)g * R + r];
-    a.rsv_group[g] = rg;
+  rate = warp_min(rate);
+  fits = __reduce_or_sync(kFull, fits);
+  if (lane == 0) {
+    s_min[wid] = rate;
+    s_fit[wid] = fits;
   }
   const int NS = a.E + a.S;
-  for (int s = threadIdx.x; s < NS; s += blockDim.x)
+  for (int s = tile * BT + tid; s < NS; s += nt * BT) {
     a.exok_pad[(size_t)g * NS + s] =
-        s < a.E && a.ex_compat[(size_t)g * a.E + s] && a.ex_valid[s];
+        s < a.E && (ldg(a.ex_compat + (size_t)g * a.E + s) & ldg(a.ex_valid + s));
+    if (g == 0) a.is_new[s] = s >= a.E;
+  }
+  if (flags) {
+    unsigned diff = 0;
+#pragma unroll
+    for (int r = 0; r < kMaxR; ++r) diff |= r < R && du[r] != d[r] ? 1u : 0u;
+    const unsigned limited = __reduce_or_sync(kFull, zl);
+    if (lane == 0) {
+      a.zone_limited[g] = limited != 0;
+      a.rsv_group[g] = diff != 0;
+    }
+  }
+  __syncthreads();
+  if (wid == 0) {
+    rate = warp_min(lane < nw ? s_min[lane] : kInf);
+    fits = __reduce_or_sync(kFull, lane < nw ? s_fit[lane] : 0u);
+    if (lane == 0) {
+      a.part_min[(size_t)g * nt + tile] = rate;
+      a.part_fit[(size_t)g * nt + tile] = static_cast<int>(fits);
+    }
+  }
+}
+
+// k1_val_pair's blocks: kK1PairTile options by kK1PairRows groups g, the
+// groups g' staged kK1PairChunk at a time.
+constexpr int kK1PairTile = 64;
+constexpr int kK1PairRows = kK1Threads / kK1PairTile;  // a thread finishes one (g, o) of units_rsv
+constexpr int kK1PairChunk = 32;
+constexpr int kK1OkStride = kK1PairChunk + 4;  // bytes an option's staged compat row takes
+constexpr int kK1Warps = kK1Threads / 32;
+static_assert(kK1PairRows * kK1PairTile == kK1Threads && kK1MaxTiles <= 32, "k1_val_pair's staging");
+// what a thread stages: residual words, compat bytes, demand words, and
+// partial minima (one warp's lanes hold one group's)
+constexpr int kK1OkPer = (kK1PairTile * kK1PairChunk + kK1Threads - 1) / kK1Threads;
+constexpr int kK1LamPer = (kK1PairChunk + kK1Warps - 1) / kK1Warps;
+// k1_val_pair takes kK1PairRows groups g a block, so that they share the
+// staged g' data, once that leaves at least this many blocks; else one, so
+// that a small problem still spreads over the card
+constexpr int kK1PairRowsFrom = 256;
+
+int k1_pair_rows(int B, int G, int O) {
+  const long long tiles = (O + kK1PairTile - 1) / kK1PairTile;
+  return tiles * ((G + kK1PairRows - 1) / kK1PairRows) * B >= kK1PairRowsFrom ? kK1PairRows : 1;
 }
 
 // K1b replaces the lookahead value table (jax_solver.py:245-264):
 // val_pair[g, o, g'] = whole pods of g' that fit in the residual of one (g, o)
-// node, times g''s cheapest per-pod rate. One thread per (o, g') element of a
-// row g of batch row b (blockIdx.z), so the 16 MB table at 50k_full is written once, coalesced, by the
-// whole card. Bound: those bytes (about 5 us at 3.35 TB/s); the
-// G*O*G'*R divisions are far below the f32 rate.
+// node, times g''s cheapest per-pod rate. Grid (tiles of O, blocks of
+// k1_pair_rows groups g, B). A block loads, through the read-only path so
+// that the loads fly together: the residual inputs of each of its (g, o)
+// (the residual is computed once per (g, o), from the units k1_units
+// wrote), units_rsv and the row_fits partials of its rows, and for a chunk
+// of groups g' their partial minima (lam), demand, node_cap and the tile's
+// compat, each read coalesced along its fastest axis; the g' data serve
+// all its rows. It then reduces lam (its tile-0 blocks write lam[g]),
+// finishes units_rsv of its (g, o) now that row_fits is known, and writes,
+// row by row, its [tile, G'] slabs of the table with g' fastest, as the
+// table lies, coalesced and cached: k2_prices reads it from L2 next. Each
+// thread keeps one g', whose demand, cap and lam stay in registers. Bound:
+// the table's bytes (16.8 MB at 50k_full, ~0.005 ms), below what holds it
+// on the card: each block's prologue, thousands of cycles of instruction
+// latency (which 4 groups a block share), and the instruction path of each
+// element (PERF.md, K1 findings). Every quotient stays a correctly rounded
+// division; an element whose option g' cannot use, or whose lam is +0, is
+// 0 whatever the quotients give, and skips them.
+template <int kR>  // as k1_units'
 __global__ void __launch_bounds__(kK1Threads) k1_val_pair(K1Args p) {
+  __shared__ float s_resid[kK1PairRows * kK1PairTile * kMaxR];  // [row][o][r]
+  __shared__ float s_d[kK1PairChunk * kMaxR];
+  __shared__ float s_cap[kK1PairChunk], s_lam[kK1PairChunk];
+  __shared__ bool s_ok[kK1PairTile * kK1OkStride];  // [o][g'] compat && opt_valid
+  __shared__ int s_row_fits[kK1PairRows];
   const K1Args a = k1_row(p, blockIdx.z);
-  const int g = blockIdx.y;
-  const int O = a.O, G = a.G, R = a.R;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)O * G) return;
-  const int o = static_cast<int>(i / G), g2 = static_cast<int>(i % G);
-  const float uf = static_cast<float>(a.units[(size_t)g * O + o]);
-  float u2 = kInf;
-  for (int r = 0; r < R; ++r) {
-    const float resid = __fmaf_rn(-uf, a.demand[(size_t)g * R + r], a.alloc[(size_t)o * R + r]);
-    const float dr = a.demand[(size_t)g2 * R + r];
-    const float ur = dr > 0.0f ? floorf(resid / fmaxf(dr, kTiny) + kEps) : kInf;
-    u2 = r == 0 ? ur : fminf(u2, ur);
+  const int O = a.O, G = a.G, R = kR > 0 ? kR : a.R;
+  const int tid = threadIdx.x, BT = blockDim.x, lane = tid & 31, wid = tid >> 5;
+  const int o0 = blockIdx.x * kK1PairTile, n = min(kK1PairTile, O - o0), nt1 = k1_tiles(O);
+  const int g0 = blockIdx.y * a.pair_rows, rows = min(a.pair_rows, G - g0);
+  // this thread's (g, o) of units_rsv
+  const int gr_f = tid / kK1PairTile, ol_f = tid % kK1PairTile;
+  const int g_f = g0 + gr_f, o_f = o0 + ol_f;
+  const bool own = gr_f < rows && ol_f < n;
+  const size_t go_f = (size_t)g_f * O + o_f;
+  const int uv_raw = own ? a.units_rsv[go_f] : 0;
+  const bool ok_f = own && (ldg(a.compat + go_f) & ldg(a.opt_valid + o_f));
+  const int cap_f = own ? ldg(a.node_cap + g_f) : 0, cnt_f = own ? ldg(a.count + g_f) : 0;
+  const bool coloc_f = own && ldg(a.colocate + g_f);
+  // every load of the block first, each into a register of its own, so
+  // that they fly together; then the stores to shared memory. First the
+  // block's rows: their row_fits partials and the inputs of their residuals
+  constexpr int RR = kR > 0 ? kR : kMaxR;
+  constexpr int kResid = (kK1PairRows * kK1PairTile * RR + kK1Threads - 1) / kK1Threads;
+  constexpr int kDemand = (kK1PairChunk * RR + kK1Threads - 1) / kK1Threads;
+  constexpr int kFit = (kK1PairRows + kK1Warps - 1) / kK1Warps;
+  unsigned fv[kFit];
+#pragma unroll
+  for (int k = 0; k < kFit; ++k) {
+    const int gr = wid + k * kK1Warps;
+    fv[k] = gr < rows && lane < nt1 ? static_cast<unsigned>(ldg(a.part_fit + (size_t)(g0 + gr) * nt1 + lane))
+                                    : 0u;
   }
-  u2 = fminf(fmaxf(u2, 0.0f), kIBigF);
-  u2 = fminf(u2, static_cast<float>(a.node_cap[g2]));
-  const bool ok2 = a.compat[(size_t)g2 * O + o] && a.opt_valid[o];
-  a.val_pair[(size_t)g * O * G + i] = (ok2 && u2 > 0.0f) ? u2 * a.lam[g2] : 0.0f;
+  const int span = n * R;  // residual words of a row
+  float ru[kResid], rd[kResid], ra[kResid];
+  int ri[kResid];  // where each goes in s_resid, or -1
+#pragma unroll
+  for (int k = 0; k < kResid; ++k) {
+    const int i = tid + k * BT;
+    ri[k] = -1;
+    ru[k] = rd[k] = ra[k] = 0.0f;
+    if (i < rows * span) {
+      const int gr = i / span, w = i - gr * span, ol = w / R;
+      const int g = g0 + gr;
+      ri[k] = gr * kK1PairTile * kMaxR + w;
+      ru[k] = static_cast<float>(ldg(a.units + (size_t)g * O + o0 + ol));
+      rd[k] = ldg(a.demand + (size_t)g * R + (w - ol * R));
+      ra[k] = ldg(a.alloc + (size_t)o0 * R + w);
+    }
+  }
+  // this thread's option of the tile and its first group g' of a chunk
+  const int ol_s = tid % kK1PairTile, j_s = tid / kK1PairTile, j_step = BT / kK1PairTile;
+  const bool valid_s = ol_s < n && ldg(a.opt_valid + o0 + ol_s);
+  for (int c0 = 0; c0 < G; c0 += kK1PairChunk) {
+    const int gc = min(kK1PairChunk, G - c0);
+    // then the chunk's groups g': partial minima, compat, demand, node_cap
+    float pm[kK1LamPer];
+#pragma unroll
+    for (int k = 0; k < kK1LamPer; ++k) {
+      const int j = wid + k * kK1Warps;
+      pm[k] = j < gc && lane < nt1 ? ldg(a.part_min + (size_t)(c0 + j) * nt1 + lane) : kInf;
+    }
+    bool okv[kK1OkPer];
+#pragma unroll
+    for (int k = 0; k < kK1OkPer; ++k) {
+      const int j = j_s + k * j_step;
+      okv[k] = j < gc && ol_s < n && ldg(a.compat + (size_t)(c0 + j) * O + o0 + ol_s);
+    }
+    float dv[kDemand];
+#pragma unroll
+    for (int k = 0; k < kDemand; ++k) {
+      const int i = tid + k * BT;
+      dv[k] = i < gc * R ? ldg(a.demand + (size_t)c0 * R + i) : 0.0f;
+    }
+    const float capv = tid < gc ? static_cast<float>(ldg(a.node_cap + c0 + tid)) : 0.0f;
+    // the stores
+    if (c0 == 0) {
+#pragma unroll
+      for (int k = 0; k < kResid; ++k)
+        if (ri[k] >= 0) s_resid[ri[k]] = __fmaf_rn(-ru[k], rd[k], ra[k]);
+#pragma unroll
+      for (int k = 0; k < kFit; ++k) {
+        const int gr = wid + k * kK1Warps;
+        const unsigned fits = __reduce_or_sync(kFull, fv[k]);
+        if (lane == 0 && gr < rows) s_row_fits[gr] = fits != 0;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kK1OkPer; ++k) {
+      const int j = j_s + k * j_step;
+      if (j < gc && ol_s < n) s_ok[ol_s * kK1OkStride + j] = valid_s & okv[k];
+    }
+#pragma unroll
+    for (int k = 0; k < kDemand; ++k) {
+      const int i = tid + k * BT;
+      if (i < gc * R) s_d[i] = dv[k];
+    }
+    if (tid < gc) s_cap[tid] = capv;
+#pragma unroll
+    for (int k = 0; k < kK1LamPer; ++k) {
+      const int j = wid + k * kK1Warps;
+      const float m = warp_min(pm[k]);
+      if (lane == 0 && j < gc) {
+        const float lam = m < kInf ? m : 0.0f;
+        s_lam[j] = lam;
+        if (blockIdx.x == 0 && c0 + j >= g0 && c0 + j < g0 + rows) a.lam[c0 + j] = lam;
+      }
+    }
+    __syncthreads();
+    if (c0 == 0 && own) {
+      // units_rsv of (g, o): an option that cannot hold one provider pod
+      // plus its reserve stays 0 for reserve members, unless no option fits
+      // the reserve at all
+      int uv = uv_raw;
+      if (s_row_fits[gr_f] == 0) {
+        float d[kMaxR];
+#pragma unroll
+        for (int r = 0; r < kMaxR; ++r) d[r] = r < R ? ldg(a.demand + (size_t)g_f * R + r) : 0.0f;
+        const int ur = fit_units_r(a.alloc + (size_t)o_f * R, d, R);
+        if (ur > 0) uv = ur;
+      }
+      a.units_rsv[go_f] = finish_units(uv, ok_f, cap_f, coloc_f, cnt_f);
+    }
+    // each thread keeps one g' j, so that its demand, cap and lam stay in
+    // registers: the chunk's groups padded to a power of two, which divides
+    // the block, and threads past the chunk idle
+    int jp = 1;
+    while (jp < gc) jp <<= 1;
+    const int j = tid & (jp - 1), step_o = BT / jp;
+    const float lam = j < gc ? s_lam[j] : 0.0f, cap = j < gc ? s_cap[j] : 0.0f;
+    float dj[RR];
+#pragma unroll
+    for (int r = 0; r < RR; ++r) dj[r] = r < R && j < gc ? s_d[j * R + r] : 0.0f;
+    const bool live = __float_as_int(lam) != 0;
+    for (int gr = 0; gr < rows && j < gc; ++gr) {
+      const float* res = s_resid + gr * kK1PairTile * kMaxR;
+      float* out = a.val_pair + ((size_t)(g0 + gr) * O + o0) * G + c0 + j;
+      for (int ol = tid / jp; ol < n; ol += step_o) {
+        float v = 0.0f;
+        if (live && s_ok[ol * kK1OkStride + j]) {
+          const float* rs = res + ol * R;
+          float u2 = kInf;
+#pragma unroll
+          for (int r = 0; r < RR; ++r) {
+            if (r < R) {
+              const float ur = dj[r] > 0.0f ? floorf(rs[r] / fmaxf(dj[r], kTiny) + kEps) : kInf;
+              u2 = r == 0 ? ur : fminf(u2, ur);
+            }
+          }
+          u2 = fminf(fminf(fmaxf(u2, 0.0f), kIBigF), cap);
+          if (u2 > 0.0f) v = u2 * lam;
+        }
+        out[ol * G] = v;
+      }
+    }
+    __syncthreads();  // the next chunk restages
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -441,13 +727,14 @@ __device__ __forceinline__ K2Args k2_row(K2Args a, size_t b) {
 }
 
 // The member whose scoring config member k runs under: k itself in phase 1,
-// the phase-1 winner (argmin, first index on ties) in phase 2.
+// the phase-1 winner in phase 2 (the first NaN, else the first minimum, as
+// torch.argmin picks it in phase2_members).
 __device__ __forceinline__ int k2_source(const K2Args& a, int k) {
   if (a.seed_costs == nullptr) return k;
   float best = a.seed_costs[0];
   int src = 0;
   for (int j = 1; j < a.K; ++j)
-    if (a.seed_costs[j] < best) {
+    if (argmin_before(a.seed_costs[j], j, best, src)) {
       best = a.seed_costs[j];
       src = j;
     }
@@ -1077,61 +1364,67 @@ __device__ __forceinline__ K3Args k3_row(K3Args a, size_t b) {
   return a;
 }
 
+// Copy n ints with the block: 16-byte loads and stores where the two ends
+// lie alike modulo 16 bytes (scalars before the first aligned int4 and after
+// the last), one int a thread where they do not.
+__device__ __forceinline__ void block_copy(int* dst, const int* src, int n) {
+  const int tid = threadIdx.x, BT = blockDim.x;
+  const size_t da = reinterpret_cast<size_t>(dst), sa = reinterpret_cast<size_t>(src);
+  const int head = ((da ^ sa) & 15) == 0 ? min(n, static_cast<int>(((16 - (da & 15)) & 15) / 4)) : n;
+  for (int i = tid; i < head; i += BT) dst[i] = src[i];
+  const int n4 = (n - head) / 4;
+  const int4* s4 = reinterpret_cast<const int4*>(src + head);
+  int4* d4 = reinterpret_cast<int4*>(dst + head);
+  for (int i = tid; i < n4; i += BT) d4[i] = s4[i];
+  for (int i = head + 4 * n4 + tid; i < n; i += BT) dst[i] = src[i];
+}
+
 // K3 replaces the tail of _pack_solve_fused_impl (jax_solver.py:585-604): the
-// argmin over both phases' 2K costs (first index wins) and the result buffer
-// in that function's layout, costs as f32 bits. One block per batch row.
-// Bound: the copy of
-// the winner's ys (T*(E+S) int32, 262 KB at 50k_full), a fraction of a
-// microsecond of bandwidth; one block's copy rate and the launch dominate.
+// argmin over both phases' 2K costs and the result buffer in that
+// function's layout, costs as f32 bits. Grid (tiles of the buffer, B): every
+// warp derives the winner itself from the 2K costs (the first NaN, else the
+// first minimum, as torch.argmin), so no block and no warp waits on another,
+// and each block writes its kK3Tile ints of the row: the head, costs, flags,
+// new_opt and new_active one int a thread, the winner's ys by block_copy.
+// Bound: the copy of the winner's ys (T*(E+S) int32, 262 KB at 50k_full),
+// read and written once across the card.
 __global__ void __launch_bounds__(kK3Threads) k3_pack_epilogue(K3Args p) {
-  __shared__ int s_phase, s_b1, s_bk;
-  const K3Args a = k3_row(p, blockIdx.x);
-  const int K = a.K;
-  if (threadIdx.x == 0) {
-    int best = 0, b1 = 0;
-    float bc = a.c1[0], b1c = a.c1[0];
-    for (int j = 1; j < K; ++j)
-      if (a.c1[j] < b1c) {
-        b1c = a.c1[j];
-        b1 = j;
-      }
-    for (int j = 1; j < 2 * K; ++j) {
-      const float c = j < K ? a.c1[j] : a.c2[j - K];
-      if (c < bc) {
-        bc = c;
-        best = j;
-      }
-    }
-    s_phase = best >= K ? 1 : 0;
-    s_b1 = b1;
-    s_bk = best >= K ? best - K : best;
-  }
-  __syncthreads();
-  const bool p2 = s_phase != 0;
-  const int bk = s_bk;
-  const int* no = p2 ? a.no2 : a.no1;
-  const bool* na = p2 ? a.na2 : a.na1;
-  const int* ys = p2 ? a.ys2 : a.ys1;
+  const K3Args a = k3_row(p, blockIdx.y);
+  const int K = a.K, S = a.S;
+  const size_t off = 4 + 4 * (size_t)K, ys_off = off + 2 * (size_t)S;
+  const size_t len = ys_off + (size_t)a.T * a.NS;
+  const size_t p0 = (size_t)blockIdx.x * kK3Tile, p1 = p0 + kK3Tile < len ? p0 + kK3Tile : len;
+  const int best = warp_argmin([&](int j) { return j < K ? a.c1[j] : a.c2[j - K]; }, 2 * K);
+  const bool p2 = best >= K;
+  const int bk = p2 ? best - K : best;
   int* buf = a.buf;
-  if (threadIdx.x == 0) {
-    buf[0] = s_phase;
-    buf[1] = s_b1;
-    buf[2] = bk;
-    buf[3] = (p2 ? a.u2 : a.u1)[bk];
+  if (p0 < ys_off) {
+    const int b1 = p0 < 4 ? warp_argmin([&](int j) { return a.c1[j]; }, K) : 0;
+    const int* no = p2 ? a.no2 : a.no1;
+    const bool* na = p2 ? a.na2 : a.na1;
+    for (size_t q = p0 + threadIdx.x; q < p1 && q < ys_off; q += blockDim.x) {
+      int v;
+      if (q < 4) {
+        v = q == 0 ? static_cast<int>(p2) : q == 1 ? b1 : q == 2 ? bk : (p2 ? a.u2 : a.u1)[bk];
+      } else if (q < 4 + 2 * (size_t)K) {
+        const int j = static_cast<int>(q - 4);
+        v = __float_as_int(j < K ? a.c1[j] : a.c2[j - K]);
+      } else if (q < off) {
+        const int j = static_cast<int>(q - 4 - 2 * (size_t)K);
+        v = (j < K ? a.ex1[j] : a.ex2[j - K]) ? 1 : 0;
+      } else if (q < off + S) {
+        v = no[(size_t)bk * S + (q - off)];
+      } else {
+        v = na[(size_t)bk * S + (q - off - S)] ? 1 : 0;
+      }
+      buf[q] = v;
+    }
   }
-  for (int j = threadIdx.x; j < 2 * K; j += blockDim.x) {
-    buf[4 + j] = __float_as_int(j < K ? a.c1[j] : a.c2[j - K]);
-    buf[4 + 2 * K + j] = (j < K ? a.ex1[j] : a.ex2[j - K]) ? 1 : 0;
+  if (p1 > ys_off) {
+    const size_t q0 = p0 > ys_off ? p0 : ys_off;
+    const int* ys = (p2 ? a.ys2 : a.ys1) + (size_t)bk * a.T * a.NS;
+    block_copy(buf + q0, ys + (q0 - ys_off), static_cast<int>(p1 - q0));
   }
-  const size_t off = 4 + 4 * (size_t)K;
-  for (int s = threadIdx.x; s < a.S; s += blockDim.x) {
-    buf[off + s] = no[(size_t)bk * a.S + s];
-    buf[off + a.S + s] = na[(size_t)bk * a.S + s] ? 1 : 0;
-  }
-  const size_t n = (size_t)a.T * a.NS;
-  const int* src = ys + (size_t)bk * n;
-  int* dst = buf + off + 2 * (size_t)a.S;
-  for (size_t i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
 }
 
 // K2's memory plan. The card's opt-in limit of shared memory a block caps a
@@ -1220,24 +1513,34 @@ extern "C" {
 
 const char* kts_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
+// Bytes of scratch kts_shared_precompute needs for B rows of G groups and O
+// options: k1_units' partial minima and flags.
+long long kts_shared_precompute_scratch(int B, int G, int O) {
+  return 2LL * B * G * k1_tiles(O) * 4;
+}
+
 int kts_shared_precompute(
     const float* demand, const float* demand_units, const int* count, const int* node_cap,
     const int* quota, const bool* colocate, const bool* compat, const float* alloc,
     const float* price, const bool* opt_valid, const bool* ex_compat, const bool* ex_valid,
     int* units, int* units_rsv, bool* rsv_group, float* lam, bool* zone_limited,
-    float* val_pair, bool* exok_pad, int B, int G, int O, int E, int R, int Z, int S,
-    void* stream) {
+    float* val_pair, bool* exok_pad, bool* is_new, void* scratch, int B, int G, int O, int E,
+    int R, int Z, int S, void* stream) {
+  float* part_min = static_cast<float*>(scratch);
+  int* part_fit = reinterpret_cast<int*>(part_min + (size_t)B * G * k1_tiles(O));
+  const int rows = k1_pair_rows(B, G, O);
   K1Args a{demand, demand_units, count, node_cap, quota, colocate, compat, alloc, price,
            opt_valid, ex_compat, ex_valid, units, units_rsv, rsv_group, lam, zone_limited,
-           val_pair, exok_pad, G, O, E, R, Z, S};
+           val_pair, exok_pad, is_new, part_min, part_fit, G, O, E, R, Z, S, rows};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  k1_units<<<dim3(G, 1, B), kK1Threads, 0, st>>>(a);
+  // three resources (cpu, memory, pods) is every configuration's width
+  void (*units_k)(K1Args) = R == 3 ? k1_units<3> : k1_units<0>;
+  void (*pair_k)(K1Args) = R == 3 ? k1_val_pair<3> : k1_val_pair<0>;
+  units_k<<<dim3(k1_tiles(O), G, B), kK1Threads, 0, st>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t row = (size_t)O * G;
-  dim3 grid(static_cast<unsigned>((row + kK1Threads - 1) / kK1Threads), static_cast<unsigned>(G),
-            static_cast<unsigned>(B));
-  k1_val_pair<<<grid, kK1Threads, 0, st>>>(a);
+  const dim3 grid((O + kK1PairTile - 1) / kK1PairTile, (G + rows - 1) / rows, B);
+  pair_k<<<grid, kK1Threads, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1294,7 +1597,9 @@ int kts_pack_epilogue(
     const bool* na2, const int* ys2, int* buf, int B, int K, int T, int NS, int S,
     void* stream) {
   K3Args a{c1, u1, ex1, no1, na1, ys1, c2, u2, ex2, no2, na2, ys2, buf, K, T, NS, S};
-  k3_pack_epilogue<<<B, kK3Threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  const size_t len = 4 + 4 * (size_t)K + 2 * (size_t)S + (size_t)T * NS;
+  const dim3 grid(static_cast<unsigned>((len + kK3Tile - 1) / kK3Tile), B);
+  k3_pack_epilogue<<<grid, kK3Threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -634,18 +634,21 @@ def _launch_shared_precompute(lib, inputs: PackInputs, s_new: int, stream) -> Sh
     zone_limited = torch.empty((B, G), dtype=_BOOL, device=dev)
     val_pair = torch.empty((B, G, O, G), dtype=_F32, device=dev)
     exok_pad = torch.empty((B, G, E + s_new), dtype=_BOOL, device=dev)
+    is_new = torch.empty((B, E + s_new), dtype=_BOOL, device=dev)
+    # scratch: k1_units' partial minima and flags, which k1_val_pair reduces
+    scratch = torch.empty((int(lib.kts_shared_precompute_scratch(B, G, O)),), dtype=torch.uint8,
+                          device=dev)
     rc = lib.kts_shared_precompute(
         _ptr(inputs.demand), _ptr(inputs.demand_units), _ptr(inputs.count),
         _ptr(inputs.node_cap), _ptr(inputs.quota), _ptr(inputs.colocate),
         _ptr(inputs.compat), _ptr(inputs.alloc), _ptr(inputs.price),
         _ptr(inputs.opt_valid), _ptr(inputs.ex_compat), _ptr(inputs.ex_valid),
         _ptr(units), _ptr(units_rsv), _ptr(rsv_group), _ptr(lam),
-        _ptr(zone_limited), _ptr(val_pair), _ptr(exok_pad),
+        _ptr(zone_limited), _ptr(val_pair), _ptr(exok_pad), _ptr(is_new), _ptr(scratch),
         B, G, O, E, R, Z, s_new, stream,
     )
     _count("shared_precompute", B)  # one call: k1_units, then k1_val_pair
     _raise_on(lib, rc, "shared_precompute")
-    is_new = (torch.arange(E + s_new, device=dev) >= E).expand(B, E + s_new).contiguous()
     out = Shared(units, units_rsv, rsv_group, lam, inputs.quota, zone_limited,
                  val_pair, exok_pad, is_new)
     return _row(out, 0) if unbatched else out

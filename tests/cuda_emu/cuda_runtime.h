@@ -46,6 +46,9 @@ struct dim3 {
 struct float4 {
   float x, y, z, w;
 };
+struct int4 {
+  int x, y, z, w;
+};
 
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101 };
@@ -151,6 +154,10 @@ inline int __float_as_int(float f) {
   return i;
 }
 inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
+template <class T>
+T __ldg(const T* p) {
+  return *p;
+}
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 inline long long min(long long a, long long b) { return a < b ? a : b; }

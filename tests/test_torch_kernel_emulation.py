@@ -20,6 +20,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -67,6 +68,15 @@ def emulated(tmp_path_factory):
         src, n = re.subn(r"constexpr int (k\w*Threads) = \d+;", r"constexpr int \1 = 64;", src)
         # few blocks, so that the grid-stride loops wrap
         src = re.sub(r"constexpr long long kMaxBlocks = \d+;", "constexpr long long kMaxBlocks = 2;", src)
+        # K1's val_pair tiles and group chunks cut small, so that a problem
+        # of a few dozen options and groups spans several of each
+        src = re.sub(r"constexpr int kK1PairTile = \d+;", "constexpr int kK1PairTile = 16;", src)
+        src = re.sub(r"constexpr int kK1PairChunk = \d+;", "constexpr int kK1PairChunk = 8;", src)
+        # k1_units' tiles capped at 2, so that a tile spans several blocks' options;
+        # k1_val_pair's blocks of several groups g from 100 blocks on, so that the
+        # batched problems take them and the single ones one group a block
+        src = re.sub(r"constexpr int kK1MaxTiles = \d+;", "constexpr int kK1MaxTiles = 2;", src)
+        src = re.sub(r"constexpr int kK1PairRowsFrom = \d+;", "constexpr int kK1PairRowsFrom = 100;", src)
         assert n >= 1 and "<<<" not in src and "extern __shared__" not in src
         units.append(out / f"{Path(name).stem}.cpp")
         units[-1].write_text(src)
@@ -394,6 +404,166 @@ def test_emulated_batched_kernels_match_plain_versions(emulated):
                                     NULL_STREAM)
         assert torch.equal(ts._launch_pack_epilogue(emulated, p1, p2, NULL_STREAM), buf[b])
     assert int(buf[3, 3]) == 0 and not bool(m1.cost[3].any()) and not bool(m2.cost[3].any())
+
+
+def _random_rows(B, G, O, E, R, Z, seed):
+    """B distinct random problems of one shape, as stacked PackInputs. Some
+    groups have no pods, some demand nothing on an axis, some options are
+    invalid or fit no group; row 1's group 2 fits no option with its
+    reserve, so its reserve-sized units fall back to the raw ones."""
+    rng = np.random.default_rng(seed)
+    demand = rng.uniform(0.05, 1.0, (B, G, R)).astype(np.float32)
+    demand[rng.random((B, G, R)) < 0.1] = 0.0
+    count = rng.integers(0, 60, (B, G)).astype(np.int32)
+    count[:, -2:] = 0  # padded groups
+    demand[:, -2:] = 0.0
+    demand_units = demand.copy()
+    rsv = rng.random((B, G)) < 0.3
+    demand_units[rsv] += rng.uniform(0.0, 2.0, (int(rsv.sum()), R)).astype(np.float32)
+    demand[1, 2] = [0.1] * R
+    demand_units[1, 2] = [100.0] * R  # no option holds a pod and its reserve
+    node_cap = np.where(rng.random((B, G)) < 0.3, rng.integers(1, 6, (B, G)), 1 << 30).astype(np.int32)
+    quota = np.where(rng.random((B, G, Z)) < 0.3, rng.integers(0, 40, (B, G, Z)), 1 << 30).astype(np.int32)
+    quota[0] = 1 << 30  # row 0 has no zone-limited group
+    compat = rng.random((B, G, O)) < 0.7
+    compat[:, 3] = False  # a group no option takes: lam 0
+    opt_valid = rng.random((B, O)) < 0.9
+    ex_valid = rng.random((B, E)) < 0.8
+    fields = dict(
+        demand=demand, demand_units=demand_units, count=count, node_cap=node_cap, quota=quota,
+        colocate=rng.random((B, G)) < 0.3, compat=compat,
+        alloc=rng.uniform(0.0, 8.0, (B, O, R)).astype(np.float32),
+        price=rng.uniform(0.01, 3.0, (B, O)).astype(np.float32),
+        opt_zone=rng.integers(0, Z, (B, O)).astype(np.int32), opt_valid=opt_valid,
+        ex_rem=rng.uniform(0.0, 4.0, (B, E, R)).astype(np.float32),
+        ex_zone=rng.integers(0, Z, (B, E)).astype(np.int32),
+        ex_compat=rng.random((B, G, E)) < 0.5, ex_valid=ex_valid,
+        **{f: np.zeros((B, n), np.int32) for f, n in (
+            ("rel_set", G), ("rel_host_forbid", G), ("rel_host_need", G), ("rel_zone_forbid", G),
+            ("rel_zone_need", G), ("rel_slot_bits", E), ("rel_zone_bits", Z))},
+    )
+    return ts.PackInputs(**{f: torch.from_numpy(np.ascontiguousarray(v)).to(ts._FIELD_DTYPES[f])
+                            for f, v in fields.items()})
+
+
+@pytest.mark.parametrize("B, G, O, R", [(3, 13, 150, 3), (2, 9, 70, 4)])
+def test_emulated_k1_tiles_match_plain_version(emulated, B, G, O, R):
+    """K1 where its tilings bite. At (3, 13, 150, 3): O = 150 options over
+    three blocks' worth of k1_units' options (64 in the emulation) in two
+    tiles (its tiles capped at 2 there), and ten of k1_val_pair's tiles
+    (16), the last of each partial; G = 13 groups over two chunks (8) of the
+    table's groups g' and four blocks of four rows g, a multiple of neither
+    a warp nor a tile; B = 3 distinct rows. At (2, 9, 70, 4): four resources
+    (the kernels' instances for any R; three has its own) and one group g a
+    k1_val_pair block. Every field equals the plain version's, bit for bit,
+    row by row. Row 1 has a group no option fits with its reserve, whose
+    fallback to the raw units crosses every tile."""
+    E, Z, S = 5, 3, 40
+    inputs = _random_rows(B, G, O, E, R, Z, seed=11 + R)
+    sk = ts._launch_shared_precompute(emulated, inputs, S, NULL_STREAM)
+    for b in range(B):
+        sr = ts.shared_precompute_ref(ts._row(inputs, b), S, Z)
+        for f in ts.Shared._fields:
+            assert torch.equal(getattr(sk, f)[b], getattr(sr, f)), (b, f)
+    # what the rows reach, so that the test covers what it is named for
+    row = ts._row(inputs, 1)
+    ok = row.compat & row.opt_valid[None, :]
+    assert not bool(((ts._units(row.alloc[None], row.demand_units[2][None, None]) > 0) & ok[2]).any())
+    assert bool(sk.units_rsv[1, 2].any()) and torch.equal(sk.units_rsv[1, 2], sk.units[1, 2])
+    assert float(sk.lam[0, 3]) == 0.0 and bool(sk.lam.gt(0).any(1).all())
+    assert bool(sk.zone_limited[1:].any()) and not bool(sk.zone_limited[0].any())
+    assert bool(sk.rsv_group.any()) and bool(sk.exok_pad.any()) and bool(sk.val_pair.gt(0).any())
+
+
+#: member costs on which a `<` scan and torch.argmin disagree: NaN first and
+#: later, NaN at the minimum's place, +-inf, ties within and across phases,
+#: -0.0 beside +0.0, every cost NaN
+NAN, INF = float("nan"), float("inf")
+COST_SETS = [
+    ([3.0, 1.0, NAN, 0.5, NAN, 4.0, 5.0, 6.0], [2.0] * 8),
+    ([2.0, 3.0, 4.0, 5.0, 6.0, 7.0, 8.0, 9.0], [5.0, NAN, 1.0, 1.0, 6.0, 7.0, 8.0, 9.0]),
+    ([3.0, -INF, 4.0, -INF, 5.0, INF, 6.0, 7.0], [INF, -INF, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0]),
+    ([3.0, 1.0, 4.0, 1.0, 5.0, 6.0, 7.0, 8.0], [1.0, 9.0, 1.0, 9.0, 9.0, 9.0, 9.0, 9.0]),
+    ([3.0, INF, 0.0, 4.0, 5.0, 6.0, 7.0, 8.0], [9.0, 9.0, 9.0, -0.0, 9.0, 9.0, 9.0, 9.0]),
+    ([NAN] * 8, [NAN] * 8),
+]
+
+
+def _members(K, T, NS, S, B, seed):
+    """B rows of two phases' member outputs of the given widths, random."""
+    rng = np.random.default_rng(seed)
+
+    def one():
+        return ts.MemberOut(
+            cost=torch.from_numpy(rng.uniform(1.0, 9.0, (B, K)).astype(np.float32)),
+            unplaced=torch.from_numpy(rng.integers(0, 50, (B, K)).astype(np.int32)),
+            exhausted=torch.from_numpy(rng.random((B, K)) < 0.5),
+            new_opt=torch.from_numpy(rng.integers(-1, 99, (B, K, S)).astype(np.int32)),
+            new_active=torch.from_numpy(rng.random((B, K, S)) < 0.5),
+            ys=torch.from_numpy(rng.integers(0, 1 << 20, (B, K, T, NS)).astype(np.int32)),
+        )
+
+    return one(), one()
+
+
+def test_emulated_k3_alignment_and_nan_costs(emulated):
+    """K3 on buffers whose ys region starts 16-byte aligned with its source
+    and on ones where it does not (row by row, at several widths, over
+    several of its blocks), on member costs with NaN, +-inf and ties: equal
+    to the plain version, whose argmin is jnp.argmin's, bit for bit."""
+    aligned = set()
+    for K, T, NS, S in ((8, 20, 33, 6), (8, 16, 40, 7), (3, 21, 31, 5), (5, 9, 64, 4)):
+        B = 3
+        m1, m2 = _members(K, T, NS, S, B, seed=K * T + NS)
+        L = 4 + 4 * K + 2 * S + T * NS
+        assert L > 256  # several of the emulated K3's 256-int tiles
+        assert m1.ys.data_ptr() % 16 == 0 and m2.ys.data_ptr() % 16 == 0
+        sets = [(c1[:K], c2[:K]) for c1, c2 in COST_SETS] + [(None, None)]
+        for c1, c2 in sets:
+            if c1 is not None:
+                rep = lambda c: torch.tensor([c] * B, dtype=torch.float32)
+                m1, m2 = m1._replace(cost=rep(c1)), m2._replace(cost=rep(c2))
+            buf = ts._launch_pack_epilogue(emulated, m1, m2, NULL_STREAM)
+            for b in range(B):
+                want = ts.pack_epilogue_ref(ts._row(m1, b), ts._row(m2, b))
+                assert torch.equal(buf[b], want), (K, T, NS, S, c1, b)
+                costs = np.concatenate([m1.cost[b].numpy(), m2.cost[b].numpy()])
+                best = int(jnp.argmin(jnp.asarray(costs)))
+                assert (int(buf[b, 0]), int(buf[b, 2])) == (int(best >= K), best % K)
+                assert int(buf[b, 1]) == int(jnp.argmin(jnp.asarray(costs[:K])))
+                bk = int(buf[b, 2])
+                src = (m2 if buf[b, 0] else m1).ys[b, bk]
+                dst_off = (b * L + 4 + 4 * K + 2 * S) * 4
+                src_off = (b * K + bk) * T * NS * 4
+                aligned.add((dst_off - src_off) % 16 == 0)
+                assert torch.equal(buf[b, L - T * NS:], src.reshape(-1))
+    assert aligned == {True, False}
+
+
+def test_emulated_k2_phase2_seed_takes_first_nan(emulated):
+    """K2's phase 2 seeded by phase-1 costs holding NaN: the seed is the
+    first NaN, as phase2_members' torch.argmin and jnp.argmin pick it, and
+    the outputs are the plain version's. The costs are chosen so that a
+    `<` scan picks another member, whose phase 2 differs."""
+    (inputs, o, a, l, r, sw), S, nz = _inputs("exhaustion")
+    sr = ts.shared_precompute_ref(inputs, S, nz)
+    for costs in ([0.5, 3.0, 3.0, 3.0, 3.0, NAN, 3.0, 3.0], [2.0, NAN, 1.0, 3.0, 4.0, 5.0, 6.0, 7.0]):
+        seed = torch.tensor(costs, dtype=torch.float32)
+        first_nan = costs.index(next(c for c in costs if c != c))
+        assert int(torch.argmin(seed)) == int(jnp.argmin(jnp.asarray(costs))) == first_nan
+        got = ts._launch_pack_member(emulated, inputs, sr, o, a, l, r, S, sw, seed, NULL_STREAM)
+        o2, a2, l2, r2 = ts.phase2_members(o, a, l, r, sw, seed)
+        want = ts.pack_member_ref(inputs, sr, o2, a2, l2, r2, S, nz)
+        _assert_members(got, want)
+        # the member a `<` scan seeds from gives another phase 2
+        lt = 0
+        for j in range(1, len(costs)):
+            lt = j if costs[j] < costs[lt] else lt
+        assert lt != first_nan
+        onehot = torch.full_like(seed, 9.0)
+        onehot[lt] = 0.0
+        other = ts.pack_member_ref(inputs, sr, *ts.phase2_members(o, a, l, r, sw, onehot), S, nz)
+        assert any(not torch.equal(getattr(other, f), getattr(want, f)) for f in MemberFields)
 
 
 def test_emulated_staging_kernels_match_plain_versions(emulated):

@@ -300,3 +300,23 @@ def test_fma_rounds_once_near_halfway_points():
                   torch.tensor([np.float32(1 - 2.0**-23)]),
                   torch.tensor([np.float32(2.0**30 + 2.0**7)]))
     assert one.item() == 2.0**30 + 2.0**7
+
+
+def test_shared_precompute_matches_reference_across_option_tiles():
+    """A 200-type catalog over 3 zones: 1,200 options padded to 1,300 and 7
+    groups padded to 13, so the option axis spans several of K1's tiles (256
+    options in its unit counts, 64 in its table) and neither axis is a
+    multiple of a tile or a warp."""
+    cat = generate_catalog(n_types=200)
+    problem = encode(_pods(_random_shapes(6, 9)), [(Provisioner(meta=ObjectMeta(name="default")), cat)])
+    assert problem.O == 1200
+    bucket = BucketKey(G=13, O=1300, E=1, S=64, Z=4, R=3, K=K)
+    inputs, orders, alphas, looks, rsvs, swaps, s_new, nz = TPUSolver(auto_mesh=False)._prepare(
+        problem, bucket=bucket)
+    assert inputs.compat.shape == (13, 1300)
+    tensors = ts.pack_inputs_from_numpy(
+        dict(inputs._asdict(), orders=orders, alphas=alphas, looks=looks, rsvs=rsvs, swaps=swaps), "cpu"
+    )
+    st = ts.shared_precompute_ref(tensors[0], s_new, nz)
+    _assert_shared(_jit_shared(jax.tree.map(jnp.asarray, inputs), s_new, nz), st)
+    assert bool((st.units[:7] > 0).any(1).all())  # every real group has an option

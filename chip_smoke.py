@@ -62,8 +62,31 @@ this, DIR, with the chain and each of its kernels (``compare``). Phases:
    device-side stack against ``torch.stack``. Every plan must validate and
    cost at most the kernel-only answer, and every row that left pods
    unplaced must have lost its race;
-10. one JSON line of kernel results, the card's name and power limit, and
+10. reconcile, 50k pods (main path): ``TorchSolver().solve_pods`` with an
+    ``EncodeSession`` on ``configs.config_delta_reconcile``: a seed round
+    (full encode), eight churn rounds fed as watch events (each must
+    delta-encode), and a repeat round with no events, which must hit the
+    solver's intern slot and stage nothing. Every round's problem must
+    have the digest of a full encode of the session's pods, and its plan
+    must validate, show nothing ``hold_race`` refuses and cost at most the
+    kernel-only answer of the same problem; the last churn round's
+    kernel-only cost must be the JAX package's;
+11. reconcile, sharded (main path): the 500k-pod fleet afresh, each cell
+    with its own session, through the controller's flow
+    (``encode_for_staging`` and ``prestage`` per dirty cell, one
+    ``stage_fleet``, ``solve_pods(pre_encoded=...)`` per cell) for the
+    seed round and churn rounds 0-1, and through one shared solver's
+    ``solve_fleet`` for round 2. Churn rounds must delta-encode, each
+    cell's problem must equal a full encode of its session's pods and of
+    the cell's own, the fleet widths must be the fleet race's, and every
+    plan must validate and cost at most its pinned kernel-only cost. Each
+    of these two phases logs its launch counts and fails unless K1, K2 and
+    K3 launched in it;
+12. one JSON line of kernel results, the card's name and power limit, and
     the device JSON as the last line.
+
+Before any encode, the native encoder (``karpenter_tpu_torch/native``)
+must have built; its build time is logged.
 
 Any failure exits non-zero with its traceback; nothing falls back to the CPU.
 """
@@ -1113,8 +1136,9 @@ def fleet_slice(ts, configs, cells, provs, catalog) -> dict:
     solver. Launch counts are taken around it; each round's dispatches are
     held against the plain versions after its timing. Every cell's plan must
     validate and cost at most the kernel-only answer; a row that left pods
-    unplaced must have lost its race. Returns the launch counts and the
-    largest member-cost difference of the dispatches."""
+    unplaced must have lost its race. Returns the launch counts, the
+    largest member-cost difference of the dispatches and each round's
+    encode seconds."""
     import numpy as np
     import torch
 
@@ -1130,12 +1154,14 @@ def fleet_slice(ts, configs, cells, provs, catalog) -> dict:
     zero_counts(ts)
     clones = [TorchSolver() for _ in range(n)]
     shared = TorchSolver()
-    solved, previous, buffers = [], {}, []
+    solved, previous, buffers, encode_s = [], {}, [], {}
     for rnd in ("seed", 0, 1, 2):
         t0 = time.perf_counter()
         dirty = list(range(n)) if rnd == "seed" else configs.churn_cells(cells, rnd)
-        problems = [encode_cell(encode, cells, provs, catalog, c) for c in dirty]
+        with gc_seconds() as gc_s:
+            problems = [encode_cell(encode, cells, provs, catalog, c) for c in dirty]
         t1 = time.perf_counter()
+        encode_s[rnd] = t1 - t0
         restaged = 0
         if rnd == 2:
             entries = [(shared, p) for p in problems]
@@ -1191,7 +1217,8 @@ def fleet_slice(ts, configs, cells, provs, catalog) -> dict:
                 raise AssertionError(f"round {rnd}: a cell's row was never judged: {res.stats}")
             if unplaced > 0 and not lost:
                 raise AssertionError(f"round {rnd}: an exhausted row did not lose its race")
-        log(f"fleet round {rnd}: {len(dirty)} cells, encode {t1 - t0:.4f} s, prestage "
+        log(f"fleet round {rnd}: {len(dirty)} cells, encode {t1 - t0:.4f} s (garbage collection "
+            f"{gc_s[0]:.4f} s of it), prestage "
             f"{t2 - t1:.4f} s (restaged rows {restaged}), stage_fleet {t3 - t2:.4f} s "
             f"({stats['buckets']}, device-stacked {stats['device_stacked']}), fleet device "
             f"{device_ms:.4f} ms, rows exhausted {exhausted} (each lost its race), kernel rows "
@@ -1230,7 +1257,251 @@ def fleet_slice(ts, configs, cells, provs, catalog) -> dict:
     log(f"fleet slice: {len(solved)} plans valid, costs "
         f"{sorted({round(res.cost, 9) for *_, res in solved})}, each at most its kernel-only "
         f"cost")
-    return launches, k2_err
+    return launches, k2_err, encode_s
+
+
+@contextlib.contextmanager
+def gc_seconds():
+    """Host seconds spent in CPython's cyclic garbage collector while the
+    block runs (a one-element list, filled as it goes): with ~10^6 live
+    pod objects a full collection takes a large share of an encode."""
+    import gc
+
+    spent, start = [0.0], []
+
+    def track(phase, info):
+        if phase == "start":
+            start.append(time.perf_counter())
+        elif start:
+            spent[0] += time.perf_counter() - start.pop()
+
+    gc.callbacks.append(track)
+    try:
+        yield spent
+    finally:
+        gc.callbacks.remove(track)
+
+
+def moved_since(ts, before) -> dict:
+    return {k: ts.LAUNCHES[k] - before[k] for k in before}
+
+
+def hold_pack_launches(phase, launches) -> None:
+    if min(launches[k] for k in PACK_KERNELS) < 1:
+        raise AssertionError(f"{phase}: K1, K2 and K3 did not all launch: {launches}")
+
+
+def interned(solver, result):
+    """The problem ``result`` decodes, among the solver's intern slots."""
+    from karpenter_tpu_torch.solver.solver import problem_digest
+
+    found = [q for q in solver._interned_problems if problem_digest(q).hex() == result.problem_digest]
+    if len(found) != 1:
+        raise AssertionError(f"{len(found)} intern slots hold the problem of digest "
+                             f"{result.problem_digest[:16]}")
+    return found[0]
+
+
+def hold_reconcile(name, solver, result, full, validate):
+    """What ``solve_pods`` must give on the card: a digest equal to a full
+    encode's of the same pods, the stats a controller reads, and a plan
+    ``hold_race`` accepts. Returns the solved problem."""
+    from karpenter_tpu_torch.solver.solver import problem_digest
+
+    problem = interned(solver, result)
+    if problem_digest(problem) != problem_digest(full):
+        raise AssertionError(f"{name}: the session's problem differs from a full encode")
+    missing = [k for k in ("encode_s", "total_s", "lower_bound") if k not in result.stats]
+    if missing or not result.problem_digest:
+        raise AssertionError(f"{name}: stats lack {missing} or the digest is unset: {result.stats}")
+    hold_race(name, problem, result, validate)
+    return problem
+
+
+def session_delta(ts, configs) -> dict:
+    """Main path, reconcile: ``TorchSolver().solve_pods`` with an
+    ``EncodeSession`` on ``configs.config_delta_reconcile`` (50k pods, 1%
+    churn a round): a seed round, the churn rounds fed as watch events, then
+    a repeat round with no events, which must hit the solver's intern slot
+    and stage nothing. Every round's problem must equal a full encode of
+    ``session.ordered_pods()``, its plan must validate and cost at most the
+    kernel-only answer of the same problem (a second solver), and the last
+    churn round's kernel-only cost must be the JAX package's. Returns the
+    launch counts of the ``solve_pods`` calls."""
+    import torch
+
+    from karpenter_tpu_torch.solver import EncodeSession, TorchSolver, encode, validate
+    from karpenter_tpu_torch.solver.solver import KERNEL_BOARD
+
+    KERNEL_BOARD.reset()
+    TorchSolver._device_rtt_s = None
+    pods, provs, churn_round = configs.config_delta_reconcile()
+    solver, oracle, session = TorchSolver(), TorchSolver(), EncodeSession()
+    launches = {k: 0 for k in ts.LAUNCHES}
+    delta_s, full_s = [], []
+    rounds = ["seed", *range(configs.DELTA_ROUNDS), "repeat"]
+    for rnd in rounds:
+        removed, added = churn_round(rnd) if isinstance(rnd, int) else ([], [])
+        gone = {q.name for q in removed}
+        pods = [q for q in pods if q.name not in gone] + added
+        t0 = time.perf_counter()
+        for q in removed:
+            session.pod_event("DELETED", q)
+        for q in added:
+            session.pod_event("ADDED", q)
+        feed_s = time.perf_counter() - t0
+        if rnd == "repeat":
+            staged = solver._stager.last_round
+            slots = [id(q) for q in solver._interned_problems]
+        before = dict(ts.LAUNCHES)
+        with gc_seconds() as gc_s:
+            result = solver.solve_pods(pods, provs, session=session)
+            torch.cuda.synchronize()
+        moved = moved_since(ts, before)
+        launches = {k: launches[k] + moved[k] for k in launches}
+        want_mode = "full" if rnd == "seed" else "delta"
+        if session.last_mode != want_mode:
+            raise AssertionError(f"delta round {rnd}: encoded {session.last_mode} "
+                                 f"({session.last_full_reason}), not {want_mode}")
+        t1 = time.perf_counter()
+        full = encode(session.ordered_pods(), provs)
+        full_enc = time.perf_counter() - t1
+        problem = hold_reconcile(f"delta round {rnd}", solver, result, full, validate)
+        st = result.stats
+        if rnd == "repeat":
+            if [id(q) for q in solver._interned_problems] != slots or id(problem) != slots[-1]:
+                raise AssertionError("the repeat round missed the intern slot")
+            if solver._stager.last_round is not staged or any(moved[k] for k in PACK_KERNELS):
+                raise AssertionError(f"the repeat round staged or launched: {moved}")
+            log(f"delta round repeat: intern hit ({len(slots)} slots), nothing staged or "
+                f"launched, backend {st['backend']}, cost {result.cost!r}, encode "
+                f"{st['encode_s']:.6f} s, total {st['total_s']:.6f} s")
+            continue
+        kernel = oracle._solve_kernel(problem)
+        torch.cuda.synchronize()
+        if validate(problem, kernel) or result.cost > kernel.cost * (1 + COST_RTOL):
+            raise AssertionError(f"delta round {rnd}: cost {result.cost!r} above the kernel's "
+                                 f"{kernel.cost!r}")
+        if rnd == configs.DELTA_ROUNDS - 1:
+            ref = configs.REFERENCE_COSTS["delta_r8"]
+            if abs(kernel.cost - ref) > COST_RTOL * ref:
+                raise AssertionError(f"delta round {rnd}: kernel-only cost {kernel.cost!r}, "
+                                     f"JAX package {ref!r}")
+        if isinstance(rnd, int):
+            delta_s.append(feed_s + st["encode_s"])
+            full_s.append(full_enc)
+        log(f"delta round {rnd}: {session.last_mode}, encode {st['encode_s']:.6f} s (events "
+            f"{feed_s:.6f} s; full encode of the same pods {full_enc:.6f} s), solve "
+            f"{st['total_s'] - st['encode_s']:.6f} s, total {st['total_s']:.6f} s, backend "
+            f"{st['backend']}, garbage collection {gc_s[0]:.6f} s, cost {result.cost!r} "
+            f"(kernel-only {kernel.cost!r}), lower bound "
+            f"{float(st['lower_bound'])!r}, chain device {st.get('dispatch_device_ms')} ms, launches {moved}")
+    log(f"session_delta: encode p50 delta {statistics.median(delta_s) * 1e3:.4f} ms (events "
+        f"included), full {statistics.median(full_s) * 1e3:.4f} ms over {len(delta_s)} churn "
+        f"rounds; launches {launches}")
+    hold_pack_launches("session_delta", launches)
+    return launches
+
+
+def session_fleet(ts, configs, fleet_encode_s) -> dict:
+    """Main path, sharded controller: the cells_500k rounds of
+    ``fleet_slice`` again, on a fresh fleet, through the reconcile entry
+    points. 20 per-cell ``TorchSolver``s, each cell with its own
+    ``EncodeSession``: ``encode_for_staging`` and ``prestage`` for every
+    dirty cell, one ``stage_fleet``, then ``solve_pods(pre_encoded=...)``
+    for each; the seed round and churn rounds 0-1 so, round 2 through one
+    shared solver's ``solve_fleet``. Churn rounds must delta-encode; each
+    cell's problem must equal a full encode of its session's pods and of
+    the cell's own; the fleet widths must be ``fleet_slice``'s; every plan
+    must validate and cost at most its pinned kernel-only cost. Returns the
+    launch counts of the flow."""
+    import torch
+
+    from karpenter_tpu_torch.solver import EncodeSession, TorchSolver, encode, stage_fleet, validate
+    from karpenter_tpu_torch.solver.solver import KERNEL_BOARD, problem_digest
+
+    solver_mod = importlib.import_module("karpenter_tpu_torch.solver.solver")
+    KERNEL_BOARD.reset()
+    TorchSolver._device_rtt_s = None
+    cells, provs, catalog = configs.config_cells()
+    n = len(cells)
+    clones = [TorchSolver() for _ in range(n)]
+    shared = TorchSolver()
+    sessions = [EncodeSession() for _ in range(n)]
+    launches = {k: 0 for k in ts.LAUNCHES}
+    for rnd in ("seed", 0, 1, 2):
+        t0 = time.perf_counter()
+        if rnd == "seed":
+            dirty = list(range(n))
+        else:
+            events = configs.churn_cell_events(cells, rnd)
+            dirty = list(events)
+            for c, (removed, added) in events.items():
+                for q in removed:
+                    sessions[c].pod_event("DELETED", q)
+                for q in added:
+                    sessions[c].pod_event("ADDED", q)
+        requests = [{"pods": list(cells[c].values()), "provisioners": [(provs[c], catalog)],
+                     "session": sessions[c]} for c in dirty]
+        before = dict(ts.LAUNCHES)
+        with recording(solver_mod) as (_, dispatched), gc_seconds() as gc_s:
+            if rnd == 2:
+                owners = [shared] * len(dirty)
+                results = shared.solve_fleet(requests)
+                torch.cuda.synchronize()
+                encode_s = sum(r.stats["encode_s"] for r in results)
+                steps = f"solve_fleet {time.perf_counter() - t0:.4f} s"
+            else:
+                owners = [clones[c] for c in dirty]
+                staged = [solver.encode_for_staging(**req) for solver, req in zip(owners, requests)]
+                encode_s = sum(q.__dict__["_pre_encode_s"] for q in staged)
+                t1 = time.perf_counter()
+                for solver, q in zip(owners, staged):
+                    solver.prestage(q)
+                stage_fleet(list(zip(owners, staged)), max_batch=16)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                results = [solver.solve_pods(**req, pre_encoded=q)
+                           for solver, req, q in zip(owners, requests, staged)]
+                torch.cuda.synchronize()
+                steps = (f"prestage + stage_fleet {t2 - t1:.4f} s, solve_pods "
+                         f"{time.perf_counter() - t2:.4f} s")
+        wall = time.perf_counter() - t0
+        moved = moved_since(ts, before)
+        launches = {k: launches[k] + moved[k] for k in launches}
+        widths = sorted(buf.shape[0] for _, buf in dispatched)
+        del dispatched
+        if widths != ([4, 16] if rnd == "seed" else [4]):
+            raise AssertionError(f"session fleet round {rnd}: fleet widths {widths}")
+        ref = configs.REFERENCE_COSTS["cells_seed" if rnd == "seed" else f"cells_r{rnd}"]
+        full_s = 0.0
+        for c, solver, res in zip(dirty, owners, results):
+            want_mode = "full" if rnd == "seed" else "delta"
+            if sessions[c].last_mode != want_mode:
+                raise AssertionError(f"session fleet round {rnd} cell {c}: encoded "
+                                     f"{sessions[c].last_mode}, not {want_mode}")
+            t1 = time.perf_counter()
+            full = encode(sessions[c].ordered_pods(), [(provs[c], catalog)])
+            full_s += time.perf_counter() - t1
+            own = encode_cell(encode, cells, provs, catalog, c)
+            if problem_digest(own) != problem_digest(full):
+                raise AssertionError(f"session fleet round {rnd} cell {c}: the session's order "
+                                     f"is not the cell's")
+            hold_reconcile(f"session fleet round {rnd} cell {c}", solver, res, full, validate)
+            if res.cost > ref * (1 + COST_RTOL):
+                raise AssertionError(f"session fleet round {rnd} cell {c}: cost {res.cost!r} above "
+                                     f"the kernel's {ref!r}")
+        log(f"session fleet round {rnd}: {len(dirty)} cells, encode {encode_s:.4f} s in all "
+            f"({'full' if rnd == 'seed' else 'delta'}; fleet_slice's full encodes "
+            f"{fleet_encode_s[rnd]:.4f} s, a full encode of the same pods here {full_s:.4f} s), "
+            f"{steps}, round wall {wall:.4f} s (garbage collection {gc_s[0]:.4f} s of it), fleet "
+            f"widths {widths}, backends "
+            f"{sorted({r.stats['backend'] for r in results})}, kernel rows won "
+            f"{sum(r.stats.get('race_winner', 0.0) == 1.0 for r in results)}, costs "
+            f"{sorted({round(r.cost, 9) for r in results})} (kernel-only {ref!r}), launches {moved}")
+    log(f"session_fleet launches {launches}")
+    hold_pack_launches("session_fleet", launches)
+    return launches
 
 
 def load_tree(root: Path, tag: str):
@@ -1363,6 +1634,13 @@ def main() -> int:
     log(f"instructions (cuobjdump -sass): "
         f"{sass_counts(lib, K1_PARTS + K2_PARTS + ('k3_pack_epilogue',)) or 'no cuobjdump'}")
     _build.load_kernels()
+    from karpenter_tpu_torch import native
+
+    t0 = time.perf_counter()
+    if native.load_encoder() is None:
+        raise AssertionError("the native encoder (karpenter_tpu_torch/native/encoder.c) did not build")
+    log(f"native encoder: {time.perf_counter() - t0:.2f} s "
+        f"({'compiled' if native.BUILD_SECONDS else 'cached'}) -> {native.module_path()}")
 
     problems = {}
     for name, make in (
@@ -1411,7 +1689,10 @@ def main() -> int:
         entry["max_abs_err"] = max(entry["max_abs_err"], fc["errs"].get(entry["name"], 0.0))
     kernels += fleet_timings(ts, st, fc)
     del fc
-    fleet, k2_err = fleet_slice(ts, configs, cells, provs, catalog)
+    fleet, k2_err, fleet_encode_s = fleet_slice(ts, configs, cells, provs, catalog)
+    del cells
+    session_delta(ts, configs)
+    session_fleet(ts, configs, fleet_encode_s)
     for entry in kernels:
         # the main path: the flat race and the fleet race, each counted alone
         entry["launches"] = flat[entry["name"]] + fleet[entry["name"]]

@@ -168,31 +168,91 @@ def config_cells(n_pods: int = 500_000, n_cells: int = 20, n_types: int = 60, n_
     return cells, provs, catalog
 
 
-def churn_cells(cells, r: int, per_round: int = 4, n_pods: int = 500_000, n_deploys: int = 12):
+def churn_cell_events(cells, r: int, per_round: int = 4, n_pods: int = 500_000,
+                      n_deploys: int = 12) -> dict:
     """Churn round ``r`` of ``bench.bench_cell_decompose``, applied in place
     to ``cells`` (``config_cells`` output) after rounds 0..r-1: in each of
     ``per_round`` cells, 1% of the cell's pods move from deployment
     ``d{r}`` to ``d{r+5}`` (removed from the one, added as new pods of the
-    other's shape). Returns the round's dirty cells."""
+    other's shape, at the end of the cell). Returns ``{cell: (removed pods,
+    added pods)}`` for the round's dirty cells, in churn order: the watch
+    events a cell's ``EncodeSession`` is fed."""
     n_cells = len(cells)
     n_churn = max(n_pods // n_cells // 100, 1)
     serial = r * per_round * n_churn  # pods added by the earlier rounds
     churned = [(r * per_round + j) % n_cells for j in range(per_round)]
     down, up = r % n_deploys, (r + 5) % n_deploys
+    events = {}
     for c in churned:
         pods = cells[c]
-        for name in [n for n in pods if n.startswith(f"c{c}-d{down}-")][:n_churn]:
-            del pods[name]
+        removed = [pods.pop(name) for name in
+                   [n for n in pods if n.startswith(f"c{c}-d{down}-")][:n_churn]]
+        added = []
         for i in range(n_churn):
             name = f"c{c}-up{serial}-{i}"
             pods[name] = _cell_pod(c, name, up)
+            added.append(pods[name])
         serial += n_churn
-    return churned
+        events[c] = (removed, added)
+    return events
+
+
+def churn_cells(cells, r: int, per_round: int = 4, n_pods: int = 500_000, n_deploys: int = 12):
+    """``churn_cell_events`` without the events: returns the round's dirty
+    cells."""
+    return list(churn_cell_events(cells, r, per_round, n_pods, n_deploys))
+
+
+DELTA_ROUNDS = 8
+
+
+def config_delta_reconcile(n_pods: int = 50_000, n_types: int = 400):
+    """The incremental-encode scenario (``bench.bench_delta_reconcile``):
+    ``n_pods`` pods in 30 deployments over the 6 cpu x 6 memory shapes, one
+    provisioner over ``generate_catalog(n_types)``, and 1% of the pods
+    replaced each round: half of it deleted from deployment ``d{r % 30}``,
+    as many added to ``d{(r + 7) % 30}``. The bench runs ``DELTA_ROUNDS``
+    rounds.
+
+    Returns ``(pods, [(provisioner, instance_types)], churn_round)``:
+    ``churn_round(r)``, called for r = 0, 1, ... in turn, returns round
+    r's ``(removed, added)`` pods. The pods after a round are the previous
+    ones less ``removed``, with ``added`` at the end, which is also the
+    order an ``EncodeSession`` fed the round's events keeps."""
+    cat = generate_catalog(n_types=n_types)
+    prov = Provisioner(meta=ObjectMeta(name="default"))
+    n_deploys = 30
+
+    def mkpod(name, shape):
+        return Pod(meta=ObjectMeta(name=name), requests=_cell_requests(shape))
+
+    per = n_pods // n_deploys + 1
+    pods = [mkpod(f"d{shape}-{i}", shape) for shape in range(n_deploys) for i in range(per)][:n_pods]
+    n_churn = max(int(n_pods * 0.01) // 2, 1)
+    live = {p.meta.name: p for p in pods}
+    state = {"round": 0, "serial": 0}
+
+    def churn_round(r: int):
+        if r != state["round"]:
+            raise ValueError(f"churn rounds run in turn: round {state['round']} is next, not {r}")
+        down, up = r % n_deploys, (r + 7) % n_deploys
+        removed = [p for name, p in live.items() if name.startswith(f"d{down}-")][:n_churn]
+        added = [mkpod(f"up{state['serial'] + i}-d{up}", up) for i in range(n_churn)]
+        for p in removed:
+            del live[p.meta.name]
+        live.update((p.meta.name, p) for p in added)
+        state["round"] += 1
+        state["serial"] += n_churn
+        return removed, added
+
+    return pods, [(prov, cat)], churn_round
 
 
 #: JAX-package costs of ``TPUSolver(auto_mesh=False)._solve_kernel`` on these
 #: configs, measured on a CPU; the port must reproduce them. ``cells_seed`` is
-#: any cell of ``config_cells()``, ``cells_rN`` a cell churned in round N.
+#: any cell of ``config_cells()``, ``cells_rN`` a cell churned in round N;
+#: ``delta_r8`` is ``config_delta_reconcile()`` after its ``DELTA_ROUNDS``
+#: churn rounds.
 REFERENCE_COSTS = {
     "50k_full": 1017.0072868143582,
     "10k_topology": 59.197231399244934,
@@ -202,4 +262,5 @@ REFERENCE_COSTS = {
     "cells_r1": 451.0820446316647,
     "cells_r2": 448.2557354797225,
     "cells_r3": 448.28029736577486,
+    "delta_r8": 851.7806135309604,
 }

@@ -34,6 +34,7 @@ from ..api.requirements import Requirement, Requirements
 from ..api.resources import CPU, EPHEMERAL_STORAGE, MEMORY, PODS, Resources
 from ..api.taints import Taint, tolerates_all
 from ..cloudprovider.types import InstanceType
+from ..native import load_encoder
 
 BIG_CAP = 1 << 30  # "unlimited" per-node / per-zone count cap
 
@@ -194,9 +195,13 @@ def _signature(pod: Pod) -> tuple:
 
 
 def _group_members(pods: Sequence[Pod]) -> List[List[Pod]]:
-    """Bucket pods by scheduling signature, first-seen order. This is the
-    pure-Python loop; the JAX package also has a native C version of it,
-    which the port does not carry yet."""
+    """Bucket pods by scheduling signature, first-seen order. Uses the native
+    C hot loop (karpenter_tpu_torch/native/encoder.c) when it builds — the
+    per-pod signature walk is the 50k cold-encode bottleneck — with this
+    pure-Python loop as the behavioral reference and fallback."""
+    enc = load_encoder()
+    if enc is not None:
+        return enc.group_pods(list(pods), _signature)
     buckets: Dict[tuple, List[Pod]] = {}
     member_lists: List[List[Pod]] = []
     for pod in pods:

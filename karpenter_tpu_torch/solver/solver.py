@@ -20,12 +20,21 @@ while a host answer hides it.
 problems, each with the solver that will solve it, are grouped by bucket
 and each chunk is solved in one batched call (``pack_solve_fleet``); each
 cell's ``solve`` then polls its row in its race.
+
+``Solver.solve_pods`` is what a controller calls: encode (through an
+``EncodeSession`` when one is given), intern the problem by content
+(``problem_digest``), solve, then re-solve with relaxed preferences and
+with the weight gate dropped while pods stay unschedulable.
+``encode_for_staging`` and ``TorchSolver.solve_fleet`` are the sharded
+controller's flow: every cell is encoded first, the fleet is staged, then
+each cell is solved.
 """
 
 from __future__ import annotations
 
 import abc
 import dataclasses
+import hashlib
 import math
 import time
 from collections import OrderedDict
@@ -34,8 +43,13 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..api.objects import Pod, Provisioner
+from ..cloudprovider.types import InstanceType
+from ..native import load_encoder
 from ..utils.resilience import BreakerSet
-from .encode import EncodedProblem, sizing_demand
+# the cheap per-axis bound for the hot path; the tight LP bound lives in bounds.py
+from .bounds import fractional_lower_bound as lower_bound
+from .encode import EncodedProblem, ExistingNode, _provisioner_sig, encode, sizing_demand
 from .greedy import GreedyPacker
 # the host competitors load with the solver, not at a first solve: their
 # scipy import takes seconds, which no solve's budget can pay
@@ -202,13 +216,424 @@ def _split_family_caps(
     return shares
 
 
+# ---------------------------------------------------------------------------
+# Problem identity
+# ---------------------------------------------------------------------------
+
+_options_blob_cache: dict = {}  # id(options) -> (pin, provisioner sigs, blob)
+
+
+def _options_digest_blob(options) -> bytes:
+    """The digest's option-identity section (per-option identity lines plus
+    the full provisioner signatures), rendered once per option LIST — the
+    options builder returns the same list object until inputs change, and a
+    changed provisioner spec changes its resource_version and thus rebuilds
+    the list, so identity + the embedded provisioner-sig pins cover content."""
+    seen_prov: dict = {}
+    for o in options:
+        seen_prov.setdefault(id(o.provisioner), o.provisioner)
+    prov_sigs = tuple(_provisioner_sig(p) for p in seen_prov.values())
+    e = _options_blob_cache.get(id(options))
+    if e is not None and e[0] is options and e[1] == prov_sigs:
+        return e[2]
+    parts = []
+    for o in options:
+        # slice identity is SPARSE in the digest line: two options differing
+        # only in ICI coordinates have identical compat/price rows, so the
+        # array bytes alone cannot tell their orderings apart — but a
+        # sliceless catalog's lines (the pre-topology world) stay unchanged
+        line = f"{o.instance_type.name}\x1f{o.zone}\x1f{o.capacity_type}\x1f{o.provisioner.name}"
+        if o.slice_pod:
+            line += f"\x1f{o.slice_pod}\x1f{o.slice_coord}"
+        parts.append(line + "\x1e")
+    for sig in prov_sigs:
+        parts.append(repr(sig))
+    blob = "".join(parts).encode()
+    _options_blob_cache.clear()  # one generation: stale keys pin dead lists
+    _options_blob_cache[id(options)] = (options, prov_sigs, blob)
+    return blob
+
+
+def problem_digest(problem: EncodedProblem) -> bytes:
+    """Strong content digest of an encoded problem, cached on the problem.
+
+    Covers everything ``_problems_content_equal`` compares — shapes, every
+    array, pod NAMES per group, seed pods, existing-node names, option
+    identities, and the full provisioner signatures — so digest equality is
+    content equality (sha256; collision risk is negligible next to cosmic
+    rays). Interning compares digests instead of walking 50k pod names per
+    cached slot, a walk whose cost grew with every slot filled."""
+    cached = problem.__dict__.get("_digest")
+    if cached is not None:
+        return cached
+    h = hashlib.sha256()
+    h.update(
+        repr((
+            problem.G, problem.O, problem.E,
+            problem.resource_axes, problem.zones,
+            problem.rel_unsupported, problem.zone_spread_members,
+            problem.weight_gated_groups,
+        )).encode()
+    )
+    for fld in (
+        "demand", "count", "alloc", "price", "opt_zone", "compat",
+        "node_cap", "zone_cap", "zone_skew", "colocate",
+        "ex_rem", "ex_zone", "ex_compat",
+    ):
+        h.update(np.ascontiguousarray(getattr(problem, fld)).tobytes())
+    for fld in (
+        "zone_seed", "zone_occupied", "rel_set", "rel_host_forbid",
+        "rel_host_need", "rel_zone_forbid", "rel_zone_need",
+        "rel_slot_bits", "rel_zone_bits", "rel_layer",
+    ):
+        v = getattr(problem, fld)
+        h.update(b"\x00" if v is None else np.ascontiguousarray(v).tobytes())
+    # names in bulk: one native join per group (one C pass in place of the
+    # Python join and walk), memoized on the group — a PodGroup's pods list
+    # is final once built (the session's copy-on-write contract), so
+    # consecutive digests of a retained group are a dict hit
+    enc = load_encoder()
+    for g in problem.groups:
+        blob = g.__dict__.get("_name_blob")
+        if blob is None:
+            if enc is not None:
+                blob = enc.join_names(g.pods, "\x1f")
+            else:
+                blob = "\x1f".join([p.meta.name for p in g.pods]).encode()
+            g.__dict__["_name_blob"] = blob
+        h.update(blob)
+        h.update(b"\x1e")
+    if problem.seed_pods:
+        h.update(
+            "\x1e".join(
+                [f"{host}\x1f{zone}\x1f{p.meta.name}" for host, zone, p in problem.seed_pods]
+            ).encode()
+        )
+    if problem.existing:
+        h.update("\x1e".join([e.node.meta.name for e in problem.existing]).encode())
+    h.update(_options_digest_blob(problem.options))
+    digest = h.digest()
+    problem.__dict__["_digest"] = digest
+    return digest
+
+
+def _problems_content_equal(a: EncodedProblem, b: EncodedProblem) -> bool:
+    """TEST ORACLE for ``problem_digest`` — not called on the hot path.
+
+    Field-by-field content equality between two encoded problems, including
+    the pod NAMES each group expands to (a reused problem's result decodes
+    the OLD pod objects' names — renamed pods must miss). Interning compares
+    digests instead (O(1) per slot); ``tests/test_torch_session.py``
+    cross-checks that digest equality and this definition agree, so any
+    future EncodedProblem field must be added to BOTH or the test that
+    perturbs it will catch the drift."""
+    if (a.G, a.O, a.E) != (b.G, b.O, b.E):
+        return False
+    if a.resource_axes != b.resource_axes or a.zones != b.zones:
+        return False
+    for fld in (
+        "demand", "count", "alloc", "price", "opt_zone", "compat",
+        "node_cap", "zone_cap", "zone_skew", "colocate",
+        "ex_rem", "ex_zone", "ex_compat",
+    ):
+        if not np.array_equal(getattr(a, fld), getattr(b, fld)):
+            return False
+    for fld in (
+        "zone_seed", "zone_occupied", "rel_set", "rel_host_forbid",
+        "rel_host_need", "rel_zone_forbid", "rel_zone_need",
+        "rel_slot_bits", "rel_zone_bits", "rel_layer",
+    ):
+        va, vb = getattr(a, fld), getattr(b, fld)
+        if (va is None) != (vb is None):
+            return False
+        if va is not None and not np.array_equal(va, vb):
+            return False
+    if a.rel_unsupported != b.rel_unsupported:
+        return False
+    if a.zone_spread_members != b.zone_spread_members:
+        return False
+    if a.weight_gated_groups != b.weight_gated_groups:
+        return False
+    for ga, gb in zip(a.groups, b.groups):
+        if len(ga.pods) != len(gb.pods):
+            return False
+        if any(pa.name != pb.name for pa, pb in zip(ga.pods, gb.pods)):
+            return False
+    if len(a.seed_pods) != len(b.seed_pods):
+        return False
+    for (ha, za, pa), (hb, zb, pb) in zip(a.seed_pods, b.seed_pods):
+        if ha != hb or za != zb or pa.name != pb.name:
+            return False
+    for ea, eb in zip(a.existing, b.existing):
+        if ea.name != eb.name:
+            return False
+    for oa, ob in zip(a.options, b.options):
+        if (
+            oa.instance_type.name != ob.instance_type.name
+            or oa.zone != ob.zone
+            or oa.capacity_type != ob.capacity_type
+            or oa.provisioner.name != ob.provisioner.name
+            or oa.slice_pod != ob.slice_pod
+            or oa.slice_coord != ob.slice_coord
+        ):
+            return False
+    # FULL provisioner signatures: a reused problem's options hand their
+    # embedded Provisioner objects to launch and limit enforcement, so any
+    # spec field those paths read (limits, labels, taints, kubelet,
+    # node_template_ref, ...) must match even when no encoded array changed
+    def uniq_provs(p):
+        seen, out = set(), []
+        for o in p.options:
+            if id(o.provisioner) not in seen:
+                seen.add(id(o.provisioner))
+                out.append(o.provisioner)
+        return out
+
+    pa, pb = uniq_provs(a), uniq_provs(b)
+    if len(pa) != len(pb):
+        return False
+    for x, y in zip(pa, pb):
+        if x is not y and _provisioner_sig(x) != _provisioner_sig(y):
+            return False
+    return True
+
+
 class Solver(abc.ABC):
+    #: per-interruption disruption cost ($-hours) scaling each offering's
+    #: expected-interruption term in the price objective: the encoder builds
+    #: options with risk_cost = interruption_probability * risk_penalty. Set
+    #: from settings by the controllers (0.0 = risk-neutral, the legacy
+    #: objective); every encode this solver drives — initial, relax, degate,
+    #: trial solves — uses the same value, preserving delta==full digests.
+    risk_penalty: float = 0.0
+
     @abc.abstractmethod
     def solve(self, problem: EncodedProblem) -> SolveResult: ...
+
+    def _prewarm(self, problem: EncodedProblem, session=None) -> None:
+        """Backend hook: called by ``solve_pods`` right after the encode so a
+        device-backed solver can prepare likely next shapes. Host-only
+        backends have nothing to warm, and neither, so far, has the port's
+        ``TorchSolver``: its kernels are built once for every shape."""
 
     def prestage(self, problem: EncodedProblem) -> None:
         """Backend hook: stage this problem's tensors ahead of its solve.
         Host-only backends have nothing to stage."""
+
+    def _intern_problem(self, problem: EncodedProblem) -> EncodedProblem:
+        """Return the PREVIOUS encode's problem object when this one is
+        content-identical — every reconcile re-encodes, producing fresh
+        objects, but the per-problem learning (banked pattern pools, cached
+        rounded plans, race outcome memory, device residency) keys on
+        problem identity. Without interning, a steady-state operator whose
+        cluster is momentarily unchanged would pay the pattern warmup on
+        every cycle and never reach the learned plan. A few slots: the
+        steady state being optimized is consecutive reconciles of the same
+        batch.
+
+        Thread-safety/staleness contract: ``solve_pods`` is single-threaded
+        per Solver instance. On an intern hit the cached problem's embedded
+        objects (groups, options, existing, seed_pods) are REPLACED by the
+        fresh encode's, so any consumer reading non-encoded fields — launch
+        paths reading option.provisioner, limit enforcement, decode — always
+        sees this reconcile's live objects, never a stale generation."""
+        slots = getattr(self, "_interned_problems", None)
+        if slots is None:
+            slots = self._interned_problems = []
+        digest = problem_digest(problem)
+        for cached in slots:
+            if problem_digest(cached) == digest:
+                # refresh embedded objects: content-equal by digest (names,
+                # option identities, provisioner sigs all covered), so the
+                # learned state stays valid while object references go live
+                cached.groups = problem.groups
+                cached.options = problem.options
+                cached.existing = problem.existing
+                cached.seed_pods = problem.seed_pods
+                # drop the name cache too: it pins the PRIOR generation's pod
+                # objects (names are equal, but the memory must free)
+                cached.__dict__.pop("_group_names", None)
+                return cached
+        slots.append(problem)
+        if len(slots) > 4:
+            # a few slots: hypothetical solves sharing this solver must not
+            # evict the provisioning batch's learning
+            slots.pop(0)
+        return problem
+
+    def encode_for_staging(
+        self,
+        pods: Sequence[Pod],
+        provisioners: Sequence[Tuple[Provisioner, Sequence[InstanceType]]],
+        existing: Sequence[ExistingNode] = (),
+        daemonsets: Sequence[Pod] = (),
+        session=None,
+        phase_mode: str = "full",
+    ) -> EncodedProblem:
+        """``solve_pods``' encode stage alone: encode (delta-aware through
+        the session) + intern, with the spent encode time stamped on the
+        problem so a later ``solve_pods(..., pre_encoded=problem)`` books it
+        into ``encode_s``. The fleet-dispatch path encodes every dirty cell
+        FIRST, stages the fleet, and fires the batched kernel dispatches
+        before any per-cell solve runs — the device computes the whole
+        fleet while the host paths execute."""
+        t0 = time.perf_counter()
+        if session is not None:
+            fresh = session.encode(
+                pods, provisioners, existing, daemonsets,
+                risk_penalty=self.risk_penalty,
+            )
+        else:
+            fresh = encode(
+                pods, provisioners, existing, daemonsets,
+                risk_penalty=self.risk_penalty,
+            )
+            fresh.__dict__["_encode_mode"] = phase_mode
+        problem = self._intern_problem(fresh)
+        problem.__dict__["_encode_mode"] = fresh.__dict__.get(
+            "_encode_mode", "full"
+        )
+        problem.__dict__["_pre_encode_s"] = time.perf_counter() - t0
+        return problem
+
+    def solve_fleet(
+        self, requests: Sequence[dict], max_batch: int = 16
+    ) -> List[SolveResult]:
+        """Solve several independent problems (``requests`` are
+        ``solve_pods`` kwarg dicts) as one fleet. Host-only backends have
+        nothing to batch; the base implementation is the serial loop (and
+        the equality oracle for the batched path)."""
+        return [self.solve_pods(**req) for req in requests]
+
+    def solve_pods(
+        self,
+        pods: Sequence[Pod],
+        provisioners: Sequence[Tuple[Provisioner, Sequence[InstanceType]]],
+        existing: Sequence[ExistingNode] = (),
+        daemonsets: Sequence[Pod] = (),
+        session=None,
+        phase_mode: str = "full",
+        pre_encoded: Optional[EncodedProblem] = None,
+    ) -> SolveResult:
+        """``session`` (an EncodeSession) makes the INITIAL encode delta-
+        aware: the session patches the previous round's arrays instead of
+        re-walking the cluster. The relaxation/degate re-encodes below stay
+        on the full path — they solve transient CLONES whose identities must
+        never enter the session's incremental state.
+
+        ``phase_mode`` stamps a sessionless round's encode mode on its
+        problem ("full" for real rounds; what-if simulations pass "sim").
+
+        ``pre_encoded`` hands in a problem ``encode_for_staging`` already
+        produced (the fleet-dispatch path encodes before staging); the
+        encode stage is skipped and the staged encode time is credited."""
+        t0 = time.perf_counter()
+        encode_s = 0.0
+        if pre_encoded is not None:
+            fresh = pre_encoded
+            encode_s += fresh.__dict__.pop("_pre_encode_s", 0.0)
+        elif session is not None:
+            fresh = session.encode(
+                pods, provisioners, existing, daemonsets,
+                risk_penalty=self.risk_penalty,
+            )
+        else:
+            fresh = encode(
+                pods, provisioners, existing, daemonsets,
+                risk_penalty=self.risk_penalty,
+            )
+            fresh.__dict__["_encode_mode"] = phase_mode
+        problem = self._intern_problem(fresh)
+        # an intern hit returns the CACHED object: carry this round's
+        # encode mode over
+        problem.__dict__["_encode_mode"] = fresh.__dict__.get(
+            "_encode_mode", "full"
+        )
+        encode_s += time.perf_counter() - t0
+        self._prewarm(problem, session)
+        # anchor the latency budget at ENTRY (before encode): the budget is
+        # an end-to-end contract, so a fresh batch's encode time comes out
+        # of the polish budget, not on top of it
+        problem.__dict__["_entry_t"] = t0
+        result = self.solve(problem)
+        # Preference relaxation (the reference scheduler's relaxation
+        # pass): preferred node affinity is honored as a hard constraint
+        # first; a pod that cannot schedule sheds its weakest still-active
+        # preference (one per round) and the batch re-solves — soft
+        # constraints may never strand a pod. Relaxation happens on
+        # CLONES: live cluster pods keep their preferences, so a what-if
+        # simulation or transient failure never mutates real state.
+        work = None
+        total_relaxed = 0
+        while result.unschedulable:
+            if work is None:
+                work = list(pods)
+                index = {p.name: i for i, p in enumerate(work)}
+            relaxed_round = 0
+            for name in result.unschedulable:
+                i = index.get(name)
+                if i is None:
+                    continue
+                p = work[i]
+                if p.has_relaxable_constraints():
+                    work[i] = p.relaxed_clone()
+                    relaxed_round += 1
+            if relaxed_round == 0:
+                break
+            total_relaxed += relaxed_round
+            t_enc = time.perf_counter()
+            problem = encode(
+                work, provisioners, existing, daemonsets,
+                risk_penalty=self.risk_penalty,
+            )
+            encode_s += time.perf_counter() - t_enc
+            problem.__dict__["_entry_t"] = t0
+            result = self.solve(problem)
+        # Final fallback: the weight gate pins each group to its highest-
+        # weight compatible pool; a group can be per-pod compatible yet
+        # JOINTLY infeasible there (e.g. a zone spread needing zones the
+        # pool doesn't cover). Re-solve with the gate dropped for the
+        # still-failing pods — the weight preference yields before a pod
+        # strands (reference: next-pool fallback in the weight cascade).
+        gated_names: set = set()
+        if result.unschedulable and problem.weight_gated_groups:
+            for gi in problem.weight_gated_groups:
+                gated_names.update(p.name for p in problem.groups[gi].pods)
+        if result.unschedulable and gated_names.intersection(result.unschedulable):
+            # only retry when a FAILING pod's group was actually narrowed by
+            # the weight gate — otherwise the re-solve provably returns the
+            # same result at full cost
+            degate = frozenset(result.unschedulable)
+            t_enc = time.perf_counter()
+            problem2 = encode(
+                work or pods, provisioners, existing, daemonsets,
+                weight_degate=degate,
+                risk_penalty=self.risk_penalty,
+            )
+            encode_s += time.perf_counter() - t_enc
+            problem2.__dict__["_entry_t"] = t0
+            result2 = self.solve(problem2)
+            if len(result2.unschedulable) < len(result.unschedulable):
+                result, problem = result2, problem2
+                result.stats["weight_degated_pods"] = float(len(degate))
+        if total_relaxed:
+            result.stats["relaxed_pods"] = float(total_relaxed)
+        result.stats["encode_s"] = encode_s
+        # staging (accrued across prestage and the solve's own staging) and
+        # the observed dispatch latency, separable from encode
+        stage_s = problem.__dict__.pop("_stage_s", 0.0)
+        if stage_s:
+            result.stats["stage_s"] = stage_s
+        dispatch_s = problem.__dict__.pop("_dispatch_s", 0.0)
+        if dispatch_s:
+            result.stats["dispatch_s"] = dispatch_s
+        result.stats["total_s"] = time.perf_counter() - t0
+        result.stats["lower_bound"] = lower_bound(problem)
+        # digest of the problem the returned result actually decodes (the
+        # relax/degate paths may have replaced the initial encode): cached by
+        # interning on the common path, so the stamp costs a dict lookup
+        result.problem_digest = problem_digest(problem).hex()
+        return result
 
 
 class GreedySolver(Solver):
@@ -706,6 +1131,11 @@ class TorchSolver(Solver):
 
     def solve(self, problem: EncodedProblem) -> SolveResult:
         t0 = time.perf_counter()
+        # end-to-end anchor: when solve_pods stamped its entry time (this
+        # solve follows a fresh encode), deadlines count from THERE — encode
+        # spent part of the budget already. Popped so that a later direct
+        # solve(problem) cannot see a stale stamp and zero its budget.
+        t_anchor = problem.__dict__.pop("_entry_t", t0)
         # a fleet handle is consumed once, popped even on paths that will not
         # poll it, so that it can never serve a later solve of the problem
         fleet_slot = problem.__dict__.pop("_fleet_dispatch", None)
@@ -746,7 +1176,7 @@ class TorchSolver(Solver):
             try:
                 topo_fast = topo_improve(
                     problem, self, float("inf"),
-                    deadline=t0 + self.latency_budget_s * 0.85,
+                    deadline=t_anchor + self.latency_budget_s * 0.85,
                     probe_only=True,
                 )
             except Exception:
@@ -777,7 +1207,7 @@ class TorchSolver(Solver):
             try:
                 # adaptive polish on the budget left after a feasible plan:
                 # quality mode gets a fixed cap, fleet cells their share
-                host_deadline = t0 + min(host_budget_s * 0.85, 0.5)
+                host_deadline = t_anchor + min(host_budget_s * 0.85, 0.5)
                 host_result = solve_host(
                     problem, deadline=host_deadline, spike_s=self.warmup_spike_s
                 )
@@ -796,7 +1226,7 @@ class TorchSolver(Solver):
                 try:
                     improved = topo_improve(
                         problem, self, host_result.cost,
-                        deadline=t0 + host_budget_s * 0.85,
+                        deadline=t_anchor + host_budget_s * 0.85,
                         incumbent=host_result,
                     )
                     if improved is not None:
@@ -821,7 +1251,7 @@ class TorchSolver(Solver):
                 )
             else:
                 kernel_result = self._poll_dispatch(
-                    problem, dispatched, deadline=t0 + self.latency_budget_s,
+                    problem, dispatched, deadline=t_anchor + self.latency_budget_s,
                     host_cost=host_cmp,
                 )
             race = {"race_host_s": host_s, "race_poll_s": time.perf_counter() - t_poll}
@@ -851,6 +1281,22 @@ class TorchSolver(Solver):
             result = self._fallback.solve(problem)
             result.stats["fallback"] = 1.0
         return result
+
+    def solve_fleet(
+        self, requests: Sequence[dict], max_batch: int = 16
+    ) -> List[SolveResult]:
+        """Multi-problem entry: encode every request first (delta-aware per
+        request's session), batch same-bucket kernel dispatches into single
+        device calls through ``stage_fleet``, then run each request's
+        ``solve_pods``, whose race polls its fleet row in place of a
+        dispatch of its own. Answers are those of the serial ``solve_pods``
+        loop; only the device-call count and the wall clock change."""
+        staged = [self.encode_for_staging(**req) for req in requests]
+        stage_fleet([(self, p) for p in staged], max_batch=max_batch)
+        return [
+            self.solve_pods(**req, pre_encoded=p)
+            for req, p in zip(requests, staged)
+        ]
 
     def _solve_host_pack(self, problem: EncodedProblem) -> Optional[SolveResult]:
         """A small portfolio of numpy FFD members (FFD / footprint orderings
@@ -934,6 +1380,14 @@ class TorchSolver(Solver):
         ):
             return
         self._device_inputs(problem)
+
+    def warm_problem(self, problem: EncodedProblem, wait: bool = True) -> BucketKey:
+        """This problem's bucket (tests, benchmarks and operator warm-up
+        call it before a first solve). The port has no per-bucket
+        executable to compile: one kernel library serves every bucket and
+        is loaded when the solver is constructed, so every bucket is warm
+        already and ``wait`` changes nothing."""
+        return self._bucket_key(problem)
 
     def _launch_chain(self, tensors, s_new: int, n_zones: int, side: bool = False) -> _Pending:
         """Enqueue K1, K2, K2, K3 on ``tensors`` and the copy of the result
@@ -1218,11 +1672,17 @@ class TorchSolver(Solver):
         self._host_cache[id(problem)] = (
             problem, PackInputs(**fields), orders, alphas, looks, s_new, n_zones, [None],
         )
+        t_stage = time.perf_counter()
         leaves = dict(fields, orders=orders, alphas=alphas, looks=looks, rsvs=rsvs, swaps=swaps)
         Gp, R = fields["demand"].shape
         tag = ("cell", Gp, fields["price"].shape[0], fields["ex_valid"].shape[0],
                fields["rel_zone_bits"].shape[0], R, orders.shape[0])
         staged = self._stager.stage(tag, leaves)
+        # accrued across prestage and the solve's own staging; solve_pods
+        # reports it as ``stage_s``
+        problem.__dict__["_stage_s"] = (
+            problem.__dict__.get("_stage_s", 0.0) + time.perf_counter() - t_stage
+        )
         entry = (
             problem, PackInputs(*(staged[f] for f in PackInputs._fields)), orders, swaps,
             *(staged[f] for f in _MEMBER_LEAVES), s_new, n_zones,

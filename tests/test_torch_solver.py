@@ -224,6 +224,22 @@ def _cells_config(c):
     return make
 
 
+def _delta_after_rounds():
+    """``configs.config_delta_reconcile`` after its churn rounds, rebuilt
+    with the JAX package's API."""
+    import karpenter_tpu.api as rapi
+    from karpenter_tpu.cloudprovider import generate_catalog as rcat
+
+    pods, _, churn_round = configs.config_delta_reconcile()
+    for r in range(configs.DELTA_ROUNDS):
+        removed, added = churn_round(r)
+        gone = {p.name for p in removed}
+        pods = [p for p in pods if p.name not in gone] + added
+    rpods = [rapi.Pod(meta=rapi.ObjectMeta(name=p.name), requests=rapi.Resources(p.requests.to_dict()))
+             for p in pods]
+    return rpods, [(rapi.Provisioner(meta=rapi.ObjectMeta(name="default")), rcat(n_types=400))]
+
+
 @pytest.mark.parametrize("name,make", [
     ("50k_full", bench.config_50k_full),
     ("10k_topology", bench.config_10k_topology),
@@ -232,6 +248,7 @@ def _cells_config(c):
     ("cells_r0", _cells_config(0)),
     ("cells_r1", _cells_config(4)),
     ("cells_r2", _cells_config(8)),
+    ("delta_r8", _delta_after_rounds),
 ])
 def test_reference_costs_are_pinned(name, make):
     """The constants chip_smoke.py holds the card's answers to are what the

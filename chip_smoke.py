@@ -82,7 +82,19 @@ this, DIR, with the chain and each of its kernels (``compare``). Phases:
     plan must validate and cost at most its pinned kernel-only cost. Each
     of these two phases logs its launch counts and fails unless K1, K2 and
     K3 launched in it;
-12. one JSON line of kernel results, the card's name and power limit, and
+12. provisioning controller (main path): ``ProvisioningController`` with
+    its default ``TorchSolver()`` over ``configs.config_controller_reconcile``
+    (50k pending pods, 400 types): a seed round, then eight churn rounds
+    applied through the cluster, whose watch events feed the controller's
+    session. Every round must bind every pending pod within its nodes'
+    allocatable with no plan rejected by the firewall, solve the problem a
+    full encode of the session's pods gives, in the session mode
+    ``configs.CONTROLLER_CHURN_MODES`` names; the seed round's kernel-only
+    cost must be the JAX package's and its plan cost at most that. K1, K2
+    and K3 must launch, and on the first
+    churn round's problem, at its real existing-node count, they are held
+    against their plain versions (``check``), with K2's memory plan logged;
+13. one JSON line of kernel results, the card's name and power limit, and
     the device JSON as the last line.
 
 Before any encode, the native encoder (``karpenter_tpu_torch/native``)
@@ -1504,6 +1516,149 @@ def session_fleet(ts, configs, fleet_encode_s) -> dict:
     return launches
 
 
+def controller_round(ts, configs) -> dict:
+    """Main path, provisioning controller: ``ProvisioningController(cluster,
+    provider, settings=...)`` with its default ``TorchSolver()`` over
+    ``configs.config_controller_reconcile`` (50k pending pods, 400 types):
+    a seed round, then the churn rounds applied through the cluster's own
+    calls. Each round must bind every pending pod within its nodes'
+    allocatable, leave no plan rejected by the firewall, and solve a
+    problem with the digest of a full encode of the session's pods, in the
+    session mode ``configs.CONTROLLER_CHURN_MODES`` names; the seed round's
+    kernel-only cost must be the JAX package's, and its plan cost at most
+    that (a churn round's kernel-only answer is logged beside its plan: the
+    race may keep a host plan dearer than the kernel's answer after a slot
+    regrow, as the reference's does). The first churn round's
+    problem, at its real existing-node count E, holds K1, K2 and K3 against
+    their plain versions. Returns the largest differences seen there."""
+    import torch
+
+    from karpenter_tpu_torch.api import Resources
+    from karpenter_tpu_torch.controllers import ProvisioningController
+    from karpenter_tpu_torch.solver import TorchSolver, _build, encode, validate
+    from karpenter_tpu_torch.solver.solver import KERNEL_BOARD
+
+    KERNEL_BOARD.reset()
+    TorchSolver._device_rtt_s = None
+    t0 = time.perf_counter()
+    cluster, provider, settings, churn_round = configs.config_controller_reconcile()
+    ctl = ProvisioningController(cluster, provider, settings=settings)
+    solver = ctl.solver
+    log(f"controller config: {len(cluster.pods)} pending pods, {len(provider.catalog)} types, "
+        f"built in {time.perf_counter() - t0:.2f} s; solver on {solver.device}")
+    # what each round's solve_pods was given and answered (the controller's
+    # session owns the pod order), and the time inside launches, binds and
+    # the decision log's rejected alternatives (one call a launched node)
+    calls, spent = [], {"launch": 0.0, "bind": 0.0, "alternatives": 0.0}
+    solve_pods, launch_all, bind = solver.solve_pods, ctl._launch_all, ctl._bind
+    prov_mod = importlib.import_module("karpenter_tpu_torch.controllers.provisioning")
+    alternatives = prov_mod.rejected_alternatives
+
+    def recording_solve(pods, provs, existing=(), daemonsets=(), **kw):
+        result = solve_pods(pods, provs, existing=existing, daemonsets=daemonsets, **kw)
+        if kw.get("session") is not None:
+            calls.append((kw["session"].ordered_pods(), provs, existing, daemonsets, result))
+        return result
+
+    def timed(key, fn):
+        def call(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t
+        return call
+
+    solver.solve_pods = recording_solve
+    ctl._launch_all, ctl._bind = timed("launch", launch_all), timed("bind", bind)
+    prov_mod.rejected_alternatives = timed("alternatives", alternatives)
+    oracle = TorchSolver()
+    launches = {k: 0 for k in ts.LAUNCHES}
+    errs, r0 = {}, None
+    for rnd in ["seed", *range(configs.DELTA_ROUNDS)]:
+        name = f"controller round {rnd}"
+        if rnd != "seed":
+            churn_round(rnd)
+        calls.clear()
+        spent.update(launch=0.0, bind=0.0, alternatives=0.0)
+        pending = len(cluster.pending_pods())
+        before = dict(ts.LAUNCHES)
+        t0 = time.perf_counter()
+        with gc_seconds() as gc_s:
+            result = ctl.reconcile()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        moved = moved_since(ts, before)
+        launches = {k: launches[k] + moved[k] for k in launches}
+        # binding: every pending pod bound, within its node's allocatable
+        if result.unschedulable or cluster.pending_pods() or len(result.bound) != pending:
+            raise AssertionError(f"{name}: {len(result.bound)} of {pending} pods bound, "
+                                 f"unschedulable {result.unschedulable[:5]}")
+        used = {}
+        for q in cluster.pods.values():
+            if q.node_name is not None:
+                used.setdefault(q.node_name, []).append(q.requests + Resources(pods=1))
+        for node_name, reqs in used.items():
+            total = reqs[0]
+            for r in reqs[1:]:
+                total = total + r
+            if not total.fits(cluster.nodes[node_name].allocatable):
+                raise AssertionError(f"{name}: node {node_name} holds more than its allocatable")
+        bad = [e for e in result.validation_events if e["verdict"] != "accepted"]
+        if bad:
+            raise AssertionError(f"{name}: the firewall rejected a plan: {bad}")
+        # the session: one solve, on the problem a full encode of its pods gives
+        if len(calls) != 1:
+            raise AssertionError(f"{name}: {len(calls)} session solves, not 1")
+        order, provs, existing, daemonsets, solved = calls[0]
+        mode = ctl.encode_session.last_mode
+        want = "full" if rnd == "seed" else configs.CONTROLLER_CHURN_MODES[rnd]
+        if mode != want:
+            raise AssertionError(f"{name}: encoded {mode} ({ctl.encode_session.last_full_reason}), "
+                                 f"not {want}")
+        t1 = time.perf_counter()
+        full = encode(order, provs, existing, daemonsets)
+        full_s = time.perf_counter() - t1
+        problem = hold_reconcile(name, solver, solved, full, validate)
+        kernel = oracle._solve_kernel(problem)
+        torch.cuda.synchronize()
+        if validate(problem, kernel):
+            raise AssertionError(f"{name}: the kernel-only plan fails validation")
+        if rnd == "seed":
+            ref = configs.REFERENCE_COSTS["controller_seed"]
+            if abs(kernel.cost - ref) > COST_RTOL * ref:
+                raise AssertionError(f"{name}: kernel-only cost {kernel.cost!r}, JAX package {ref!r}")
+            if solved.cost > ref * (1 + COST_RTOL):
+                raise AssertionError(f"{name}: cost {solved.cost!r} above the kernel's {ref!r}")
+        if rnd == 0:
+            r0 = problem
+        st = solved.stats
+        lost = problem.__dict__.get("_race_kernel_lost", False)
+        log(f"{name}: {mode}, wall {wall:.4f} s, encode {st['encode_s']:.6f} s (full encode of "
+            f"the same pods {full_s:.6f} s), solve {st['total_s'] - st['encode_s']:.6f} s, total "
+            f"{st['total_s']:.6f} s, firewall {ctl._fw_eval_s:.4f} s, launch "
+            f"{spent['launch']:.4f} s, rejected alternatives {spent['alternatives']:.4f} s, bind "
+            f"{spent['bind']:.4f} s, "
+            f"{len(result.nodes)} nodes launched, {len(result.bound)} pods bound, E={problem.E} "
+            f"({len(cluster.nodes)} nodes in the cluster), backend {st['backend']} (kernel "
+            f"{'lost' if lost else 'won' if st.get('race_winner') else 'not raced'}), chain "
+            f"device {st.get('dispatch_device_ms')} ms, garbage collection {gc_s[0]:.4f} s, cost "
+            f"{solved.cost!r} (kernel-only {kernel.cost!r}), launches {moved}")
+    solver.solve_pods, prov_mod.rejected_alternatives = solve_pods, alternatives
+    log(f"controller_round launches {launches}; card {card_line()}")
+    hold_pack_launches("controller_round", launches)
+    # the kernels at the first churn round's real E, outside the counts
+    c = check(ts, "controller_r0", r0, solver)
+    G, O, E, R, Z = ts._dims(c["tensors"][0])
+    scratch = ts.pack_member_scratch(_build.load_kernels(), G, O, R, Z, E + c["S"])
+    log(f"controller_r0: real E={r0.E} (bucket {E}), S={c['S']}: K2's scan memory "
+        + (f"spills to global memory, {scratch} bytes of global scratch a member"
+           if scratch else "fits in shared memory"))
+    errs = dict(c["errs"])
+    del c
+    return errs
+
+
 def load_tree(root: Path, tag: str):
     """Another checkout's ``torch_solver`` module and kernel library, built
     from its own sources by its own ``_build`` (into its own ``build/``),
@@ -1693,6 +1848,9 @@ def main() -> int:
     del cells
     session_delta(ts, configs)
     session_fleet(ts, configs, fleet_encode_s)
+    controller_errs = controller_round(ts, configs)
+    for entry in kernels:
+        entry["max_abs_err"] = max(entry["max_abs_err"], controller_errs.get(entry["name"], 0.0))
     for entry in kernels:
         # the main path: the flat race and the fleet race, each counted alone
         entry["launches"] = flat[entry["name"]] + fleet[entry["name"]]

@@ -1,4 +1,12 @@
 from .catalog import DEFAULT_ZONES, catalog_by_name, generate_catalog, make_instance_type
+from .fake import FakeCloudProvider
+from .interface import (
+    CloudProvider,
+    CloudProviderError,
+    InsufficientCapacityError,
+    Instance,
+    MachineNotFoundError,
+)
 from .types import (
     InstanceType,
     Offering,
@@ -17,6 +25,12 @@ __all__ = [
     "catalog_by_name",
     "generate_catalog",
     "make_instance_type",
+    "FakeCloudProvider",
+    "CloudProvider",
+    "CloudProviderError",
+    "InsufficientCapacityError",
+    "Instance",
+    "MachineNotFoundError",
     "InstanceType",
     "Offering",
     "Overhead",

@@ -248,11 +248,75 @@ def config_delta_reconcile(n_pods: int = 50_000, n_types: int = 400):
     return pods, [(prov, cat)], churn_round
 
 
+def config_controller_reconcile(n_pods: int = 50_000, n_types: int = 400):
+    """``config_delta_reconcile`` as a cluster, for the provisioning
+    controller: a ``Cluster`` holding one provisioner and the ``n_pods``
+    pods as pending pods (30 deployments over the 6 cpu x 6 memory shapes,
+    in the same order), a ``FakeCloudProvider`` over
+    ``generate_catalog(n_types)``, and ``Settings`` whose batch window is
+    closed (a reconcile solves whatever is pending). A reconcile round is
+    ``ProvisioningController(cluster, provider, settings=settings)
+    .reconcile()``; the controller takes the cluster's watch events.
+
+    Returns ``(cluster, provider, settings, churn_round)``:
+    ``churn_round(r)``, called for r = 0, 1, ... in turn, applies round r
+    through the cluster's own calls, so the watch events reach the
+    controller: it deletes 1% / 2 of the pods (250 at 50k) of deployment
+    ``d{r % 30}`` and adds as many pending pods to ``d{(r + 7) % 30}``,
+    and returns ``(removed, added)``. ``DELTA_ROUNDS`` rounds make the
+    bench's run."""
+    from .api.settings import Settings
+    from .cloudprovider.fake import FakeCloudProvider
+    from .state.cluster import Cluster
+
+    n_deploys = 30
+    cluster = Cluster()
+    cluster.add_provisioner(Provisioner(meta=ObjectMeta(name="default")))
+
+    def mkpod(name, shape):
+        return Pod(meta=ObjectMeta(name=name), requests=_cell_requests(shape))
+
+    per = n_pods // n_deploys + 1
+    names = [(f"d{shape}-{i}", shape) for shape in range(n_deploys) for i in range(per)][:n_pods]
+    for name, shape in names:
+        cluster.add_pod(mkpod(name, shape))
+    provider = FakeCloudProvider(catalog=generate_catalog(n_types=n_types))
+    settings = Settings(batch_idle_duration=0, batch_max_duration=0)
+    n_churn = max(int(n_pods * 0.01) // 2, 1)
+    state = {"round": 0, "serial": 0}
+
+    def churn_round(r: int):
+        if r != state["round"]:
+            raise ValueError(f"churn rounds run in turn: round {state['round']} is next, not {r}")
+        down, up = r % n_deploys, (r + 7) % n_deploys
+        removed = [p for name, p in list(cluster.pods.items())
+                   if name.startswith(f"d{down}-")][:n_churn]
+        added = [mkpod(f"up{state['serial'] + i}-d{up}", up) for i in range(n_churn)]
+        for p in removed:
+            cluster.delete_pod(p.name)
+        for p in added:
+            cluster.add_pod(p)
+        state["round"] += 1
+        state["serial"] += n_churn
+        return removed, added
+
+    return cluster, provider, settings, churn_round
+
+
+#: The controller session's encode mode in each churn round of
+#: ``config_controller_reconcile`` (the seed round encodes in full): what
+#: the JAX package's controller gives on the same churn at a small size,
+#: which ``tests/test_torch_controller.py`` holds both packages to.
+CONTROLLER_CHURN_MODES = ("delta",) * DELTA_ROUNDS
+
+
 #: JAX-package costs of ``TPUSolver(auto_mesh=False)._solve_kernel`` on these
 #: configs, measured on a CPU; the port must reproduce them. ``cells_seed`` is
 #: any cell of ``config_cells()``, ``cells_rN`` a cell churned in round N;
 #: ``delta_r8`` is ``config_delta_reconcile()`` after its ``DELTA_ROUNDS``
-#: churn rounds.
+#: churn rounds; ``controller_seed`` is the provisioning controller's
+#: seed-round problem on ``config_controller_reconcile()`` (its pending
+#: pods, the fake provider's instance types, no existing nodes).
 REFERENCE_COSTS = {
     "50k_full": 1017.0072868143582,
     "10k_topology": 59.197231399244934,
@@ -263,4 +327,5 @@ REFERENCE_COSTS = {
     "cells_r2": 448.2557354797225,
     "cells_r3": 448.28029736577486,
     "delta_r8": 851.7806135309604,
+    "controller_seed": 843.6097242015434,
 }

@@ -10,8 +10,9 @@ option tables and existing-node columns, consumes dirty-sets fed by watch
 events (pod add/delete/modify, node add/remove, provisioner/offering
 change, ICE-mask flips arrive as option-list changes), and re-encodes only
 the affected rows/columns. Anything it cannot patch falls back to a full
-encode; ``last_mode``, ``last_full_reason`` and ``stats`` say which path
-each round took.
+encode, counted in ``karpenter_tpu_encode_mode_total{mode="full"}`` so the
+fallback rate is visible; ``last_mode``, ``last_full_reason`` and ``stats``
+say which path each round took.
 
 Equivalence contract (property-tested in tests/test_torch_session.py):
 after any sequence of mutations, the session's encode is content-identical
@@ -36,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -43,6 +45,7 @@ import numpy as np
 from ..api.objects import Pod, Provisioner
 from ..api.taints import tolerates_all
 from ..cloudprovider.types import InstanceType
+from ..utils import metrics
 from .encode import (
     ENCODE_LOCK,
     _group_members,
@@ -256,6 +259,14 @@ class EncodeSession:
         weight_degate: frozenset = frozenset(),
         risk_penalty: float = 0.0,
     ) -> EncodedProblem:
+        t0 = time.perf_counter()
+        # lifecycle marks: encode_wait ends (the batch reached the encoder)
+        # / encode ends below — no-ops for untracked pods (deprovisioning
+        # what-if simulations re-encode BOUND pods through here)
+        from ..utils.lifecycle import LIFECYCLE
+
+        pod_names = [p.name for p in pods]
+        LIFECYCLE.mark_many(pod_names, "encode_start")
         with self._lock, ENCODE_LOCK:
             _maybe_compact_vocab()
             problem = None
@@ -275,14 +286,23 @@ class EncodeSession:
                 self.last_mode, self.last_full_reason = "full", reason
                 self.stats["full"] += 1
                 self._deltas_since_full = 0
+                metrics.ENCODE_MODE.inc({"mode": "full"})
+                metrics.ENCODE_FULL_REASONS.inc({"reason": reason})
             else:
                 self.last_mode, self.last_full_reason = "delta", ""
                 self.stats["delta"] += 1
                 self._deltas_since_full += 1
-            # mode stamp: downstream solver phases label their samples with
-            # this round's encode mode
+                metrics.ENCODE_MODE.inc({"mode": "delta"})
+            # phase histogram + mode stamp: downstream solver phases label
+            # their samples with this round's encode mode, keeping the
+            # delta-encode win continuously visible on /metrics
             problem.__dict__["_encode_mode"] = self.last_mode
             self._note_shape(problem)
+            encode_s = time.perf_counter() - t0
+            metrics.SOLVE_PHASE.observe(
+                encode_s, {"phase": "encode", "mode": self.last_mode}
+            )
+            LIFECYCLE.mark_many(pod_names, "encode_done")
             return problem
 
     def _note_shape(self, problem: EncodedProblem) -> None:

@@ -46,6 +46,7 @@ import torch
 from ..api.objects import Pod, Provisioner
 from ..cloudprovider.types import InstanceType
 from ..native import load_encoder
+from ..utils import metrics
 from ..utils.resilience import BreakerSet
 # the cheap per-axis bound for the hot path; the tight LP bound lives in bounds.py
 from .bounds import fractional_lower_bound as lower_bound
@@ -81,6 +82,17 @@ _MEMBER_LEAVES = ("orders", "alphas", "looks", "rsvs", "swaps")
 
 def _next_pow2(n: int, floor: int = 8) -> int:
     return max(floor, 1 << (max(n, 1) - 1).bit_length())
+
+
+def _observe_phase(problem: EncodedProblem, phase: str, seconds: float) -> None:
+    """Solver phase histogram sample, labeled with the round's encode mode
+    (stamped by EncodeSession / solve_pods; plain full encodes default) —
+    karpenter_tpu_solve_phase_seconds{phase,mode}."""
+    mode = problem.__dict__.get("_encode_mode", "full")
+    metrics.SOLVE_PHASE.observe(
+        seconds,
+        {"phase": phase, "mode": mode},
+    )
 
 
 _IBIG = 1 << 30
@@ -489,6 +501,7 @@ class Solver(abc.ABC):
                 risk_penalty=self.risk_penalty,
             )
             fresh.__dict__["_encode_mode"] = phase_mode
+            _observe_phase(fresh, "encode", time.perf_counter() - t0)
         problem = self._intern_problem(fresh)
         problem.__dict__["_encode_mode"] = fresh.__dict__.get(
             "_encode_mode", "full"
@@ -521,103 +534,120 @@ class Solver(abc.ABC):
         on the full path — they solve transient CLONES whose identities must
         never enter the session's incremental state.
 
-        ``phase_mode`` stamps a sessionless round's encode mode on its
-        problem ("full" for real rounds; what-if simulations pass "sim").
+        ``phase_mode`` labels this round's karpenter_tpu_solve_phase_seconds
+        samples when no session owns the mode: real sessionless rounds are
+        "full"; consolidation what-if simulations pass "sim" so hundreds of
+        microsecond sweep solves per pass cannot swamp the delta-vs-full
+        comparison the histogram exists for.
 
         ``pre_encoded`` hands in a problem ``encode_for_staging`` already
         produced (the fleet-dispatch path encodes before staging); the
         encode stage is skipped and the staged encode time is credited."""
+        from ..utils.tracing import span
+
         t0 = time.perf_counter()
         encode_s = 0.0
-        if pre_encoded is not None:
-            fresh = pre_encoded
-            encode_s += fresh.__dict__.pop("_pre_encode_s", 0.0)
-        elif session is not None:
-            fresh = session.encode(
-                pods, provisioners, existing, daemonsets,
-                risk_penalty=self.risk_penalty,
-            )
-        else:
-            fresh = encode(
-                pods, provisioners, existing, daemonsets,
-                risk_penalty=self.risk_penalty,
-            )
-            fresh.__dict__["_encode_mode"] = phase_mode
-        problem = self._intern_problem(fresh)
-        # an intern hit returns the CACHED object: carry this round's
-        # encode mode over
-        problem.__dict__["_encode_mode"] = fresh.__dict__.get(
-            "_encode_mode", "full"
-        )
-        encode_s += time.perf_counter() - t0
-        self._prewarm(problem, session)
-        # anchor the latency budget at ENTRY (before encode): the budget is
-        # an end-to-end contract, so a fresh batch's encode time comes out
-        # of the polish budget, not on top of it
-        problem.__dict__["_entry_t"] = t0
-        result = self.solve(problem)
-        # Preference relaxation (the reference scheduler's relaxation
-        # pass): preferred node affinity is honored as a hard constraint
-        # first; a pod that cannot schedule sheds its weakest still-active
-        # preference (one per round) and the batch re-solves — soft
-        # constraints may never strand a pod. Relaxation happens on
-        # CLONES: live cluster pods keep their preferences, so a what-if
-        # simulation or transient failure never mutates real state.
-        work = None
-        total_relaxed = 0
-        while result.unschedulable:
-            if work is None:
-                work = list(pods)
-                index = {p.name: i for i, p in enumerate(work)}
-            relaxed_round = 0
-            for name in result.unschedulable:
-                i = index.get(name)
-                if i is None:
-                    continue
-                p = work[i]
-                if p.has_relaxable_constraints():
-                    work[i] = p.relaxed_clone()
-                    relaxed_round += 1
-            if relaxed_round == 0:
-                break
-            total_relaxed += relaxed_round
-            t_enc = time.perf_counter()
-            problem = encode(
-                work, provisioners, existing, daemonsets,
-                risk_penalty=self.risk_penalty,
-            )
-            encode_s += time.perf_counter() - t_enc
+        with span("solve", pods=len(pods)):
+            with span("solve.encode"):
+                if pre_encoded is not None:
+                    fresh = pre_encoded
+                    encode_s += fresh.__dict__.pop("_pre_encode_s", 0.0)
+                elif session is not None:
+                    fresh = session.encode(
+                        pods, provisioners, existing, daemonsets,
+                        risk_penalty=self.risk_penalty,
+                    )
+                else:
+                    fresh = encode(
+                        pods, provisioners, existing, daemonsets,
+                        risk_penalty=self.risk_penalty,
+                    )
+                    fresh.__dict__["_encode_mode"] = phase_mode
+                    _observe_phase(fresh, "encode", time.perf_counter() - t0)
+                problem = self._intern_problem(fresh)
+                # an intern hit returns the CACHED object: carry this round's
+                # encode mode over so its phase samples are labeled correctly
+                problem.__dict__["_encode_mode"] = fresh.__dict__.get(
+                    "_encode_mode", "full"
+                )
+            encode_s += time.perf_counter() - t0
+            self._prewarm(problem, session)
+            # anchor the latency budget at ENTRY (before encode): the budget
+            # is an end-to-end contract, so a fresh batch's encode time comes
+            # out of the polish budget, not on top of it
             problem.__dict__["_entry_t"] = t0
-            result = self.solve(problem)
-        # Final fallback: the weight gate pins each group to its highest-
-        # weight compatible pool; a group can be per-pod compatible yet
-        # JOINTLY infeasible there (e.g. a zone spread needing zones the
-        # pool doesn't cover). Re-solve with the gate dropped for the
-        # still-failing pods — the weight preference yields before a pod
-        # strands (reference: next-pool fallback in the weight cascade).
-        gated_names: set = set()
-        if result.unschedulable and problem.weight_gated_groups:
-            for gi in problem.weight_gated_groups:
-                gated_names.update(p.name for p in problem.groups[gi].pods)
-        if result.unschedulable and gated_names.intersection(result.unschedulable):
-            # only retry when a FAILING pod's group was actually narrowed by
-            # the weight gate — otherwise the re-solve provably returns the
-            # same result at full cost
-            degate = frozenset(result.unschedulable)
-            t_enc = time.perf_counter()
-            problem2 = encode(
-                work or pods, provisioners, existing, daemonsets,
-                weight_degate=degate,
-                risk_penalty=self.risk_penalty,
-            )
-            encode_s += time.perf_counter() - t_enc
-            problem2.__dict__["_entry_t"] = t0
-            result2 = self.solve(problem2)
-            if len(result2.unschedulable) < len(result.unschedulable):
-                result, problem = result2, problem2
-                result.stats["weight_degated_pods"] = float(len(degate))
-        if total_relaxed:
-            result.stats["relaxed_pods"] = float(total_relaxed)
+            with span("solve.backend"):
+                # the round's ONE {phase="solve"} sample: backend internals
+                # (host race members, kernel, fallback) must not each emit
+                # their own, or solve counts outrun encode counts and the
+                # delta-vs-full comparison this histogram exists for skews
+                t_backend = time.perf_counter()
+                result = self.solve(problem)
+                _observe_phase(problem, "solve", time.perf_counter() - t_backend)
+            # Preference relaxation (the reference scheduler's relaxation
+            # pass): preferred node affinity is honored as a hard constraint
+            # first; a pod that cannot schedule sheds its weakest still-active
+            # preference (one per round) and the batch re-solves — soft
+            # constraints may never strand a pod. Relaxation happens on
+            # CLONES: live cluster pods keep their preferences, so a what-if
+            # simulation or transient failure never mutates real state.
+            work = None
+            total_relaxed = 0
+            while result.unschedulable:
+                if work is None:
+                    work = list(pods)
+                    index = {p.name: i for i, p in enumerate(work)}
+                relaxed_round = 0
+                for name in result.unschedulable:
+                    i = index.get(name)
+                    if i is None:
+                        continue
+                    p = work[i]
+                    if p.has_relaxable_constraints():
+                        work[i] = p.relaxed_clone()
+                        relaxed_round += 1
+                if relaxed_round == 0:
+                    break
+                total_relaxed += relaxed_round
+                with span("solve.relax", pods=relaxed_round):
+                    t_enc = time.perf_counter()
+                    problem = encode(
+                        work, provisioners, existing, daemonsets,
+                        risk_penalty=self.risk_penalty,
+                    )
+                    encode_s += time.perf_counter() - t_enc
+                    problem.__dict__["_entry_t"] = t0
+                    result = self.solve(problem)
+            # Final fallback: the weight gate pins each group to its highest-
+            # weight compatible pool; a group can be per-pod compatible yet
+            # JOINTLY infeasible there (e.g. a zone spread needing zones the
+            # pool doesn't cover). Re-solve with the gate dropped for the
+            # still-failing pods — the weight preference yields before a pod
+            # strands (reference: next-pool fallback in the weight cascade).
+            gated_names: set = set()
+            if result.unschedulable and problem.weight_gated_groups:
+                for gi in problem.weight_gated_groups:
+                    gated_names.update(p.name for p in problem.groups[gi].pods)
+            if result.unschedulable and gated_names.intersection(result.unschedulable):
+                # only retry when a FAILING pod's group was actually narrowed
+                # by the weight gate — otherwise the re-solve provably returns
+                # the same result at full cost
+                degate = frozenset(result.unschedulable)
+                with span("solve.degate", pods=len(degate)):
+                    t_enc = time.perf_counter()
+                    problem2 = encode(
+                        work or pods, provisioners, existing, daemonsets,
+                        weight_degate=degate,
+                        risk_penalty=self.risk_penalty,
+                    )
+                    encode_s += time.perf_counter() - t_enc
+                    problem2.__dict__["_entry_t"] = t0
+                    result2 = self.solve(problem2)
+                if len(result2.unschedulable) < len(result.unschedulable):
+                    result, problem = result2, problem2
+                    result.stats["weight_degated_pods"] = float(len(degate))
+            if total_relaxed:
+                result.stats["relaxed_pods"] = float(total_relaxed)
         result.stats["encode_s"] = encode_s
         # staging (accrued across prestage and the solve's own staging) and
         # the observed dispatch latency, separable from encode

@@ -3,17 +3,23 @@
 The invariant gate for every solver backend: capacity never exceeded, every
 placement compatible (requirements + taints), topology spread skew respected,
 anti-affinity/colocation honored. The kernel's output is validated before it is
-decoded; in the port a violation raises, since no greedy oracle is ported yet.
+decoded, and ``validate_bind_plan`` re-checks any backend's plan against the
+cluster-level objects before the provisioning controller binds it.
 """
 
 from __future__ import annotations
 
+import math
+import threading
 from collections import defaultdict
-from typing import Dict, List
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from ..api import labels as wk
+from ..api.objects import Pod
 from .encode import EncodedProblem
 from .result import SolveResult
 
@@ -368,3 +374,454 @@ def _count_names(result: SolveResult) -> Dict[str, int]:
         for n in names:
             counts[n] += 1
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Placement validation firewall (solver fault domain, layer 1)
+#
+# The validators above check a plan against the ENCODED problem — which is
+# exactly what a corrupted device path can no longer be trusted about
+# indirectly. ``validate_bind_plan`` re-checks every placement of a
+# SolveResult against the CLUSTER-LEVEL objects (pods, instance types,
+# existing-node remaining capacity, daemonsets, gangs, diversification
+# units, provisioner limits) with no dependence on the solve's own tensors:
+# a miscompiled kernel, a torn device staging buffer, or a numerically
+# degenerate answer produces a plan this function rejects, and the round
+# re-solves on the next backend instead of corrupting cluster state
+# (CvxCluster-style independent feasibility checking of each subproblem's
+# answer; Karpenter's core likewise never binds a placement it cannot
+# re-verify).
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class PlanViolation:
+    """One hard-constraint violation found in a solver plan pre-bind."""
+
+    code: str  # capacity | compat | taints | double-placement | unknown-pod
+    #         | unknown-node | launch-option | gang-split | slice-adjacency
+    #         | diversification | launch-limits
+    detail: str
+    pod: str = ""
+    node: str = ""
+
+    def to_dict(self) -> Dict:
+        out = {"code": self.code, "detail": self.detail}
+        if self.pod:
+            out["pod"] = self.pod
+        if self.node:
+            out["node"] = self.node
+        return out
+
+
+def _fully_relaxed(pod: Pod) -> Pod:
+    """The pod with every sheddable PREFERENCE dropped: ``solve_pods``'
+    relaxation pass legally places a pod that sheds its preferred affinity,
+    so the firewall judges hard constraints only — a placement is invalid
+    iff even the fully-relaxed pod is incompatible with it."""
+    p = pod
+    for _ in range(16):  # bounded: each clone sheds one preference
+        if not p.has_relaxable_constraints():
+            return p
+        p = p.relaxed_clone()
+    return p
+
+
+def _fits_tol(total, cap) -> bool:
+    """Per-axis fit under the SAME relative tolerance the count-level
+    validator grants (CAP_RTOL): the kernel packs in normalized f32, so a
+    plan validate_counts accepts as float noise must not be false-rejected
+    here — a marginal clean round would otherwise book breaker evidence
+    against a healthy executable."""
+    return all(
+        v <= cap.get(k) * (1 + CAP_RTOL) + 1e-6 for k, v in total.items()
+    )
+
+
+def _over_axes(total, cap) -> List[str]:
+    return sorted(
+        k for k, v in total.items() if v > cap.get(k) * (1 + CAP_RTOL) + 1e-6
+    )
+
+
+def _surface_ok(pod: Pod, surface, taints, memo: Dict, relaxed: Dict) -> Optional[str]:
+    """None when ``pod`` may schedule onto a node with this label surface +
+    taints; else the violation code. Memoized per (surface identity, taint
+    CONTENT, scheduling signature) — pods of one encode group share the
+    verdict. The taint component is by value, not id(): the per-node
+    effective-taint tuples are ephemeral, and a recycled id must never
+    serve one node's verdict for another's taints (surfaces are safe to key
+    by identity — they are content-interned and long-lived)."""
+    from ..api.taints import tolerates_all
+
+    sig = pod.__dict__.get("_sched_sig")
+    key = (
+        id(surface),
+        tuple((t.key, t.value, t.effect) for t in taints),
+        sig if sig is not None else pod.meta.name,
+    )
+    hit = memo.get(key)
+    if hit is not None:
+        return hit or None
+    code = ""
+    if not tolerates_all(list(pod.tolerations), tuple(taints)):
+        code = "taints"
+    else:
+        terms = pod.scheduling_requirement_terms()
+        if not any(surface.compatible(t) for t in terms):
+            # hard-vs-preference split: retry with every preference shed —
+            # only a pod whose REQUIRED terms cannot match is a violation
+            rp = relaxed.get(pod.meta.name)
+            if rp is None:
+                rp = relaxed[pod.meta.name] = _fully_relaxed(pod)
+            if rp is pod or not any(
+                surface.compatible(t) for t in rp.scheduling_requirement_terms()
+            ):
+                code = "compat"
+    memo[key] = code
+    return code or None
+
+
+def _placement_groups(pods: List[Pod]) -> List[tuple]:
+    """(representative, count) per scheduling-signature group — capacity
+    sums cost O(groups), not O(pods)."""
+    by_sig: Dict[object, list] = {}
+    for p in pods:
+        sig = p.__dict__.get("_sched_sig")
+        key = sig if sig is not None else ("pod", p.meta.name)
+        ent = by_sig.get(key)
+        if ent is None:
+            by_sig[key] = [p, 1]
+        else:
+            ent[1] += 1
+    return [(rep, n) for rep, n in by_sig.values()]
+
+
+def validate_bind_plan(
+    solve: SolveResult,
+    *,
+    batch: Sequence[Pod],
+    round_provs: Sequence[tuple],
+    round_existing: Sequence[object] = (),
+    daemonsets: Sequence[Pod] = (),
+    cluster=None,
+    gangs: Optional[Dict[str, object]] = None,
+    check_gangs: bool = False,
+    slice_topology: bool = False,
+    div_units: Sequence[object] = (),
+    check_diversification: bool = False,
+    check_limits: bool = False,
+    check_fit: bool = True,
+    max_violations: int = 64,
+) -> List[PlanViolation]:
+    """Re-check a solver plan's placements against cluster-level hard
+    constraints; empty list means the plan is safe to bind.
+
+    Always checked: per-node resource fit (instance allocatable minus an
+    INDEPENDENTLY recomputed daemonset overhead for new nodes; live
+    ``remaining`` for existing nodes), per-pod requirements/labels and
+    taint tolerations against the landing surface, double placement, and
+    unknown pod/node/option references. ``check_gangs`` adds all-or-nothing
+    atomicity (and, under ``slice_topology``, the slice-adjacency pin for
+    ``required``-mode gangs); ``check_diversification`` adds the per-unit
+    spot-pool caps — both meaningful only AFTER the gates ran, which is why
+    they are flags, not defaults. ``check_limits`` adds provisioner launch
+    limits; the provisioning cascade leaves it off because its own serial
+    limit gate (``_apply_solve``) owns the limit-then-cascade semantics —
+    a plan over limits there is re-solved against the next pool by design,
+    not rejected as corrupt. ``check_fit=False`` skips the per-placement
+    fit/compat work (the pre-bind layer re-verifying only post-gate
+    invariants on an object the backend layer already cleared — gates only
+    strip placements, they cannot un-fit one).
+    """
+    from .encode import _daemonset_overhead
+    from ..api.resources import Resources
+
+    violations: List[PlanViolation] = []
+
+    def add(code: str, detail: str, pod: str = "", node: str = "") -> bool:
+        if len(violations) < max_violations:
+            violations.append(PlanViolation(code, detail, pod=pod, node=node))
+        return len(violations) < max_violations
+
+    pods_by_name: Dict[str, Pod] = {p.meta.name: p for p in batch}
+    prov_names = {prov.meta.name for prov, _ in round_provs}
+    compat_memo: Dict = {}
+    relaxed_memo: Dict[str, Pod] = {}
+    placed_count: Dict[str, int] = defaultdict(int)
+
+    # -- new nodes ----------------------------------------------------------
+    alloc_memo: Dict[int, object] = {}  # id(option) -> effective allocatable
+    for idx, spec in enumerate(solve.new_nodes):
+        opt = spec.option
+        host = f"new-{idx}({opt.instance_type.name}/{opt.zone})"
+        if check_fit and opt.provisioner.meta.name not in prov_names:
+            add(
+                "launch-option",
+                f"spec references provisioner {opt.provisioner.meta.name!r} "
+                "absent from this round",
+                node=host,
+            )
+        members: List[Pod] = []
+        for name in spec.pod_names:
+            placed_count[name] += 1
+            pod = pods_by_name.get(name)
+            if pod is None:
+                add("unknown-pod", "pod not in this batch", pod=name, node=host)
+                continue
+            members.append(pod)
+            if not check_fit:
+                continue
+            code = _surface_ok(
+                pod, opt.node_requirements, opt.taints, compat_memo, relaxed_memo
+            )
+            if code:
+                add(code, f"pod cannot schedule onto {host}", pod=name, node=host)
+        if not check_fit:
+            continue
+        eff = alloc_memo.get(id(opt))
+        if eff is None:
+            # independent capacity basis: raw instance allocatable minus a
+            # re-derived daemonset overhead — never the encoder's alloc row
+            raw = opt.instance_type.allocatable()
+            ds = _daemonset_overhead(
+                daemonsets, opt.node_requirements, tuple(opt.taints), raw
+            )
+            eff = alloc_memo[id(opt)] = raw - ds
+        total = Resources(pods=len(members))
+        for rep, n in _placement_groups(members):
+            total = total + rep.requests * n
+        if not _fits_tol(total, eff):
+            add(
+                "capacity",
+                f"{len(members)} pods exceed allocatable on "
+                f"{_over_axes(total, eff)}",
+                node=host,
+            )
+
+    # -- existing nodes -----------------------------------------------------
+    ex_by_name = {e.name: e for e in round_existing}
+    # startup taints are ignored in scheduling simulation (the reference's
+    # taint filter: a workload daemon strips them after bootstrap) — the
+    # firewall judges the same EFFECTIVE taints the scheduler did, or every
+    # pod landing on a freshly-bootstrapping node would false-reject
+    startup_by_prov = {
+        p.meta.name: {(t.key, t.value, t.effect) for t in p.startup_taints}
+        for p, _ in round_provs
+        if getattr(p, "startup_taints", None)
+    }
+    for node_name, names in solve.existing_assignments.items():
+        ex = ex_by_name.get(node_name)
+        if ex is None:
+            add("unknown-node", "existing node absent from this round", node=node_name)
+            for name in names:
+                placed_count[name] += 1
+            continue
+        surface = None
+        eff_taints: tuple = ()
+        if check_fit:
+            # the shared label-surface cache (labels-identity invalidated;
+            # cluster.update pops it on in-place label mutation)
+            from .encode import _node_surface
+
+            surface = _node_surface(ex.node)
+            eff_taints = tuple(ex.node.taints)
+            startup = startup_by_prov.get(ex.node.provisioner_name() or "")
+            if startup:
+                eff_taints = tuple(
+                    t for t in eff_taints
+                    if (t.key, t.value, t.effect) not in startup
+                )
+        members = []
+        for name in names:
+            placed_count[name] += 1
+            pod = pods_by_name.get(name)
+            if pod is None:
+                add("unknown-pod", "pod not in this batch", pod=name, node=node_name)
+                continue
+            members.append(pod)
+            if not check_fit:
+                continue
+            code = _surface_ok(
+                pod, surface, eff_taints, compat_memo, relaxed_memo
+            )
+            if code:
+                add(
+                    code, "pod cannot schedule onto existing node",
+                    pod=name, node=node_name,
+                )
+        if not check_fit:
+            continue
+        total = Resources(pods=len(members))
+        for rep, n in _placement_groups(members):
+            total = total + rep.requests * n
+        if not _fits_tol(total, ex.remaining):
+            add(
+                "capacity",
+                f"{len(members)} pods exceed remaining capacity on "
+                f"{_over_axes(total, ex.remaining)}",
+                node=node_name,
+            )
+
+    # -- double placement ---------------------------------------------------
+    for name, n in placed_count.items():
+        if n > 1:
+            add("double-placement", f"pod placed {n} times", pod=name)
+
+    # -- gang atomicity + slice-adjacency pins (post-gate invariants) -------
+    if check_gangs and gangs:
+        from . import gang as gangmod
+
+        for gname in sorted(gangs):
+            g = gangs[gname]
+            placed = [n for n in g.member_names if placed_count.get(n)]
+            if placed and len(placed) < len(g.pods):
+                add(
+                    "gang-split",
+                    f"gang {gname} placed {len(placed)}/{len(g.pods)} members "
+                    "(all-or-nothing)",
+                    pod=sorted(set(g.member_names) - set(placed))[0],
+                )
+                continue
+            if (
+                placed
+                and slice_topology
+                and gangmod.wants_slices(g)
+                and gangmod.gang_adjacency_mode(g) == "required"
+            ):
+                domains = set()
+                sliced = True
+                member_set = set(g.member_names)
+                for spec in solve.new_nodes:
+                    if any(n in member_set for n in spec.pod_names):
+                        if spec.option.slice_pod:
+                            domains.add((spec.option.zone, spec.option.slice_pod))
+                        else:
+                            sliced = False
+                for node_name, names in solve.existing_assignments.items():
+                    if any(n in member_set for n in names):
+                        node = (
+                            cluster.nodes.get(node_name) if cluster is not None
+                            else None
+                        )
+                        if node is not None and node.slice_pod():
+                            domains.add((node.zone(), node.slice_pod()))
+                        else:
+                            sliced = False
+                # a sliceless catalog (or mixed capacity) is the gate's own
+                # inert case; only an actually-sliced multi-domain placement
+                # breaks the pin
+                if sliced and len(domains) > 1:
+                    add(
+                        "slice-adjacency",
+                        f"required-adjacency gang {gname} spans "
+                        f"{len(domains)} ICI domains",
+                        pod=sorted(g.member_names)[0],
+                    )
+
+    # -- spot-diversification caps (post-gate invariant) --------------------
+    if check_diversification and div_units:
+        for unit in div_units:
+            usage: Dict[tuple, int] = defaultdict(int)
+            for spec in solve.new_nodes:
+                if spec.option.capacity_type != wk.CAPACITY_TYPE_SPOT:
+                    continue
+                hit = sum(1 for n in spec.pod_names if n in unit.member_names)
+                if hit:
+                    usage[spec.option.pool] += hit
+            if cluster is not None:
+                this_round = {
+                    n for spec in solve.new_nodes for n in spec.pod_names
+                } | {
+                    n for names in solve.existing_assignments.values()
+                    for n in names
+                }
+                for node_name, names in solve.existing_assignments.items():
+                    node = cluster.nodes.get(node_name)
+                    if node is None:
+                        continue
+                    pool = node.capacity_pool()
+                    if pool[2] != wk.CAPACITY_TYPE_SPOT:
+                        continue
+                    hit = sum(1 for n in names if n in unit.member_names)
+                    if hit:
+                        usage[pool] += hit
+                # members bound by EARLIER rounds count toward the cap too
+                for name in unit.member_names:
+                    if name in this_round:
+                        continue
+                    pod = cluster.pods.get(name)
+                    if pod is not None and pod.node_name is not None:
+                        node = cluster.nodes.get(pod.node_name)
+                        if node is not None:
+                            pool = node.capacity_pool()
+                            if pool[2] == wk.CAPACITY_TYPE_SPOT:
+                                usage[pool] += 1
+            cap_n = max(1, math.ceil(unit.max_frac * unit.size))
+            for pool in sorted(usage):
+                if usage[pool] > cap_n:
+                    add(
+                        "diversification",
+                        f"unit {unit.name} holds {usage[pool]} members in spot "
+                        f"pool {'/'.join(pool)} (cap {cap_n})",
+                        pod=sorted(unit.member_names)[0],
+                    )
+
+    # -- provisioner launch limits ------------------------------------------
+    if check_limits and cluster is not None:
+        projected: Dict[str, object] = {}
+        for spec in solve.new_nodes:
+            prov = spec.option.provisioner
+            if prov.limits is None:
+                continue
+            used = projected.get(prov.meta.name)
+            if used is None:
+                used = cluster.provisioner_usage(prov.meta.name)
+            projected[prov.meta.name] = used + spec.option.instance_type.capacity
+        for pname, used in projected.items():
+            prov = next(
+                (p for p, _ in round_provs if p.meta.name == pname), None
+            )
+            if prov is not None and prov.limits is not None and used.any_exceeds(
+                prov.limits
+            ):
+                add(
+                    "launch-limits",
+                    f"plan projects provisioner {pname} past its limits",
+                    node=pname,
+                )
+
+    return violations
+
+
+# ---------------------------------------------------------------------------
+# Scripted verdicts (replay determinism): a capsule that recorded a
+# validation rejection came from a TRANSIENT device fault the offline
+# replay cannot reproduce — the replay harness installs the recorded
+# verdict sequence and the firewall consumes it in call order instead of
+# recomputing, so the round's fallback decision (and every digest and
+# placement downstream of it) replays byte-identically. Mirrors how
+# CapsuleCloudProvider replays recorded launch failures.
+# ---------------------------------------------------------------------------
+
+_SCRIPT = threading.local()
+
+
+@contextmanager
+def scripted_verdicts(events: Sequence[Dict]):
+    prev = getattr(_SCRIPT, "queue", None)
+    _SCRIPT.queue = list(events)
+    try:
+        yield
+    finally:
+        _SCRIPT.queue = prev
+
+
+def scripted_next() -> Optional[Dict]:
+    """The next recorded firewall verdict, or None when no script is active
+    (the live path) or the script is exhausted (the replay diverged into
+    more firewall calls than the recorded round made — compute live; the
+    event-list comparison will surface the divergence)."""
+    queue = getattr(_SCRIPT, "queue", None)
+    if not queue:
+        return None
+    return queue.pop(0)

@@ -1,20 +1,150 @@
-"""Circuit breakers (``karpenter_tpu/utils/resilience.py``, the breaker part).
+"""RPC resilience: the retry policy, its error table, and circuit breakers
+(``karpenter_tpu/utils/resilience.py``, without the breakers' call gate).
 
-:class:`CircuitBreaker` is closed → open → half-open:
-``failure_threshold`` consecutive failures open the circuit; once
-``recovery_timeout_s`` has elapsed it reads half-open, and then one success
-closes it and one failure reopens it. :class:`BreakerSet` keeps one breaker
-per endpoint, created lazily with shared thresholds.
-
-The solver's kernel breaker board rides these: it reads ``state`` to gate a
-dispatch and books each outcome. Not thread-safe: nothing in the port calls
-a breaker from two threads.
+* :func:`is_retryable` — the error-classification table. Throttles (429),
+  server errors (5xx), connection failures and timeouts are retryable;
+  client errors (other 4xx), admission rejections and insufficient-capacity
+  errors are terminal (ICE is handled by the offerings cache, not by
+  hammering the same pool).
+* :class:`RetryPolicy` — exponential backoff with FULL jitter
+  (``delay = rand() * min(cap, base * 2**attempt)``), a per-attempt timeout
+  hint for transports and a total deadline that aborts a retry loop which
+  would otherwise overshoot the caller's budget. ``sleep``/``clock``/``rng``
+  are injectable so tests run scripted schedules without real sleeps. The
+  provisioning controller retries transient launch failures through it.
+* :class:`CircuitBreaker` is closed → open → half-open:
+  ``failure_threshold`` consecutive failures open the circuit; once
+  ``recovery_timeout_s`` has elapsed it reads half-open, and then one
+  success closes it and one failure reopens it. :class:`BreakerSet` keeps
+  one breaker per endpoint, created lazily with shared thresholds. The
+  solver's kernel breaker board rides these: it reads ``state`` to gate a
+  dispatch and books each outcome. The breakers are not thread-safe:
+  nothing in the port calls a breaker from two threads.
 """
 
 from __future__ import annotations
 
+import http.client
+import random
 import time
-from typing import Callable, Dict
+import urllib.error
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+from . import metrics, tracing
+
+# -- error classification ----------------------------------------------------
+
+#: HTTP statuses worth retrying: throttle + server-side failures.
+RETRYABLE_HTTP_STATUSES = frozenset({429, 500, 502, 503, 504})
+
+
+def is_retryable(exc: BaseException) -> bool:
+    """The error-classification table (docs/ARCHITECTURE.md "Resilience").
+
+    An explicit ``retryable`` attribute on the exception wins — that is how
+    ``TransientCloudError`` (retryable) and ``CircuitOpenError`` /
+    ``AdmissionError`` (terminal) short-circuit the structural checks.
+    """
+    flagged = getattr(exc, "retryable", None)
+    if flagged is not None:
+        return bool(flagged)
+    if isinstance(exc, urllib.error.HTTPError):
+        return exc.code in RETRYABLE_HTTP_STATUSES or exc.code >= 500
+    if isinstance(exc, (urllib.error.URLError, ConnectionError, TimeoutError)):
+        return True  # unreachable / reset / timed out: the request may never
+        # have been processed; socket.timeout is an alias of TimeoutError
+    if isinstance(exc, http.client.HTTPException):
+        return True  # BadStatusLine/RemoteDisconnected: server died mid-reply
+    return False
+
+
+class CircuitOpenError(Exception):
+    """Fail-fast signal: the breaker is open, the call was never attempted.
+
+    Terminal for retry loops (``retryable = False``) — retrying against an
+    open circuit is exactly the hammering the breaker exists to stop."""
+
+    retryable = False
+
+
+# -- retry policy ------------------------------------------------------------
+
+
+@dataclass
+class RetryPolicy:
+    """Exponential backoff + full jitter with per-attempt and total deadlines.
+
+    ``attempt_timeout_s`` is a hint transports apply to each individual
+    attempt (the urlopen timeout); ``total_deadline_s`` bounds the whole
+    retry loop including backoff sleeps. ``sleep``/``clock``/``rng`` are
+    injectable for deterministic tests.
+    """
+
+    max_attempts: int = 4
+    base_backoff_s: float = 0.05
+    max_backoff_s: float = 2.0
+    total_deadline_s: float = 30.0
+    attempt_timeout_s: Optional[float] = None
+    sleep: Callable[[float], None] = time.sleep
+    clock: Callable[[], float] = time.monotonic
+    rng: Callable[[], float] = random.random
+
+    def backoff(self, attempt: int) -> float:
+        """Full-jitter delay for the given 0-based completed-attempt count."""
+        cap = min(self.max_backoff_s, self.base_backoff_s * (2 ** attempt))
+        return self.rng() * cap
+
+    def call(
+        self,
+        fn: Callable[[], object],
+        *,
+        classify: Callable[[BaseException], bool] = is_retryable,
+        service: str = "",
+        endpoint: str = "",
+        on_retry: Optional[Callable[[BaseException, int], None]] = None,
+    ):
+        """Run ``fn`` retrying retryable failures. Raises the last error when
+        attempts or the total deadline run out; terminal errors raise at
+        once. Each retry is counted in ``karpenter_tpu_rpc_retries_total``."""
+        labels = {"service": service, "endpoint": endpoint}
+        start = self.clock()
+        attempt = 0
+        while True:
+            try:
+                result = fn()
+            except BaseException as e:  # noqa: BLE001 - classified below
+                if not classify(e):
+                    metrics.RPC_REQUESTS.inc({**labels, "outcome": "terminal"})
+                    raise
+                attempt += 1
+                if attempt >= self.max_attempts:
+                    metrics.RPC_REQUESTS.inc({**labels, "outcome": "exhausted"})
+                    raise
+                delay = self.backoff(attempt - 1)
+                remaining = self.total_deadline_s - (self.clock() - start)
+                if remaining <= delay:
+                    # total-deadline abort: sleeping would overshoot the
+                    # caller's budget, so surface the failure now
+                    metrics.RPC_REQUESTS.inc({**labels, "outcome": "deadline"})
+                    raise
+                metrics.RPC_RETRIES.inc(labels)
+                # stamp the retry on the active trace span (no-op outside a
+                # span): a slow round's trace shows WHICH call retried and why
+                tracing.add_event(
+                    "rpc.retry", service=service, endpoint=endpoint,
+                    attempt=attempt, error=f"{type(e).__name__}: {e}",
+                )
+                if on_retry is not None:
+                    on_retry(e, attempt)
+                if delay > 0:
+                    self.sleep(delay)
+                continue
+            metrics.RPC_REQUESTS.inc({**labels, "outcome": "ok"})
+            return result
+
+
+# -- circuit breaker ---------------------------------------------------------
 
 
 class CircuitBreaker:
@@ -81,3 +211,8 @@ class BreakerSet:
                 clock=self._clock,
             )
         return b
+
+
+def retry_policy_from_settings(settings) -> RetryPolicy:
+    """Build the shared policy from operator settings (api/settings.py)."""
+    return RetryPolicy(max_attempts=int(getattr(settings, "rpc_retry_max_attempts", 4)))

@@ -32,6 +32,7 @@ def imported_modules(source: str):
 
 def test_scan_sees_the_whole_port():
     assert "karpenter_tpu_torch/solver/torch_solver.py" in PORT_FILES
+    assert "karpenter_tpu_torch/controllers/provisioning.py" in PORT_FILES
     assert len(PORT_FILES) >= 18
 
 
@@ -51,6 +52,7 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import karpenter_tpu_torch, karpenter_tpu_torch.api, karpenter_tpu_torch.cloudprovider\n"
         "import karpenter_tpu_torch.solver, karpenter_tpu_torch.solver._build, karpenter_tpu_torch.configs\n"
+        "import karpenter_tpu_torch.controllers, karpenter_tpu_torch.state, karpenter_tpu_torch.utils\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'karpenter_tpu')"
         " or m.startswith(('jax.', 'karpenter_tpu.')))\n"
         "print(','.join(bad))\n"

@@ -356,3 +356,38 @@ def test_cell_churn_events_keep_the_session_order():
         assert [p.name for p in session.ordered_pods()] == list(cells[0])
         assert problem_digest(problem) == problem_digest(encode(list(cells[0].values()), args))
     assert churned == 2
+
+
+def test_delta_round_counts_its_encode_mode_like_the_reference():
+    """A full then a delta encode bump ``ENCODE_MODE`` and
+    ``ENCODE_FULL_REASONS`` and sample ``SOLVE_PHASE{phase="encode"}`` in
+    each package's own registry, by the same amounts. The two packages keep
+    separate registries, so each count moves only with its own session."""
+    import karpenter_tpu.utils.metrics as rmetrics
+    import karpenter_tpu_torch.utils.metrics as pmetrics
+
+    assert rmetrics.ENCODE_MODE is not pmetrics.ENCODE_MODE
+    moved = {}
+    for (api, gen, _, Session, _, _), metrics in ((PORT, pmetrics), (REF, rmetrics)):
+        before = (
+            metrics.ENCODE_MODE.value({"mode": "delta"}),
+            metrics.ENCODE_MODE.value({"mode": "full"}),
+            metrics.ENCODE_FULL_REASONS.value({"reason": "first-encode"}),
+            metrics.SOLVE_PHASE.count({"phase": "encode", "mode": "delta"}),
+        )
+        cat = gen(n_types=6)
+        prov = api.Provisioner(meta=api.ObjectMeta(name="default"))
+        pods = [make_pod(api, f"em-{i}", cpu="250m") for i in range(12)]
+        session = Session()
+        session.encode(pods, [(prov, cat)])
+        session.pod_event("DELETED", pods[0])
+        session.encode(pods[1:], [(prov, cat)])
+        assert session.last_mode == "delta"
+        after = (
+            metrics.ENCODE_MODE.value({"mode": "delta"}),
+            metrics.ENCODE_MODE.value({"mode": "full"}),
+            metrics.ENCODE_FULL_REASONS.value({"reason": "first-encode"}),
+            metrics.SOLVE_PHASE.count({"phase": "encode", "mode": "delta"}),
+        )
+        moved[metrics] = tuple(a - b for a, b in zip(after, before))
+    assert moved[pmetrics] == moved[rmetrics] == (1, 1, 1, 1)

@@ -240,6 +240,18 @@ def _delta_after_rounds():
     return rpods, [(rapi.Provisioner(meta=rapi.ObjectMeta(name="default")), rcat(n_types=400))]
 
 
+def _controller_seed():
+    """The provisioning controller's seed-round problem on
+    ``configs.config_controller_reconcile``, rebuilt with the JAX package's
+    cluster and fake provider: the pending pods, the provider's instance
+    types for its one provisioner, no existing nodes."""
+    from test_torch_controller import controller_config
+
+    cluster, provider, _, _ = controller_config("karpenter_tpu", 50_000, 400)
+    provs = [(p, provider.get_instance_types(p)) for p in cluster.provisioners.values()]
+    return cluster.pending_pods(), provs, cluster.existing_capacity(), cluster.daemonsets()
+
+
 @pytest.mark.parametrize("name,make", [
     ("50k_full", bench.config_50k_full),
     ("10k_topology", bench.config_10k_topology),
@@ -249,6 +261,7 @@ def _delta_after_rounds():
     ("cells_r1", _cells_config(4)),
     ("cells_r2", _cells_config(8)),
     ("delta_r8", _delta_after_rounds),
+    ("controller_seed", _controller_seed),
 ])
 def test_reference_costs_are_pinned(name, make):
     """The constants chip_smoke.py holds the card's answers to are what the

@@ -94,7 +94,19 @@ this, DIR, with the chain and each of its kernels (``compare``). Phases:
     and K3 must launch, and on the first
     churn round's problem, at its real existing-node count, they are held
     against their plain versions (``check``), with K2's memory plan logged;
-13. one JSON line of kernel results, the card's name and power limit, and
+13. sharded provisioning controller (main path): ``ProvisioningController``
+    with its default ``TorchSolver()`` and ``cell_sharding_enabled`` over
+    ``configs.config_controller_cells`` (500k pending pods in 20 cells, 60
+    types, 8 workers): a seed round, whose 20 cells must each be the
+    ``config_cells`` problem, batched in two fleet dispatches (b16, b4)
+    with the launches ``SHARDED_SEED_LAUNCHES`` names, then churn rounds
+    0-2 in the modes ``SHARDED_CHURN_MODES`` names; every round binds every
+    pending pod within allocatable, with no plan rejected, each cell's
+    problem equal to a full encode of its session's pods, each fleet row
+    equal to the plain chain and each fleet buffer copied to the host
+    once (``sharded_round``); then the same config at 16k pods in 8 cells
+    at 1 worker and at 8, which must agree on digests and launches;
+14. one JSON line of kernel results, the card's name and power limit, and
     the device JSON as the last line.
 
 Before any encode, the native encoder (``karpenter_tpu_torch/native``)
@@ -111,6 +123,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -1659,6 +1672,303 @@ def controller_round(ts, configs) -> dict:
     return errs
 
 
+#: what the seed round of ``controller_sharded`` launches: two fleet chains
+#: (B=16 and B=4, each K1, K2 twice, K3) on device-side stacks, and the
+#: first ``device_rtt`` probe (a warm call and three timed ones)
+SHARDED_SEED_LAUNCHES = {"shared_precompute": 2, "pack_member": 4, "pack_epilogue": 2,
+                         "stage_patch": 0, "fleet_stack": 2, "rtt_probe": 4}
+#: what a churn round of ``config_controller_cells`` gives (the JAX
+#: package's answer at 2,000 pods, ``tests/test_torch_sharded.py``): only
+#: the 4 churned cells hold pending pods; round 0's cells delta-encode, and
+#: later rounds' cells, emptied by the seed round's binds, start afresh
+SHARDED_CHURN_MODES = {0: ("delta", ""), 1: ("full", "first-encode"), 2: ("full", "first-encode")}
+
+
+class ShardedProbe:
+    """What one sharded round did, gathered around ``reconcile``: every
+    per-cell ``solve_pods`` call (its session's pods, provisioners,
+    existing nodes and daemonsets, its result and its thread), each
+    ``_FleetBuffer`` made, and host seconds spent in the round's steps.
+    Installed on the classes and modules the round reads; ``close``
+    restores them."""
+
+    def __init__(self, ctl, solver_mod, prov_mod, hostpool):
+        from karpenter_tpu_torch.solver import TorchSolver
+        from karpenter_tpu_torch.state import CellRouter
+        from karpenter_tpu_torch.utils.decisions import DECISIONS
+
+        self.calls, self.buffers, self.records = [], [], []
+        self.spent = dict.fromkeys(("plan", "encode_for_staging", "prestage", "stage_fleet",
+                                    "fan_out", "arbitrate", "launch", "alternatives", "bind"), 0.0)
+        self._undo = []
+        probe = self
+
+        def timed(key, fn):
+            def call(*args, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    probe.spent[key] += time.perf_counter() - t
+            return call
+
+        def patch(obj, name, value):
+            # an instance's method lives on its class: undo deletes the patch
+            own = name in vars(obj)
+            self._undo.append((obj, name, getattr(obj, name) if own else None))
+            setattr(obj, name, value)
+
+        solve_pods = TorchSolver.solve_pods
+
+        def recording_solve(solver, pods, provs, existing=(), daemonsets=(), **kw):
+            result = solve_pods(solver, pods, provs, existing=existing, daemonsets=daemonsets, **kw)
+            session = kw.get("session")
+            if session is not None and solver is not ctl.solver:
+                probe.calls.append((session.ordered_pods(), provs, list(existing), daemonsets,
+                                    result, threading.current_thread().name))
+            return result
+
+        class Buffer(solver_mod._FleetBuffer):
+            __slots__ = ()
+
+            def __init__(self, *args):
+                super().__init__(*args)
+                probe.buffers.append(self)
+
+        record = DECISIONS.record
+
+        def recording_record(kind, outcome, **kw):
+            # the round's one "sharded-round" record; the ring may drop it
+            # under the round's placement records
+            if (kind, outcome) == ("cell", "sharded-round"):
+                probe.records.append(kw.get("details"))
+            return record(kind, outcome, **kw)
+
+        patch(DECISIONS, "record", recording_record)
+        patch(CellRouter, "plan_round", timed("plan", CellRouter.plan_round))
+        patch(TorchSolver, "solve_pods", recording_solve)
+        patch(TorchSolver, "encode_for_staging",
+              timed("encode_for_staging", TorchSolver.encode_for_staging))
+        patch(TorchSolver, "prestage", timed("prestage", TorchSolver.prestage))
+        patch(solver_mod, "_FleetBuffer", Buffer)
+        patch(solver_mod, "stage_fleet", timed("stage_fleet", solver_mod.stage_fleet))
+        patch(hostpool, "map_all", timed("fan_out", hostpool.map_all))
+        patch(prov_mod, "rejected_alternatives",
+              timed("alternatives", prov_mod.rejected_alternatives))
+        # the main solver answers only the residue's arbitration (or a
+        # cell overflow) in a sharded round; the cells solve on clones
+        patch(ctl.solver, "solve_pods", timed("arbitrate", ctl.solver.solve_pods))
+        patch(ctl, "_launch_all", timed("launch", ctl._launch_all))
+        patch(ctl, "_bind", timed("bind", ctl._bind))
+
+    def reset(self) -> None:
+        self.calls.clear()
+        self.buffers.clear()
+        self.records.clear()
+        self.spent = dict.fromkeys(self.spent, 0.0)
+
+    def close(self) -> None:
+        for obj, name, value in reversed(self._undo):
+            if value is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, value)
+        self._undo.clear()
+
+
+def sharded_round(ts, st, ctl, probe, solver_mod, name):
+    """One ``reconcile`` of the sharded controller, held: every pending pod
+    bound within its node's allocatable, no plan rejected by the firewall,
+    each cell's problem equal to a full encode of its session's pods (with
+    the round's own existing nodes and daemonsets), each fleet dispatch's
+    rows and stacks equal to the plain versions and each fleet buffer
+    copied to the host once. Returns the round's facts."""
+    import torch
+
+    from karpenter_tpu_torch.api import Resources
+    from karpenter_tpu_torch.solver import encode
+    from karpenter_tpu_torch.solver.solver import problem_digest
+
+    cluster = ctl.cluster
+    pending = len(cluster.pending_pods())
+    probe.reset()
+    before = dict(ts.LAUNCHES)
+    t0 = time.perf_counter()
+    with recording(solver_mod) as (stacks, fleets), gc_seconds() as gc_s:
+        result = ctl.reconcile()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    moved = moved_since(ts, before)
+    if result.unschedulable or cluster.pending_pods() or len(result.bound) != pending:
+        raise AssertionError(f"{name}: {len(result.bound)} of {pending} pods bound, "
+                             f"unschedulable {result.unschedulable[:5]}")
+    used = {}
+    for q in cluster.pods.values():
+        if q.node_name is not None:
+            used.setdefault(q.node_name, []).append(q.requests + Resources(pods=1))
+    for node_name, reqs in used.items():
+        total = reqs[0]
+        for r in reqs[1:]:
+            total = total + r
+        if not total.fits(cluster.nodes[node_name].allocatable):
+            raise AssertionError(f"{name}: node {node_name} holds more than its allocatable")
+    bad = [e for e in result.validation_events if e["verdict"] != "accepted"]
+    if bad:
+        raise AssertionError(f"{name}: the firewall rejected a plan: {bad}")
+    t1 = time.perf_counter()
+    digests = {}
+    for order, provs, existing, daemonsets, res, _ in probe.calls:
+        full = problem_digest(encode(order, provs, existing, daemonsets)).hex()
+        if full != res.problem_digest:
+            raise AssertionError(f"{name}: cell {provs[0][0].name}: the session's problem "
+                                 f"differs from a full encode")
+        digests[provs[0][0].name] = full
+    full_s = time.perf_counter() - t1
+    err = hold_dispatches(ts, st, name, stacks, fleets)
+    copies = [b.copies for b in probe.buffers]
+    if any(c != 1 for c in copies):
+        raise AssertionError(f"{name}: fleet buffers copied to the host {copies} times, not once")
+    stats = result.solve.stats
+    records = list(probe.records)
+    cells = ctl.cells.last_round
+    results = [c[4] for c in probe.calls]
+    e_per_cell = [len(c[2]) for c in probe.calls]
+    facts = dict(
+        wall=wall, moved=moved, stats={k: stats.get(k) for k in (
+            "cells", "cells_reused", "residue_pods", "fleet_dispatches", "fleet_cells_batched")},
+        records=records, widths=sorted(buf.shape[0] for _, buf in fleets), digests=digests,
+        modes=[(c["name"], c["encode_mode"]) for c in cells], err=err,
+        costs=[c["cost"] for c in cells], copies=copies,
+        threads=sorted({c[5] for c in probe.calls}),
+    )
+    log(f"{name}: wall {wall:.4f} s, plan_round {probe.spent['plan']:.4f} s (the router's "
+        f"intake of the queued watch events and the split), encode "
+        f"{stats.get('encode_s', 0.0):.4f} s (sum over cells; "
+        f"encode_for_staging {probe.spent['encode_for_staging']:.4f} s of it), prestage "
+        f"{probe.spent['prestage']:.4f} s + stage_fleet {probe.spent['stage_fleet']:.4f} s, "
+        f"fan-out {probe.spent['fan_out']:.4f} s, arbitration {probe.spent['arbitrate']:.4f} s, "
+        f"firewall {ctl._fw_eval_s:.4f} s, launch {probe.spent['launch']:.4f} s, rejected "
+        f"alternatives {probe.spent['alternatives']:.4f} s, bind {probe.spent['bind']:.4f} s, "
+        f"{len(result.nodes)} nodes launched, {len(result.bound)} pods bound, E per cell "
+        f"{min(e_per_cell, default=0)}-{max(e_per_cell, default=0)}, backends "
+        f"{sorted({r.stats.get('backend') for r in results})}, kernel rows won "
+        f"{sum(r.stats.get('race_winner', 0.0) == 1.0 for r in results)}, stats {facts['stats']}, "
+        f"decision record {records}, fleet widths {facts['widths']}, buffer copies {copies}, "
+        f"modes {sorted(set(m for _, m in facts['modes']))}, worker threads "
+        f"{len(facts['threads'])}, full encodes for the digest check {full_s:.4f} s, garbage "
+        f"collection {gc_s[0]:.4f} s, costs {min(facts['costs'], default=0.0)!r}-"
+        f"{max(facts['costs'], default=0.0)!r}, launches {moved}; card {card_line()}")
+    return facts
+
+
+def controller_sharded(ts, st, configs) -> dict:
+    """Main path, sharded provisioning controller: ``ProvisioningController``
+    with its default ``TorchSolver()`` over ``configs.config_controller_cells``
+    (500k pending pods in 20 cells of 25k, 60 types; 8 workers, fleet chunks
+    of up to 16): a seed round, then churn rounds 0-2 applied through the
+    cluster. Every round is held by ``sharded_round``. The seed round must
+    solve 20 cells with none reused and no residue, each cell's problem
+    the ``config_cells`` problem (so its cost is at most the JAX package's
+    kernel-only ``cells_seed``), in two fleet dispatches of widths 4 and 16
+    that batch all 20 cells, launching what ``SHARDED_SEED_LAUNCHES`` says.
+    A churn round must solve the 4 churned cells (none reused, no residue)
+    in the modes ``SHARDED_CHURN_MODES`` names. Then the worker check:
+    ``config_controller_cells(16_000, 8)``'s seed round on twin clusters at
+    1 worker and at 8, which must give equal digests and launch counts,
+    each with its fleet rows equal to the plain chain and each fleet
+    buffer copied to the host once. Returns the main run's launches."""
+    import torch
+
+    from karpenter_tpu_torch.controllers import ProvisioningController
+    from karpenter_tpu_torch.parallel import hostpool
+    from karpenter_tpu_torch.solver import TorchSolver, encode
+    from karpenter_tpu_torch.solver.solver import KERNEL_BOARD, problem_digest
+
+    solver_mod = importlib.import_module("karpenter_tpu_torch.solver.solver")
+    prov_mod = importlib.import_module("karpenter_tpu_torch.controllers.provisioning")
+    KERNEL_BOARD.reset()
+    TorchSolver._device_rtt_s = None
+    t0 = time.perf_counter()
+    cluster, provider, settings, churn_round = configs.config_controller_cells()
+    ctl = ProvisioningController(cluster, provider, settings=settings)
+    log(f"sharded controller config: {len(cluster.pods)} pending pods in "
+        f"{len(cluster.provisioners)} cells, {len(provider.catalog)} types, built in "
+        f"{time.perf_counter() - t0:.2f} s; solver on {ctl.solver.device}, "
+        f"{settings.cell_shard_workers} workers")
+    probe = ShardedProbe(ctl, solver_mod, prov_mod, hostpool)
+    launches = {k: 0 for k in ts.LAUNCHES}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for rnd in ["seed", 0, 1, 2]:
+            name = f"sharded round {rnd}"
+            if rnd != "seed":
+                churn_round(rnd)
+            facts = sharded_round(ts, st, ctl, probe, solver_mod, name)
+            launches = {k: launches[k] + facts["moved"][k] for k in launches}
+            stats = facts["stats"]
+            if rnd == "seed":
+                log(f"{name}: peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+                    f"MiB over {len(ctl._cell_solvers)} solver clones")
+                want = dict(cells=20.0, cells_reused=0.0, residue_pods=0.0, fleet_dispatches=2.0,
+                            fleet_cells_batched=20.0)
+                if stats != want or facts["widths"] != [4, 16]:
+                    raise AssertionError(f"{name}: stats {stats}, fleet widths {facts['widths']}")
+                if facts["moved"] != SHARDED_SEED_LAUNCHES:
+                    raise AssertionError(f"{name}: launches {facts['moved']}, not "
+                                         f"{SHARDED_SEED_LAUNCHES}")
+                hold_pack_launches(name, facts["moved"])
+                cells, provs, catalog = configs.config_cells()
+                for c, prov in enumerate(provs):
+                    want_digest = problem_digest(
+                        encode(list(cells[c].values()), [(prov, catalog)])).hex()
+                    if facts["digests"].get(prov.name) != want_digest:
+                        raise AssertionError(f"{name}: cell {prov.name}'s problem is not "
+                                             f"config_cells' cell {c}")
+                del cells
+                ref = configs.REFERENCE_COSTS["cells_seed"]
+                if max(facts["costs"]) > ref * (1 + COST_RTOL):
+                    raise AssertionError(f"{name}: a cell costs {max(facts['costs'])!r}, above "
+                                         f"the kernel-only {ref!r}")
+            else:
+                if stats["cells"] != 4.0 or stats["cells_reused"] or stats["residue_pods"]:
+                    raise AssertionError(f"{name}: stats {stats}")
+                mode = (ctl.cells.last_mode, ctl.cells.last_full_reason)
+                if mode != SHARDED_CHURN_MODES[rnd]:
+                    raise AssertionError(f"{name}: encoded {mode}, not {SHARDED_CHURN_MODES[rnd]}")
+                if facts["moved"]["rtt_probe"]:
+                    raise AssertionError(f"{name}: the round trip was probed again")
+    finally:
+        probe.close()
+    log(f"controller_sharded launches {launches}")
+    del ctl, cluster, provider
+    # the worker check: twin clusters, 1 worker against 8
+    twins = {}
+    for workers in (1, 8):
+        cluster, provider, settings, _ = configs.config_controller_cells(n_pods=16_000, n_cells=8)
+        settings.cell_shard_workers = workers
+        ctl = ProvisioningController(cluster, provider, settings=settings)
+        probe = ShardedProbe(ctl, solver_mod, prov_mod, hostpool)
+        try:
+            twins[workers] = sharded_round(ts, st, ctl, probe, solver_mod,
+                                           f"worker check, {workers} worker(s)")
+        finally:
+            probe.close()
+        del ctl, cluster, provider
+    one, eight = twins[1], twins[8]
+    if one["records"][0]["workers"] != 1 or eight["records"][0]["workers"] != 8:
+        raise AssertionError(f"worker check: records {one['records']} {eight['records']}")
+    if len(one["threads"]) != 1 or len(eight["threads"]) < 2:
+        raise AssertionError(f"worker check: solved on {one['threads']} and {eight['threads']}")
+    for key in ("digests", "moved", "stats", "widths", "modes"):
+        if one[key] != eight[key]:
+            raise AssertionError(f"worker check: {key} differ: {one[key]} against {eight[key]}")
+    if not one["stats"]["fleet_dispatches"]:
+        raise AssertionError(f"worker check: no fleet dispatched: {one['stats']}")
+    log(f"worker check: equal digests, launches {one['moved']}, fleet widths {one['widths']}; "
+        f"costs at 1 worker {one['costs']}, at 8 {eight['costs']}")
+    return launches
+
+
 def load_tree(root: Path, tag: str):
     """Another checkout's ``torch_solver`` module and kernel library, built
     from its own sources by its own ``_build`` (into its own ``build/``),
@@ -1849,11 +2159,13 @@ def main() -> int:
     session_delta(ts, configs)
     session_fleet(ts, configs, fleet_encode_s)
     controller_errs = controller_round(ts, configs)
+    sharded = controller_sharded(ts, st, configs)
     for entry in kernels:
         entry["max_abs_err"] = max(entry["max_abs_err"], controller_errs.get(entry["name"], 0.0))
     for entry in kernels:
-        # the main path: the flat race and the fleet race, each counted alone
-        entry["launches"] = flat[entry["name"]] + fleet[entry["name"]]
+        # the main path: the flat race, the fleet race and the sharded
+        # controller's rounds, each counted alone
+        entry["launches"] = flat[entry["name"]] + fleet[entry["name"]] + sharded[entry["name"]]
         if entry["name"] == "pack_member":
             entry["max_abs_err"] = max(entry["max_abs_err"], k2_err)
         if entry["launches"] < 1:

@@ -303,6 +303,58 @@ def config_controller_reconcile(n_pods: int = 50_000, n_types: int = 400):
     return cluster, provider, settings, churn_round
 
 
+def config_controller_cells(n_pods: int = 500_000, n_cells: int = 20, n_types: int = 60,
+                            n_deploys: int = 12):
+    """``config_cells`` as a cluster, for the sharded provisioning
+    controller (``bench.bench_cell_decompose``'s cluster, nothing cut): a
+    ``Cluster`` holding the ``n_cells`` provisioners ``cell-NN`` (labels
+    ``bench.pool: pNN``; the cluster sets resource versions) and the
+    ``n_pods`` pods as pending pods, cell by cell in ``config_cells``'
+    order, a ``FakeCloudProvider`` over ``generate_catalog(n_types)`` whose
+    subnets hold 2^20 IPs a zone, and ``Settings`` with a closed batch
+    window and cell sharding on (8 workers, fleet chunks of up to 16 cells).
+
+    Returns ``(cluster, provider, settings, churn_round)``:
+    ``churn_round(r)``, called for r = 0, 1, ... in turn, applies
+    ``churn_cell_events``' round r through ``cluster.delete_pod`` and
+    ``add_pod`` (in each of 4 cells, 1% of the cell's pods move from
+    deployment ``d{r}`` to ``d{r+5}``) and returns its events."""
+    from .api.settings import Settings
+    from .cloudprovider.fake import FakeCloudProvider
+    from .state.cluster import Cluster
+
+    cells, provs, catalog = config_cells(n_pods, n_cells, n_types, n_deploys)
+    cluster = Cluster()
+    for p in provs:
+        cluster.add_provisioner(p)
+    for pods in cells:
+        for p in pods.values():
+            cluster.add_pod(p)
+    provider = FakeCloudProvider(catalog=catalog)
+    # ~40,000 nodes: the fake provider's default subnets hold 4,096 IPs a
+    # zone, so size them as the JAX package's bench sizes them for its large
+    # fleets (``bench.py``: ``available_ips = 1 << 20``)
+    for subnet in provider.subnets:
+        subnet.available_ips = 1 << 20
+    settings = Settings(batch_idle_duration=0, batch_max_duration=0, cell_sharding_enabled=True,
+                        cell_shard_workers=8, fleet_max_batch=16)
+    state = {"round": 0}
+
+    def churn_round(r: int):
+        if r != state["round"]:
+            raise ValueError(f"churn rounds run in turn: round {state['round']} is next, not {r}")
+        events = churn_cell_events(cells, r, n_pods=n_pods, n_deploys=n_deploys)
+        for removed, added in events.values():
+            for p in removed:
+                cluster.delete_pod(p.name)
+            for p in added:
+                cluster.add_pod(p)
+        state["round"] += 1
+        return events
+
+    return cluster, provider, settings, churn_round
+
+
 #: The controller session's encode mode in each churn round of
 #: ``config_controller_reconcile`` (the seed round encodes in full): what
 #: the JAX package's controller gives on the same churn at a small size,

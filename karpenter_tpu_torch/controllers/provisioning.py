@@ -1,11 +1,11 @@
 """Provisioning controller: pending pods -> batch -> solve -> launch -> bind.
 
-A copy of ``karpenter_tpu/controllers/provisioning.py``'s flat round, solving
-through the PyTorch solver (``TorchSolver`` by default, on the card). Left
-out until their slices are ported (``ROADMAP.md``, Queue 1): the sharded
-round (``cell_sharding_enabled``, item 4), the flight-recorder capsule
-(item 7), and the federation gate and ``profiling.note_phase`` (item 9).
-The constructor refuses settings that turn on what is left out.
+A copy of ``karpenter_tpu/controllers/provisioning.py``'s flat and sharded
+rounds, solving through the PyTorch solver (``TorchSolver`` by default, on
+the card). Left out until their slices are ported (``ROADMAP.md``, Queue 1):
+the flight-recorder capsule (item 7), the federation gate and
+``profiling.note_phase`` (item 9), and the multi-device tier (item 10). The
+constructor refuses settings that turn on what is left out.
 
 The rebuild of core's provisioning controller + ``Scheduler.Solve()`` call path
 (reference call stack in SURVEY §3.2): a batcher windows pending pods (idle 1s /
@@ -190,11 +190,12 @@ class ProvisioningController:
     ):
         self.cluster = cluster
         self.provider = provider
-        # the sharded round, federation and the solver's device-fault seams
-        # are not ported yet: a setting that turns one on must not be ignored
+        # federation, the multi-device tier and the solver's device-fault
+        # seams are not ported yet: a setting that turns one on must not be
+        # ignored
         for flag, item in (
-            ("cell_sharding_enabled", "the sharded round, Queue 1 item 4"),
             ("federation_enabled", "federation, Queue 1 item 9"),
+            ("mesh_enabled", "the multi-device tier, Queue 1 item 10"),
         ):
             if getattr(settings, flag, False):
                 raise NotImplementedError(
@@ -235,9 +236,27 @@ class ProvisioningController:
             full_resync_every=self.settings.encode_full_resync_every,
             enabled=self.settings.encode_delta_enabled,
         )
-        # the cell router of the sharded round (not ported): the flat
-        # session is the watch-event intake
+        # cell-sharded control plane (state/cells.py): when enabled, the
+        # router — not the flat session — is the watch-event intake; each
+        # cell owns an EncodeSession and a solver clone, solves fan out
+        # over parallel/hostpool workers, and the cross-cell residue is
+        # placed by a global arbitration pass over per-cell summaries
         self.cells = None
+        self._cell_solvers: Dict[tuple, Solver] = {}
+        # clean-cell solve reuse: cell key -> (input signature, strong ref
+        # to the catalog list anchoring its id(), cached SolveResult). A
+        # cell with no routed events since its last solve AND an identical
+        # input signature provably encodes to the identical problem (the
+        # delta==full digest contract), so its cached solve is the answer —
+        # this is what keeps a sharded churn round O(churned cells)
+        self._cell_solve_cache: Dict[tuple, tuple] = {}
+        if self.settings.cell_sharding_enabled:
+            from ..state.cells import CellRouter
+
+            self.cells = CellRouter(
+                full_resync_every=self.settings.encode_full_resync_every,
+                delta_enabled=self.settings.encode_delta_enabled,
+            )
         # gang gate state: consecutive deferral RECONCILES per gang (the
         # gang_max_wait_rounds escalation), reset on admission; _ticked is
         # the per-reconcile guard so cascade re-solves within one reconcile
@@ -949,20 +968,29 @@ class ProvisioningController:
         )
         return False
 
-    # -- the round's solve --------------------------------------------------
+    # -- cell-sharded solve path -------------------------------------------
     def _solve_round(
         self, batch, provisioners, round_provs, round_existing, daemonsets, cap
     ) -> SolveResult:
-        """One cascade round's solve: the flat path (single delta session,
-        one digest). The sharded round is not ported."""
+        """One cascade round's solve. Flat mode is the single delta session
+        with one digest. Sharded mode partitions the batch into cells, fans
+        per-cell solves out over a host worker pool (per-cell solver clones
+        + EncodeSessions), then runs the global arbitration pass over the
+        residue."""
         batch_names = [p.name for p in batch]
         LIFECYCLE.mark_many(batch_names, "solve_dispatch")
-        solve = self.solver.solve_pods(
-            batch, round_provs, existing=round_existing,
-            daemonsets=daemonsets, session=self.encode_session,
-        )
-        if cap is not None:
-            cap.add_digest(solve.problem_digest, stats=solve.stats)
+        if self.cells is None:
+            solve = self.solver.solve_pods(
+                batch, round_provs, existing=round_existing,
+                daemonsets=daemonsets, session=self.encode_session,
+            )
+            if cap is not None:
+                cap.add_digest(solve.problem_digest, stats=solve.stats)
+        else:
+            solve = self._solve_round_sharded(
+                batch, provisioners, round_provs, round_existing, daemonsets,
+                cap,
+            )
         # placement validation firewall, backend layer: whatever backend
         # answered (kernel, host LP, greedy, the sharded merge), the plan is
         # re-checked against cluster-level hard constraints before the gates
@@ -977,6 +1005,505 @@ class ProvisioningController:
             batch_names, "solve_result", backend=self._backend_name(solve)
         )
         return solve
+
+    def _solve_round_sharded(
+        self, batch, provisioners, round_provs, round_existing, daemonsets, cap
+    ) -> SolveResult:
+        """Cell-decomposed solve: per-cell delta encodes + solves run
+        concurrently (serial-equality discipline: worker count never
+        changes the answer, only wall-clock), then the ARBITRATION pass
+        places the cross-cell residue against the full catalog with the
+        cells' existing-node consumption subtracted, and the merged launch
+        list is ordered by per-cell marginal price so launch-limit
+        contention between cells resolves toward the cheapest capacity
+        first. The partition uses the reconcile's FULL provisioner set (a
+        pool exhausted mid-cascade keeps its cell; its pods just route to
+        the residue for the rest of the round) so the cell basis — and the
+        per-cell digest streams — stay stable across cascade rounds.
+
+        A copy of the reference's round, with these differences: no
+        flight-recorder capsule is stamped (``cap`` stays None until
+        ``ROADMAP.md`` Queue 1 item 7) and no ``profiling.note_phase`` is
+        taken (item 9); ``stage_fleet`` takes no superproblem width, since
+        the multi-device tier is not ported (item 10; ``mesh_enabled`` makes
+        the constructor raise). A worker's exception, a kernel's launch
+        error among them, re-raises here through ``map_all``."""
+        import hashlib
+
+        from ..parallel.hostpool import default_workers, map_all
+        from ..state.cells import RESIDUE, cell_name
+        from ..utils.metrics import series_key
+
+        t0 = time.perf_counter()
+        router = self.cells
+        plan = router.plan_round(batch, provisioners)
+        LIFECYCLE.mark_many([p.name for p in batch], "cell_routed")
+        if (
+            self.settings.cell_max_pods
+            and plan.max_cell_pods > self.settings.cell_max_pods
+        ):
+            # degenerate-partition guardrail: one giant cell gains nothing
+            # from decomposition; solve flat (sessionless, so this round
+            # pays a full encode) and stamp the router with the reason.
+            # Solved in the router's canonical per-cell order — the batch
+            # order a capsule records — so a replay's from-scratch encode
+            # of the recorded order reproduces this digest
+            metrics.ENCODE_FULL_REASONS.inc({"reason": "cell-overflow"})
+            router.last_mode, router.last_full_reason = "full", "cell-overflow"
+            solve = self.solver.solve_pods(
+                router.ordered_pods(), round_provs, existing=round_existing,
+                daemonsets=daemonsets,
+            )
+            return solve
+        provs_by_name = {p.name: (p, types) for p, types in round_provs}
+        # cell ids are positions in the PARTITION's sorted cell list — the
+        # same numbering /debug/cells and the {cell} memory series use — so
+        # an exhausted cell dropping out of this round's solves never
+        # renumbers its neighbors across surfaces
+        cell_ids = {key: i for i, (key, _) in enumerate(plan.cells)}
+        residue_pods: List[Pod] = list(plan.residue)
+        works = []
+        borrowed = False
+        for key, cell_pods in plan.cells:
+            entry = provs_by_name.get(key[0])
+            if entry is None:
+                # the cell's pool is exhausted this cascade round: its pods
+                # cascade through the residue against the remaining pools.
+                # They stay members of their HOME cell's session — the
+                # residue solve goes sessionless for the round (see below),
+                # so neither session's membership (and neither canonical
+                # order) is disturbed by the loan
+                residue_pods.extend(cell_pods)
+                borrowed = True
+            else:
+                works.append((key, cell_pods, [entry]))
+        live_cells = {key for key, _, _ in works}
+        ex_by_cell: Dict[tuple, List[ExistingNode]] = {}
+        for e in round_existing:
+            ex_by_cell.setdefault(
+                router.map.node_cell(e.node, live_cells), []
+            ).append(e)
+        solvers = [self._cell_solver(key) for key, _, _ in works]
+        workers = default_workers(self.settings.cell_shard_workers, cap=8)
+        if any(s is self.solver for s in solvers):
+            workers = 1  # clone construction failed: shared solver, serial
+
+        # -- clean-cell reuse ------------------------------------------------
+        # A cell is CLEAN when no event routed into it since its last solve
+        # (plan.dirty) and every other solve_pods input is unchanged: the
+        # provisioner spec (rv), the catalog list (identity — the provider's
+        # seqnum cache returns the same object until pricing/ICE/risk move;
+        # the cached strong ref keeps that id() from being recycled), the
+        # cell's existing capacity (node rv + bound-pod names pin each
+        # column exactly as the session does) and the daemonset overhead.
+        # An unchanged problem provably re-encodes to the same digest (the
+        # delta==full contract), so the cached result IS this round's
+        # answer. A clean cell's cached result is normally action-free (any
+        # bind from its last solve routed a pod DELETE into it; an ICE'd
+        # launch bumped the catalog seqnum) — the one exception, a launch
+        # lost to a transient cloud error, reuses the same plan and simply
+        # retries it, exactly what a re-solve of the unchanged problem
+        # would do. Decided serially BEFORE the fan-out, so worker count
+        # never changes the answer (the serial-equality discipline).
+        ds_sig = tuple(sorted(
+            (d.meta.name, d.meta.resource_version) for d in daemonsets
+        )) if daemonsets else ()
+
+        def cell_sig(key, prov, types):
+            return (
+                prov.meta.resource_version,
+                id(types),
+                ds_sig,
+                tuple(sorted(
+                    (e.node.name, e.node.meta.resource_version,
+                     tuple(sorted(p.meta.name for p in e.pods)))
+                    for e in ex_by_cell.get(key, ())
+                )),
+            )
+
+        sigs = [cell_sig(key, provs[0][0], provs[0][1])
+                for key, _, provs in works]
+        reused: Dict[int, SolveResult] = {}
+        for i, (key, _, _) in enumerate(works):
+            hit = self._cell_solve_cache.get(key)
+            if key not in plan.dirty and hit is not None and hit[0] == sigs[i]:
+                reused[i] = hit[2]
+
+        # -- fleet dispatch ---------------------------------------------------
+        # Encode every dirty cell FIRST (serial — encodes serialize on
+        # ENCODE_LOCK anyway, and each cell's session/digest is untouched by
+        # the reordering), group the encoded problems by bucket, and launch
+        # ONE batched kernel chain per bucket chunk before any per-cell
+        # solve runs: the card computes the whole fleet while the host paths
+        # execute, and the round pays O(distinct buckets) dispatches instead
+        # of O(cells). Each batched row is bit-identical to the per-cell
+        # chain's buffer, so every downstream contract (race comparison,
+        # flat==sharded) holds unchanged.
+        # Clean-cell reuse stays decided above (reused cells never encode or
+        # dispatch) and the residue arbitration below is untouched.
+        staged: Dict[int, object] = {}
+        fleet_stats = None
+        # the gauge reflects THIS round: a quiet round (nothing to batch)
+        # must read 0, not the previous round's count (the stale-series
+        # class the per-cell lag gauges prune for)
+        metrics.FLEET_ROUND_DISPATCHES.set(0.0)
+        if (
+            self.settings.fleet_dispatch_enabled
+            and len(works) - len(reused) >= 2
+        ):
+            from ..solver.solver import stage_fleet
+
+            for i, (key, cell_pods, cell_provs) in enumerate(works):
+                if i in reused:
+                    continue
+                staged[i] = solvers[i].encode_for_staging(
+                    cell_pods, cell_provs,
+                    existing=ex_by_cell.get(key, []),
+                    daemonsets=daemonsets,
+                    session=router.session(key),
+                )
+                # encode/H2D overlap: pad and stage this cell's tensors NOW
+                # on its clone, so that they are resident by dispatch time
+                # and stage_fleet stacks the chunk on the card
+                solvers[i].prestage(staged[i])
+            fleet_stats = stage_fleet(
+                [(solvers[i], staged[i]) for i in sorted(staged)],
+                max_batch=self.settings.fleet_max_batch,
+            )
+            metrics.FLEET_ROUND_DISPATCHES.set(
+                float(fleet_stats["dispatches"])
+            )
+
+        def one(i, work):
+            if i in reused:
+                return reused[i], 0.0, 0.0
+            key, cell_pods, cell_provs = work
+            t_start = time.perf_counter()
+            res = solvers[i].solve_pods(
+                cell_pods, cell_provs,
+                existing=ex_by_cell.get(key, []),
+                daemonsets=daemonsets,
+                session=router.session(key),
+                pre_encoded=staged.get(i),
+            )
+            return res, t_start - t0, time.perf_counter() - t_start
+
+        outs = map_all(one, works, workers)
+        cell_results = [o[0] for o in outs]
+
+        # -- global arbitration pass ----------------------------------------
+        residue_solve = None
+        if residue_pods:
+            t_arb = time.perf_counter()
+            adjusted = self._consume_existing(
+                round_existing, cell_results, batch
+            )
+            # a round with borrowed exhausted-cell pods solves the residue
+            # SESSIONLESS: feeding the loaned pods into the residue session
+            # would desync its membership from the true residue class (a
+            # non-benign pod-set-desync full fallback) and double-list them
+            # in the canonical batch order the capsule records
+            residue_solve = self.solver.solve_pods(
+                residue_pods, round_provs, existing=adjusted,
+                daemonsets=daemonsets,
+                session=None if borrowed else router.session(RESIDUE),
+            )
+            arb_s = time.perf_counter() - t_arb
+            metrics.SOLVE_PHASE.observe(
+                arb_s, {"phase": "arbitrate", "mode": "sharded"}
+            )
+
+        # -- serial merge (deterministic: cell order, then residue) ---------
+        marginals = [
+            _marginal_price(types for _, types in work[2])
+            for work in works
+        ]
+        summaries: List[Dict] = []
+        modes: List[Tuple[str, str]] = []
+        pods_series: Dict = {}
+        digest_h = hashlib.sha256()
+        merged = SolveResult()
+        launch_order = sorted(
+            range(len(works)), key=lambda i: (marginals[i], i)
+        )
+        for i in launch_order:
+            merged.new_nodes.extend(cell_results[i].new_nodes)
+        for i, (work, out) in enumerate(zip(works, outs)):
+            key, cell_pods, cell_provs = work
+            res, lag_s, solve_s = out
+            session = router.session(key)
+            if i not in reused:
+                if len(self._cell_solve_cache) > 256:
+                    # bound: cells churned away by repartitions leave entries
+                    self._cell_solve_cache.clear()
+                self._cell_solve_cache[key] = (sigs[i], cell_provs[0][1], res)
+            # the cell's problem is now solved (or validly reused): events
+            # only re-dirty it through plan_round on this same thread, so
+            # clearing the flag here races nothing
+            router.mark_clean(key)
+            for node_name, names in res.existing_assignments.items():
+                merged.existing_assignments.setdefault(
+                    node_name, []
+                ).extend(names)
+            merged.unschedulable.extend(res.unschedulable)
+            merged.cost += res.cost
+            for stat in ("encode_s", "lower_bound"):
+                merged.stats[stat] = (
+                    merged.stats.get(stat, 0.0) + res.stats.get(stat, 0.0)
+                )
+            digest_h.update(bytes.fromhex(res.problem_digest or "00"))
+            # a reused cell is the purest delta round (zero changed inputs);
+            # the session's own last_mode is stale for it, and a 0-second
+            # sample would pollute the solve-phase histogram
+            mode = "reused" if i in reused else session.last_mode
+            modes.append(
+                ("delta", "") if i in reused
+                else (session.last_mode, session.last_full_reason)
+            )
+            if i not in reused:
+                metrics.SOLVE_PHASE.observe(
+                    solve_s, {"phase": "cell", "mode": session.last_mode}
+                )
+            cid = cell_ids[key]
+            metrics.RECONCILE_LOOP_LAG.set(
+                max(lag_s, 0.0),
+                {"controller": "provisioning", "cell": str(cid)},
+            )
+            pods_series[series_key({"cell": str(cid)})] = float(len(cell_pods))
+            summaries.append({
+                "cell": cid,
+                "name": cell_name(key),
+                "pods": len(cell_pods),
+                "digest": res.problem_digest,
+                "cost": round(res.cost, 5),
+                "unschedulable": len(res.unschedulable),
+                "marginal_price": (
+                    None if marginals[i] == float("inf")
+                    else round(marginals[i], 5)
+                ),
+                "dual_bound": round(res.stats.get("lower_bound", 0.0), 5),
+                "encode_mode": mode,
+                "lag_s": round(max(lag_s, 0.0), 4),
+                "solve_s": round(solve_s, 4),
+            })
+        if residue_solve is not None:
+            merged.new_nodes.extend(residue_solve.new_nodes)
+            for node_name, names in residue_solve.existing_assignments.items():
+                merged.existing_assignments.setdefault(
+                    node_name, []
+                ).extend(names)
+            merged.unschedulable.extend(residue_solve.unschedulable)
+            merged.cost += residue_solve.cost
+            for stat in ("encode_s", "lower_bound"):
+                merged.stats[stat] = (
+                    merged.stats.get(stat, 0.0)
+                    + residue_solve.stats.get(stat, 0.0)
+                )
+            digest_h.update(
+                bytes.fromhex(residue_solve.problem_digest or "00")
+            )
+            if borrowed:
+                # sessionless loan round: a full encode with no session
+                # state to stamp (benign — not a fallback anomaly)
+                rmode, rreason = "full", ""
+            else:
+                rsession = router.session(RESIDUE)
+                rmode, rreason = rsession.last_mode, rsession.last_full_reason
+            modes.append((rmode, rreason))
+            pods_series[series_key({"cell": "residue"})] = float(
+                len(residue_pods)
+            )
+            summaries.append({
+                "cell": "residue",
+                "name": "residue",
+                "pods": len(residue_pods),
+                "digest": residue_solve.problem_digest,
+                "cost": round(residue_solve.cost, 5),
+                "unschedulable": len(residue_solve.unschedulable),
+                "encode_mode": rmode,
+            })
+        merged.existing_assignments = {
+            k: list(v) for k, v in merged.existing_assignments.items()
+        }
+        merged.problem_digest = digest_h.hexdigest()
+        merged.stats["total_s"] = time.perf_counter() - t0
+        merged.stats["cells"] = float(len(works))
+        merged.stats["cells_reused"] = float(len(reused))
+        merged.stats["residue_pods"] = float(len(residue_pods))
+        if fleet_stats is not None:
+            merged.stats["fleet_dispatches"] = float(fleet_stats["dispatches"])
+            merged.stats["fleet_cells_batched"] = float(
+                fleet_stats["cells_batched"]
+            )
+        router.note_round_modes(modes)
+        router.last_round = summaries
+        metrics.CELLS_TOTAL.set(float(len(works)))
+        metrics.CELL_PODS.replace_series(pods_series)
+        # drop {cell} lag series for cells this round no longer has (the
+        # gauge is shared with other controllers' series, so prune — never
+        # replace — and only this controller's cell-labeled series)
+        live_cell_ids = {str(cell_ids[key]) for key, _, _ in works}
+        metrics.RECONCILE_LOOP_LAG.prune_series(
+            lambda d: (
+                d.get("controller") != "provisioning"
+                or "cell" not in d
+                or d["cell"] in live_cell_ids
+            )
+        )
+        # plain record, not coalesced: every round emits exactly one
+        DECISIONS.record(
+            "cell", "sharded-round",
+            reason=(
+                f"{len(works)} cells, {len(residue_pods)} cross-cell pods"
+            ),
+            details={
+                "cells": len(works),
+                "residue_pods": len(residue_pods),
+                "workers": workers,
+                **(
+                    {
+                        "fleet_dispatches": fleet_stats["dispatches"],
+                        "fleet_cells_batched": fleet_stats["cells_batched"],
+                    }
+                    if fleet_stats is not None
+                    else {}
+                ),
+            },
+        )
+        return merged
+
+    def _consume_existing(
+        self, existing, cell_results, batch
+    ) -> List[ExistingNode]:
+        """Existing capacity as the arbitration pass sees it: the per-cell
+        solves' existing-node assignments subtracted (remaining shrunk, the
+        placed pods added to the topology seeds), so the residue can never
+        double-book a node a cell already filled."""
+        import dataclasses
+
+        consumed: Dict[str, List[str]] = {}
+        for res in cell_results:
+            for node_name, names in res.existing_assignments.items():
+                consumed.setdefault(node_name, []).extend(names)
+        if not consumed:
+            return list(existing)
+        by_name = {p.meta.name: p for p in batch}
+        out: List[ExistingNode] = []
+        for e in existing:
+            names = consumed.get(e.node.name)
+            if not names:
+                out.append(e)
+                continue
+            pods = [by_name[n] for n in names if n in by_name]
+            used = merge([p.requests + Resources(pods=1) for p in pods])
+            out.append(dataclasses.replace(
+                e,
+                remaining=(e.remaining - used).clamp_min_zero(),
+                pods=e.pods + tuple(pods),
+            ))
+        return out
+
+    def _cell_solver(self, key) -> Solver:
+        s = self._cell_solvers.get(key)
+        if s is None:
+            if len(self._cell_solvers) > 256:
+                # bound: cells churned away by repartitions leave clones
+                self._cell_solvers.clear()
+            s = self._clone_solver()
+            if s is None:
+                s = self.solver  # shared: the round degrades to serial
+            self._cell_solvers[key] = s
+        return s
+
+    def _clone_solver(self) -> Optional[Solver]:
+        """A per-cell solver of the configured type. Clones are what make
+        the fan-out safe (device caches, interning and race memory are
+        per-instance); a solver that cannot be default-constructed — e.g.
+        the replay harness's digest tap — shares the main instance and the
+        round runs serial, which keeps answers (and replayed digest
+        sequences) identical.
+
+        Differs from the reference in two ways. A ``TorchSolver``'s clone
+        is built on the main solver's device: ``type(self.solver)()`` would
+        build a card solver beside a CPU one, which raises without CUDA.
+        And only a ``TypeError`` (a solver whose constructor needs
+        arguments) falls back to sharing: the reference's ``except
+        Exception`` would turn a CPU round serial without a word, and on
+        the card hide a CUDA error. No mesh fields are carried: the
+        multi-device tier is not ported."""
+        try:
+            if isinstance(self.solver, TorchSolver):
+                clone = type(self.solver)(device=self.solver.device)
+            else:
+                clone = type(self.solver)()
+        except TypeError:
+            return None
+        clone.risk_penalty = getattr(self.solver, "risk_penalty", 0.0)
+        # staging policy rides along: per-cell stagers are private, but the
+        # operator's enable/capacity choice must bind every clone
+        st = getattr(self.solver, "_stager", None)
+        if st is not None and hasattr(clone, "_stager"):
+            clone._stager.enabled = st.enabled
+            clone._stager.capacity_bytes = st.capacity_bytes
+        if hasattr(self.solver, "dispatch_timeout_s") and hasattr(
+            clone, "dispatch_timeout_s"
+        ):
+            clone.dispatch_timeout_s = self.solver.dispatch_timeout_s
+        return clone
+
+    # -- /debug/cells -------------------------------------------------------
+    def cell_status(self, pod: Optional[str] = None) -> Dict:
+        """The /debug/cells payload: the current partition, the last
+        sharded round's per-cell summaries, and — with ``pod=`` — which
+        cell owns a pod and why (runbook workflow 7)."""
+        from ..state.cells import RESIDUE, cell_name
+
+        out: Dict = {"enabled": self.cells is not None, "cells": []}
+        if self.cells is None:
+            return out
+        router = self.cells
+        with router._lock:
+            keys = router.map.cell_keys()
+            counts: Dict = {}
+            for e in router.map._pods.values():
+                counts[e.cell] = counts.get(e.cell, 0) + 1
+            out["cells"] = [
+                {"id": i, "name": cell_name(k), "pending_pods": counts.get(k, 0)}
+                for i, k in enumerate(keys)
+            ]
+            out["residue"] = {"pending_pods": counts.get(RESIDUE, 0)}
+            out["last_round"] = list(router.last_round)
+            if pod:
+                entry: Dict = {"pod": pod}
+                cell = router.map.cell_of(pod)
+                if cell is not None:
+                    entry["cell"] = cell_name(cell)
+                    pe = router.map._pods.get(pod)
+                    if pe is not None:
+                        entry["feasible_provisioners"] = list(pe.feas)
+                        entry["zone_pin"] = pe.zone
+                        entry["gang"] = pe.gang
+                        if cell == RESIDUE:
+                            entry["why_residue"] = (
+                                f"feasible in {len(pe.feas)} cells"
+                                if len(pe.feas) != 1
+                                else "gang members span cells"
+                            )
+                else:
+                    p = self.cluster.pods.get(pod)
+                    if p is not None and p.node_name:
+                        node = self.cluster.nodes.get(p.node_name)
+                        if node is not None:
+                            entry["cell"] = cell_name(
+                                router.map.node_cell(node)
+                            )
+                            entry["bound_to"] = p.node_name
+                out["owner"] = entry
+        return out
+
+    def cell_memory_bytes(self) -> Dict[str, float]:
+        """Per-cell encoder footprint for the {cell}-aware memory scrape."""
+        return self.cells.memory_bytes() if self.cells is not None else {}
 
     #: bounded in-round re-solves after ICE launch failures: each retry has
     #: the failed offering(s) freshly masked, so one retry normally lands the
@@ -1832,6 +2359,29 @@ class ProvisioningController:
             LIFECYCLE.mark_many(spec.pod_names, "launch_issued")
         outcomes = self._launch_all(launchable)
         ice_failed: set = set()
+        # rejected_alternatives reads of a pod only its scheduling terms,
+        # tolerations and requests, and walks every offering of every pool
+        # of the round: a sharded round passes all its cells' pools, so one
+        # call costs O(pools x offerings). Its answer is memoized for this
+        # batch (the round's offerings are immutable) on what it reads, so
+        # a round with many nodes of one pod shape walks the catalog once a
+        # shape and chosen offering. The reference calls it per node; the
+        # records are the same.
+        from ..state.cells import pod_feas_key
+
+        alternatives_memo: Dict[tuple, List[Dict[str, object]]] = {}
+        penalty = getattr(self.solver, "risk_penalty", 0.0)
+
+        def alternatives(pod: Pod, chosen) -> List[Dict[str, object]]:
+            key = (pod_feas_key(pod), pod.requests, chosen.instance_type.name, chosen.zone,
+                   chosen.capacity_type, chosen.price,
+                   getattr(chosen, "interruption_probability", 0.0))
+            hit = alternatives_memo.get(key)
+            if hit is None:
+                hit = alternatives_memo[key] = rejected_alternatives(
+                    pod, chosen, round_provs, penalty=penalty)
+            return [dict(entry) for entry in hit]
+
         for spec, outcome in zip(launchable, outcomes):
             prov = spec.option.provisioner
             if isinstance(outcome, InsufficientCapacityError):
@@ -1890,10 +2440,7 @@ class ProvisioningController:
             }
             representative = self.cluster.pods.get(pods[0]) if pods else None
             if representative is not None and round_provs:
-                details["rejected_alternatives"] = rejected_alternatives(
-                    representative, spec.option, round_provs,
-                    penalty=getattr(self.solver, "risk_penalty", 0.0),
-                )
+                details["rejected_alternatives"] = alternatives(representative, spec.option)
             DECISIONS.record(
                 "nomination", "launched", node=node.name,
                 details={**details, "pods": len(pods)},
@@ -1945,6 +2492,19 @@ class ProvisioningController:
     def _pod_requests(self, pod_name: str) -> Resources:
         pod = self.cluster.pods.get(pod_name)
         return pod.requests if pod else Resources()
+
+
+def _marginal_price(types_iter) -> float:
+    """Cheapest AVAILABLE offering price in a cell's catalog — the cell's
+    price summary the arbitration pass orders launches by (its crude dual:
+    the marginal cost of one more unit of capacity in that cell)."""
+    best = float("inf")
+    for types in types_iter:
+        for it in types:
+            for o in it.offerings:
+                if o.available and o.price < best:
+                    best = o.price
+    return best
 
 
 def machineless_name(spec: NewNodeSpec) -> str:

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -29,6 +30,8 @@ NVCC_FLAGS = (*ARCH, "-O3", "--fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
 #: seconds the last build took in this process (None: the library was cached)
 BUILD_SECONDS: Optional[float] = None
 _LIB: Optional[ctypes.CDLL] = None
+# solvers are constructed, and wrappers called, from several host threads
+_LOCK = threading.Lock()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -111,8 +114,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def load_kernels() -> ctypes.CDLL:
-    """The bound kernel library, built at first use."""
+    """The bound kernel library, built at first use; one build and one load
+    whatever the number of threads that ask at once."""
     global _LIB
     if _LIB is None:
-        _LIB = bind(ctypes.CDLL(str(build())))
+        with _LOCK:
+            if _LIB is None:
+                _LIB = bind(ctypes.CDLL(str(build())))
     return _LIB

@@ -36,6 +36,7 @@ import abc
 import dataclasses
 import hashlib
 import math
+import threading
 import time
 from collections import OrderedDict
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -706,10 +707,13 @@ class KernelBreakerBoard:
     bucket, so there is nothing to evict: quarantine only blocks the label.
     ``failures`` counts the evidence by kind.
 
-    Process-global: bucket evidence from any solver indicts the bucket.
-    ``configure``/``reset`` serve the operator and tests."""
+    Process-global: bucket evidence from any solver indicts the bucket, the
+    sharded round's per-cell clones booking it from several threads; the
+    breakers lock themselves, and the board's lock guards its rebuild and
+    ``failures``. ``configure``/``reset`` serve the operator and tests."""
 
     def __init__(self, failure_threshold: int = 3, recovery_timeout_s: float = 30.0):
+        self._lock = threading.Lock()
         self._make(failure_threshold, recovery_timeout_s, time.monotonic)
 
     def _make(self, failure_threshold, recovery_timeout_s, clock) -> None:
@@ -726,11 +730,12 @@ class KernelBreakerBoard:
                   recovery_timeout_s: Optional[float] = None, clock=None) -> None:
         """Rebuild the board with new thresholds (operator settings, a test
         clock). Existing breaker state is dropped deliberately."""
-        self._make(
-            failure_threshold if failure_threshold is not None else self.failure_threshold,
-            recovery_timeout_s if recovery_timeout_s is not None else self.recovery_timeout_s,
-            clock if clock is not None else self._clock,
-        )
+        with self._lock:
+            self._make(
+                failure_threshold if failure_threshold is not None else self.failure_threshold,
+                recovery_timeout_s if recovery_timeout_s is not None else self.recovery_timeout_s,
+                clock if clock is not None else self._clock,
+            )
 
     def reset(self) -> None:
         self.configure()
@@ -755,7 +760,8 @@ class KernelBreakerBoard:
 
     def fail(self, label: str, kind: str) -> None:
         """Device-path failure evidence of one ``kind``."""
-        self.failures[kind] = self.failures.get(kind, 0) + 1
+        with self._lock:
+            self.failures[kind] = self.failures.get(kind, 0) + 1
         self._set.get(label).record_failure()
 
 
@@ -847,12 +853,14 @@ class _Dispatch(NamedTuple):
 
 class _FleetBuffer:
     """The ``[B, L]`` buffer of one fleet dispatch, shared by the cells
-    batched into it. The first cell that reads it copies it to the host
-    once; every later cell reads that copy. ``abandoned`` is set when a
-    cell's poll gave up at its deadline: siblings then take it only if it is
-    ready, and never wait on it."""
+    batched into it, whose solves may run on several threads. The first cell
+    that reads it copies it to the host once, under the lock; every later
+    cell reads that copy. ``abandoned`` is set when a cell's poll gave up at
+    its deadline: siblings then take it only if it is ready, and never wait
+    on it. ``copies`` counts the host copies (one a dispatch)."""
 
-    __slots__ = ("pending", "key", "t_dispatch", "width", "abandoned", "_host")
+    __slots__ = ("pending", "key", "t_dispatch", "width", "abandoned", "copies", "_lock",
+                 "_host")
 
     def __init__(self, pending: _Pending, key: BucketKey, t_dispatch: float, width: int):
         self.pending = pending
@@ -860,15 +868,22 @@ class _FleetBuffer:
         self.t_dispatch = t_dispatch
         self.width = width  # real cells batched (<= key.B; the rest is padding)
         self.abandoned = False
+        self.copies = 0
+        self._lock = threading.Lock()
         self._host: Optional[np.ndarray] = None
 
     def is_ready(self) -> bool:
-        return self._host is not None or self.pending.is_ready()
+        with self._lock:
+            if self._host is not None:
+                return True
+        return self.pending.is_ready()
 
     def materialize(self) -> np.ndarray:
-        if self._host is None:
-            self._host = self.pending.materialize()
-        return self._host
+        with self._lock:
+            if self._host is None:
+                self._host = self.pending.materialize()
+                self.copies += 1
+            return self._host
 
     def device_ms(self) -> Optional[float]:
         """Device time of the dispatch (None on the CPU); once ready."""
@@ -983,11 +998,12 @@ def _stage_fleet_chunk(chunk, key: BucketKey, fleet_key: BucketKey, cleared: set
         # seed the host competitor's cache with the padded arrays, cleared
         # once per solver per staging pass, so that one shared solver keeps
         # every problem it stages
-        if id(solver) not in cleared:
-            cleared.add(id(solver))
-            solver._host_cache.clear()
-        solver._host_cache[id(problem)] = (problem, PackInputs(**prep[0]), *prep[1:4],
-                                          prep[6], prep[7], [None])
+        with solver._cache_lock:
+            if id(solver) not in cleared:
+                cleared.add(id(solver))
+                solver._host_cache.clear()
+            solver._host_cache[id(problem)] = (problem, PackInputs(**prep[0]), *prep[1:4],
+                                              prep[6], prep[7], [None])
         preps.append(prep)
     resident = [solver._resident(problem) for solver, problem in chunk]
     pad_fields, *pad_members = fleet_padding(key)
@@ -1079,6 +1095,8 @@ class TorchSolver(Solver):
     fleet_host_floor_s: float = 0.045
 
     _device_rtt_s: Optional[float] = None  # class-level: one probe per process
+    # the first probe may come from any of the sharded round's worker threads
+    _rtt_lock = threading.Lock()
 
     def __init__(
         self,
@@ -1120,6 +1138,9 @@ class TorchSolver(Solver):
         self._stager = DeviceStager(device=device)
         self._device_cache: dict = {}
         self._host_cache: dict = {}  # numpy inputs for the host FFD competitor
+        # guards both caches: stage_fleet seeds a solver's caches from the
+        # controller thread while the solver may be solving on a worker
+        self._cache_lock = threading.Lock()
         self._fallback = GreedySolver()
         self._race_fails = 0
         # race breaker half-open probe: with >= 3 missed deadlines the device
@@ -1134,14 +1155,16 @@ class TorchSolver(Solver):
         host (a real device-to-host read), median of 3 after one warm call.
         Measured once per process and kept at class level."""
         if TorchSolver._device_rtt_s is None:
-            x = torch.zeros((8,), dtype=torch.int32, device=self.device)
-            rtt_probe(x).cpu()
-            samples = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                rtt_probe(x).cpu()
-                samples.append(time.perf_counter() - t0)
-            TorchSolver._device_rtt_s = sorted(samples)[1]
+            with TorchSolver._rtt_lock:
+                if TorchSolver._device_rtt_s is None:
+                    x = torch.zeros((8,), dtype=torch.int32, device=self.device)
+                    rtt_probe(x).cpu()
+                    samples = []
+                    for _ in range(3):
+                        t0 = time.perf_counter()
+                        rtt_probe(x).cpu()
+                        samples.append(time.perf_counter() - t0)
+                    TorchSolver._device_rtt_s = sorted(samples)[1]
         return TorchSolver._device_rtt_s
 
     @staticmethod
@@ -1335,12 +1358,14 @@ class TorchSolver(Solver):
         like kernel output; None when invalid."""
         t0 = time.perf_counter()
         key = id(problem)
-        cached = self._host_cache.get(key)
+        with self._cache_lock:
+            cached = self._host_cache.get(key)
         if cached is None or cached[0] is not problem:
             fields, orders, alphas, looks, _rsvs, _swaps, s_new, n_zones = self._prepare(problem)
             cached = (problem, PackInputs(**fields), orders, alphas, looks, s_new, n_zones, [None])
-            self._host_cache.clear()
-            self._host_cache[key] = cached
+            with self._cache_lock:
+                self._host_cache.clear()
+                self._host_cache[key] = cached
         _, inputs, orders, alphas, looks, s_new, n_zones, shared_slot = cached
         if shared_slot[0] is None:
             shared_slot[0] = host_shared(inputs)
@@ -1372,8 +1397,9 @@ class TorchSolver(Solver):
             # persist the grown slot budget: repeat solves of a cached
             # problem do not pay the doubling ladder again
             entry = (problem, inputs, orders, alphas, looks, grown, n_zones, shared_slot)
-            if self._host_cache.get(key) is cached or key not in self._host_cache:
-                self._host_cache[key] = entry
+            with self._cache_lock:
+                if self._host_cache.get(key) is cached or key not in self._host_cache:
+                    self._host_cache[key] = entry
         if best is None:
             return None
         _, new_opt, new_active, ys, unplaced = best
@@ -1677,13 +1703,15 @@ class TorchSolver(Solver):
     # -- residency --------------------------------------------------------------
     def _resident(self, problem: EncodedProblem):
         """This problem's device-cache entry, or None."""
-        cached = self._device_cache.get(id(problem))
+        with self._cache_lock:
+            cached = self._device_cache.get(id(problem))
         return cached if cached is not None and cached[0] is problem else None
 
     def _set_slots(self, problem: EncodedProblem, s_new: int) -> None:
-        cached = self._device_cache.get(id(problem))
-        if cached is not None and cached[0] is problem:
-            self._device_cache[id(problem)] = cached[:9] + (s_new,) + cached[10:]
+        with self._cache_lock:
+            cached = self._device_cache.get(id(problem))
+            if cached is not None and cached[0] is problem:
+                self._device_cache[id(problem)] = cached[:9] + (s_new,) + cached[10:]
 
     def _device_inputs(self, problem: EncodedProblem):
         """The problem's tensors on the device, cached by problem identity.
@@ -1698,10 +1726,11 @@ class TorchSolver(Solver):
         fields, orders, alphas, looks, rsvs, swaps, s_new, n_zones = self._prepare(problem)
         # numpy copies for the host FFD competitor; its shared precompute
         # slot fills on first use
-        self._host_cache.clear()
-        self._host_cache[id(problem)] = (
-            problem, PackInputs(**fields), orders, alphas, looks, s_new, n_zones, [None],
-        )
+        with self._cache_lock:
+            self._host_cache.clear()
+            self._host_cache[id(problem)] = (
+                problem, PackInputs(**fields), orders, alphas, looks, s_new, n_zones, [None],
+            )
         t_stage = time.perf_counter()
         leaves = dict(fields, orders=orders, alphas=alphas, looks=looks, rsvs=rsvs, swaps=swaps)
         Gp, R = fields["demand"].shape
@@ -1717,8 +1746,9 @@ class TorchSolver(Solver):
             problem, PackInputs(*(staged[f] for f in PackInputs._fields)), orders, swaps,
             *(staged[f] for f in _MEMBER_LEAVES), s_new, n_zones,
         )
-        self._device_cache.clear()  # hold at most one problem resident
-        self._device_cache[id(problem)] = entry
+        with self._cache_lock:
+            self._device_cache.clear()  # hold at most one problem resident
+            self._device_cache[id(problem)] = entry
         return entry[1:]
 
     def _cached_s_new(self, problem: EncodedProblem) -> int:

@@ -29,6 +29,7 @@ count in ``torch_solver.LAUNCHES``.
 
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
@@ -72,7 +73,7 @@ def _launch_stage_patch(lib, dst: torch.Tensor, idx: torch.Tensor, src: torch.Te
     row_bytes = dst[0].numel() * dst.element_size()
     rc = lib.kts_stage_patch(ts._ptr(dst), ts._ptr(src), ts._ptr(idx), idx.shape[0], row_bytes,
                              stream)
-    ts.LAUNCHES["stage_patch"] += 1
+    ts._count("stage_patch")
     ts._raise_on(lib, rc, "stage_patch")
     return dst
 
@@ -115,7 +116,7 @@ def _launch_fleet_stack(lib, rows: Sequence[Mapping[str, torch.Tensor]], stream)
     if dev.type == "cuda":
         table_d = table_d.pin_memory().to(dev, non_blocking=True)
     rc = lib.kts_fleet_stack(ts._ptr(table_d), len(table), max(e[2] for e in table), stream)
-    ts.LAUNCHES["fleet_stack"] += 1
+    ts._count("fleet_stack")
     ts._raise_on(lib, rc, "fleet_stack")
     return out
 
@@ -134,16 +135,21 @@ class _Entry:
 
 
 class DeviceStager:
-    """Per-solver device staging cache (solver clones each own a private
-    stager). Not thread-safe: nothing in the port stages from two threads."""
+    """Per-solver device staging cache. Thread-safe, one lock per stager, as
+    the reference's is: solver clones each own a private stager, but
+    ``stage_fleet`` stages through a clone's stager from the controller
+    thread. ``enabled=False`` keeps nothing resident: every leaf is uploaded
+    whole on every call."""
 
     #: restage only when at most this fraction of axis-0 rows churned: past
     #: it a full-leaf upload is cheaper than the scatter's bookkeeping
     RESTAGE_FRAC = 0.5
 
-    def __init__(self, capacity_mb: int = 256, device="cuda"):
+    def __init__(self, capacity_mb: int = 256, device="cuda", enabled: bool = True):
         self.device = torch.device(device)
+        self.enabled = enabled
         self.capacity_bytes = int(capacity_mb) << 20
+        self._lock = threading.Lock()
         self._entries: "OrderedDict[tuple, _Entry]" = OrderedDict()
         self.stats: Dict[str, int] = {
             "hits": 0, "restages": 0, "restaged_rows": 0,
@@ -163,9 +169,11 @@ class DeviceStager:
         and the next ``stage`` or ``invalidate`` makes the current stream
         wait on it before it patches, uploads or drops a resident leaf, so
         that no leaf is overwritten under a chain still reading it."""
-        self._fence = event
+        with self._lock:
+            self._fence = event
 
     def _wait_fence(self) -> None:
+        # called with the lock held
         if self._fence is not None:
             torch.cuda.current_stream(self.device).wait_event(self._fence)
             self._fence = None
@@ -178,70 +186,74 @@ class DeviceStager:
         """Device tensors for ``leaves``, reusing or patching the resident
         entry of ``tag`` where the bytes allow. ``tag`` must pin every static
         of the padded shape (bucket dims, K, fleet width)."""
-        self._wait_fence()
-        round_info: Dict[str, object] = {
-            "hit": 0, "restage": 0, "full": 0, "rows": {},
-            "bytes_total": 0, "bytes_transferred": 0,
-        }
-        entry = self._entries.get(tag)
-        fresh = False
-        if entry is None or any(
-            (old := entry.host.get(k)) is None
-            or old.shape != np.shape(v)
-            or old.dtype != np.asarray(v).dtype
-            for k, v in leaves.items()
-        ) or set(entry.host) != set(leaves):
-            # structural change (bucket growth, axes change) or first
-            # contact: residency for this tag starts over
-            if entry is not None:
-                self.stats["invalidates"] += 1
-            entry = _Entry()
-            fresh = True
-        out: Dict[str, torch.Tensor] = {}
-        hits = restages = 0
-        bytes_total = bytes_moved = 0
-        for name, new in leaves.items():
-            new = np.asarray(new)
-            bytes_total += new.nbytes
-            if not fresh:
-                old_host = entry.host[name]
-                if np.array_equal(old_host, new):
-                    out[name] = entry.dev[name]
-                    hits += 1
-                    continue
-                patched = self._patch(entry.dev[name], old_host, new)
-                if patched is not None:
-                    dev, rows = patched
-                    out[name] = dev
-                    entry.dev[name] = dev
-                    # a private host copy: the caller's array may change
-                    entry.host[name] = new.copy()
-                    restages += 1
-                    round_info["rows"][name] = rows
-                    self.stats["restaged_rows"] += rows
-                    bytes_moved += (new.nbytes // max(new.shape[0], 1)) * rows
-                    continue
-            dev = self._upload(new)
-            out[name] = dev
-            entry.dev[name] = dev
-            entry.host[name] = new.copy()
-            round_info["full"] += 1
-            self.stats["staged_leaves"] += 1
-            bytes_moved += new.nbytes
-        entry.nbytes = sum(a.nbytes for a in entry.host.values())
-        self._entries.pop(tag, None)
-        self._entries[tag] = entry  # most recent at the end
-        self._evict()
-        self.stats["hits"] += hits
-        self.stats["restages"] += restages
-        self.stats["bytes_total"] += bytes_total
-        self.stats["bytes_transferred"] += bytes_moved
-        round_info["hit"] = hits
-        round_info["restage"] = restages
-        round_info["bytes_total"] = bytes_total
-        round_info["bytes_transferred"] = bytes_moved
-        self.last_round = round_info
-        return out
+        if not self.enabled:
+            # fresh tensors every call: nothing resident is overwritten
+            return {k: self._upload(np.asarray(v)) for k, v in leaves.items()}
+        with self._lock:
+            self._wait_fence()
+            round_info: Dict[str, object] = {
+                "hit": 0, "restage": 0, "full": 0, "rows": {},
+                "bytes_total": 0, "bytes_transferred": 0,
+            }
+            entry = self._entries.get(tag)
+            fresh = False
+            if entry is None or any(
+                (old := entry.host.get(k)) is None
+                or old.shape != np.shape(v)
+                or old.dtype != np.asarray(v).dtype
+                for k, v in leaves.items()
+            ) or set(entry.host) != set(leaves):
+                # structural change (bucket growth, axes change) or first
+                # contact: residency for this tag starts over
+                if entry is not None:
+                    self.stats["invalidates"] += 1
+                entry = _Entry()
+                fresh = True
+            out: Dict[str, torch.Tensor] = {}
+            hits = restages = 0
+            bytes_total = bytes_moved = 0
+            for name, new in leaves.items():
+                new = np.asarray(new)
+                bytes_total += new.nbytes
+                if not fresh:
+                    old_host = entry.host[name]
+                    if np.array_equal(old_host, new):
+                        out[name] = entry.dev[name]
+                        hits += 1
+                        continue
+                    patched = self._patch(entry.dev[name], old_host, new)
+                    if patched is not None:
+                        dev, rows = patched
+                        out[name] = dev
+                        entry.dev[name] = dev
+                        # a private host copy: the caller's array may change
+                        entry.host[name] = new.copy()
+                        restages += 1
+                        round_info["rows"][name] = rows
+                        self.stats["restaged_rows"] += rows
+                        bytes_moved += (new.nbytes // max(new.shape[0], 1)) * rows
+                        continue
+                dev = self._upload(new)
+                out[name] = dev
+                entry.dev[name] = dev
+                entry.host[name] = new.copy()
+                round_info["full"] += 1
+                self.stats["staged_leaves"] += 1
+                bytes_moved += new.nbytes
+            entry.nbytes = sum(a.nbytes for a in entry.host.values())
+            self._entries.pop(tag, None)
+            self._entries[tag] = entry  # most recent at the end
+            self._evict()
+            self.stats["hits"] += hits
+            self.stats["restages"] += restages
+            self.stats["bytes_total"] += bytes_total
+            self.stats["bytes_transferred"] += bytes_moved
+            round_info["hit"] = hits
+            round_info["restage"] = restages
+            round_info["bytes_total"] = bytes_total
+            round_info["bytes_transferred"] = bytes_moved
+            self.last_round = round_info
+            return out
 
     def _patch(self, old_dev: torch.Tensor, old_host: np.ndarray, new: np.ndarray
                ) -> Optional[Tuple[torch.Tensor, int]]:
@@ -276,6 +288,7 @@ class DeviceStager:
 
     # -- bookkeeping --------------------------------------------------------
     def _evict(self) -> None:
+        # called with the lock held
         total = sum(e.nbytes for e in self._entries.values())
         while total > self.capacity_bytes and len(self._entries) > 1:
             _, evicted = self._entries.popitem(last=False)
@@ -284,17 +297,20 @@ class DeviceStager:
 
     def invalidate(self) -> None:
         """Drop all residency (a settings change, an explicit cache clear)."""
-        self._wait_fence()
-        self.stats["invalidates"] += len(self._entries)
-        self._entries.clear()
+        with self._lock:
+            self._wait_fence()
+            self.stats["invalidates"] += len(self._entries)
+            self._entries.clear()
 
     def resident_bytes(self) -> int:
-        return sum(e.nbytes for e in self._entries.values())
+        with self._lock:
+            return sum(e.nbytes for e in self._entries.values())
 
     def hit_rate(self) -> float:
         """Byte-weighted fraction of staged traffic served from residency
         (1.0: nothing crossed the host link)."""
-        total = self.stats["bytes_total"]
-        if not total:
-            return 0.0
-        return 1.0 - self.stats["bytes_transferred"] / total
+        with self._lock:
+            total = self.stats["bytes_total"]
+            if not total:
+                return 0.0
+            return 1.0 - self.stats["bytes_transferred"] / total

@@ -44,6 +44,7 @@ rounded on its own, as in the kernels, which are built with ``--fmad=false``.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -69,6 +70,10 @@ LAUNCHES: Dict[str, int] = {
 }
 #: the launches of the packing kernels with a batch of more than one problem
 BATCHED: Dict[str, int] = {"shared_precompute": 0, "pack_member": 0, "pack_epilogue": 0}
+# the sharded round's per-cell solves launch from several host threads, and
+# ``+= 1`` on a dict entry is a read, an add and a store: one lock keeps the
+# counts exact
+_COUNT_LOCK = threading.Lock()
 
 
 class PackInputs(NamedTuple):
@@ -595,10 +600,13 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def _count(name: str, B: int) -> None:
-    LAUNCHES[name] += 1
-    if B > 1:
-        BATCHED[name] += 1
+def _count(name: str, B: int = 1) -> None:
+    """Count one launch of wrapper ``name`` at batch width ``B``; every
+    wrapper counts here, where it launches its kernel, and nowhere else."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        if B > 1:
+            BATCHED[name] += 1
 
 
 def _unsqueeze(nt):
@@ -861,7 +869,7 @@ def rtt_probe(x: torch.Tensor) -> torch.Tensor:
 def _launch_rtt_probe(lib, x: torch.Tensor, stream) -> torch.Tensor:
     y = torch.empty_like(x)
     rc = lib.kts_rtt_probe(_ptr(x), _ptr(y), x.numel(), stream)
-    LAUNCHES["rtt_probe"] += 1
+    _count("rtt_probe")
     _raise_on(lib, rc, "rtt_probe")
     return y
 

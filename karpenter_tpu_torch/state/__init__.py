@@ -1,3 +1,4 @@
+from .cells import CellRouter
 from .cluster import Cluster, StateSnapshot
 
-__all__ = ["Cluster", "StateSnapshot"]
+__all__ = ["CellRouter", "Cluster", "StateSnapshot"]

@@ -18,14 +18,16 @@
   success closes it and one failure reopens it. :class:`BreakerSet` keeps
   one breaker per endpoint, created lazily with shared thresholds. The
   solver's kernel breaker board rides these: it reads ``state`` to gate a
-  dispatch and books each outcome. The breakers are not thread-safe:
-  nothing in the port calls a breaker from two threads.
+  dispatch and books each outcome. Both are thread-safe, one lock each, as
+  the reference's are: the sharded round's per-cell solver clones book
+  evidence from several host threads at once.
 """
 
 from __future__ import annotations
 
 import http.client
 import random
+import threading
 import time
 import urllib.error
 from dataclasses import dataclass
@@ -164,28 +166,32 @@ class CircuitBreaker:
         self.failure_threshold = failure_threshold
         self.recovery_timeout_s = recovery_timeout_s
         self._clock = clock
+        self._lock = threading.Lock()
         self._state = "closed"
         self._failures = 0
         self._opened_at = 0.0
 
     @property
     def state(self) -> str:
-        if self._state == "open" and self._clock() - self._opened_at >= self.recovery_timeout_s:
-            self._state = "half-open"
-        return self._state
+        with self._lock:
+            if self._state == "open" and self._clock() - self._opened_at >= self.recovery_timeout_s:
+                self._state = "half-open"
+            return self._state
 
     def record_success(self) -> None:
-        self._failures = 0
-        self._state = "closed"
+        with self._lock:
+            self._failures = 0
+            self._state = "closed"
 
     def record_failure(self) -> None:
-        self._failures += 1
-        if self._state == "half-open":
-            self._opened_at = self._clock()
-            self._state = "open"  # a failed probe reopens
-        elif self._state == "closed" and self._failures >= self.failure_threshold:
-            self._opened_at = self._clock()
-            self._state = "open"
+        with self._lock:
+            self._failures += 1
+            if self._state == "half-open":
+                self._opened_at = self._clock()
+                self._state = "open"  # a failed probe reopens
+            elif self._state == "closed" and self._failures >= self.failure_threshold:
+                self._opened_at = self._clock()
+                self._state = "open"
 
 
 class BreakerSet:
@@ -200,17 +206,19 @@ class BreakerSet:
         self.failure_threshold = failure_threshold
         self.recovery_timeout_s = recovery_timeout_s
         self._clock = clock
+        self._lock = threading.Lock()
         self._breakers: Dict[str, CircuitBreaker] = {}
 
     def get(self, endpoint: str) -> CircuitBreaker:
-        b = self._breakers.get(endpoint)
-        if b is None:
-            b = self._breakers[endpoint] = CircuitBreaker(
-                failure_threshold=self.failure_threshold,
-                recovery_timeout_s=self.recovery_timeout_s,
-                clock=self._clock,
-            )
-        return b
+        with self._lock:
+            b = self._breakers.get(endpoint)
+            if b is None:
+                b = self._breakers[endpoint] = CircuitBreaker(
+                    failure_threshold=self.failure_threshold,
+                    recovery_timeout_s=self.recovery_timeout_s,
+                    clock=self._clock,
+                )
+            return b
 
 
 def retry_policy_from_settings(settings) -> RetryPolicy:

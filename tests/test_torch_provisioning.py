@@ -9,6 +9,7 @@ fallback, and a launch template."""
 from __future__ import annotations
 
 import itertools
+import threading
 
 import pytest
 import torch
@@ -288,7 +289,7 @@ class TestNoFallback:
                 ProvisioningController(cluster, provider)
 
     @pytest.mark.parametrize("kw", [
-        {"cell_sharding_enabled": True},
+        {"cell_sharding_enabled": True, "mesh_enabled": True},
         {"federation_enabled": True, "arbiter_endpoint": "http://localhost:1"},
         {"device_fault_script": "t=0,kind=compile-error"},
     ])
@@ -324,6 +325,45 @@ class TestNoFallback:
         with pytest.raises(RuntimeError, match="kernel launch failed"):
             controller.reconcile()
         assert cluster.nodes == {} and len(cluster.pending_pods()) == 600
+
+    def test_kernel_error_on_a_worker_thread_raises_out_of_reconcile(self, monkeypatch):
+        """The sharded round solves its cells on host threads; a kernel's
+        launch error on one of them re-raises on the controller's thread."""
+        from karpenter_tpu_torch.solver import solver as solver_mod
+
+        def broken(*args, **kwargs):
+            raise RuntimeError("kernel launch failed")
+
+        monkeypatch.setattr(solver_mod, "pack_solve_fused", broken)
+        cluster = Cluster()
+        settings = Settings(batch_idle_duration=0, batch_max_duration=0,
+                            cell_sharding_enabled=True, cell_shard_workers=2,
+                            fleet_dispatch_enabled=False)
+        controller = ProvisioningController(
+            cluster, FakeCloudProvider(catalog=generate_catalog(n_types=10)),
+            solver=cpu_solver(), settings=settings)
+        threads = []
+        real_solve = TorchSolver.solve
+
+        def solve(self, problem):
+            threads.append(threading.current_thread())
+            return real_solve(self, problem)
+
+        monkeypatch.setattr(TorchSolver, "solve", solve)
+        spread = [TopologySpreadConstraint(max_skew=1, topology_key=wk.ZONE,
+                                           label_selector={"app": "s"})]
+        for pool in "ab":
+            cluster.add_provisioner(Provisioner(meta=ObjectMeta(name=f"cell-{pool}"),
+                                                labels={"pool": pool}))
+            # above ``race_min_pods``: each cell's race dispatches the chain
+            for pod in make_pods(600, prefix=pool, cpu="250m", memory="512Mi",
+                                 labels={"app": "s"}, spread=spread):
+                pod.node_selector = {"pool": pool}
+                cluster.add_pod(pod)
+        with pytest.raises(RuntimeError, match="kernel launch failed"):
+            controller.reconcile()
+        assert threads and threading.main_thread() not in threads
+        assert cluster.nodes == {} and len(cluster.pending_pods()) == 1200
 
     def test_launch_template_names_its_item(self):
         provider = FakeCloudProvider(catalog=generate_catalog(n_types=5))

@@ -106,7 +106,22 @@ this, DIR, with the chain and each of its kernels (``compare``). Phases:
     equal to the plain chain and each fleet buffer copied to the host
     once (``sharded_round``); then the same config at 16k pods in 8 cells
     at 1 worker and at 8, which must agree on digests and launches;
-14. one JSON line of kernel results, the card's name and power limit, and
+14. deprovisioning (main path): ``DeprovisioningController`` on the
+    provisioning controller's default ``TorchSolver()``, with its
+    quality-mode ``TorchSolver`` for what-ifs of 500 pods and more, over
+    ``configs.config_consolidation``, pass by pass as the JAX package's
+    ``bench.bench_consolidation`` runs it: three passes on BASELINE's
+    2,000-node, 20,000-pod fleet, whose first what-if (the whole fleet
+    re-placed) must be ``configs.config_consolidation_sim()`` at the JAX
+    package's kernel-only cost, with K1, K2 and K3 held against their plain
+    versions on it; ``bench.py``'s 300 x 3 fleet to quiescence; drift on
+    that cluster after an image rotation until every node runs the new
+    image; and the single-node sweep fixture ``configs.config_sweep`` at 1
+    worker and at 8, which must delete the same node. Every pass binds
+    every pod within allocatable, never raises the fleet's $/h, shows no
+    fallback, breaker evidence or missed deadline, and every quality sim
+    launches K1, K2 twice and K3 and answers with a validated kernel plan;
+15. one JSON line of kernel results, the card's name and power limit, and
     the device JSON as the last line.
 
 Before any encode, the native encoder (``karpenter_tpu_torch/native``)
@@ -1316,6 +1331,22 @@ def hold_pack_launches(phase, launches) -> None:
         raise AssertionError(f"{phase}: K1, K2 and K3 did not all launch: {launches}")
 
 
+def hold_allocatable(name, cluster) -> None:
+    """Each node's bound pods (one pod slot each) fit its allocatable."""
+    from karpenter_tpu_torch.api import Resources
+
+    used = {}
+    for q in cluster.pods.values():
+        if q.node_name is not None:
+            used.setdefault(q.node_name, []).append(q.requests + Resources(pods=1))
+    for node_name, reqs in used.items():
+        total = reqs[0]
+        for r in reqs[1:]:
+            total = total + r
+        if not total.fits(cluster.nodes[node_name].allocatable):
+            raise AssertionError(f"{name}: node {node_name} holds more than its allocatable")
+
+
 def interned(solver, result):
     """The problem ``result`` decodes, among the solver's intern slots."""
     from karpenter_tpu_torch.solver.solver import problem_digest
@@ -1546,7 +1577,6 @@ def controller_round(ts, configs) -> dict:
     their plain versions. Returns the largest differences seen there."""
     import torch
 
-    from karpenter_tpu_torch.api import Resources
     from karpenter_tpu_torch.controllers import ProvisioningController
     from karpenter_tpu_torch.solver import TorchSolver, _build, encode, validate
     from karpenter_tpu_torch.solver.solver import KERNEL_BOARD
@@ -1607,16 +1637,7 @@ def controller_round(ts, configs) -> dict:
         if result.unschedulable or cluster.pending_pods() or len(result.bound) != pending:
             raise AssertionError(f"{name}: {len(result.bound)} of {pending} pods bound, "
                                  f"unschedulable {result.unschedulable[:5]}")
-        used = {}
-        for q in cluster.pods.values():
-            if q.node_name is not None:
-                used.setdefault(q.node_name, []).append(q.requests + Resources(pods=1))
-        for node_name, reqs in used.items():
-            total = reqs[0]
-            for r in reqs[1:]:
-                total = total + r
-            if not total.fits(cluster.nodes[node_name].allocatable):
-                raise AssertionError(f"{name}: node {node_name} holds more than its allocatable")
+        hold_allocatable(name, cluster)
         bad = [e for e in result.validation_events if e["verdict"] != "accepted"]
         if bad:
             raise AssertionError(f"{name}: the firewall rejected a plan: {bad}")
@@ -1785,7 +1806,6 @@ def sharded_round(ts, st, ctl, probe, solver_mod, name):
     copied to the host once. Returns the round's facts."""
     import torch
 
-    from karpenter_tpu_torch.api import Resources
     from karpenter_tpu_torch.solver import encode
     from karpenter_tpu_torch.solver.solver import problem_digest
 
@@ -1802,16 +1822,7 @@ def sharded_round(ts, st, ctl, probe, solver_mod, name):
     if result.unschedulable or cluster.pending_pods() or len(result.bound) != pending:
         raise AssertionError(f"{name}: {len(result.bound)} of {pending} pods bound, "
                              f"unschedulable {result.unschedulable[:5]}")
-    used = {}
-    for q in cluster.pods.values():
-        if q.node_name is not None:
-            used.setdefault(q.node_name, []).append(q.requests + Resources(pods=1))
-    for node_name, reqs in used.items():
-        total = reqs[0]
-        for r in reqs[1:]:
-            total = total + r
-        if not total.fits(cluster.nodes[node_name].allocatable):
-            raise AssertionError(f"{name}: node {node_name} holds more than its allocatable")
+    hold_allocatable(name, cluster)
     bad = [e for e in result.validation_events if e["verdict"] != "accepted"]
     if bad:
         raise AssertionError(f"{name}: the firewall rejected a plan: {bad}")
@@ -1967,6 +1978,391 @@ def controller_sharded(ts, st, configs) -> dict:
     log(f"worker check: equal digests, launches {one['moved']}, fleet widths {one['widths']}; "
         f"costs at 1 worker {one['costs']}, at 8 {eight['costs']}")
     return launches
+
+
+#: consolidation's fleets: (nodes, pods a node, passes at most). ``full`` is
+#: BASELINE.md's 2,000-node, 20,000-pod repack, cut to 3 passes by time
+#: (12-20 s a pass of host work); ``bench`` is ``bench.py``'s default fleet,
+#: run to quiescence as the bench runs it
+CONSOLIDATION_FLEETS = {"full": (2000, 10, 3), "bench": (300, 3, 40)}
+
+
+class ConsolidationProbe:
+    """What deprovisioning passes did, gathered around them: every
+    ``solve_pods`` of a ``TorchSolver`` (the controller's, the quality
+    solver's, the sweep clones', the provisioning rebinds'), with the
+    launches each quality sim made (those sims run one at a time on the
+    controller's thread); every kernel-only answer of a quality solver
+    with its problem; every solve after which its problem carries a missed
+    deadline; every restage of a resident problem (``stage_patch``), held
+    at once byte for byte against the arrays a full upload of the same
+    problem carries; and the host seconds of the multi-node search and the
+    single-node sweep. A quality solver is the controller's
+    ``quality_solver`` or a sweep clone's. Installed on ``TorchSolver`` and
+    the controller; ``close`` restores them."""
+
+    def __init__(self, ts, deprov):
+        from karpenter_tpu_torch.solver import TorchSolver
+
+        self.ts, self.deprov, self.lock, self._undo = ts, deprov, threading.Lock(), []
+        self.reset()
+        probe = self
+        solve_pods, solve_kernel = TorchSolver.solve_pods, TorchSolver._solve_kernel
+        solve, device_inputs = TorchSolver.solve, TorchSolver._device_inputs
+
+        def recording_solve(solver, pods, provs, existing=(), daemonsets=(), **kw):
+            quality = probe.is_quality(solver)
+            before = dict(ts.LAUNCHES) if quality else None
+            result = solve_pods(solver, pods, provs, existing=existing, daemonsets=daemonsets, **kw)
+            row = dict(solver=solver, pods=len(pods), E=len(existing), result=result,
+                       quality=quality, moved=moved_since(ts, before) if quality else None)
+            with probe.lock:
+                probe.solves.append(row)
+            return result
+
+        def recording_kernel(solver, problem):
+            result = solve_kernel(solver, problem)
+            if probe.is_quality(solver):
+                with probe.lock:
+                    probe.kernels.append((problem, result))
+            return result
+
+        def watched_solve(solver, problem):
+            # the relax and degate re-solves too, whose problems no intern
+            # slot holds
+            result = solve(solver, problem)
+            if "_race_miss_count" in problem.__dict__:
+                with probe.lock:
+                    probe.misses.append(int(problem.count.sum()))
+            return result
+
+        def held_inputs(solver, problem):
+            staged = solver._stager.last_round
+            entry = device_inputs(solver, problem)
+            info = solver._stager.last_round
+            if info is not staged and info["restage"]:
+                probe.hold_restage(solver, problem, entry, info)
+            return entry
+
+        def timed(key, fn):
+            def call(*args, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    probe.spent[key] += time.perf_counter() - t
+            return call
+
+        for obj, name, value in (
+            (TorchSolver, "solve_pods", recording_solve),
+            (TorchSolver, "_solve_kernel", recording_kernel),
+            (TorchSolver, "solve", watched_solve),
+            (TorchSolver, "_device_inputs", held_inputs),
+            (deprov, "_try_multi_node", timed("multi", deprov._try_multi_node)),
+            (deprov, "_single_node_sweep", timed("single", deprov._single_node_sweep)),
+        ):
+            own = name in vars(obj)
+            self._undo.append((obj, name, getattr(obj, name) if own else None))
+            setattr(obj, name, value)
+
+    def is_quality(self, solver) -> bool:
+        clones = self.deprov._worker_solvers or ()
+        return solver is self.deprov.quality_solver or any(solver is q for _, q in clones)
+
+    def hold_restage(self, solver, problem, entry, info) -> None:
+        """The resident leaves a restage left, against the arrays
+        ``_prepare`` gives for the problem (what a full upload copies):
+        the same dtype, shape and bytes, every leaf."""
+        import numpy as np
+
+        fields, orders, alphas, looks, rsvs, swaps, _, _ = solver._prepare(problem)
+        want = dict(fields, orders=orders, alphas=alphas, looks=looks, rsvs=rsvs, swaps=swaps)
+        got = dict(entry[0]._asdict(), **dict(zip(MEMBERS, entry[3:8])))
+        bad = []
+        for name, arr in want.items():
+            arr, dev = np.ascontiguousarray(arr), got[name].cpu().numpy()
+            if dev.dtype != arr.dtype or dev.shape != arr.shape or dev.tobytes() != arr.tobytes():
+                bad.append(name)
+        if bad or set(got) != set(want):
+            raise AssertionError(f"a restage of rows {info['rows']} left {bad} unlike a full "
+                                 f"upload of {int(problem.count.sum())} pods")
+        with self.lock:
+            self.restages += 1
+            self.patched += info["restage"]
+            self.restaged_rows += sum(info["rows"].values())
+
+    def reset(self) -> None:
+        self.solves, self.kernels, self.misses = [], [], []
+        self.restages = self.patched = self.restaged_rows = 0
+        self.spent = {"multi": 0.0, "single": 0.0}
+
+    def close(self) -> None:
+        for obj, name, value in reversed(self._undo):
+            if value is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, value)
+        self._undo.clear()
+
+
+def fleet_price(deprov, cluster) -> float:
+    return sum(deprov._node_price(n) for n in cluster.nodes.values())
+
+
+def hold_pass(ts, name, probe, launched) -> dict:
+    """What every deprovisioning pass must show: no solve with a fallback,
+    a refused kernel plan or a missed deadline, no breaker evidence, every
+    quality sim answered by a kernel plan that validated after launching K1
+    once and K2 twice at least, and every ``stage_patch`` launch of the pass
+    (``launched``) a restage that ``hold_restage`` held. Returns the pass's
+    sim facts."""
+    from karpenter_tpu_torch.solver.solver import KERNEL_BOARD
+
+    for row in probe.solves:
+        stats = row["result"].stats
+        for bad in ("fallback", "tpu_violations"):
+            if bad in stats:
+                raise AssertionError(f"{name}: a solve of {row['pods']} pods shows {bad}: {stats}")
+    if probe.misses:
+        raise AssertionError(f"{name}: the kernel missed the deadline on problems of "
+                             f"{probe.misses} pods")
+    if KERNEL_BOARD.failures:
+        raise AssertionError(f"{name}: breaker evidence {KERNEL_BOARD.failures}")
+    if launched["stage_patch"] != probe.patched:
+        raise AssertionError(f"{name}: {launched['stage_patch']} stage_patch launches, "
+                             f"{probe.patched} held")
+    quality = [row for row in probe.solves if row["quality"]]
+    if len(probe.kernels) != len(quality):
+        raise AssertionError(f"{name}: {len(quality)} quality sims, {len(probe.kernels)} kernel solves")
+    for (problem, kernel), row in zip(probe.kernels, quality):
+        if kernel is None or kernel.stats.get("validated_counts") != 1.0 or "fallback" in kernel.stats:
+            raise AssertionError(f"{name}: a quality sim of {row['pods']} pods had no validated "
+                                 f"kernel plan: {kernel and kernel.stats}")
+        moved = row["moved"]
+        if moved["shared_precompute"] < 1 or moved["pack_member"] < 2 or moved["pack_epilogue"] < 1:
+            raise AssertionError(f"{name}: a quality sim of {row['pods']} pods launched {moved}")
+    device_s = sorted(k.stats["device_s"] for _, k in probe.kernels)
+    return dict(
+        sims=len(probe.solves), quality=len(quality), device_s=device_s,
+        passes=[k.stats["fused_passes"] for _, k in probe.kernels],
+        won=sum(1 for row in quality if row["result"].stats.get("backend") == 1.0),
+    )
+
+
+def consolidation_passes(ts, name, env, probe, max_passes, until=None, first=None):
+    """``bench.bench_consolidation``'s loop, pass by pass: ``deprov.reconcile()``,
+    ``prov_ctl.reconcile()``, ``term.reconcile()``, then the clock steps 30 s.
+    Each pass must leave every pod bound within its node's allocatable, the
+    fleet's $/h no higher, and an executed consolidation saving money; it
+    is held by ``hold_pass`` and logged. The loop ends after ``max_passes``,
+    when ``until()`` holds, or (without ``until``) on a pass that neither
+    acted nor parked a plan. ``first(probe)`` runs after the first pass,
+    outside the launch counts. Returns the launches of the passes and how
+    many passes ran."""
+    import torch
+
+    cluster, deprov = env["cluster"], env["deprov"]
+    launches = {k: 0 for k in ts.LAUNCHES}
+    price = fleet_price(deprov, cluster)
+    restages = 0
+    for i in range(max_passes):
+        tag = f"{name} pass {i}"
+        nodes_before, price_before = len(cluster.nodes), price
+        # one scan of the cluster's pods, the unit of a pass's host work
+        t0 = time.perf_counter()
+        cluster.pods_on_node(next(iter(cluster.nodes)))
+        scan_ms = (time.perf_counter() - t0) * 1e3
+        probe.reset()
+        before = dict(ts.LAUNCHES)
+        t0 = time.perf_counter()
+        with gc_seconds() as gc_s:
+            action = deprov.reconcile()
+            env["prov_ctl"].reconcile()
+            env["term"].reconcile()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        moved = moved_since(ts, before)
+        launches = {k: launches[k] + moved[k] for k in launches}
+        env["clock"].step(30)
+        unbound = [p.name for p in cluster.pods.values() if p.node_name is None]
+        if unbound:
+            raise AssertionError(f"{tag}: {len(unbound)} pods unbound: {unbound[:5]}")
+        hold_allocatable(tag, cluster)
+        price = fleet_price(deprov, cluster)
+        if price > price_before * (1 + 1e-12):
+            raise AssertionError(f"{tag}: the fleet's $/h rose from {price_before!r} to {price!r}")
+        if action is not None and action.reason.startswith("consolidation") and action.savings <= 0:
+            raise AssertionError(f"{tag}: {action.reason} saves {action.savings!r}")
+        sims = hold_pass(ts, tag, probe, moved)
+        restages += probe.restages
+        ds = sims["device_s"]
+        log(f"{tag}: wall {wall:.4f} s, multi-node {probe.spent['multi']:.4f} s, single-node "
+            f"{probe.spent['single']:.4f} s, {sims['sims']} solves ({sims['quality']} quality "
+            f"sims, kernel won {sims['won']}; device_s min/median/max "
+            + (f"{ds[0]:.6f}/{statistics.median(ds):.6f}/{ds[-1]:.6f}" if ds else "-")
+            + f", fused passes {sims['passes']}), backends {dict(deprov.sweep_backend_counts)}, "
+            f"action " + (f"{action.reason} of {len(action.nodes)} nodes, "
+                          f"{len(action.replacements)} replacements "
+                          f"{[r.option.instance_type.name for r in action.replacements]}, "
+                          f"savings {action.savings!r}" if action is not None else "none")
+            + f", nodes {nodes_before} -> {len(cluster.nodes)}, $/h {price_before!r} -> {price!r}, "
+            f"launches {moved}, restages held {probe.restages} ({probe.patched} leaves, "
+            f"{probe.restaged_rows} rows), garbage collection {gc_s[0]:.4f} s, one pods_on_node "
+            f"scan {scan_ms:.3f} ms, {threading.active_count()} threads; card {card_line()}")
+        if first is not None and i == 0:
+            first(probe)
+        if until is not None:
+            if until():
+                break
+        elif action is None and deprov.pending_action is None:
+            break
+    else:
+        if until is not None:
+            raise AssertionError(f"{name}: not done after {max_passes} passes")
+    log(f"{name}: {i + 1} passes, {restages} restages held against a full upload")
+    return launches, i + 1
+
+
+def consolidation_env(configs, n_nodes, pods_per_node):
+    """``configs.config_consolidation`` with the controllers
+    ``bench.bench_consolidation`` builds: a ``ProvisioningController`` with
+    its default ``TorchSolver()``, a ``TerminationController`` and a
+    ``DeprovisioningController`` on the provisioning controller's solver."""
+    from karpenter_tpu_torch.controllers import (
+        DeprovisioningController, ProvisioningController, TerminationController)
+
+    t0 = time.perf_counter()
+    cluster, provider, settings, clock, _ = configs.config_consolidation(n_nodes, pods_per_node)
+    prov_ctl = ProvisioningController(cluster, provider, settings=settings)
+    term = TerminationController(cluster, provider, clock=clock)
+    deprov = DeprovisioningController(cluster, provider, term, solver=prov_ctl.solver,
+                                      settings=settings, clock=clock)
+    log(f"consolidation config {n_nodes} x {pods_per_node}: {len(cluster.nodes)} nodes, "
+        f"{len(cluster.pods)} pods, {len(provider.catalog)} types, $/h "
+        f"{fleet_price(deprov, cluster)!r}, built in {time.perf_counter() - t0:.2f} s; solver on "
+        f"{prov_ctl.solver.device}, quality solver on {deprov.quality_solver.device}")
+    return dict(cluster=cluster, provider=provider, settings=settings, clock=clock,
+                prov_ctl=prov_ctl, term=term, deprov=deprov)
+
+
+def consolidation(ts, configs) -> dict:
+    """Main path, deprovisioning: ``DeprovisioningController`` on the
+    provisioning controller's default ``TorchSolver()``, with its
+    quality-mode ``TorchSolver`` for what-ifs of 500 pods and more, over
+    ``configs.config_consolidation``, each pass as ``bench.bench_consolidation``
+    runs it (``consolidation_passes`` holds and logs each):
+
+    (a) BASELINE's fleet (2,000 nodes, 20,000 pods), 3 passes. The first
+        quality sim of the first pass re-places the whole fleet: its
+        problem must be ``configs.config_consolidation_sim()``'s, its
+        kernel-only cost the JAX package's ``consolidation_20k``, and on it
+        K1, K2 and K3 are held against their plain versions (``check``);
+    (b) ``bench.py``'s fleet (300 x 3) to quiescence, which must end with
+        the fleet cheaper than it began;
+    (c) drift on (b)'s cluster: ``provider.rotate_image()`` and
+        ``DriftController.reconcile()``, then passes until no node carries
+        the drifted annotation; every node left must run the new image;
+    (d) the worker check: ``configs.config_sweep`` at 1 worker and at 8 on
+        twin fixtures, one ``_consolidation()`` each, which must both delete
+        the on-demand node of tiny pods.
+
+    K1, K2 and K3 must launch over (a)-(c). Returns the launches of
+    (a)-(c)'s passes and the largest differences of the kernel check."""
+    import torch
+
+    from karpenter_tpu_torch.api import labels as wk
+    from karpenter_tpu_torch.controllers import DriftController
+    from karpenter_tpu_torch.solver import TorchSolver, encode
+    from karpenter_tpu_torch.solver.solver import KERNEL_BOARD, problem_digest
+
+    KERNEL_BOARD.reset()
+    TorchSolver._device_rtt_s = None
+    launches = {k: 0 for k in ts.LAUNCHES}
+    errs = {}
+    n_nodes, per_node, passes = CONSOLIDATION_FLEETS["full"]
+    env = consolidation_env(configs, n_nodes, per_node)
+    probe = ConsolidationProbe(ts, env["deprov"])
+
+    def hold_first_sim(probe):
+        # the first quality sim: the whole fleet re-placed, E = 0
+        problem, kernel = probe.kernels[0]
+        want = problem_digest(encode(*configs.config_consolidation_sim(n_nodes, per_node)))
+        if problem_digest(problem) != want or problem.E != 0:
+            raise AssertionError("consolidation: the first sim is not config_consolidation_sim()")
+        log(f"consolidation first sim: {int(problem.count.sum())} pods, G={problem.G}, "
+            f"O={problem.O}, E={problem.E}, kernel-only cost {kernel.cost!r}, slots "
+            f"{kernel.stats['slots']}, fused passes {kernel.stats['fused_passes']}")
+        ref = configs.REFERENCE_COSTS["consolidation_20k"]
+        if abs(kernel.cost - ref) > COST_RTOL * ref:
+            raise AssertionError(f"consolidation: kernel-only cost {kernel.cost!r}, JAX "
+                                 f"package {ref!r}")
+        c = check(ts, "consolidation_20k", problem, env["deprov"].quality_solver)
+        errs.update(c["errs"])
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        moved, _ = consolidation_passes(ts, "consolidation full", env, probe, passes,
+                                        first=hold_first_sim)
+        launches = {k: launches[k] + moved[k] for k in launches}
+        log(f"consolidation full: peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; card {card_line()}")
+    finally:
+        probe.close()
+    del env, probe
+
+    n_nodes, per_node, passes = CONSOLIDATION_FLEETS["bench"]
+    env = consolidation_env(configs, n_nodes, per_node)
+    cluster, provider, deprov = env["cluster"], env["provider"], env["deprov"]
+    probe = ConsolidationProbe(ts, deprov)
+    try:
+        start = fleet_price(deprov, cluster)
+        moved, ran = consolidation_passes(ts, "consolidation bench", env, probe, passes)
+        launches = {k: launches[k] + moved[k] for k in launches}
+        end = fleet_price(deprov, cluster)
+        if end >= start or deprov.pending_action is not None:
+            raise AssertionError(f"consolidation bench: $/h {start!r} -> {end!r} in {ran} passes")
+        log(f"consolidation bench: quiescent after {ran} passes, {len(cluster.nodes)} nodes, $/h "
+            f"{start!r} -> {end!r}, {provider.terminate_calls} terminate calls; card {card_line()}")
+
+        image = provider.rotate_image()
+        drifted = DriftController(cluster, provider, settings=env["settings"]).reconcile()
+        if not drifted:
+            raise AssertionError("consolidation drift: no node drifted")
+        log(f"consolidation drift: image {image}, {len(drifted)} nodes annotated")
+
+        def none_drifted():
+            return not any(n.meta.annotations.get(wk.VOLUNTARY_DISRUPTION_ANNOTATION) == "drifted"
+                           for n in cluster.nodes.values())
+
+        moved, ran = consolidation_passes(ts, "consolidation drift", env, probe,
+                                          2 * len(cluster.nodes) + 5, until=none_drifted)
+        launches = {k: launches[k] + moved[k] for k in launches}
+        stale = [n.name for n in cluster.nodes.values()
+                 if provider.is_machine_drifted(cluster.machine_for_node(n))]
+        if stale:
+            raise AssertionError(f"consolidation drift: {stale[:5]} still run the old image")
+        log(f"consolidation drift: {ran} passes, {len(cluster.nodes)} nodes, all on {image}")
+    finally:
+        probe.close()
+    del env, probe, cluster, provider, deprov
+
+    actions = {}
+    for workers in (1, 8):
+        deprov = configs.config_sweep(workers)
+        before = dict(ts.LAUNCHES)
+        t0 = time.perf_counter()
+        action = deprov._consolidation()
+        wall = time.perf_counter() - t0
+        actions[workers] = None if action is None else (action.reason, list(action.nodes))
+        log(f"consolidation worker check, {workers} worker(s): {actions[workers]}, wall "
+            f"{wall:.4f} s, backends {deprov.sweep_backend_counts}, launches "
+            f"{moved_since(ts, before)}")
+        del deprov
+    if actions[1] != actions[8] or actions[1] != ("consolidation-delete", ["cand-2000"]):
+        raise AssertionError(f"consolidation worker check: {actions}")
+    log(f"consolidation launches {launches}")
+    hold_pack_launches("consolidation", launches)
+    return dict(launches=launches, errs=errs)
 
 
 def load_tree(root: Path, tag: str):
@@ -2160,12 +2556,15 @@ def main() -> int:
     session_fleet(ts, configs, fleet_encode_s)
     controller_errs = controller_round(ts, configs)
     sharded = controller_sharded(ts, st, configs)
+    consolidated = consolidation(ts, configs)
     for entry in kernels:
-        entry["max_abs_err"] = max(entry["max_abs_err"], controller_errs.get(entry["name"], 0.0))
+        entry["max_abs_err"] = max(entry["max_abs_err"], controller_errs.get(entry["name"], 0.0),
+                                   consolidated["errs"].get(entry["name"], 0.0))
     for entry in kernels:
-        # the main path: the flat race, the fleet race and the sharded
-        # controller's rounds, each counted alone
-        entry["launches"] = flat[entry["name"]] + fleet[entry["name"]] + sharded[entry["name"]]
+        # the main path: the flat race, the fleet race, the sharded
+        # controller's rounds and the deprovisioning passes, each counted alone
+        entry["launches"] = (flat[entry["name"]] + fleet[entry["name"]] + sharded[entry["name"]]
+                             + consolidated["launches"][entry["name"]])
         if entry["name"] == "pack_member":
             entry["max_abs_err"] = max(entry["max_abs_err"], k2_err)
         if entry["launches"] < 1:

@@ -355,6 +355,176 @@ def config_controller_cells(n_pods: int = 500_000, n_cells: int = 20, n_types: i
     return cluster, provider, settings, churn_round
 
 
+def _fleet_node(cluster, provider, prov, name: str, it, zone: str, capacity_type: str):
+    """Launch one machine of type ``it`` in ``zone`` through the fake
+    provider and register its node, as ``bench.py``'s fleets do."""
+    from .api import Machine, Requirement, Requirements
+    from .controllers.provisioning import register_node
+
+    machine = Machine(
+        meta=ObjectMeta(name=name, labels=dict(prov.labels)),
+        provisioner_name=prov.name,
+        requirements=Requirements([
+            Requirement.in_values(wk.INSTANCE_TYPE, [it.name]),
+            Requirement.in_values(wk.ZONE, [zone]),
+            Requirement.in_values(wk.CAPACITY_TYPE, [capacity_type]),
+        ]),
+        requests=Resources(cpu="1"),
+    )
+    machine = provider.create(machine)
+    cluster.add_machine(machine)
+    return register_node(cluster, machine, prov)
+
+
+ZONES = ("zone-a", "zone-b", "zone-c")
+
+
+def config_consolidation(n_nodes: int = 2000, pods_per_node: int = 10, n_types: int = 100,
+                         seed: int = 13):
+    """``bench.bench_consolidation``'s fragmented fleet (``bench.py:1457-1514``)
+    as a function: ``n_nodes`` on-demand nodes of 6-20 vCPU, their types
+    drawn by ``np.random.default_rng(seed)``, over three zones in turn, each
+    holding ``pods_per_node`` pods of 200m / 256Mi (pod ``j`` of a node is
+    app ``svc{j}``, spread over zones with ``max_skew=2``). The provider
+    sells ``generate_catalog(n_types)`` from subnets of 2^20 IPs a zone; the
+    provisioner ``default`` has consolidation on; ``Settings`` closes the
+    batch window and sets no validation TTL and no stabilization window,
+    everything else at its default (``consolidation_timeout`` 2 s). The
+    defaults are the 2,000-node, 20,000-pod repack of ``BASELINE.md``;
+    ``config_consolidation(300, 3)`` is ``bench.py``'s default run.
+
+    Returns ``(cluster, provider, settings, clock, provisioner)``, the clock
+    a ``FakeClock`` at 100,000 s."""
+    from .api.settings import Settings
+    from .cloudprovider.fake import FakeCloudProvider
+    from .state.cluster import Cluster
+    from .utils.cache import FakeClock
+
+    provider = FakeCloudProvider(catalog=generate_catalog(n_types=n_types))
+    for subnet in provider.subnets:
+        subnet.available_ips = 1 << 20
+    cluster = Cluster()
+    settings = Settings(batch_idle_duration=0, batch_max_duration=0,
+                        consolidation_validation_ttl=0, stabilization_window=0)
+    clock = FakeClock(start=100_000.0)
+    prov = Provisioner(meta=ObjectMeta(name="default"), consolidation_enabled=True)
+    cluster.add_provisioner(prov)
+    rng = np.random.default_rng(seed)
+    mids = [it for it in provider.catalog if 6 <= it.capacity["cpu"] <= 20]
+    for i in range(n_nodes):
+        it = mids[int(rng.integers(0, len(mids)))]
+        node = _fleet_node(cluster, provider, prov, f"frag-{i}", it, ZONES[i % 3],
+                           wk.CAPACITY_TYPE_ON_DEMAND)
+        for j in range(pods_per_node):
+            app = f"svc{j}"
+            pod = Pod(
+                meta=ObjectMeta(name=f"fp-{i}-{j}", owner_kind="ReplicaSet", labels={"app": app}),
+                requests=Resources(cpu="200m", memory="256Mi"),
+                topology_spread=[TopologySpreadConstraint(
+                    max_skew=2, topology_key=wk.ZONE, label_selector={"app": app})],
+            )
+            cluster.add_pod(pod)
+            cluster.bind_pod(pod.name, node.name)
+    return cluster, provider, settings, clock, prov
+
+
+def config_consolidation_sim(n_nodes: int = 2000, pods_per_node: int = 10):
+    """The first what-if of a deprovisioning pass on ``config_consolidation``:
+    the multi-node prefix search starts from the whole fleet, so every node
+    is excluded and its pods re-placed against the provider's instance
+    types with no existing node. Returns ``(pods, provisioners, [])``, the
+    arguments of ``encode``, in the order the controller passes them (the
+    nodes in the cluster's order, each node's pods in the cluster's)."""
+    cluster, provider, _, _, _ = config_consolidation(n_nodes, pods_per_node)
+    # one pass over the pods, in the order each node's ``pods_on_node`` gives
+    on_node: dict = {}
+    for p in cluster.pods.values():
+        if p.node_name is not None and not p.is_daemonset:
+            on_node.setdefault(p.node_name, []).append(p)
+    pods = [p for n in cluster.managed_nodes() for p in on_node.get(n.name, ())]
+    provs = [(prov, provider.get_instance_types(prov)) for prov in cluster.provisioners.values()]
+    return pods, provs, []
+
+
+def config_sweep(workers: int, n_candidates: int = 160, pods_per_cand: int = 40,
+                 fleet_nodes: int = 200, device="cuda"):
+    """``bench._sweep_fixture`` (``bench.py:1219-1332``): the single-node
+    consolidation sweep's worst case. ``n_candidates - 1`` spot nodes whose
+    1-vCPU pods fit nowhere in the fleet's headroom (any solver opens a new
+    node for them, and a spot node is never replaced, so no action), one
+    on-demand node ``cand-2000`` whose ``pods_per_cand + 10`` tiny pods
+    drain into the headroom (a delete), ranked last by disruption cost, so
+    the sweep scans every candidate; a protected fleet of ``fleet_nodes``
+    utilized nodes and 6 headroom nodes rides along as existing capacity.
+    The multi-node search is off (``consolidation_timeout=0``) and the
+    sweep runs on ``workers`` threads.
+
+    Returns a ``DeprovisioningController`` on ``TorchSolver(portfolio=8,
+    device=device)`` with no quality solver (``quality_budget_s=0``); its
+    ``cluster``, ``provider`` and ``settings`` are the fixture's."""
+    from .api.settings import Settings
+    from .cloudprovider.fake import FakeCloudProvider
+    from .controllers.deprovisioning import DeprovisioningController
+    from .controllers.termination import TerminationController
+    from .solver.solver import TorchSolver
+    from .state.cluster import Cluster
+    from .utils.cache import FakeClock
+
+    provider = FakeCloudProvider(catalog=generate_catalog(n_types=100))
+    for subnet in provider.subnets:
+        subnet.available_ips = 1 << 20
+    cluster = Cluster()
+    settings = Settings(batch_idle_duration=0, batch_max_duration=0,
+                        consolidation_validation_ttl=0, stabilization_window=0,
+                        consolidation_timeout=0, consolidation_sweep_workers=workers)
+    clock = FakeClock(start=100_000.0)
+    prov = Provisioner(meta=ObjectMeta(name="default"), consolidation_enabled=True)
+    cluster.add_provisioner(prov)
+    term = TerminationController(cluster, provider, clock=clock)
+    deprov = DeprovisioningController(
+        cluster, provider, term, solver=TorchSolver(portfolio=8, device=device),
+        settings=settings, clock=clock, quality_budget_s=0.0,
+    )
+    mids = sorted([it for it in provider.catalog if 14 <= it.capacity["cpu"] <= 20],
+                  key=lambda t: t.name)
+    big = sorted([it for it in provider.catalog if it.capacity["cpu"] >= 30],
+                 key=lambda t: t.name)
+
+    def mknode(i, it, ct, protect=False):
+        node = _fleet_node(cluster, provider, prov, f"cand-{i}", it, ZONES[i % 3], ct)
+        if protect:
+            node.meta.annotations[wk.DO_NOT_CONSOLIDATE_ANNOTATION] = "true"
+            cluster.update(node)
+        return node
+
+    def bind(name, node, cpu, mem):
+        pod = Pod(meta=ObjectMeta(name=name, owner_kind="ReplicaSet"),
+                  requests=Resources(cpu=cpu, memory=mem))
+        cluster.add_pod(pod)
+        cluster.bind_pod(pod.name, node.name)
+
+    shapes = [("250m", "512Mi"), ("500m", "1Gi"), ("1", "2Gi"), ("750m", "1536Mi"),
+              ("300m", "768Mi"), ("100m", "256Mi"), ("1500m", "2Gi"), ("400m", "1Gi")]
+    for i in range(n_candidates - 1):
+        node = mknode(i, mids[i % len(mids)], wk.CAPACITY_TYPE_SPOT)
+        for j in range(pods_per_cand):
+            bind(f"sp-{i}-{j}", node, *shapes[j % len(shapes)])
+    # utilized fleet: protected nodes with < 0.2 vCPU left, existing capacity
+    # every simulation scans and no landing spot for a candidate's pods
+    for i in range(fleet_nodes):
+        node = mknode(3000 + i, mids[(i * 7) % len(mids)], wk.CAPACITY_TYPE_ON_DEMAND, protect=True)
+        bind(f"fleet-{i}", node, str(float(node.allocatable.get("cpu")) - 0.15), "1Gi")
+    # headroom: big on-demand nodes with ~1.5 vCPU free, room for the tiny
+    # pods and never for a spot candidate's 1-vCPU pods
+    for i in range(6):
+        node = mknode(1000 + i, big[i % len(big)], wk.CAPACITY_TYPE_ON_DEMAND, protect=True)
+        bind(f"fill-{i}", node, str(float(node.allocatable.get("cpu")) - 1.5), "1Gi")
+    last = mknode(2000, mids[0], wk.CAPACITY_TYPE_ON_DEMAND)
+    for j in range(pods_per_cand + 10):  # the most pods: ranked last
+        bind(f"tiny-{j}", last, "100m", "64Mi")
+    return deprov
+
+
 #: The controller session's encode mode in each churn round of
 #: ``config_controller_reconcile`` (the seed round encodes in full): what
 #: the JAX package's controller gives on the same churn at a small size,
@@ -368,7 +538,9 @@ CONTROLLER_CHURN_MODES = ("delta",) * DELTA_ROUNDS
 #: ``delta_r8`` is ``config_delta_reconcile()`` after its ``DELTA_ROUNDS``
 #: churn rounds; ``controller_seed`` is the provisioning controller's
 #: seed-round problem on ``config_controller_reconcile()`` (its pending
-#: pods, the fake provider's instance types, no existing nodes).
+#: pods, the fake provider's instance types, no existing nodes);
+#: ``consolidation_20k`` is ``config_consolidation_sim()``, the first
+#: what-if of a deprovisioning pass on ``config_consolidation()``.
 REFERENCE_COSTS = {
     "50k_full": 1017.0072868143582,
     "10k_topology": 59.197231399244934,
@@ -380,4 +552,5 @@ REFERENCE_COSTS = {
     "cells_r3": 448.28029736577486,
     "delta_r8": 851.7806135309604,
     "controller_seed": 843.6097242015434,
+    "consolidation_20k": 55.288573398301494,
 }

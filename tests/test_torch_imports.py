@@ -33,6 +33,8 @@ def imported_modules(source: str):
 def test_scan_sees_the_whole_port():
     assert "karpenter_tpu_torch/solver/torch_solver.py" in PORT_FILES
     assert "karpenter_tpu_torch/controllers/provisioning.py" in PORT_FILES
+    for name in ("deprovisioning", "drift", "garbagecollect"):
+        assert f"karpenter_tpu_torch/controllers/{name}.py" in PORT_FILES
     assert len(PORT_FILES) >= 18
 
 

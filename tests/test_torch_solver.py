@@ -252,6 +252,24 @@ def _controller_seed():
     return cluster.pending_pods(), provs, cluster.existing_capacity(), cluster.daemonsets()
 
 
+def _consolidation_sim():
+    """The first what-if of a deprovisioning pass on
+    ``configs.config_consolidation()``, rebuilt with the JAX package's
+    cluster and fake provider: every node of the 2,000-node fleet excluded,
+    its 20,000 pods against the provider's instance types, no existing
+    nodes."""
+    from test_torch_deprovisioning import REF, bench_fleet, pkg_mod
+
+    cluster, provider = bench_fleet(pkg_mod(REF), 2000, 10)[:2]
+    # one pass over the pods, in the order each node's ``pods_on_node`` gives
+    on_node = {}
+    for p in cluster.pods.values():
+        if p.node_name is not None and not p.is_daemonset:
+            on_node.setdefault(p.node_name, []).append(p)
+    pods = [p for n in cluster.managed_nodes() for p in on_node.get(n.name, ())]
+    return pods, [(p, provider.get_instance_types(p)) for p in cluster.provisioners.values()], []
+
+
 @pytest.mark.parametrize("name,make", [
     ("50k_full", bench.config_50k_full),
     ("10k_topology", bench.config_10k_topology),
@@ -262,6 +280,7 @@ def _controller_seed():
     ("cells_r2", _cells_config(8)),
     ("delta_r8", _delta_after_rounds),
     ("controller_seed", _controller_seed),
+    ("consolidation_20k", _consolidation_sim),
 ])
 def test_reference_costs_are_pinned(name, make):
     """The constants chip_smoke.py holds the card's answers to are what the

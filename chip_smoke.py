@@ -121,7 +121,21 @@ this, DIR, with the chain and each of its kernels (``compare``). Phases:
     every pod within allocatable, never raises the fleet's $/h, shows no
     fallback, breaker evidence or missed deadline, and every quality sim
     launches K1, K2 twice and K3 and answers with a validated kernel plan;
-15. one JSON line of kernel results, the card's name and power limit, and
+15. the operator (main path): ``Operator.new`` with no solver given over
+    ``configs.config_operator`` (50k pending pods, 400 types, spot and
+    on-demand through the node template ``al2-tpl``), step by step: the seed
+    round (every instance from an ``al2`` launch template, the problem
+    ``configs.config_operator_seed()``'s at the JAX package's kernel-only
+    cost, K1, K2 and K3 held against their plain versions on it), an
+    interruption storm on the most loaded 10% of the spot nodes until the
+    queue drains
+    (each step re-binds what it drained, never onto an offering the storm
+    marked unavailable; K1, K2, K3 and ``rtt_probe`` must launch), three
+    template-drift passes after an image rotation, each replacing one node
+    on the new image; then ``python -m karpenter_tpu_torch`` in a
+    subprocess on the card, which must answer its probes, serve /metrics
+    and exit 0 on SIGTERM with its lease released (``operator_phase``);
+16. one JSON line of kernel results, the card's name and power limit, and
     the device JSON as the last line.
 
 Before any encode, the native encoder (``karpenter_tpu_torch/native``)
@@ -2365,6 +2379,435 @@ def consolidation(ts, configs) -> dict:
     return dict(launches=launches, errs=errs)
 
 
+#: the operator phase's cuts: the share of the seed round's spot nodes the
+#: interruption storm reclaims, and the drift passes after the image
+#: rotation (a whole rotation at ~900 nodes is one pass a node)
+OPERATOR_STORM_FRAC = 0.10
+OPERATOR_DRIFT_PASSES = 3
+#: seconds the entry point's subprocess may take to answer its probes, and
+#: to exit after SIGTERM
+ENTRYPOINT_READY_S = 180.0
+ENTRYPOINT_EXIT_S = 30.0
+
+
+class OperatorProbe:
+    """What each ``op.step()`` did, gathered around the operator's
+    controllers: every ``solve_pods`` of the provisioning solver (the
+    session's pods, the round's inputs and answer), the interruption
+    messages handled and the pods they re-pended, the provisioning round's
+    result and seconds, and the deprovisioning action. Installed on the
+    operator's instances; nothing is restored (the operator is closed after
+    the phase)."""
+
+    def __init__(self, op):
+        self.op, self.calls, self.row = op, [], {}
+        solver, cluster = op.provisioning.solver, op.cluster
+        solve_pods = solver.solve_pods
+        prov, deprov, intr = op.provisioning.reconcile, op.deprovisioning.reconcile, None
+        probe = self
+
+        def recording_solve(pods, provs, existing=(), daemonsets=(), **kw):
+            result = solve_pods(pods, provs, existing=existing, daemonsets=daemonsets, **kw)
+            if kw.get("session") is not None:
+                probe.calls.append((kw["session"].ordered_pods(), provs, existing, daemonsets,
+                                    result))
+            return result
+
+        def provisioning():
+            t = time.perf_counter()
+            result = prov()
+            probe.row.update(prov_s=time.perf_counter() - t, result=result)
+            return result
+
+        def deprovisioning():
+            t = time.perf_counter()
+            action = deprov()
+            probe.row.update(deprov_s=time.perf_counter() - t, action=action)
+            return action
+
+        solver.solve_pods = recording_solve
+        op.provisioning.reconcile, op.deprovisioning.reconcile = provisioning, deprovisioning
+        if op.interruption is not None:
+            intr = op.interruption.reconcile
+
+            def interruption(*a, **kw):
+                pending = len(cluster.pending_pods())
+                t = time.perf_counter()
+                handled = intr(*a, **kw)
+                probe.row.update(intr_s=time.perf_counter() - t, handled=handled,
+                                 repended=len(cluster.pending_pods()) - pending)
+                return handled
+
+            op.interruption.reconcile = interruption
+        # the cost ledger meters every bind through the cluster's watch:
+        # time its share of each step
+        ledger = op.costledger
+        on_event = ledger._on_event
+
+        def metered(event, obj):
+            t = time.perf_counter()
+            try:
+                on_event(event, obj)
+            finally:
+                probe.row["ledger_s"] = probe.row.get("ledger_s", 0.0) + time.perf_counter() - t
+
+        watchers = cluster._watchers
+        watchers[watchers.index(on_event)] = metered
+
+    def step(self, ts, clock_s: float = 0.0) -> dict:
+        """One ``op.step()`` (then ``clock.step(clock_s)``); returns what it
+        did, with its wall time and launches."""
+        import torch
+
+        self.calls.clear()
+        self.row = {}
+        before = dict(ts.LAUNCHES)
+        t0 = time.perf_counter()
+        self.op.step()
+        torch.cuda.synchronize()
+        row = dict(self.row, wall=time.perf_counter() - t0, launches=moved_since(ts, before),
+                   calls=list(self.calls))
+        if clock_s:
+            self.op.clock.step(clock_s)
+        return row
+
+
+def hold_operator_step(name, op, row) -> list:
+    """What every operator step must show: every pod bound, within
+    allocatable, no plan rejected by the firewall, and each session solve
+    on the problem a full encode of its pods gives, with nothing
+    ``hold_race`` refuses. Returns the solved problems."""
+    from karpenter_tpu_torch.solver import encode, validate
+
+    cluster = op.cluster
+    pending = cluster.pending_pods()
+    result = row.get("result")
+    if pending or (result is not None and result.unschedulable):
+        raise AssertionError(f"{name}: {len(pending)} pods pending after the step, "
+                             f"unschedulable {result.unschedulable[:5] if result else None}")
+    hold_allocatable(name, cluster)
+    if result is not None:
+        bad = [e for e in result.validation_events if e["verdict"] != "accepted"]
+        if bad:
+            raise AssertionError(f"{name}: the firewall rejected a plan: {bad}")
+    problems = []
+    for order, provs, existing, daemonsets, solved in row["calls"]:
+        full = encode(order, provs, existing, daemonsets)
+        problems.append((hold_reconcile(name, op.provisioning.solver, solved, full, validate),
+                         solved))
+    return problems
+
+
+def fleet_line(op) -> str:
+    """The fleet's nodes and $/h, and the cost ledger's settled dollars as
+    ``/debug/costs`` serves them."""
+    cluster, deprov = op.cluster, op.deprovisioning
+    costs = op.costledger.debug_payload()
+    return (f"{len(cluster.nodes)} nodes, {fleet_price(deprov, cluster)!r} $/h, ledger settled "
+            f"{costs['total_dollars']!r} $ (on-demand counterfactual "
+            f"{costs['ondemand_dollars']!r} $, conservation {costs['conservation']})")
+
+
+def step_line(name, row, problems) -> str:
+    from karpenter_tpu_torch.solver import TorchSolver
+
+    def race(p, s):
+        if s.stats.get("race_winner"):
+            verdict = "kernel won"
+        elif p.__dict__.get("_race_kernel_lost"):
+            verdict = "kernel lost"
+        elif "_race_miss_count" in p.__dict__:
+            verdict = "kernel missed"
+        else:
+            verdict = "not raced" + (" (under race_min_pods)"
+                                     if p.count.sum() < TorchSolver.race_min_pods else "")
+        device = s.stats.get("dispatch_device_ms")
+        return verdict + (f", chain device {device} ms" if device is not None else "")
+
+    solves = [f"{int(p.count.sum())} pods at E={p.E}, backend {s.stats['backend']}, {race(p, s)}"
+              for p, s in problems]
+    return (f"{name}: wall {row['wall']:.4f} s, interruption {row.get('handled')} messages "
+            f"in {row.get('intr_s', 0.0):.4f} s, {row.get('repended', 0)} pods re-pended, "
+            f"provisioning {row.get('prov_s', 0.0):.4f} s ({'; '.join(solves) or 'no solve'}), "
+            f"deprovisioning {row.get('deprov_s', 0.0):.4f} s "
+            f"({row['action'].reason if row.get('action') else 'no action'}), cost ledger "
+            f"{row.get('ledger_s', 0.0):.4f} s, launches {row['launches']}")
+
+
+def operator_phase(ts, configs) -> dict:
+    """Main path, the operator: ``Operator.new(provider, settings,
+    cluster=cluster, clock=clock)`` with no solver given, over
+    ``configs.config_operator()`` (50k pending pods, 400 types, a
+    provisioner allowing spot and on-demand through the node template
+    ``al2-tpl``), after ``OperatorContext.discover``. Every ``op.step()`` is
+    held by ``hold_operator_step`` and logged by ``step_line``.
+
+    (a) seed: the operator's default solver and its deprovisioning quality
+        solver must be ``TorchSolver``s on the card; one step resolves the
+        template and binds every pod, every instance launched from an
+        ``al2`` launch template; the round's problem must be
+        ``configs.config_operator_seed()``'s, its kernel-only cost the JAX
+        package's ``operator_seed``, and on it K1, K2 and K3 are held
+        against their plain versions (``check``);
+    (b) interruption storm: a spot-interruption warning for the most
+        loaded ``OPERATOR_STORM_FRAC`` of the spot nodes, with 3 duplicates
+        and 3 garbage messages, then steps (``clock.step(5)``) until the queue is
+        empty. Each step must re-bind the pods it drained, launch no node
+        on an offering the storm marked unavailable, and leave no handled
+        instance in the provider. K1, K2, K3 and ``rtt_probe`` must launch
+        over the storm;
+    (c) template drift: ``provider.rotate_image("al2", "standard")``, then
+        ``OPERATOR_DRIFT_PASSES`` steps (``clock.step(30)``), each of which
+        must replace one drifted node through the template, on the new
+        image, with no pod left pending;
+    (d) the entry point: ``python -m karpenter_tpu_torch`` in a subprocess
+        on the card with a file lease, which must answer /healthz, /readyz
+        and /leaderz, serve /metrics with the kernel board's gauge and no
+        reconcile error, and exit 0 on SIGTERM with the lease released.
+
+    Returns the launches of (a)-(c) and the largest differences of the
+    kernel check."""
+    import torch
+
+    from karpenter_tpu_torch.api import labels as wk
+    from karpenter_tpu_torch.cloudprovider.launchtemplate import NAME_PREFIX
+    from karpenter_tpu_torch.context import OperatorContext
+    from karpenter_tpu_torch.operator import Operator
+    from karpenter_tpu_torch.solver import TorchSolver, encode, validate
+    from karpenter_tpu_torch.solver.solver import KERNEL_BOARD, problem_digest
+
+    KERNEL_BOARD.reset()
+    TorchSolver._device_rtt_s = None
+    t0 = time.perf_counter()
+    cluster, provider, settings, clock = configs.config_operator()
+    ctx = OperatorContext.discover(provider=provider, settings=settings)
+    op = Operator.new(provider, settings, cluster=cluster, clock=clock)
+    log(f"operator config: {len(cluster.pods)} pending pods, {len(provider.catalog)} types, "
+        f"cluster {ctx.cluster_info.name} in {ctx.region}, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    solvers = {"provisioning": op.provisioning.solver,
+               "deprovisioning quality": op.deprovisioning.quality_solver}
+    for role, s in solvers.items():
+        if not isinstance(s, TorchSolver) or s.device.type != "cuda":
+            raise AssertionError(f"operator: the {role} solver is {s!r} on "
+                                 f"{getattr(s, 'device', None)}, not a TorchSolver on the card")
+    if op.costledger is None or op.interruption is None or op.nodetemplate is None:
+        raise AssertionError("operator: the cost ledger, interruption or node-template "
+                             "controller was not built")
+    probe = OperatorProbe(op)
+    oracle = TorchSolver()
+    launches = {k: 0 for k in ts.LAUNCHES}
+    errs = {}
+    try:
+        # (a) the seed round
+        row = probe.step(ts)
+        launches = {k: launches[k] + row["launches"][k] for k in launches}
+        problems = hold_operator_step("operator seed", op, row)
+        if len(problems) != 1 or len(row["result"].bound) != len(cluster.pods):
+            raise AssertionError(f"operator seed: {len(problems)} solves, "
+                                 f"{len(row['result'].bound)} of {len(cluster.pods)} pods bound")
+        problem, solved = problems[0]
+        want = problem_digest(encode(*configs.config_operator_seed()))
+        if problem_digest(problem) != want:
+            raise AssertionError("operator seed: the round's problem is not config_operator_seed()")
+        kernel = oracle._solve_kernel(problem)
+        torch.cuda.synchronize()
+        if validate(problem, kernel):
+            raise AssertionError("operator seed: the kernel-only plan fails validation")
+        ref = configs.REFERENCE_COSTS["operator_seed"]
+        if abs(kernel.cost - ref) > COST_RTOL * ref:
+            raise AssertionError(f"operator seed: kernel-only cost {kernel.cost!r}, "
+                                 f"JAX package {ref!r}")
+        for machine in cluster.machines.values():
+            inst = provider.instance_for(machine)
+            if not (inst.launch_template.startswith(NAME_PREFIX) and inst.image_family == "al2"
+                    and inst.image_id.startswith("img-al2-")):
+                raise AssertionError(f"operator seed: {machine.name} launched from "
+                                     f"{inst.launch_template!r}, image {inst.image_id}")
+        templates = sorted({provider.instance_for(m).launch_template
+                            for m in cluster.machines.values()})
+        log(step_line("operator seed", row, problems))
+        log(f"operator seed: kernel-only cost {kernel.cost!r}, plan cost {solved.cost!r}, "
+            f"{len(templates)} launch templates, {fleet_line(op)}; card {card_line()}")
+        c = check(ts, "operator_seed", problem, oracle)
+        errs.update(c["errs"])
+        del c, problems, problem, kernel
+
+        # (b) the interruption storm
+        # the most loaded spot nodes first, so that a step's ten messages
+        # re-pend enough pods to race the kernel (race_min_pods)
+        load = {n.name: len(cluster.pods_on_node(n.name)) for n in cluster.nodes.values()
+                if n.meta.labels.get(wk.CAPACITY_TYPE) == wk.CAPACITY_TYPE_SPOT}
+        spot = sorted((cluster.nodes[name] for name in load), key=lambda n: (-load[n.name], n.name))
+        targets = spot[: max(1, int(len(spot) * OPERATOR_STORM_FRAC))]
+        per_node = sorted(load[n.name] for n in targets)
+        queue = op.interruption.queue
+
+        def warning(node):
+            return {"version": "0", "source": "cloud.compute",
+                    "detail-type": "Spot Instance Interruption Warning",
+                    "detail": {"instance-id": node.provider_id.rsplit("/", 1)[-1]}}
+
+        for node in targets:
+            queue.send(warning(node))
+        for node in targets[:3]:
+            queue.send(warning(node))
+        queue.send_raw("{not json")
+        queue.send_raw("}}} garbage")
+        queue.send({"version": "9", "source": "unknown", "detail-type": "???"})
+        target_ids = {n.provider_id.rsplit("/", 1)[-1] for n in targets}
+        log(f"operator storm: {len(targets)} of {len(spot)} spot nodes ({len(cluster.nodes)} "
+            f"nodes), {len(queue)} messages; pods a target node min/median/max "
+            f"{per_node[0]}/{per_node[len(per_node) // 2]}/{per_node[-1]}, a spot node "
+            f"{min(load.values())}/{statistics.median(load.values())}/{max(load.values())}")
+        KERNEL_BOARD.reset()
+        TorchSolver._device_rtt_s = None
+        storm = {k: 0 for k in ts.LAUNCHES}
+        steps = 0
+        while len(queue):
+            steps += 1
+            name = f"operator storm step {steps}"
+            before_nodes = set(cluster.nodes)
+            row = probe.step(ts, clock_s=5.0)
+            storm = {k: storm[k] + row["launches"][k] for k in storm}
+            problems = hold_operator_step(name, op, row)
+            for node_name in set(cluster.nodes) - before_nodes:
+                node = cluster.nodes[node_name]
+                pool = (node.instance_type(), node.zone(), node.meta.labels[wk.CAPACITY_TYPE])
+                if provider.unavailable_offerings.is_unavailable(*pool):
+                    raise AssertionError(f"{name}: {node_name} launched on {pool}, marked "
+                                         "unavailable by the storm")
+            queued = {json.loads(m.body).get("detail", {}).get("instance-id")
+                      for m in queue._messages.values() if m.body.startswith("{\"")}
+            left = (target_ids - queued) & set(provider.instances)
+            if left:
+                raise AssertionError(f"{name}: interrupted instances {sorted(left)[:5]} still run")
+            log(step_line(name, row, problems) + f"; {fleet_line(op)}")
+            if steps > 4 * len(targets) + 10:
+                raise AssertionError("operator storm: the queue does not drain")
+        launches = {k: launches[k] + storm[k] for k in launches}
+        log(f"operator storm: {steps} steps, {len(provider.unavailable_offerings.entries())} "
+            f"offerings marked unavailable, launches {storm}; card {card_line()}")
+        missing = [k for k in (*PACK_KERNELS, "rtt_probe") if storm[k] < 1]
+        if missing:
+            raise AssertionError(f"operator storm: {missing} not launched: {storm}")
+
+        # (c) template drift, cut to OPERATOR_DRIFT_PASSES passes
+        image = provider.rotate_image("al2", "standard")
+        for p in range(OPERATOR_DRIFT_PASSES):
+            name = f"operator drift pass {p}"
+            before_nodes = set(cluster.nodes)
+            row = probe.step(ts, clock_s=30.0)
+            launches = {k: launches[k] + row["launches"][k] for k in launches}
+            problems = hold_operator_step(name, op, row)
+            action = row.get("action")
+            added, removed = set(cluster.nodes) - before_nodes, before_nodes - set(cluster.nodes)
+            if action is None or action.reason != "drift" or len(removed) != 1 or not added:
+                raise AssertionError(f"{name}: action {action and action.reason}, "
+                                     f"{len(removed)} nodes removed, {len(added)} added")
+            for node_name in added:
+                inst = provider.instance_for(cluster.machine_for_node(cluster.nodes[node_name]))
+                if inst.image_id != image or not inst.launch_template.startswith(NAME_PREFIX):
+                    raise AssertionError(f"{name}: the replacement runs {inst.image_id} from "
+                                         f"{inst.launch_template!r}, not {image}")
+            log(step_line(name, row, problems) + f"; {fleet_line(op)}")
+        log(f"operator drift: image {image}, {OPERATOR_DRIFT_PASSES} nodes replaced; "
+            f"card {card_line()}")
+    finally:
+        op.close()
+    log(f"operator launches {launches}")
+    hold_pack_launches("operator", launches)
+    del op, cluster, provider, probe, oracle
+    entrypoint_check()
+    return dict(launches=launches, errs=errs)
+
+
+def entrypoint_check() -> None:
+    """``python -m karpenter_tpu_torch`` on the card in a subprocess, with a
+    file lease under ``build/``: its probes must answer, ``/metrics`` must
+    parse and carry the kernel board's gauge and no reconcile error, and
+    SIGTERM must stop it with exit code 0 and the lease released."""
+    import os
+    import signal
+    import socket
+    import urllib.error
+    import urllib.request
+
+    root = Path(__file__).resolve().parent
+    lease = root / "build" / "operator_lease"
+    lease.parent.mkdir(parents=True, exist_ok=True)
+    for stale in (lease, lease.with_name(lease.name + ".lock")):
+        stale.unlink(missing_ok=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+
+    def get(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=5) as r:
+            return r.status, r.read().decode()
+
+    env = dict(os.environ, PYTHONPATH=str(root))
+    err_path = lease.with_name("operator_stderr.log")
+    err = open(err_path, "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "karpenter_tpu_torch", "--metrics-port", str(port),
+         "--metrics-bind", "127.0.0.1", "--leader-elect", "--leader-elect-lease", str(lease),
+         "--tick", "0.05"],
+        cwd=root, env=env, stdout=subprocess.DEVNULL, stderr=err,
+    )
+
+    def stderr_tail() -> str:
+        err.flush()
+        return err_path.read_text()[-2000:]
+
+    try:
+        while True:
+            try:
+                if all(get(p)[0] == 200 for p in ("/healthz", "/readyz", "/leaderz")):
+                    break
+            except (urllib.error.URLError, ConnectionError, OSError):
+                pass
+            if proc.poll() is not None:
+                raise AssertionError(f"entry point exited {proc.returncode} before it was "
+                                     f"ready: {stderr_tail()}")
+            if time.perf_counter() - t0 > ENTRYPOINT_READY_S:
+                raise AssertionError("entry point: no answer to its probes")
+            time.sleep(0.1)
+        ready_s = time.perf_counter() - t0
+        body = get("/metrics")[1]
+        series = {}
+        for line in body.splitlines():
+            if line and not line.startswith("#"):
+                key, value = line.rsplit(" ", 1)
+                series[key] = float(value)
+        if not series or not all(k.startswith("karpenter_") for k in series):
+            raise AssertionError("entry point: /metrics holds no karpenter_ series")
+        if series.get("karpenter_tpu_kernel_backend_health") != 1.0:
+            raise AssertionError("entry point: the kernel board's gauge is missing or unhealthy")
+        errors = {k: v for k, v in series.items()
+                  if k.startswith("karpenter_tpu_controller_reconcile_errors_total") and v}
+        if errors:
+            raise AssertionError(f"entry point: loops recorded errors: {errors}")
+        if not lease.exists():
+            raise AssertionError("entry point: leader, but no lease file")
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=ENTRYPOINT_EXIT_S)
+        exit_s = time.perf_counter() - t1
+        if rc != 0:
+            raise AssertionError(f"entry point: exit code {rc} after SIGTERM: {stderr_tail()}")
+        if lease.exists():
+            raise AssertionError("entry point: the lease was not released")
+        log(f"entry point: ready in {ready_s:.2f} s, {len(series)} series on /metrics, exit 0 "
+            f"{exit_s:.2f} s after SIGTERM; card {card_line()}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err.close()
+
+
 def load_tree(root: Path, tag: str):
     """Another checkout's ``torch_solver`` module and kernel library, built
     from its own sources by its own ``_build`` (into its own ``build/``),
@@ -2557,14 +3000,18 @@ def main() -> int:
     controller_errs = controller_round(ts, configs)
     sharded = controller_sharded(ts, st, configs)
     consolidated = consolidation(ts, configs)
+    operated = operator_phase(ts, configs)
     for entry in kernels:
         entry["max_abs_err"] = max(entry["max_abs_err"], controller_errs.get(entry["name"], 0.0),
-                                   consolidated["errs"].get(entry["name"], 0.0))
+                                   consolidated["errs"].get(entry["name"], 0.0),
+                                   operated["errs"].get(entry["name"], 0.0))
     for entry in kernels:
         # the main path: the flat race, the fleet race, the sharded
-        # controller's rounds and the deprovisioning passes, each counted alone
+        # controller's rounds, the deprovisioning passes and the operator's
+        # steps, each counted alone
         entry["launches"] = (flat[entry["name"]] + fleet[entry["name"]] + sharded[entry["name"]]
-                             + consolidated["launches"][entry["name"]])
+                             + consolidated["launches"][entry["name"]]
+                             + operated["launches"][entry["name"]])
         if entry["name"] == "pack_member":
             entry["max_abs_err"] = max(entry["max_abs_err"], k2_err)
         if entry["launches"] < 1:

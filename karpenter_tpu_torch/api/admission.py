@@ -111,17 +111,13 @@ def validate_provisioner(p: Provisioner) -> None:
         raise AdmissionError("Provisioner", p.meta.name or "<unnamed>", errs)
 
 
-#: the image families ``cloudprovider/imagefamily.py`` defines (its
-#: ``FAMILIES`` keys); the port has no image resolver yet, so admission
-#: keeps the names alone
-FAMILIES = ("al2", "bottlerocket", "custom", "ubuntu")
-
-
 def validate_node_template(nt: NodeTemplate) -> None:
     errs: List[str] = []
     if not nt.meta.name:
         errs.append("metadata.name must not be empty")
     if nt.image_family and nt.image_family != "default":
+        from ..cloudprovider.imagefamily import FAMILIES
+
         if nt.image_family not in FAMILIES:
             errs.append(
                 f"spec.imageFamily: unknown family {nt.image_family!r}"

@@ -225,12 +225,11 @@ class FakeCloudProvider(WindowedBatchers, CloudProvider):
     @property
     def launch_template_provider(self):
         if self._lt_provider is None:
-            # launch templates and image families come with the node-template
-            # controller (ROADMAP.md, Queue 1 item 6)
-            raise NotImplementedError(
-                "launch templates are not ported yet: a machine that "
-                "references a node template needs cloudprovider/launchtemplate.py "
-                "and imagefamily.py (ROADMAP.md, Queue 1 item 6)"
+            from .imagefamily import ImageResolver
+            from .launchtemplate import LaunchTemplateProvider
+
+            self._lt_provider = LaunchTemplateProvider(
+                store=self, resolver=ImageResolver(self)
             )
         return self._lt_provider
 

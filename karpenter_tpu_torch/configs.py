@@ -303,6 +303,86 @@ def config_controller_reconcile(n_pods: int = 50_000, n_types: int = 400):
     return cluster, provider, settings, churn_round
 
 
+#: the operator phase's node template (``config_operator``): family ``al2``
+#: over the fake provider's discovery-tagged subnets and security groups
+OPERATOR_TEMPLATE = "al2-tpl"
+
+
+def _operator_cluster(n_pods: int):
+    """The cluster of ``config_operator``: ``config_controller_reconcile``'s
+    pending pods, owned by ReplicaSets (a drained pod then re-pends, where an
+    unowned one would be deleted), one provisioner allowing spot and
+    on-demand through the node template, and the template itself."""
+    from .api.objects import NodeTemplate
+    from .api.requirements import Requirement, Requirements
+    from .state.cluster import Cluster
+
+    n_deploys = 30
+    cluster = Cluster()
+    cluster.add_node_template(NodeTemplate(
+        meta=ObjectMeta(name=OPERATOR_TEMPLATE), image_family="al2",
+        subnet_selector={"karpenter.tpu/discovery": "cluster"},
+        security_group_selector={"karpenter.tpu/discovery": "cluster"},
+    ))
+    cluster.add_provisioner(Provisioner(
+        meta=ObjectMeta(name="default"),
+        requirements=Requirements([Requirement.in_values(
+            wk.CAPACITY_TYPE, [wk.CAPACITY_TYPE_SPOT, wk.CAPACITY_TYPE_ON_DEMAND])]),
+        node_template_ref=OPERATOR_TEMPLATE,
+    ))
+    per = n_pods // n_deploys + 1
+    names = [(f"d{shape}-{i}", shape) for shape in range(n_deploys) for i in range(per)][:n_pods]
+    for name, shape in names:
+        cluster.add_pod(Pod(meta=ObjectMeta(name=name, owner_kind="ReplicaSet"),
+                            requests=_cell_requests(shape)))
+    return cluster
+
+
+def config_operator(n_pods: int = 50_000, n_types: int = 400):
+    """``config_controller_reconcile``'s cluster at the same size, for the
+    operator (``Operator.new(provider, settings, cluster=cluster,
+    clock=clock)`` then ``op.step()``), with these changes: the pods are
+    owned by ReplicaSets; the provisioner allows spot and on-demand and
+    references the ``NodeTemplate`` ``al2-tpl`` of family ``al2``, with the
+    subnet and security-group selectors of
+    ``tests/test_drift_template_e2e.py``; the provider's subnets hold 2^20
+    IPs a zone; the settings close the batch window and the consolidation
+    and stabilization windows and name an interruption queue, with
+    everything else at its default (the cost ledger on, spot management
+    off).
+
+    Returns ``(cluster, provider, settings, clock)``, ``clock`` a
+    ``FakeClock``."""
+    from .api.settings import Settings
+    from .cloudprovider.fake import FakeCloudProvider
+    from .utils.cache import FakeClock
+
+    cluster = _operator_cluster(n_pods)
+    provider = FakeCloudProvider(catalog=generate_catalog(n_types=n_types))
+    for subnet in provider.subnets:
+        subnet.available_ips = 1 << 20
+    settings = Settings(batch_idle_duration=0, batch_max_duration=0,
+                        consolidation_validation_ttl=0, stabilization_window=0,
+                        interruption_queue_name="karpenter-tpu")
+    return cluster, provider, settings, FakeClock(start=100_000.0)
+
+
+def config_operator_seed(n_pods: int = 50_000, n_types: int = 400):
+    """The operator's seed round on ``config_operator(n_pods, n_types)``:
+    ``(pods, provisioners, existing)``, the pending pods in the cluster's
+    order, ``[(provisioner, the fake provider's instance types)]`` and no
+    existing nodes, as the provisioning controller hands them to
+    ``solve_pods``: a fresh provider (no offering is marked unavailable)
+    whose prices took the operator's first refresh (its pricing loop runs
+    before provisioning in the first ``step``)."""
+    from .cloudprovider.pricing import PricingController
+
+    cluster, provider, _, clock = config_operator(n_pods, n_types)
+    PricingController(provider.pricing, clock=clock).reconcile()
+    provs = [(p, provider.get_instance_types(p)) for p in cluster.provisioners.values()]
+    return cluster.pending_pods(), provs, []
+
+
 def config_controller_cells(n_pods: int = 500_000, n_cells: int = 20, n_types: int = 60,
                             n_deploys: int = 12):
     """``config_cells`` as a cluster, for the sharded provisioning
@@ -540,7 +620,10 @@ CONTROLLER_CHURN_MODES = ("delta",) * DELTA_ROUNDS
 #: seed-round problem on ``config_controller_reconcile()`` (its pending
 #: pods, the fake provider's instance types, no existing nodes);
 #: ``consolidation_20k`` is ``config_consolidation_sim()``, the first
-#: what-if of a deprovisioning pass on ``config_consolidation()``.
+#: what-if of a deprovisioning pass on ``config_consolidation()``;
+#: ``operator_seed`` is ``config_operator_seed()``, the operator's seed
+#: round on ``config_operator()`` (a different problem from
+#: ``controller_seed``: spot offerings and the first price refresh).
 REFERENCE_COSTS = {
     "50k_full": 1017.0072868143582,
     "10k_topology": 59.197231399244934,
@@ -553,4 +636,5 @@ REFERENCE_COSTS = {
     "delta_r8": 851.7806135309604,
     "controller_seed": 843.6097242015434,
     "consolidation_20k": 55.288573398301494,
+    "operator_seed": 705.7113230000035,
 }

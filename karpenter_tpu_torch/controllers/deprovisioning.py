@@ -88,9 +88,7 @@ class DeprovisioningController:
         self.recorder = recorder or Recorder()
         self.clock = clock or Clock()
         # cost-ledger hook (operator wiring): every EXECUTED action reports
-        # its $/hr savings so consolidation ROI is a realized stream. The
-        # port has no cost ledger yet (ROADMAP.md Queue 1 item 9), so it
-        # stays None, the reference's default.
+        # its $/hr savings so consolidation ROI is a realized stream
         self.costs = None
         # risk-priced objective: consolidation what-ifs must price spot risk
         # the same way provisioning does, or the sweep would "save" money by

@@ -705,7 +705,10 @@ class KernelBreakerBoard:
     has passed; the next dispatch is then the half-open probe. The port
     builds one kernel library per source hash, not one executable per
     bucket, so there is nothing to evict: quarantine only blocks the label.
-    ``failures`` counts the evidence by kind.
+    ``failures`` counts the evidence by kind, as
+    ``karpenter_tpu_kernel_faults_total{kind}`` does; the health gauge
+    (``karpenter_tpu_kernel_backend_health``) is the fraction of consulted
+    buckets currently closed.
 
     Process-global: bucket evidence from any solver indicts the bucket, the
     sharded round's per-cell clones booking it from several threads; the
@@ -736,6 +739,7 @@ class KernelBreakerBoard:
                 recovery_timeout_s if recovery_timeout_s is not None else self.recovery_timeout_s,
                 clock if clock is not None else self._clock,
             )
+        self._publish()
 
     def reset(self) -> None:
         self.configure()
@@ -743,7 +747,9 @@ class KernelBreakerBoard:
     def allows(self, label: str) -> bool:
         """True when the bucket may dispatch: breaker closed, or half-open
         (the dispatch is the probe)."""
-        return self._set.get(label).state != "open"
+        allowed = self._set.get(label).state != "open"
+        self._publish()
+        return allowed
 
     def state(self, label: str) -> str:
         return self._set.get(label).state
@@ -757,12 +763,30 @@ class KernelBreakerBoard:
         breaker = self._set.get(label)
         if breaker.state != "open":
             breaker.record_success()
+        self._publish()
 
     def fail(self, label: str, kind: str) -> None:
         """Device-path failure evidence of one ``kind``."""
+        metrics.KERNEL_FAULTS.inc({"kind": kind})
         with self._lock:
             self.failures[kind] = self.failures.get(kind, 0) + 1
         self._set.get(label).record_failure()
+        self._publish()
+
+    def health(self) -> float:
+        """Fraction of consulted buckets whose breaker is closed (1.0 when
+        nothing has ever been consulted — a healthy idle backend)."""
+        breakers = self._set.breakers()
+        if not breakers:
+            return 1.0
+        closed = sum(1 for b in breakers.values() if b.state == "closed")
+        return closed / len(breakers)
+
+    def states(self) -> dict:
+        return {label: b.state for label, b in self._set.breakers().items()}
+
+    def _publish(self) -> None:
+        metrics.KERNEL_BACKEND_HEALTH.set(self.health())
 
 
 #: process-wide board

@@ -36,6 +36,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import metrics
 from . import torch_solver as ts
 
 
@@ -207,6 +208,7 @@ class DeviceStager:
                 # contact: residency for this tag starts over
                 if entry is not None:
                     self.stats["invalidates"] += 1
+                    metrics.DEVICE_STAGING.inc({"event": "invalidate"})
                 entry = _Entry()
                 fresh = True
             out: Dict[str, torch.Tensor] = {}
@@ -253,7 +255,11 @@ class DeviceStager:
             round_info["bytes_total"] = bytes_total
             round_info["bytes_transferred"] = bytes_moved
             self.last_round = round_info
-            return out
+        if hits:
+            metrics.DEVICE_STAGING.inc({"event": "hit"}, hits)
+        if restages:
+            metrics.DEVICE_STAGING.inc({"event": "restage"}, restages)
+        return out
 
     def _patch(self, old_dev: torch.Tensor, old_host: np.ndarray, new: np.ndarray
                ) -> Optional[Tuple[torch.Tensor, int]]:
@@ -294,12 +300,15 @@ class DeviceStager:
             _, evicted = self._entries.popitem(last=False)
             total -= evicted.nbytes
             self.stats["evicts"] += 1
+            metrics.DEVICE_STAGING.inc({"event": "evict"})
 
     def invalidate(self) -> None:
         """Drop all residency (a settings change, an explicit cache clear)."""
         with self._lock:
             self._wait_fence()
-            self.stats["invalidates"] += len(self._entries)
+            if self._entries:
+                self.stats["invalidates"] += len(self._entries)
+                metrics.DEVICE_STAGING.inc({"event": "invalidate"}, len(self._entries))
             self._entries.clear()
 
     def resident_bytes(self) -> int:

@@ -1,5 +1,5 @@
 """Utilities of the port: copies of the parts of ``karpenter_tpu/utils``
-that the solver and the provisioning controller need."""
+that the solver, the controllers and the operator need."""
 from .batcher import Batcher, BatcherOptions
 from .cache import (
     DEFAULT_TTL,

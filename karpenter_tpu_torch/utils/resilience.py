@@ -220,6 +220,12 @@ class BreakerSet:
                 )
             return b
 
+    def breakers(self) -> Dict[str, CircuitBreaker]:
+        """Snapshot of the lazily-created per-endpoint breakers — the
+        kernel-backend health score aggregates their states."""
+        with self._lock:
+            return dict(self._breakers)
+
 
 def retry_policy_from_settings(settings) -> RetryPolicy:
     """Build the shared policy from operator settings (api/settings.py)."""

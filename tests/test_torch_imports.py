@@ -33,8 +33,15 @@ def imported_modules(source: str):
 def test_scan_sees_the_whole_port():
     assert "karpenter_tpu_torch/solver/torch_solver.py" in PORT_FILES
     assert "karpenter_tpu_torch/controllers/provisioning.py" in PORT_FILES
-    for name in ("deprovisioning", "drift", "garbagecollect"):
+    for name in ("deprovisioning", "drift", "garbagecollect", "interruption", "nodetemplate",
+                 "metricsscraper/__init__", "metricsscraper/node", "metricsscraper/pod",
+                 "metricsscraper/provisioner"):
         assert f"karpenter_tpu_torch/controllers/{name}.py" in PORT_FILES
+    for name in ("operator", "__main__", "context", "cloudprovider/imagefamily",
+                 "cloudprovider/launchtemplate", "utils/riskcache", "utils/costledger",
+                 "utils/runtimehealth", "utils/gctuning", "utils/leaderelection",
+                 "utils/httpserver"):
+        assert f"karpenter_tpu_torch/{name}.py" in PORT_FILES
     assert len(PORT_FILES) >= 18
 
 
@@ -55,6 +62,8 @@ def test_importing_the_port_loads_no_jax():
         "import karpenter_tpu_torch, karpenter_tpu_torch.api, karpenter_tpu_torch.cloudprovider\n"
         "import karpenter_tpu_torch.solver, karpenter_tpu_torch.solver._build, karpenter_tpu_torch.configs\n"
         "import karpenter_tpu_torch.controllers, karpenter_tpu_torch.state, karpenter_tpu_torch.utils\n"
+        "import karpenter_tpu_torch.operator, karpenter_tpu_torch.__main__, karpenter_tpu_torch.context\n"
+        "import karpenter_tpu_torch.utils.httpserver, karpenter_tpu_torch.utils.leaderelection\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'karpenter_tpu')"
         " or m.startswith(('jax.', 'karpenter_tpu.')))\n"
         "print(','.join(bad))\n"

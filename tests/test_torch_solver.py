@@ -252,6 +252,15 @@ def _controller_seed():
     return cluster.pending_pods(), provs, cluster.existing_capacity(), cluster.daemonsets()
 
 
+def _operator_seed():
+    """The operator's seed-round problem on ``configs.config_operator``,
+    rebuilt with the JAX package's cluster, fake provider and price
+    refresh."""
+    from test_torch_operator import REF, operator_seed
+
+    return operator_seed(REF)
+
+
 def _consolidation_sim():
     """The first what-if of a deprovisioning pass on
     ``configs.config_consolidation()``, rebuilt with the JAX package's
@@ -281,6 +290,7 @@ def _consolidation_sim():
     ("delta_r8", _delta_after_rounds),
     ("controller_seed", _controller_seed),
     ("consolidation_20k", _consolidation_sim),
+    ("operator_seed", _operator_seed),
 ])
 def test_reference_costs_are_pinned(name, make):
     """The constants chip_smoke.py holds the card's answers to are what the

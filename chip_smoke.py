@@ -135,7 +135,20 @@ this, DIR, with the chain and each of its kernels (``compare``). Phases:
     on the new image; then ``python -m karpenter_tpu_torch`` in a
     subprocess on the card, which must answer its probes, serve /metrics
     and exit 0 on SIGTERM with its lease released (``operator_phase``);
-16. one JSON line of kernel results, the card's name and power limit, and
+16. replay (main path): the flight recorder runs at its default (on, 32
+    capsules) through phases 12-15, and every controller round and
+    operator step logs its capture seconds beside its wall. Five capsules
+    those phases recorded (``REPLAYS``: controller_50k's seed round and
+    churn round 0, the operator's first storm step, the sharded worker
+    check at 1 worker, consolidation_300's pass 0) are replayed by
+    ``replay_capsule(capsule, solver="torch-quality")`` on the card after
+    a JSON round trip, and must match (``replay_phase``, which names the
+    one divergence it allows); K1, K2 and K3 are held against their plain
+    versions on the seed round's rebuilt problem; then
+    ``python -m karpenter_tpu_torch.replay`` runs in a subprocess on the
+    seed round's dump and, as a counterfactual, on the storm step's with
+    its masked offering made available; both must exit 0;
+17. one JSON line of kernel results, the card's name and power limit, and
     the device JSON as the last line.
 
 Before any encode, the native encoder (``karpenter_tpu_torch/native``)
@@ -149,6 +162,7 @@ from __future__ import annotations
 import contextlib
 import importlib
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -637,7 +651,6 @@ def sass_counts(lib, parts) -> dict:
     """Instructions of each kernel in ``parts`` (summed over its instances)
     in the built library, from ``cuobjdump -sass``; empty without the tool."""
     import re
-    import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
@@ -1340,6 +1353,54 @@ def moved_since(ts, before) -> dict:
     return {k: ts.LAUNCHES[k] - before[k] for k in before}
 
 
+#: the capsules the replay phase replays, kept by the phases that record
+#: them (``keep_capsule``): tag -> capsule; and the disk dumps of those the
+#: replay CLI reads, tag -> path
+CAPSULES: dict = {}
+CAPSULE_PATHS: dict = {}
+CAPSULE_DIR = Path(__file__).resolve().parent / "build" / "capsules"
+
+
+def capture_s() -> float:
+    """Seconds the flight recorder has spent capturing rounds' inputs in
+    this process (``FLIGHTRECORDER_CAPTURE``'s sum): a round's capture is
+    the difference across it."""
+    from karpenter_tpu_torch.utils import metrics
+
+    return metrics.FLIGHTRECORDER_CAPTURE.sum()
+
+
+def peak_rss_gib() -> float:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # KiB on Linux
+
+
+def capture_note(spent: float, wall: float) -> str:
+    return f"capture {spent:.4f} s ({100.0 * spent / wall:.2f}% of the wall)"
+
+
+def keep_capsule(tag: str, controller: str, since=None, dump: bool = False) -> None:
+    """Keep the newest ``controller`` capsule of ``FLIGHT`` for the replay
+    phase (the ring evicts it long before that phase runs); ``since`` is the
+    newest one before the round, which must not be it. ``dump`` writes it to
+    ``CAPSULE_DIR`` with ``FLIGHT.dump`` too, for the replay CLI."""
+    from karpenter_tpu_torch.utils.flightrecorder import FLIGHT
+
+    capsule = FLIGHT.latest(controller)
+    if capsule is None or capsule is since:
+        raise AssertionError(f"capsule ({tag}): the round recorded no {controller} capsule")
+    CAPSULES[tag] = capsule
+    pods = len(capsule["inputs"]["objects"]["pods"])
+    note = f"capsule ({tag}): {capsule['id']}, {pods} pods, anomalies {capsule['anomalies']}"
+    if dump:
+        t0 = time.perf_counter()
+        CAPSULE_PATHS[tag] = FLIGHT.dump(capsule["id"], str(CAPSULE_DIR))
+        note += (f", dumped in {time.perf_counter() - t0:.2f} s to {CAPSULE_PATHS[tag]} "
+                 f"({Path(CAPSULE_PATHS[tag]).stat().st_size} bytes)")
+    log(note)
+
+
 def hold_pack_launches(phase, launches) -> None:
     if min(launches[k] for k in PACK_KERNELS) < 1:
         raise AssertionError(f"{phase}: K1, K2 and K3 did not all launch: {launches}")
@@ -1594,6 +1655,7 @@ def controller_round(ts, configs) -> dict:
     from karpenter_tpu_torch.controllers import ProvisioningController
     from karpenter_tpu_torch.solver import TorchSolver, _build, encode, validate
     from karpenter_tpu_torch.solver.solver import KERNEL_BOARD
+    from karpenter_tpu_torch.utils.flightrecorder import FLIGHT
 
     KERNEL_BOARD.reset()
     TorchSolver._device_rtt_s = None
@@ -1640,13 +1702,19 @@ def controller_round(ts, configs) -> dict:
         spent.update(launch=0.0, bind=0.0, alternatives=0.0)
         pending = len(cluster.pending_pods())
         before = dict(ts.LAUNCHES)
+        c0, last = capture_s(), FLIGHT.latest("provisioning")
         t0 = time.perf_counter()
         with gc_seconds() as gc_s:
             result = ctl.reconcile()
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        captured = capture_s() - c0
         moved = moved_since(ts, before)
         launches = {k: launches[k] + moved[k] for k in launches}
+        if rnd in ("seed", 0):
+            # the replay phase's capsules (a) and (b); (a) is dumped for the CLI
+            keep_capsule("a" if rnd == "seed" else "b", "provisioning", since=last,
+                         dump=rnd == "seed")
         # binding: every pending pod bound, within its node's allocatable
         if result.unschedulable or cluster.pending_pods() or len(result.bound) != pending:
             raise AssertionError(f"{name}: {len(result.bound)} of {pending} pods bound, "
@@ -1690,8 +1758,9 @@ def controller_round(ts, configs) -> dict:
             f"{len(result.nodes)} nodes launched, {len(result.bound)} pods bound, E={problem.E} "
             f"({len(cluster.nodes)} nodes in the cluster), backend {st['backend']} (kernel "
             f"{'lost' if lost else 'won' if st.get('race_winner') else 'not raced'}), chain "
-            f"device {st.get('dispatch_device_ms')} ms, garbage collection {gc_s[0]:.4f} s, cost "
-            f"{solved.cost!r} (kernel-only {kernel.cost!r}), launches {moved}")
+            f"device {st.get('dispatch_device_ms')} ms, garbage collection {gc_s[0]:.4f} s, "
+            f"{capture_note(captured, wall)}, cost {solved.cost!r} (kernel-only {kernel.cost!r}), "
+            f"launches {moved}")
     solver.solve_pods, prov_mod.rejected_alternatives = solve_pods, alternatives
     log(f"controller_round launches {launches}; card {card_line()}")
     hold_pack_launches("controller_round", launches)
@@ -1827,11 +1896,13 @@ def sharded_round(ts, st, ctl, probe, solver_mod, name):
     pending = len(cluster.pending_pods())
     probe.reset()
     before = dict(ts.LAUNCHES)
+    c0 = capture_s()
     t0 = time.perf_counter()
     with recording(solver_mod) as (stacks, fleets), gc_seconds() as gc_s:
         result = ctl.reconcile()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    captured = capture_s() - c0
     moved = moved_since(ts, before)
     if result.unschedulable or cluster.pending_pods() or len(result.bound) != pending:
         raise AssertionError(f"{name}: {len(result.bound)} of {pending} pods bound, "
@@ -1881,7 +1952,8 @@ def sharded_round(ts, st, ctl, probe, solver_mod, name):
         f"decision record {records}, fleet widths {facts['widths']}, buffer copies {copies}, "
         f"modes {sorted(set(m for _, m in facts['modes']))}, worker threads "
         f"{len(facts['threads'])}, full encodes for the digest check {full_s:.4f} s, garbage "
-        f"collection {gc_s[0]:.4f} s, costs {min(facts['costs'], default=0.0)!r}-"
+        f"collection {gc_s[0]:.4f} s, {capture_note(captured, wall)}, costs "
+        f"{min(facts['costs'], default=0.0)!r}-"
         f"{max(facts['costs'], default=0.0)!r}, launches {moved}; card {card_line()}")
     return facts
 
@@ -1976,6 +2048,8 @@ def controller_sharded(ts, st, configs) -> dict:
         try:
             twins[workers] = sharded_round(ts, st, ctl, probe, solver_mod,
                                            f"worker check, {workers} worker(s)")
+            if workers == 1:
+                keep_capsule("d", "provisioning")  # the replay phase's capsule (d)
         finally:
             probe.close()
         del ctl, cluster, provider
@@ -1991,6 +2065,7 @@ def controller_sharded(ts, st, configs) -> dict:
         raise AssertionError(f"worker check: no fleet dispatched: {one['stats']}")
     log(f"worker check: equal digests, launches {one['moved']}, fleet widths {one['widths']}; "
         f"costs at 1 worker {one['costs']}, at 8 {eight['costs']}")
+    log(f"controller_sharded: peak RSS {peak_rss_gib():.2f} GiB")
     return launches
 
 
@@ -2163,7 +2238,7 @@ def hold_pass(ts, name, probe, launched) -> dict:
     )
 
 
-def consolidation_passes(ts, name, env, probe, max_passes, until=None, first=None):
+def consolidation_passes(ts, name, env, probe, max_passes, until=None, first=None, keep=None):
     """``bench.bench_consolidation``'s loop, pass by pass: ``deprov.reconcile()``,
     ``prov_ctl.reconcile()``, ``term.reconcile()``, then the clock steps 30 s.
     Each pass must leave every pod bound within its node's allocatable, the
@@ -2171,9 +2246,12 @@ def consolidation_passes(ts, name, env, probe, max_passes, until=None, first=Non
     is held by ``hold_pass`` and logged. The loop ends after ``max_passes``,
     when ``until()`` holds, or (without ``until``) on a pass that neither
     acted nor parked a plan. ``first(probe)`` runs after the first pass,
-    outside the launch counts. Returns the launches of the passes and how
-    many passes ran."""
+    outside the launch counts. ``keep`` names the replay phase's capsule
+    that the first pass's deprovisioning capsule becomes. Returns the
+    launches of the passes and how many passes ran."""
     import torch
+
+    from karpenter_tpu_torch.utils.flightrecorder import FLIGHT
 
     cluster, deprov = env["cluster"], env["deprov"]
     launches = {k: 0 for k in ts.LAUNCHES}
@@ -2188,6 +2266,7 @@ def consolidation_passes(ts, name, env, probe, max_passes, until=None, first=Non
         scan_ms = (time.perf_counter() - t0) * 1e3
         probe.reset()
         before = dict(ts.LAUNCHES)
+        c0, last = capture_s(), FLIGHT.latest("deprovisioning")
         t0 = time.perf_counter()
         with gc_seconds() as gc_s:
             action = deprov.reconcile()
@@ -2195,7 +2274,10 @@ def consolidation_passes(ts, name, env, probe, max_passes, until=None, first=Non
             env["term"].reconcile()
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        captured = capture_s() - c0
         moved = moved_since(ts, before)
+        if keep is not None and i == 0:
+            keep_capsule(keep, "deprovisioning", since=last)
         launches = {k: launches[k] + moved[k] for k in launches}
         env["clock"].step(30)
         unbound = [p.name for p in cluster.pods.values() if p.node_name is None]
@@ -2221,7 +2303,8 @@ def consolidation_passes(ts, name, env, probe, max_passes, until=None, first=Non
                           f"savings {action.savings!r}" if action is not None else "none")
             + f", nodes {nodes_before} -> {len(cluster.nodes)}, $/h {price_before!r} -> {price!r}, "
             f"launches {moved}, restages held {probe.restages} ({probe.patched} leaves, "
-            f"{probe.restaged_rows} rows), garbage collection {gc_s[0]:.4f} s, one pods_on_node "
+            f"{probe.restaged_rows} rows), garbage collection {gc_s[0]:.4f} s, "
+            f"{capture_note(captured, wall)}, one pods_on_node "
             f"scan {scan_ms:.3f} ms, {threading.active_count()} threads; card {card_line()}")
         if first is not None and i == 0:
             first(probe)
@@ -2330,7 +2413,8 @@ def consolidation(ts, configs) -> dict:
     probe = ConsolidationProbe(ts, deprov)
     try:
         start = fleet_price(deprov, cluster)
-        moved, ran = consolidation_passes(ts, "consolidation bench", env, probe, passes)
+        moved, ran = consolidation_passes(ts, "consolidation bench", env, probe, passes,
+                                          keep="e")
         launches = {k: launches[k] + moved[k] for k in launches}
         end = fleet_price(deprov, cluster)
         if end >= start or deprov.pending_action is not None:
@@ -2462,11 +2546,12 @@ class OperatorProbe:
         self.calls.clear()
         self.row = {}
         before = dict(ts.LAUNCHES)
+        c0 = capture_s()
         t0 = time.perf_counter()
         self.op.step()
         torch.cuda.synchronize()
         row = dict(self.row, wall=time.perf_counter() - t0, launches=moved_since(ts, before),
-                   calls=list(self.calls))
+                   calls=list(self.calls), capture_s=capture_s() - c0)
         if clock_s:
             self.op.clock.step(clock_s)
         return row
@@ -2531,7 +2616,8 @@ def step_line(name, row, problems) -> str:
             f"provisioning {row.get('prov_s', 0.0):.4f} s ({'; '.join(solves) or 'no solve'}), "
             f"deprovisioning {row.get('deprov_s', 0.0):.4f} s "
             f"({row['action'].reason if row.get('action') else 'no action'}), cost ledger "
-            f"{row.get('ledger_s', 0.0):.4f} s, launches {row['launches']}")
+            f"{row.get('ledger_s', 0.0):.4f} s, {capture_note(row['capture_s'], row['wall'])}, "
+            f"launches {row['launches']}")
 
 
 def operator_phase(ts, configs) -> dict:
@@ -2575,6 +2661,7 @@ def operator_phase(ts, configs) -> dict:
     from karpenter_tpu_torch.operator import Operator
     from karpenter_tpu_torch.solver import TorchSolver, encode, validate
     from karpenter_tpu_torch.solver.solver import KERNEL_BOARD, problem_digest
+    from karpenter_tpu_torch.utils.flightrecorder import FLIGHT
 
     KERNEL_BOARD.reset()
     TorchSolver._device_rtt_s = None
@@ -2668,9 +2755,13 @@ def operator_phase(ts, configs) -> dict:
             steps += 1
             name = f"operator storm step {steps}"
             before_nodes = set(cluster.nodes)
+            last = FLIGHT.latest("provisioning")
             row = probe.step(ts, clock_s=5.0)
             storm = {k: storm[k] + row["launches"][k] for k in storm}
             problems = hold_operator_step(name, op, row)
+            if steps == 1:
+                # the replay phase's capsule (c), dumped for the CLI's counterfactual
+                keep_capsule("c", "provisioning", since=last, dump=True)
             for node_name in set(cluster.nodes) - before_nodes:
                 node = cluster.nodes[node_name]
                 pool = (node.instance_type(), node.zone(), node.meta.labels[wk.CAPACITY_TYPE])
@@ -2808,6 +2899,177 @@ def entrypoint_check() -> None:
         err.close()
 
 
+#: the replay phase's capsules, kept by the phases that record them:
+#: (tag, what, controller kind)
+REPLAYS = (
+    ("a", "controller_50k seed round", "provisioning"),
+    ("b", "controller_50k churn round 0", "provisioning"),
+    ("c", "operator storm step 1", "provisioning"),
+    ("d", "controller_cells worker check, 1 worker", "provisioning"),
+    ("e", "consolidation_300 pass 0", "deprovisioning"),
+)
+REPLAY_CLI_S = 900.0
+
+
+def replay_solves(solves) -> str:
+    """The ``TorchSolver.solve`` calls of a replay: each one's pods, E,
+    budget, backend and race verdict (``race_winner``), or beyond eight
+    solves their count by budget, backend and verdict."""
+    from collections import Counter
+
+    rows = []
+    for problem, result, budget in solves:
+        st = result.stats
+        verdict = ("kernel won" if st.get("race_winner") else
+                   "kernel lost" if problem.__dict__.get("_race_kernel_lost") else "not raced")
+        rows.append((int(problem.count.sum()), problem.E, budget, st.get("backend"),
+                     st.get("race_winner"), verdict))
+    if len(rows) > 8:
+        counts = Counter(r[2:] for r in rows)
+        return (f"{len(rows)} solves of {min(r[0] for r in rows)}-{max(r[0] for r in rows)} pods: "
+                + ", ".join(f"{n} at budget {b} s, backend {be}, race_winner {w} ({v})"
+                            for (b, be, w, v), n in sorted(counts.items(), key=str)))
+    return "; ".join(f"{p} pods at E={e}, budget {b} s, backend {be}, race_winner {w} ({v})"
+                     for p, e, b, be, w, v in rows) or "no TorchSolver solve"
+
+
+def replay_cli(tag, *args) -> str:
+    """``python -m karpenter_tpu_torch.replay`` on capsule ``tag``'s dump in
+    a subprocess on the card: it must exit 0. Returns its summary."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "karpenter_tpu_torch.replay",
+                          CAPSULE_PATHS[tag], *args], cwd=root, capture_output=True,
+                         text=True, timeout=REPLAY_CLI_S)
+    wall = time.perf_counter() - t0
+    summary = "\n".join(out.stdout.strip().splitlines()[:12])
+    if out.returncode != 0:
+        raise AssertionError(f"replay CLI on ({tag}) {list(args)}: exit code {out.returncode}\n"
+                             f"{summary}\n{out.stderr[-3000:]}")
+    log(f"replay CLI on ({tag}) {list(args)}: exit 0 in {wall:.2f} s:\n{summary}")
+    return summary
+
+
+def replay_phase(ts, st) -> dict:
+    """Main path, the offline replay: each capsule an earlier phase recorded
+    on the card (``REPLAYS``; ``keep_capsule``), through a JSON round trip,
+    replayed by ``replay_capsule(capsule, solver="torch-quality")``, the
+    quality-mode ``TorchSolver`` on the card. A provisioning replay must
+    match the record's digests, placements, unschedulable pods and
+    decisions, a deprovisioning replay its action. One divergence is the
+    reference's own and is allowed: a recorded latency-mode round whose
+    host plan its deadline cut short, which the quality replay polishes to
+    a cheaper plan on the same problems (equal digests, lower cost). Such a
+    capsule is replayed again with the solver it names (``TorchSolver``,
+    latency mode), which must match. Each replay's launches are counted
+    alone: K1, K2 and K3 must launch in (a), (c) and (e), a batched chain
+    in (d), whose rows are held against the plain chain. On the largest
+    problem (a)'s replay solved, K1, K2 and K3 are held against their plain
+    versions (``check``). Then the replay CLI in a subprocess on (a)'s dump
+    and a counterfactual on (c)'s, the storm's masked offering made
+    available again; both must exit 0. Returns the launches of the matching
+    replays and the largest differences of the kernel check."""
+    import torch
+
+    from karpenter_tpu_torch.replay import replay_capsule
+    from karpenter_tpu_torch.solver import TorchSolver
+    from karpenter_tpu_torch.solver.solver import KERNEL_BOARD
+
+    solver_mod = importlib.import_module("karpenter_tpu_torch.solver.solver")
+    launches = {k: 0 for k in ts.LAUNCHES}
+    solves, errs, rebuilt = [], {}, None
+    # the offering the storm marked unavailable, for the counterfactual
+    ice = CAPSULES["c"]["inputs"]["ice_entries"]
+    if not ice:
+        raise AssertionError("replay (c): the storm step's capsule names no masked offering")
+    solve = TorchSolver.solve
+
+    def recording_solve(solver, problem):
+        result = solve(solver, problem)
+        solves.append((problem, result, solver.latency_budget_s))
+        return result
+
+    def replay(tag, capsule, solver):
+        KERNEL_BOARD.reset()
+        TorchSolver._device_rtt_s = None
+        solves.clear()
+        before = dict(ts.LAUNCHES)
+        t0 = time.perf_counter()
+        with recording(solver_mod) as (stacks, fleets):
+            report = replay_capsule(json.loads(json.dumps(capsule, default=str)), solver=solver)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        moved = moved_since(ts, before)
+        diffs = {k: v for k, v in report["diffs"].items() if k != "placement_diffs"}
+        rec, rep = report["recorded"].get("cost_delta"), report["replayed"].get("cost_delta")
+        log(f"replay ({tag}) through {solver}: {'MATCH' if report['match'] else 'DIVERGED'} in "
+            f"{wall:.4f} s, diffs {diffs}, "
+            f"{len(report['diffs'].get('placement_diffs', {}))} placements differ, $/h recorded "
+            f"{rec and rec['actual_per_hr']} replayed {rep and rep['actual_per_hr']}, solves "
+            f"[{replay_solves(solves)}], fleet widths {sorted(b.shape[0] for _, b in fleets)}, "
+            f"launches {moved}")
+        return report, moved, stacks, fleets
+
+    TorchSolver.solve = recording_solve
+    try:
+        for tag, what, kind in REPLAYS:
+            capsule = CAPSULES.pop(tag)
+            log(f"replay ({tag}): {what}, capsule {capsule['id']}, "
+                f"{len(capsule['inputs']['objects']['pods'])} pods, "
+                f"{len(capsule['outputs']['problem_digests'])} digests, recorded on "
+                f"{capsule.get('solver')}")
+            report, moved, stacks, fleets = replay(tag, capsule, "torch-quality")
+            if not report["match"]:
+                d = report["diffs"]
+                rec = report["recorded"].get("cost_delta") or {}
+                rep = report["replayed"].get("cost_delta") or {}
+                cut = (kind == "provisioning" and d.get("digests_match")
+                       and rep.get("actual_per_hr", float("inf"))
+                       < rec.get("actual_per_hr", float("-inf")))
+                if not cut:
+                    raise AssertionError(f"replay ({tag}): diverged: {d}")
+                log(f"replay ({tag}): the quality replay found a cheaper plan for the same "
+                    f"problems: the recorded latency round's deadline cut its host plan short; "
+                    f"replaying with the recorded solver")
+                report, moved, stacks, fleets = replay(tag, capsule, capsule.get("solver"))
+                if not report["match"]:
+                    raise AssertionError(f"replay ({tag}): diverged through the recorded "
+                                         f"solver too: {report['diffs']}")
+            d = report["diffs"]
+            if kind == "provisioning":
+                held = ("digests_match", "placements_match", "unschedulable_match",
+                        "decisions_match")
+                if not all(d[k] for k in held):
+                    raise AssertionError(f"replay ({tag}): {d}")
+            elif not d["action_match"]:
+                raise AssertionError(f"replay ({tag}): {d}")
+            launches = {k: launches[k] + moved[k] for k in launches}
+            if tag in ("a", "c", "e"):
+                hold_pack_launches(f"replay ({tag})", moved)
+            if tag == "d":
+                if not fleets:
+                    raise AssertionError(f"replay (d): no batched chain ran: {moved}")
+                errs["pack_member"] = max(errs.get("pack_member", 0.0),
+                                          hold_dispatches(ts, st, "replay (d)", stacks, fleets))
+            if tag == "a":
+                rebuilt = max(solves, key=lambda s: int(s[0].count.sum()))[0]
+            del capsule, report, stacks, fleets
+        solves.clear()
+    finally:
+        TorchSolver.solve = solve
+    c = check(ts, "replay_a", rebuilt, TorchSolver())
+    for k, v in c["errs"].items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    del c, rebuilt
+    log(f"replay launches {launches}; card {card_line()}")
+    replay_cli("a")
+    it, zone, ct = ice[0]
+    summary = replay_cli("c", "--override", f"offerings={it}/{zone}/{ct}=available")
+    if "counterfactual of capsule" not in summary:
+        raise AssertionError(f"replay CLI on (c): not a counterfactual: {summary}")
+    return dict(launches=launches, errs=errs)
+
+
 def load_tree(root: Path, tag: str):
     """Another checkout's ``torch_solver`` module and kernel library, built
     from its own sources by its own ``_build`` (into its own ``build/``),
@@ -2926,6 +3188,8 @@ def main() -> int:
     from karpenter_tpu_torch import configs
     from karpenter_tpu_torch.solver import TorchSolver, encode
     from karpenter_tpu_torch.solver import _build
+
+    shutil.rmtree(CAPSULE_DIR, ignore_errors=True)
     from karpenter_tpu_torch.solver import staging as st
     from karpenter_tpu_torch.solver import torch_solver as ts
 
@@ -3001,17 +3265,21 @@ def main() -> int:
     sharded = controller_sharded(ts, st, configs)
     consolidated = consolidation(ts, configs)
     operated = operator_phase(ts, configs)
+    replayed = replay_phase(ts, st)
+    shutil.rmtree(CAPSULE_DIR, ignore_errors=True)
     for entry in kernels:
         entry["max_abs_err"] = max(entry["max_abs_err"], controller_errs.get(entry["name"], 0.0),
                                    consolidated["errs"].get(entry["name"], 0.0),
-                                   operated["errs"].get(entry["name"], 0.0))
+                                   operated["errs"].get(entry["name"], 0.0),
+                                   replayed["errs"].get(entry["name"], 0.0))
     for entry in kernels:
         # the main path: the flat race, the fleet race, the sharded
-        # controller's rounds, the deprovisioning passes and the operator's
-        # steps, each counted alone
+        # controller's rounds, the deprovisioning passes, the operator's
+        # steps and the replays, each counted alone
         entry["launches"] = (flat[entry["name"]] + fleet[entry["name"]] + sharded[entry["name"]]
                              + consolidated["launches"][entry["name"]]
-                             + operated["launches"][entry["name"]])
+                             + operated["launches"][entry["name"]]
+                             + replayed["launches"][entry["name"]])
         if entry["name"] == "pack_member":
             entry["max_abs_err"] = max(entry["max_abs_err"], k2_err)
         if entry["launches"] < 1:

@@ -109,6 +109,83 @@ class InstanceType:
 
 
 # ---------------------------------------------------------------------------
+# Exact wire codec (flight-recorder capsules, utils/flightrecorder.py)
+#
+# Unlike the DescribeInstanceTypes shape in httpcloud.py — which ships RAW
+# parameters and reconstructs through make_instance_type — this codec is
+# LOSSLESS: the full requirement set, every offering (including the live
+# ``available`` flag, i.e. the ICE-cache mask at capture time), capacity and
+# the three overhead vectors round-trip exactly, so a replayed encode is
+# byte-identical (problem_digest) to the recorded one.
+# ---------------------------------------------------------------------------
+
+def offering_to_wire(o: Offering) -> Dict:
+    out = {
+        "zone": o.zone,
+        "capacityType": o.capacity_type,
+        "price": o.price,
+        "available": o.available,
+    }
+    # sparse: 0.0 (on-demand / risk-disabled) stays off the wire, so capsules
+    # recorded before the risk axis existed decode identically
+    if o.interruption_probability:
+        out["interruptionProbability"] = o.interruption_probability
+    # sparse slice-topology axis: non-slice offerings stay byte-identical on
+    # the wire, and pre-topology capsules decode identically
+    if o.slice_pod:
+        out["slicePod"] = o.slice_pod
+    if o.slice_coord is not None:
+        out["sliceCoord"] = list(o.slice_coord)
+    return out
+
+
+def offering_from_wire(d: Dict) -> Offering:
+    coord = d.get("sliceCoord")
+    return Offering(
+        zone=d["zone"],
+        capacity_type=d["capacityType"],
+        price=d["price"],
+        available=d.get("available", True),
+        interruption_probability=d.get("interruptionProbability", 0.0),
+        slice_pod=d.get("slicePod", ""),
+        slice_coord=tuple(coord) if coord is not None else None,
+    )
+
+
+def instance_type_to_wire(it: InstanceType) -> Dict:
+    from ..api.codec import _reqs_to, _resources_to
+
+    return {
+        "name": it.name,
+        "requirements": _reqs_to(it.requirements),
+        "offerings": [offering_to_wire(o) for o in it.offerings],
+        "capacity": _resources_to(it.capacity),
+        "overhead": {
+            "kubeReserved": _resources_to(it.overhead.kube_reserved),
+            "systemReserved": _resources_to(it.overhead.system_reserved),
+            "evictionThreshold": _resources_to(it.overhead.eviction_threshold),
+        },
+    }
+
+
+def instance_type_from_wire(d: Dict) -> InstanceType:
+    from ..api.codec import _reqs_from, _resources_from
+
+    ov = d.get("overhead", {})
+    return InstanceType(
+        name=d["name"],
+        requirements=_reqs_from(d.get("requirements")),
+        offerings=[offering_from_wire(o) for o in d.get("offerings", [])],
+        capacity=_resources_from(d.get("capacity")),
+        overhead=Overhead(
+            kube_reserved=_resources_from(ov.get("kubeReserved")),
+            system_reserved=_resources_from(ov.get("systemReserved")),
+            eviction_threshold=_resources_from(ov.get("evictionThreshold")),
+        ),
+    )
+
+
+# ---------------------------------------------------------------------------
 # Pod-density / overhead formulas (reference types.go:237-324)
 # ---------------------------------------------------------------------------
 

@@ -149,8 +149,8 @@ class DeprovisioningController:
         self._gang_movable_memo: Optional[Dict[str, Optional[tuple]]] = None
         # machine-name sequence override (replay harness; None = global)
         self.machine_ids = None
-        # the action planned (parked for the validation TTL) this pass: the
-        # flight-recorder capsule's output (ROADMAP.md Queue 1 item 7)
+        # flight-recorder round state (set per reconcile pass)
+        self._capsule = None
         self._planned_this_round: Optional[PlannedAction] = None
         # sweep-scoped existing-capacity snapshot (see _consolidation)
         self._sweep_capacity = None
@@ -170,21 +170,65 @@ class DeprovisioningController:
     # ------------------------------------------------------------------
     def reconcile(self) -> Optional[PlannedAction]:
         """One orchestrator pass. Returns the action executed this pass (if
-        any).
+        any). Noteworthy passes — an action executed, a plan parked for the
+        validation TTL, or a matured plan aborted — commit a flight-recorder
+        capsule whose inputs were captured BEFORE execution mutated the
+        cluster, so the pass replays offline (``karpenter_tpu_torch/replay.py``)."""
+        from ..utils.flightrecorder import FLIGHT
 
-        Differs from the reference: no flight-recorder capsule is taken (the
-        recorder and replay are not ported yet, ROADMAP.md Queue 1 item 7).
-        The pass still runs under ``cluster.quiesce()``, so remote watch
-        events cannot apply between the sweep's cluster reads."""
+        cap = FLIGHT.begin("deprovisioning")
+        self._capsule = cap
         self._planned_this_round = None
-        with self.cluster.quiesce():
-            return self._reconcile()
+        # quiesce for the whole pass (see provisioning.reconcile): remote
+        # watch events applying between the capsule's pre-execution capture
+        # and the sweep's cluster reads would break offline replay
+        try:
+            with self.cluster.quiesce():
+                action = self._reconcile()
+                if cap is not None and cap.captured:
+                    cap.set_outputs_action(action, planned=self._planned_this_round)
+        except BaseException as e:
+            # finish() must ALWAYS run (it releases the builder's thread-
+            # local decision tee), whatever escapes the pass
+            if cap is not None:
+                cap.finish(error=e)
+            raise
+        finally:
+            self._capsule = None
+        if cap is not None:
+            cap.finish()
+        return action
 
     def _capture_round_input(self, had_pending: Optional[PlannedAction] = None) -> None:
-        """The reference captures the flight-recorder capsule's input here, at
-        the decision point; the port has no recorder yet (ROADMAP.md Queue 1
-        item 7), so there is nothing to capture."""
-        return None
+        """Capture the capsule input at the decision point (idle sweeps never
+        pay for a snapshot): the cluster as the planner saw it, per-
+        provisioner instance types, the pinned clock, and the stabilization
+        state replay needs to reproduce the window check."""
+        cap = self._capsule
+        if cap is None or cap.captured:
+            return
+        from ..utils.flightrecorder import action_to_wire
+
+        now = self.clock.now()
+        window = self.settings.stabilization_window
+        remaining = (
+            max(0.0, window - (now - self._last_node_change)) if window > 0 else 0.0
+        )
+        cap.capture_inputs(
+            cluster=self.cluster,
+            provisioner_types=[
+                (p, self.provider.get_instance_types(p))
+                for p in self.cluster.provisioners.values()
+            ],
+            settings=self.settings,
+            provider=self.provider,
+            solver=self.solver,
+            clock_now=now,
+            extra={
+                "stabilization_remaining": remaining,
+                "had_pending_action": action_to_wire(had_pending),
+            },
+        )
 
     def _reconcile(self) -> Optional[PlannedAction]:
         if self.pending_action is not None:
@@ -221,8 +265,8 @@ class DeprovisioningController:
         if self.clock.now() - action.created < self.settings.consolidation_validation_ttl:
             return None  # still inside the validation window
         self.pending_action = None
-        # matured plan: the reference captures the pre-validation cluster
-        # here (a no-op in the port, see _capture_round_input)
+        # matured plan: capture the pre-validation cluster — both the abort
+        # and the execute verdict are worth replaying
         self._capture_round_input(had_pending=action)
         if not self._still_valid(action):
             self.recorder.publish(

@@ -26,13 +26,11 @@ keyed on (version, source, detail-type) (``parser.go:31-93``), and maps actions
 * anything else -> noop
 
 CordonAndDrain = delete the node and let the termination finalizer do the
-cordon/drain/terminate work (``controller.go:201-212``).
-
-Left out of the port until the flight recorder is ported (``ROADMAP.md``,
-Queue 1 item 7): the reference captures each rebalance round as a capsule
-(``_capture_inputs``, ``set_outputs_rebalance``). The round keeps what
-decides its answers: the catalog snapshot that every replacement prices
-against (``_round_types``) and the ``cluster.quiesce()`` around it.
+cordon/drain/terminate work (``controller.go:201-212``). Rebalance rounds are
+captured as flight-recorder capsules (queue messages + pending-rebalance
+state ride the inputs), so ``python -m karpenter_tpu_torch.replay`` re-runs them
+byte-identically offline — including ``--override risk.<it>/<zone>/<ct>=p``
+counterfactuals against repriced pool risk.
 """
 
 from __future__ import annotations
@@ -238,8 +236,7 @@ class InterruptionController:
         self.provider = provider
         self.settings = settings
         self.clock = clock or Clock()
-        # name sequence for launched replacements (None: the provisioning
-        # module's process-wide one); the reference's replay pins it
+        # replay pin: launched replacement names must reproduce offline
         self.machine_ids = None
         # nodes mid-rebalance (replacement launched, drain gated)
         self._rebalances: Dict[str, PendingRebalance] = {}
@@ -291,10 +288,10 @@ class InterruptionController:
         message; node deletion and the termination pass serialize internally
         (cluster lock / termination queue). Pending rebalances advance FIRST
         (a Ready replacement gates its original's drain open before new
-        messages are judged). A rebalance round prices every replacement
-        against one catalog snapshot, under ``cluster.quiesce()``; the
-        reference also captures it as a flight-recorder capsule, which the
-        port leaves out (Queue 1 item 7)."""
+        messages are judged), and rounds with rebalance activity are captured
+        as flight-recorder capsules for byte-identical offline replay."""
+        from ..utils.flightrecorder import FLIGHT
+
         messages = self.queue.receive(max_messages)
         if not messages and not self._rebalances:
             return 0
@@ -302,18 +299,22 @@ class InterruptionController:
         due = self._rebalances_due(now)
         if not messages and not due:
             # gated drains waiting on a replacement: nothing can progress
-            # this tick
+            # this tick — do NOT open a capsule (a slow replacement would
+            # otherwise turn every idle poll into a full-snapshot capture,
+            # flooding the bounded ring at the poll rate)
             return 0
         # a "rebalance round" — recommendation messages in the batch or a
-        # pending rebalance that can actually advance — takes the snapshot;
-        # plain interruption storms stay snapshot-free (throughput path)
+        # pending rebalance that can actually advance — gets a capsule;
+        # plain interruption storms stay capture-free (throughput path)
         rebalance_round = due or any("Rebalance" in m.body for m in messages)
-        snapshot = bool(rebalance_round and self.provider is not None)
-        if snapshot:
+        cap = None
+        if rebalance_round and self.provider is not None:
+            cap = FLIGHT.begin("rebalance")
             # ONE catalog snapshot for the whole round: every replacement
             # choice prices against it, so mid-batch risk/ICE writes (and
             # worker-thread ordering) cannot change a later message's pool
-            # pick
+            # pick — the capsule records exactly this catalog, which is what
+            # makes the offline replay byte-identical
             provs = sorted(
                 self.cluster.provisioners.values(), key=lambda p: p.name
             )
@@ -322,11 +323,13 @@ class InterruptionController:
             ]
         self._round_actions = []
         try:
-            # quiesce rebalance rounds (see provisioning.reconcile): remote
-            # watch events during the round's cluster reads would make its
-            # action list depend on their timing
-            with (self.cluster.quiesce() if snapshot
+            # quiesce capsule rounds (see provisioning.reconcile): remote
+            # watch events between input capture and the round's cluster
+            # reads would make the recorded action list irreproducible
+            with (self.cluster.quiesce() if cap is not None
                   else contextlib.nullcontext()):
+                if cap is not None:
+                    self._capture_inputs(cap, messages)
                 victims: List[str] = []
                 acted_adv = self._advance_rebalances(victims)
                 handled, acted_msgs = self._process(messages, victims)
@@ -335,15 +338,23 @@ class InterruptionController:
                     # nodes; the termination finalizer serializes the work)
                     self.termination.reconcile()
                     self._notify_provisioning(victims)
+                if cap is not None and cap.captured:
+                    cap.set_outputs_rebalance(self._sorted_actions())
+        except BaseException as e:
+            if cap is not None:
+                cap.finish(error=e)
+            raise
         finally:
             self._round_types = None
+        if cap is not None:
+            cap.finish()
         return handled
 
     def _rebalances_due(self, now: float) -> bool:
         """True when any pending rebalance can make progress this tick: its
         node vanished, its replacement went Ready, or its deadline passed —
         the cheap pre-check that keeps idle gated-drain polls from becoming
-        rebalance rounds."""
+        capsule-capturing rebalance rounds."""
         if not self._rebalances:
             return False
         with self._reb_lock:
@@ -362,11 +373,37 @@ class InterruptionController:
     def _sorted_actions(self) -> List[Dict]:
         """The round's rebalance actions in canonical (node, action) order:
         message handling fans out over worker threads, so append order is
-        scheduler-dependent. The reference's capsule records this ordering;
-        here it is what a caller compares."""
+        scheduler-dependent — the capsule and the offline replay must both
+        compare the same deterministic ordering."""
         return sorted(
             self._round_actions,
             key=lambda a: (a.get("node", ""), a.get("action", "")),
+        )
+
+    def _capture_inputs(self, cap, messages: List[QueueMessage]) -> None:
+        """Rebalance-round capsule input: the cluster + catalog snapshot
+        (risk probabilities ride the offerings exactly as the ICE mask rides
+        ``available``), the batch's raw message bodies, and the pending-
+        rebalance state — everything the offline replay refeeds."""
+        now = self.clock.now()
+        cap.capture_inputs(
+            cluster=self.cluster,
+            provisioner_types=list(self._round_types or ()),
+            settings=self.settings,
+            provider=self.provider,
+            clock_now=now,
+            extra={
+                "queue_messages": [m.body for m in messages],
+                "rebalance_pending": [
+                    {
+                        "node": r.node,
+                        "pool": list(r.pool),
+                        "replacement": r.replacement,
+                        "deadline_remaining": r.deadline - now,
+                    }
+                    for _, r in sorted(self._rebalances.items())
+                ],
+            },
         )
 
     def _process(

@@ -2,8 +2,8 @@
 
 A copy of ``karpenter_tpu/controllers/provisioning.py``'s flat and sharded
 rounds, solving through the PyTorch solver (``TorchSolver`` by default, on
-the card). Left out until their slices are ported (``ROADMAP.md``, Queue 1):
-the flight-recorder capsule (item 7), the federation gate and
+the card), with the reference's flight-recorder capsule. Left out until
+their slices are ported (``ROADMAP.md``, Queue 1): the federation gate and
 ``profiling.note_phase`` (item 9), and the multi-device tier (item 10). The
 constructor refuses settings that turn on what is left out.
 
@@ -177,6 +177,38 @@ class GangGateOutcome:
     # ends with every member actually BOUND (launch failures can still split
     # a gate-admitted gang; _finalize_gangs rolls those back instead)
     admitted_details: Dict[str, Dict] = field(default_factory=dict)
+
+
+def clone_solver(solver: Solver) -> Optional[Solver]:
+    """A default-constructed solver of ``solver``'s type for one cell of a
+    sharded round, carrying its risk penalty, staging policy and dispatch
+    timeout; None when the type cannot be built without arguments.
+
+    Differs from the reference in two ways. A ``TorchSolver``'s clone is
+    built on the main solver's device: ``type(solver)()`` would build a card
+    solver beside a CPU one, which raises without CUDA. And only a
+    ``TypeError`` (a solver whose constructor needs arguments) gives None:
+    the reference's ``except Exception`` would turn a CPU round serial
+    without a word, and on the card hide a CUDA error. No mesh fields are
+    carried: the multi-device tier is not ported. The replay harness clones
+    the solver inside its digest tap through this (``replay.py``)."""
+    try:
+        if isinstance(solver, TorchSolver):
+            clone = type(solver)(device=solver.device)
+        else:
+            clone = type(solver)()
+    except TypeError:
+        return None
+    clone.risk_penalty = getattr(solver, "risk_penalty", 0.0)
+    # staging policy rides along: per-cell stagers are private, but the
+    # operator's enable/capacity choice must bind every clone
+    st = getattr(solver, "_stager", None)
+    if st is not None and hasattr(clone, "_stager"):
+        clone._stager.enabled = st.enabled
+        clone._stager.capacity_bytes = st.capacity_bytes
+    if hasattr(solver, "dispatch_timeout_s") and hasattr(clone, "dispatch_timeout_s"):
+        clone.dispatch_timeout_s = solver.dispatch_timeout_s
+    return clone
 
 
 class ProvisioningController:
@@ -366,15 +398,42 @@ class ProvisioningController:
 
     # -- the reconcile loop body -------------------------------------------
     def reconcile(self) -> ProvisioningResult:
+        from ..utils.flightrecorder import FLIGHT
         from ..utils.tracing import span
 
         with span("provisioning.reconcile"):
+            # flight-recorder capsule: inputs captured inside _reconcile
+            # (before the first solve), outputs + anomaly triggers stamped
+            # here; an idle round that captured nothing is dropped silently.
             # The WHOLE round runs under cluster.quiesce(): against an
-            # HTTP-backed cluster, remote watch events landing mid-round
-            # queue in the bounded intake instead of racing the encoder's
-            # reads. No flight-recorder capsule is captured (not ported).
+            # HTTP-backed cluster, remote watch events landing between the
+            # capsule's input capture and the encoder's reads would make the
+            # recorded digest irreproducible offline (they queue in the
+            # bounded intake instead).
+            cap = FLIGHT.begin("provisioning")
             with self.cluster.quiesce():
-                return self._reconcile(None)
+                if cap is None:
+                    return self._reconcile(None)
+                try:
+                    result = self._reconcile(cap)
+                    if cap.captured:
+                        cap.set_outputs_provisioning(
+                            result, self.cluster,
+                            getattr(self.provider, "pricing", None),
+                        )
+                        # the round's completed lifecycle waterfalls ride
+                        # the capsule as forensic output (excluded from the
+                        # replay byte-match like aot_solves)
+                        cap.set_lifecycle_marks(LIFECYCLE.drain_round())
+                except BaseException as e:
+                    # finish() must ALWAYS run (it releases the builder's
+                    # thread-local decision tee) — including for
+                    # BaseExceptions like KeyboardInterrupt that the
+                    # operator loop survives
+                    cap.finish(error=e)
+                    raise
+                cap.finish()
+                return result
 
     def _reconcile(self, cap=None) -> ProvisioningResult:
         t0 = time.perf_counter()
@@ -709,6 +768,14 @@ class ProvisioningController:
                 reason=unsched_reason.get(name, "no feasible instance offering"),
                 value=float(len(result.unschedulable)) if i == 0 else 0.0,
             )
+        if cap is not None and any(
+            e["verdict"] != "accepted" for e in self._fw_events
+        ):
+            # a rejected plan is exactly the forensic moment the flight
+            # recorder exists for: auto-dump the capsule
+            from ..utils.flightrecorder import TRIGGER_VALIDATION
+
+            cap.note_anomaly(TRIGGER_VALIDATION)
         metrics.PODS_UNSCHEDULABLE.set(float(len(result.unschedulable)))
         metrics.PROVISIONING_DURATION.observe(time.perf_counter() - t0)
         self.batcher.reset(upto_generation=batch_gen)
@@ -1022,9 +1089,8 @@ class ProvisioningController:
         per-cell digest streams — stay stable across cascade rounds.
 
         A copy of the reference's round, with these differences: no
-        flight-recorder capsule is stamped (``cap`` stays None until
-        ``ROADMAP.md`` Queue 1 item 7) and no ``profiling.note_phase`` is
-        taken (item 9); ``stage_fleet`` takes no superproblem width, since
+        ``profiling.note_phase`` is taken (``ROADMAP.md`` Queue 1 item 9);
+        ``stage_fleet`` takes no superproblem width, since
         the multi-device tier is not ported (item 10; ``mesh_enabled`` makes
         the constructor raise). A worker's exception, a kernel's launch
         error among them, re-raises here through ``map_all``."""
@@ -1054,6 +1120,8 @@ class ProvisioningController:
                 router.ordered_pods(), round_provs, existing=round_existing,
                 daemonsets=daemonsets,
             )
+            if cap is not None:
+                cap.add_digest(solve.problem_digest, stats=solve.stats)
             return solve
         provs_by_name = {p.name: (p, types) for p, types in round_provs}
         # cell ids are positions in the PARTITION's sorted cell list — the
@@ -1251,6 +1319,8 @@ class ProvisioningController:
                 merged.stats[stat] = (
                     merged.stats.get(stat, 0.0) + res.stats.get(stat, 0.0)
                 )
+            if cap is not None:
+                cap.add_digest(res.problem_digest, stats=res.stats)
             digest_h.update(bytes.fromhex(res.problem_digest or "00"))
             # a reused cell is the purest delta round (zero changed inputs);
             # the session's own last_mode is stale for it, and a 0-second
@@ -1299,6 +1369,8 @@ class ProvisioningController:
                     merged.stats.get(stat, 0.0)
                     + residue_solve.stats.get(stat, 0.0)
                 )
+            if cap is not None:
+                cap.add_digest(residue_solve.problem_digest, stats=residue_solve.stats)
             digest_h.update(
                 bytes.fromhex(residue_solve.problem_digest or "00")
             )
@@ -1350,7 +1422,10 @@ class ProvisioningController:
                 or d["cell"] in live_cell_ids
             )
         )
-        # plain record, not coalesced: every round emits exactly one
+        if cap is not None:
+            cap.note_cells(summaries)
+        # plain record, not coalesced: every round emits exactly one, so the
+        # recorded and replayed decision streams stay 1:1 per capsule
         DECISIONS.record(
             "cell", "sharded-round",
             reason=(
@@ -1416,40 +1491,12 @@ class ProvisioningController:
         return s
 
     def _clone_solver(self) -> Optional[Solver]:
-        """A per-cell solver of the configured type. Clones are what make
-        the fan-out safe (device caches, interning and race memory are
-        per-instance); a solver that cannot be default-constructed — e.g.
-        the replay harness's digest tap — shares the main instance and the
-        round runs serial, which keeps answers (and replayed digest
-        sequences) identical.
-
-        Differs from the reference in two ways. A ``TorchSolver``'s clone
-        is built on the main solver's device: ``type(self.solver)()`` would
-        build a card solver beside a CPU one, which raises without CUDA.
-        And only a ``TypeError`` (a solver whose constructor needs
-        arguments) falls back to sharing: the reference's ``except
-        Exception`` would turn a CPU round serial without a word, and on
-        the card hide a CUDA error. No mesh fields are carried: the
-        multi-device tier is not ported."""
-        try:
-            if isinstance(self.solver, TorchSolver):
-                clone = type(self.solver)(device=self.solver.device)
-            else:
-                clone = type(self.solver)()
-        except TypeError:
-            return None
-        clone.risk_penalty = getattr(self.solver, "risk_penalty", 0.0)
-        # staging policy rides along: per-cell stagers are private, but the
-        # operator's enable/capacity choice must bind every clone
-        st = getattr(self.solver, "_stager", None)
-        if st is not None and hasattr(clone, "_stager"):
-            clone._stager.enabled = st.enabled
-            clone._stager.capacity_bytes = st.capacity_bytes
-        if hasattr(self.solver, "dispatch_timeout_s") and hasattr(
-            clone, "dispatch_timeout_s"
-        ):
-            clone.dispatch_timeout_s = self.solver.dispatch_timeout_s
-        return clone
+        """A per-cell solver of the configured type (``clone_solver``).
+        Clones are what make the fan-out safe (device caches, interning and
+        race memory are per-instance); a solver that cannot be
+        default-constructed shares the main instance and the round runs
+        serial, which keeps answers identical."""
+        return clone_solver(self.solver)
 
     # -- /debug/cells -------------------------------------------------------
     def cell_status(self, pod: Optional[str] = None) -> Dict:
@@ -1855,6 +1902,10 @@ class ProvisioningController:
             stats=dict(solve.stats),
             problem_digest=solve.problem_digest,
         )
+        if deferred and cap is not None:
+            from ..utils.flightrecorder import TRIGGER_GANG_DEFERRED
+
+            cap.note_anomaly(TRIGGER_GANG_DEFERRED)
         return GangGateOutcome(
             gated, deferred, admitted, admitted_gangs, capacity_deferred,
             admitted_details,

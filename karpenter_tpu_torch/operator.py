@@ -22,9 +22,8 @@ deliberate differences or under the Queue 1 item that brings what is missing:
   since the port compiles nothing per shape (its kernel library is loaded
   in ``TorchSolver.__init__``). The ``aot_*`` settings are accepted,
   validated and unread.
-* Left out: ``FLIGHT.configure`` and the ``flush-flightrecorder-dumps``
-  shutdown step (the flight recorder, item 7); ``profiling.configure``,
-  ``sentinel_tick`` and the ``stop-profiler`` step (the profiler, item 9).
+* Left out: ``profiling.configure``, ``sentinel_tick`` and the
+  ``stop-profiler`` step (the profiler, item 9).
   ``profiling_enabled=True`` makes ``new`` raise; ``perf_sentinel_enabled``
   has no effect until item 9.
 * Federation (item 9) and the multi-device tier (item 10) raise in the
@@ -128,10 +127,16 @@ class Operator:
         from .utils.decisions import DECISIONS
 
         DECISIONS.configure(settings.decision_log_capacity)
-        # the reference configures the reconcile flight recorder here
-        # (FLIGHT.configure); it is not ported (Queue 1 item 7)
+        # reconcile flight recorder: capsule ring capacity + anomaly dump
+        # target from settings (0 disables capture entirely)
+        from .utils.flightrecorder import FLIGHT
+
+        FLIGHT.configure(
+            settings.flight_recorder_capacity,
+            dump_dir=settings.flight_recorder_dump_dir or None,
+        )
         # pod-lifecycle attribution tracker + SLO burn-rate engine (both
-        # process-global like DECISIONS): the tracker stamps per-pod
+        # process-global like DECISIONS/FLIGHT): the tracker stamps per-pod
         # stage waterfalls, completions feed the pod_ready objective, and a
         # pre-scrape refresher exports the burn/budget gauges
         from .utils import slo
@@ -366,18 +371,19 @@ class Operator:
 
         1. join in-flight controller worker threads (the interruption
            pool) so no reconcile work mutates state mid-teardown;
-        2. release the leader lease so a standby takes over NOW, not after
+        2. flush pending flight-recorder anomaly dumps — the post-mortem
+           evidence must hit disk before the process is gone;
+        3. release the leader lease so a standby takes over NOW, not after
            the lease TTL;
-        3. LAST, release the HTTP port — probes stay answerable until the
+        4. LAST, release the HTTP port — probes stay answerable until the
            process truly has nothing left to report, and a crashed loop
            must never keep serving ready probes (or block a supervised
            restart with EADDRINUSE).
 
-        The reference has three more steps, which the port leaves out: it
+        The reference has two more steps, which the port leaves out: it
         stops the profiler first (Queue 1 item 9), and between 1 and 2 it
         drains its background XLA compiles (the port compiles nothing per
-        shape, so there is nothing to drain) and flushes the flight
-        recorder's dumps (item 7).
+        shape, so there is nothing to drain).
 
         Every step is individually guarded: a failure in one must not skip
         the rest (previously only the port release was guarded) — and the
@@ -403,10 +409,16 @@ class Operator:
                 kv(log, logging.WARNING, "shutdown step failed",
                    step=name, error=f"{type(e).__name__}: {e}")
 
+        def _flush_capsules():
+            from .utils.flightrecorder import FLIGHT
+
+            FLIGHT.flush_dumps()
+
         try:
             if self.interruption is not None:
                 step("join-interruption-workers",
                      lambda: self.interruption.close(wait=True))
+            step("flush-flightrecorder-dumps", _flush_capsules)
             if self.elector is not None:
                 step("release-leader-lease", self.elector.release)
         finally:

@@ -58,13 +58,6 @@ CellKey = Tuple[str, str]
 #: whose members disagree, and nodes whose provisioner left the cluster
 RESIDUE: CellKey = ("~", "residue")
 
-#: full-encode reasons that are normal operation, not an anomaly: the first
-#: encode of a session, the periodic backstop, and a disabled delta path.
-#: A copy of the flight recorder's tuple (``karpenter_tpu/utils/
-#: flightrecorder.py``); when the flight recorder is ported (``ROADMAP.md``,
-#: Queue 1 item 7), ``note_round_modes`` takes it from there.
-_BENIGN_FULL_REASONS = ("", "first-encode", "periodic-resync", "disabled")
-
 #: cluster attribute of each kind ``CellIndex`` lists: a copy of the API
 #: server's table (``karpenter_tpu/state/apiserver.py``), which comes with
 #: ``ROADMAP.md`` Queue 1 item 6
@@ -596,6 +589,8 @@ class CellRouter:
     def note_round_modes(self, modes: List[Tuple[str, str]]) -> None:
         """Aggregate per-cell encode modes into the capsule's round stamp:
         delta only when EVERY touched session took the delta path."""
+        from ..utils.flightrecorder import _BENIGN_FULL_REASONS
+
         if not modes:
             self.last_mode, self.last_full_reason = "none", ""
             return

@@ -20,6 +20,12 @@ Debug surface (the pprof-flag analogue, always on and cheap):
   (utils/decisions.py): placement / nomination / consolidation verdicts,
   newest first, filterable by ``?pod=``, ``?node=``, ``?reconcile_id=``,
   ``?trace_id=``, ``?kind=`` and capped by ``?limit=``.
+* ``/debug/flightrecorder`` — the reconcile flight recorder
+  (utils/flightrecorder.py): newest-first capsule summaries;
+  ``/debug/flightrecorder/<id>`` fetches one complete capsule as gzip'd
+  JSON (``Content-Encoding: gzip``) for offline replay via
+  ``python -m karpenter_tpu_torch.replay``; ``?dump=1`` additionally writes it
+  to the configured ``flight_recorder_dump_dir`` and returns the path.
 * ``/debug/cells`` — the sharded control plane's partition view
   (state/cells.py): current cells with pending-pod counts, the last sharded
   round's per-cell summaries (digest, cost, encode mode, marginal price),
@@ -48,12 +54,10 @@ Debug surface (the pprof-flag analogue, always on and cheap):
 ``GET /debug`` is the index: a JSON route list with one-line descriptions,
 served from the ``DEBUG_ROUTES`` table — one source of truth, no drift.
 
-Left out of the port, each until the module it serves is ported
-(``ROADMAP.md``, Queue 1): ``/debug/flightrecorder`` and
-``/debug/flightrecorder/<id>`` (the flight recorder, item 7), ``/debug/profile``
-and ``/debug/perf`` (the profiler and the perf sentinel, item 9). They are
-neither in the route table nor in the index, and a request for one gets the
-404 of an unknown path.
+Left out of the port until the module they serve is ported (``ROADMAP.md``,
+Queue 1 item 9): ``/debug/profile`` and ``/debug/perf`` (the profiler and
+the perf sentinel). They are neither in the route table nor in the index,
+and a request for one gets the 404 of an unknown path.
 """
 
 from __future__ import annotations
@@ -65,6 +69,7 @@ from typing import Callable, Optional
 from urllib.parse import parse_qs
 
 from .decisions import DECISIONS, DecisionLog
+from .flightrecorder import FLIGHT, FlightRecorder
 from .lifecycle import LIFECYCLE
 from .metrics import REGISTRY, Registry
 from .slo import SLO
@@ -72,8 +77,8 @@ from .tracing import TRACER, Tracer
 
 #: The one-source-of-truth debug route table: path -> one-line description.
 #: ``GET /debug`` serves it verbatim. The reference's table also lists
-#: ``/debug/flightrecorder``, ``/debug/profile`` and ``/debug/perf``, which
-#: the port leaves out (module docstring).
+#: ``/debug/profile`` and ``/debug/perf``, which the port leaves out (module
+#: docstring).
 DEBUG_ROUTES = {
     "/debug/traces": (
         "retained root span trees, newest first (?trace_id= narrows to one "
@@ -83,6 +88,10 @@ DEBUG_ROUTES = {
     "/debug/decisions": (
         "scheduling-decision audit log (?pod=, ?node=, ?reconcile_id=, "
         "?trace_id=, ?kind=, ?limit=)"
+    ),
+    "/debug/flightrecorder": (
+        "reconcile capsule ring; /debug/flightrecorder/<id> fetches one "
+        "capsule as gzip'd JSON for offline replay (?dump=1 writes it)"
     ),
     "/debug/cells": (
         "sharded control plane partition view (?pod= explains one pod's "
@@ -112,6 +121,7 @@ class OperatorHTTPServer:
         tracer: Optional[Tracer] = None,
         recorder: Optional[object] = None,
         decisions: Optional[DecisionLog] = None,
+        flightrecorder: Optional[FlightRecorder] = None,
         cells: Optional[Callable[[Optional[str]], dict]] = None,
         federation: Optional[Callable[[], dict]] = None,
         costs: Optional[Callable[..., dict]] = None,
@@ -131,6 +141,7 @@ class OperatorHTTPServer:
         # surface before leader election) — the handler reads it per request
         self.recorder = recorder
         self.decisions = decisions or DECISIONS
+        self.flightrecorder = flightrecorder or FLIGHT
         # the sharded control plane's partition view: a callable (pod name or
         # None) -> payload; like the recorder, the operator late-binds this
         # when it adopts a server started before the controllers existed
@@ -198,6 +209,41 @@ class OperatorHTTPServer:
                     ).encode()
                     self.send_response(200)
                     self.send_header("Content-Type", "application/json")
+                elif path == "/debug/flightrecorder":
+                    body = json.dumps(
+                        {"capsules": outer.flightrecorder.list()}, default=str
+                    ).encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/json")
+                elif path.startswith("/debug/flightrecorder/"):
+                    capsule_id = path[len("/debug/flightrecorder/"):]
+                    q = parse_qs(query)
+                    if q.get("dump", ["0"])[0] in ("1", "true"):
+                        try:
+                            dumped = outer.flightrecorder.dump(capsule_id)
+                        except OSError as e:
+                            body = json.dumps({"error": str(e)}).encode()
+                            self.send_response(400)
+                            self.send_header("Content-Type", "application/json")
+                        else:
+                            if dumped is None:
+                                body = b'{"error": "unknown capsule"}\n'
+                                self.send_response(404)
+                            else:
+                                body = json.dumps({"path": dumped}).encode()
+                                self.send_response(200)
+                            self.send_header("Content-Type", "application/json")
+                    else:
+                        payload = outer.flightrecorder.get_gzip(capsule_id)
+                        if payload is None:
+                            body = b'{"error": "unknown capsule"}\n'
+                            self.send_response(404)
+                            self.send_header("Content-Type", "application/json")
+                        else:
+                            body = payload
+                            self.send_response(200)
+                            self.send_header("Content-Type", "application/json")
+                            self.send_header("Content-Encoding", "gzip")
                 elif path == "/debug/cells":
                     q = parse_qs(query)
                     fn = outer.cells

@@ -20,7 +20,9 @@
   solver's kernel breaker board rides these: it reads ``state`` to gate a
   dispatch and books each outcome. Both are thread-safe, one lock each, as
   the reference's are: the sharded round's per-cell solver clones book
-  evidence from several host threads at once.
+  evidence from several host threads at once. Every transition to open
+  bumps a process-wide count (:func:`breaker_open_count`), which the flight
+  recorder reads around a reconcile for its ``breaker-open`` trigger.
 """
 
 from __future__ import annotations
@@ -148,6 +150,22 @@ class RetryPolicy:
 
 # -- circuit breaker ---------------------------------------------------------
 
+#: process-wide count of closed/half-open -> open transitions, across every
+#: breaker instance. The flight recorder snapshots it around a reconcile: a
+#: delta means a circuit opened mid-round — one of its anomaly dump triggers.
+_open_events = 0
+_open_events_lock = threading.Lock()
+
+
+def breaker_open_count() -> int:
+    return _open_events
+
+
+def _count_open() -> None:
+    global _open_events
+    with _open_events_lock:
+        _open_events += 1
+
 
 class CircuitBreaker:
     """closed → open → half-open breaker.
@@ -189,9 +207,11 @@ class CircuitBreaker:
             if self._state == "half-open":
                 self._opened_at = self._clock()
                 self._state = "open"  # a failed probe reopens
+                _count_open()
             elif self._state == "closed" and self._failures >= self.failure_threshold:
                 self._opened_at = self._clock()
                 self._state = "open"
+                _count_open()
 
 
 class BreakerSet:

@@ -238,11 +238,13 @@ def test_feasibility_helpers_match_reference():
 
 
 def test_benign_full_reasons_match_flight_recorder():
-    """The port keeps its own copy of the flight recorder's tuple until
-    the flight recorder is ported."""
+    """The router reads the benign full-encode reasons from the port's
+    flight recorder, whose tuple is the reference's; it keeps no copy."""
     from karpenter_tpu.utils.flightrecorder import _BENIGN_FULL_REASONS
+    from karpenter_tpu_torch.utils import flightrecorder
 
-    assert MODS["karpenter_tpu_torch"].cells._BENIGN_FULL_REASONS == _BENIGN_FULL_REASONS
+    assert flightrecorder._BENIGN_FULL_REASONS == _BENIGN_FULL_REASONS
+    assert not hasattr(MODS["karpenter_tpu_torch"].cells, "_BENIGN_FULL_REASONS")
     for pkg in PACKAGES:
         router = MODS[pkg].cells.CellRouter()
         router.note_round_modes([("delta", ""), ("full", "first-encode"), ("full", "desync")])

@@ -79,7 +79,7 @@ def pkg_mod(pkg: str) -> SimpleNamespace:
         lifecycle=imp("utils.lifecycle"), costledger=imp("utils.costledger"),
         solver=imp("solver.solver"), encode=imp("solver.encode"), context=imp("context"),
         leader=imp("utils.leaderelection"), http=imp("utils.httpserver"),
-        main=imp("__main__"),
+        fr=imp("utils.flightrecorder"), main=imp("__main__"),
     )
 
 
@@ -87,7 +87,8 @@ def pkg_mod(pkg: str) -> SimpleNamespace:
 def _process_state():
     """Leave no operator's process-wide state to a later test: the cost
     ledgers' pre-scrape refreshers (one per ``Operator.new``), the decision
-    log, the lifecycle tracker, and the heap that ``run()`` froze."""
+    log, the flight recorder, the lifecycle tracker, and the heap that
+    ``run()`` froze."""
     mods = {pkg: pkg_mod(pkg) for pkg in PACKAGES}
     before = {pkg: list(m.metrics.REGISTRY._refreshers) for pkg, m in mods.items()}
     threshold = gc.get_threshold()
@@ -104,6 +105,8 @@ def _process_state():
                 or not isinstance(getattr(fn, "__self__", None), m.costledger.CostLedger)
             ]
         m.decisions.DECISIONS.clear()
+        m.fr.FLIGHT.configure(m.fr.FlightRecorder.DEFAULT_CAPACITY)
+        m.fr.FLIGHT.clear()
         m.lifecycle.LIFECYCLE.configure(enabled=True, retention=4096)
     gc.unfreeze()
     gc.set_threshold(*threshold)
@@ -639,12 +642,14 @@ def test_run_loop_survives_crashing_controller():
     assert m.metrics.RECONCILE_ERRORS.value({"controller": "drift"}) >= 1
 
 
-def test_close_order_and_guarded_steps():
-    """``close()`` joins the interruption workers, releases the lease, and
-    stops the HTTP server last, even when a step fails."""
+def test_close_order_and_guarded_steps(monkeypatch):
+    """``close()`` joins the interruption workers, flushes the flight
+    recorder's dumps, releases the lease, and stops the HTTP server last,
+    even when a step fails."""
     m, op = port_operator(interruption_queue_name="q")
     calls = []
     op.interruption.close = lambda wait=False: calls.append(("interruption", wait))
+    monkeypatch.setattr(m.fr.FLIGHT, "flush_dumps", lambda: calls.append(("flush",)) or [])
 
     class Elector:
         def release(self):
@@ -657,7 +662,26 @@ def test_close_order_and_guarded_steps():
 
     op.elector, op.http_server = Elector(), Server()
     op.close()
-    assert calls == [("interruption", True), ("lease",), ("http",)]
+    assert calls == [("interruption", True), ("flush",), ("lease",), ("http",)]
+
+
+def test_operator_new_configures_the_flight_recorder(tmp_path):
+    """``Operator.new`` sizes the process's flight recorder and its dump
+    directory from settings, as the reference's does; 0 turns it off."""
+    got = {}
+    for pkg in PACKAGES:
+        m = pkg_mod(pkg)
+        provider = m.cloud.FakeCloudProvider(catalog=m.cloud.generate_catalog(n_types=5))
+        for capacity, dump_dir in ((7, str(tmp_path)), (0, "")):
+            settings = m.settings.Settings(flight_recorder_capacity=capacity,
+                                           flight_recorder_dump_dir=dump_dir)
+            op = new_operator(m, provider, settings)
+            try:
+                got.setdefault(pkg, []).append(
+                    (m.fr.FLIGHT.capacity, m.fr.FLIGHT.enabled, m.fr.FLIGHT.dump_dir))
+            finally:
+                op.close()
+    assert got[PORT] == got[REF] == [(7, True, str(tmp_path)), (0, False, None)]
 
 
 def test_run_serves_http_and_late_binds_debug_views():
@@ -712,7 +736,7 @@ def server():
 def test_debug_index_is_the_reference_table_less_the_unported_routes(server):
     ref = pkg_mod(REF).http.DEBUG_ROUTES
     port = pkg_mod(PORT).http.DEBUG_ROUTES
-    left_out = {"/debug/flightrecorder", "/debug/profile", "/debug/perf"}
+    left_out = {"/debug/profile", "/debug/perf"}
     assert port == {k: v for k, v in ref.items() if k not in left_out}
     srv = server()
     index = json.loads(get(srv.port, "/debug")[1])["routes"]
@@ -724,7 +748,7 @@ def test_debug_index_is_the_reference_table_less_the_unported_routes(server):
     ("/debug", 200), ("/debug/", 200), ("/debug/traces", 200), ("/debug/events", 200),
     ("/debug/decisions?limit=5", 200), ("/debug/cells", 200), ("/debug/lifecycle", 200),
     ("/debug/lifecycle?pod=nobody", 404), ("/debug/federation", 200), ("/debug/slo", 200),
-    ("/debug/costs", 200), ("/debug/flightrecorder", 404), ("/debug/flightrecorder/c-1", 404),
+    ("/debug/costs", 200), ("/debug/flightrecorder", 200), ("/debug/flightrecorder/c-1", 404),
     ("/debug/profile", 404), ("/debug/perf", 404), ("/nope", 404),
 ])
 def test_endpoint_status(server, path, status):

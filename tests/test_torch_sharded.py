@@ -14,7 +14,10 @@ latency mode to batch. The host paths polish without their deadlines
 (``_host_paths_run_dry``, shared with ``test_torch_controller.py``), and
 machines launch one at a time in plan order (``create_batched = None``):
 node names come from a process-wide sequence and enter the next round's
-digests.
+digests. Both packages' fake providers read a clock held still
+(``_fake_provider_clock``): their catalog cache keys on the minute, and a
+round on the far side of a minute boundary gets a new instance-type list,
+which no clean cell's cached solve matches.
 
 After every round the two packages must agree on the unschedulable, bound
 and pending pods, the launched nodes as a multiset of (instance type, zone,
@@ -28,6 +31,8 @@ decision log (with its rejected alternatives). The cases are the reference's
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import pytest
@@ -96,6 +101,26 @@ def _reference_executables_dropped():
     yield
     J.AOT_CACHE.wait_idle(timeout=300)
     J.AOT_CACHE.clear()
+
+
+@pytest.fixture(autouse=True)
+def _fake_provider_clock(monkeypatch):
+    """Hold ``time.time()`` still for both packages' ``cloudprovider.fake``
+    (it stamps launches and keys the catalog cache on
+    ``int(time.time() // 60)``). Clean-cell reuse keys on the catalog list's
+    identity, so two rounds that straddled a minute rebuilt the list and
+    missed reuse: ``test_quiet_cells_reuse_cached_solves`` failed so under
+    load, and fails so on demand when the clock steps across a minute
+    between its rounds."""
+    import types
+
+    import karpenter_tpu.cloudprovider.fake as rfake
+    import karpenter_tpu_torch.cloudprovider.fake as pfake
+
+    now = time.time()
+    pinned = types.SimpleNamespace(time=lambda: now)
+    for mod in (rfake, pfake):
+        monkeypatch.setattr(mod, "time", pinned)
 
 
 @pytest.fixture(autouse=True)

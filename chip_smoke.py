@@ -135,8 +135,30 @@ this, DIR, with the chain and each of its kernels (``compare``). Phases:
     on the new image; then ``python -m karpenter_tpu_torch`` in a
     subprocess on the card, which must answer its probes, serve /metrics
     and exit 0 on SIGTERM with its lease released (``operator_phase``);
-16. replay (main path): the flight recorder runs at its default (on, 32
-    capsules) through phases 12-15, and every controller round and
+16. the operator's HTTP tier (main path, ``http_tier_phase``): (a) one
+    operator over the wire in process: a ``ClusterAPIServer`` whose store
+    is ``configs.config_http_tier()``'s (10,000 pending pods, the ``al2-tpl``
+    template, the spot and on-demand provisioner), a ``CloudHTTPService``
+    over 400 types, and ``Operator.new(provider=HTTPCloudProvider(...),
+    cluster=HTTPCluster(...))`` with no solver given: the seed step (the
+    problem ``configs.config_http_seed()``'s at the JAX package's
+    kernel-only cost, K1, K2 and K3 held against their plain versions on
+    it), a churn step through a second client (delta-encoded from the
+    watch) and a spot interruption of the most loaded spot node over
+    ``/v1/queue/*``; after each step, read from the server's store, every
+    pod is bound within allocatable, no plan was rejected, no client token
+    committed twice, and the cloud's instances are the store's machines;
+    each step's wall is split into relist, solve, launches and binds over
+    HTTP and capture; (b) the HA pair: ``python -m
+    karpenter_tpu_torch.state.apiserver`` and two ``python -m
+    karpenter_tpu_torch --leader-elect`` replicas on the card; exactly one
+    leads and binds a wave of 1,000 pods, the standby takes over within
+    one lease and one acquire poll of the leader's SIGKILL and binds a
+    second wave, no pod is bound twice and no token committed twice, each
+    leader's /metrics shows a closed kernel breaker (its race dispatched on
+    the card) and no kernel fault, and the survivor exits 0 on SIGTERM;
+17. replay (main path): the flight recorder runs at its default (on, 32
+    capsules) through phases 12-16, and every controller round and
     operator step logs its capture seconds beside its wall. Five capsules
     those phases recorded (``REPLAYS``: controller_50k's seed round and
     churn round 0, the operator's first storm step, the sharded worker
@@ -148,7 +170,7 @@ this, DIR, with the chain and each of its kernels (``compare``). Phases:
     ``python -m karpenter_tpu_torch.replay`` runs in a subprocess on the
     seed round's dump and, as a counterfactual, on the storm step's with
     its masked offering made available; both must exit 0;
-17. one JSON line of kernel results, the card's name and power limit, and
+18. one JSON line of kernel results, the card's name and power limit, and
     the device JSON as the last line.
 
 Before any encode, the native encoder (``karpenter_tpu_torch/native``)
@@ -2524,8 +2546,11 @@ class OperatorProbe:
 
             op.interruption.reconcile = interruption
         # the cost ledger meters every bind through the cluster's watch:
-        # time its share of each step
+        # time its share of each step (an operator over the HTTP cloud has
+        # no ledger: the provider serves no prices)
         ledger = op.costledger
+        if ledger is None:
+            return
         on_event = ledger._on_event
 
         def metered(event, obj):
@@ -2899,6 +2924,491 @@ def entrypoint_check() -> None:
         err.close()
 
 
+#: the http_tier phase: (a)'s pods in the store, the pods its churn step
+#: deletes and adds, and (b)'s waves; (b)'s replicas take the lease and
+#: renewal of ``tests/test_leader_ha.py``
+HTTP_PODS = 10_000
+HTTP_CHURN = 250
+HA_WAVE = 1_000
+HA_LEASE_S = 3.0
+HA_RENEW_S = 0.5
+#: the standby's acquire loop polls the lease once a second
+#: (``LeaderElector.acquire``): a takeover lands within one lease and one
+#: poll of the SIGKILL
+HA_POLL_S = 1.0
+HA_READY_S = 300.0
+HA_BIND_S = 300.0
+
+
+class WireProbe(OperatorProbe):
+    """``OperatorProbe`` for the operator over the wire, plus the time each
+    step spends on it, from both ends of every call: the HTTP cluster's
+    relists and binds, the HTTP provider's launches (``/v1/run-instances``,
+    on the controller's launch threads) and queue calls, and the session
+    solves. Each is kept as (calls, seconds summed over the calls, first
+    start, last end), so a split reads both the summed and the spanned
+    time."""
+
+    def __init__(self, op):
+        super().__init__(op)
+        self.lock = threading.Lock()
+        self.spent = {}
+        solver, cluster, provider = op.provisioning.solver, op.cluster, op.provider
+        call = provider._call
+        solver.solve_pods = self.timed("solve", solver.solve_pods)
+        cluster.bind_pod = self.timed("bind", cluster.bind_pod)
+        cluster.relist = self.timed("relist", cluster.relist)
+        launch, queue = self.timed("launch", call), self.timed("queue", call)
+        other = self.timed("cloud", call)
+
+        def cloud(path, body=None):
+            if path == "/v1/run-instances":
+                return launch(path, body)
+            return (queue if path.startswith("/v1/queue/") else other)(path, body)
+
+        provider._call = cloud
+
+    def timed(self, key, fn):
+        def call(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                end = time.perf_counter()
+                with self.lock:
+                    n, total, first, last = self.spent.get(key, (0, 0.0, t, end))
+                    self.spent[key] = (n + 1, total + end - t, min(first, t), max(last, end))
+        return call
+
+    def step(self, ts, clock_s: float = 0.0) -> dict:
+        self.spent = {}
+        row = super().step(ts, clock_s)
+        row["wire"] = dict(self.spent)
+        return row
+
+
+def wire_line(row) -> str:
+    parts = []
+    for key in ("relist", "solve", "launch", "bind", "queue", "cloud"):
+        if key in row["wire"]:
+            n, total, first, last = row["wire"][key]
+            parts.append(f"{key} {n} calls {total:.4f} s summed, {last - first:.4f} s spanned"
+                         + (f" ({1e3 * total / n:.4f} ms a bind)" if key == "bind" else ""))
+    return f"wire: {'; '.join(parts) or 'no call'}; capture {row['capture_s']:.4f} s"
+
+
+def instance_ids(machines) -> set:
+    return {m.status.provider_id.rsplit("/", 1)[-1] for m in machines}
+
+
+def hold_wire_step(name, op, store, svc, row, mode) -> list:
+    """``hold_operator_step`` on the operator's informer cache (its watch
+    applier paused), then the same from the server side: every pod of the API server's store bound
+    within its node's allocatable, the session's encode mode, no client
+    token that committed two instances (``launch_audit``), and the cloud's
+    instances exactly the store's machines, one node each. A step whose
+    solves all sit under ``race_min_pods`` must launch no packing kernel.
+    Returns the solved problems."""
+    from karpenter_tpu_torch.solver import TorchSolver
+
+    with op.cluster.quiesce():  # the watch applier must not move the cache under the checks
+        problems = hold_operator_step(name, op, row)
+    pending = store.pending_pods()
+    if pending:
+        raise AssertionError(f"{name}: the server's store holds {len(pending)} pending pods")
+    hold_allocatable(name + " (server store)", store)
+    got = op.provisioning.encode_session.last_mode
+    if got != mode:
+        raise AssertionError(f"{name}: encoded {got} "
+                             f"({op.provisioning.encode_session.last_full_reason}), not {mode}")
+    audit = svc.launch_audit()
+    if audit["duplicate_tokens"] or audit["untokened"]:
+        raise AssertionError(f"{name}: launch audit {audit['duplicate_tokens']}, "
+                             f"{audit['untokened']} launches without a token")
+    machines = list(store.machines.values())
+    if set(svc.instances) != instance_ids(machines) or len(store.nodes) != len(machines):
+        raise AssertionError(f"{name}: {len(svc.instances)} instances, {len(machines)} machines, "
+                             f"{len(store.nodes)} nodes in the store")
+    small = all(p.count.sum() < TorchSolver.race_min_pods for p, _ in problems)
+    if small and any(row["launches"][k] for k in PACK_KERNELS):
+        raise AssertionError(f"{name}: no solve reached race_min_pods, yet the chain launched: "
+                             f"{row['launches']}")
+    return problems
+
+
+def http_operator(ts, configs) -> dict:
+    """(a) of ``http_tier_phase``: one operator over the wire, in process.
+    Returns its launches and the largest differences of the kernel check."""
+    import torch
+
+    from karpenter_tpu_torch.api import ObjectMeta, Pod
+    from karpenter_tpu_torch.api import labels as wk
+    from karpenter_tpu_torch.cloudprovider.httpcloud import HTTPCloudProvider, HTTPQueue
+    from karpenter_tpu_torch.operator import Operator
+    from karpenter_tpu_torch.solver import TorchSolver, encode, validate
+    from karpenter_tpu_torch.solver.solver import KERNEL_BOARD, problem_digest
+    from karpenter_tpu_torch.state import ClusterAPIServer, HTTPCluster
+
+    KERNEL_BOARD.reset()
+    TorchSolver._device_rtt_s = None
+    t0 = time.perf_counter()
+    store, svc, settings, clock = configs.config_http_tier(HTTP_PODS)
+    svc.start()
+    api = ClusterAPIServer(backing=store).start()
+    built_s = time.perf_counter() - t0
+    clients = []
+    op = None
+    try:
+        t0 = time.perf_counter()
+        cluster = HTTPCluster(api.endpoint, queue_capacity=settings.watch_queue_capacity)
+        clients.append(cluster)
+        relist_s = time.perf_counter() - t0
+        provider = HTTPCloudProvider(svc.endpoint)
+        op = Operator.new(provider=provider, settings=settings, cluster=cluster, clock=clock)
+        log(f"http_tier (a): {len(store.pods)} pending pods in the API server's store, "
+            f"{len(svc.catalog)} types in the cloud service, built in {built_s:.2f} s; the "
+            f"operator's first relist {relist_s:.4f} s ({len(cluster.pods)} pods cached)")
+        solvers = {"provisioning": op.provisioning.solver,
+                   "deprovisioning quality": op.deprovisioning.quality_solver}
+        for role, s in solvers.items():
+            if not isinstance(s, TorchSolver) or s.device.type != "cuda":
+                raise AssertionError(f"http_tier: the {role} solver is {s!r} on "
+                                     f"{getattr(s, 'device', None)}, not a TorchSolver on the card")
+        if op.interruption is None or not isinstance(op.interruption.queue, HTTPQueue):
+            raise AssertionError("http_tier: the interruption controller does not poll the "
+                                 "service's queue over the wire")
+        probe = WireProbe(op)
+        oracle = TorchSolver()
+        launches = {k: 0 for k in ts.LAUNCHES}
+
+        # 1. the seed step
+        name = "http seed"
+        row = probe.step(ts)
+        launches = {k: launches[k] + row["launches"][k] for k in launches}
+        problems = hold_wire_step(name, op, store, svc, row, "full")
+        if len(problems) != 1 or len(row["result"].bound) != len(store.pods):
+            raise AssertionError(f"{name}: {len(problems)} solves, "
+                                 f"{len(row['result'].bound)} of {len(store.pods)} pods bound")
+        hold_pack_launches(name, row["launches"])
+        problem, solved = problems[0]
+        digest = problem_digest(problem)
+        if digest == problem_digest(encode(*configs.config_operator_seed(HTTP_PODS))):
+            raise AssertionError(f"{name}: the wire's problem is the in-process seed's, yet the "
+                                 "HTTP cloud serves no price refresh")
+        if digest != problem_digest(encode(*configs.config_http_seed(HTTP_PODS))):
+            raise AssertionError(f"{name}: the round's problem is not config_http_seed()")
+        kernel = oracle._solve_kernel(problem)
+        torch.cuda.synchronize()
+        if validate(problem, kernel):
+            raise AssertionError(f"{name}: the kernel-only plan fails validation")
+        ref = configs.REFERENCE_COSTS["http_seed"]
+        if abs(kernel.cost - ref) > COST_RTOL * ref:
+            raise AssertionError(f"{name}: kernel-only cost {kernel.cost!r}, JAX package {ref!r}")
+        log(step_line(name, row, problems))
+        log(f"{name}: {wire_line(row)}; kernel-only cost {kernel.cost!r} (the JAX package's "
+            f"http_seed), plan cost {solved.cost!r}, {len(store.nodes)} nodes, "
+            f"{len(svc.instances)} instances; card {card_line()}")
+        c = check(ts, "http_seed", problem, oracle)
+        errs = dict(c["errs"])
+        del c, problems, problem, kernel
+
+        # 2. churn through a second client: its writes reach the operator as
+        # watch events, which its session delta-encodes
+        name = "http churn"
+        writer = HTTPCluster(api.endpoint, watch=False)
+        clients.append(writer)
+        gone = sorted(store.pods)[:HTTP_CHURN]
+        added = [f"churn-{i}" for i in range(HTTP_CHURN)]
+        t0 = time.perf_counter()
+        for pod_name in gone:
+            writer.delete_pod(pod_name)
+        for i, pod_name in enumerate(added):
+            writer.add_pod(Pod(meta=ObjectMeta(name=pod_name, owner_kind="ReplicaSet"),
+                               requests=configs._cell_requests(i % 30)))
+        writes_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        while not (all(n in cluster.pods for n in added) and not any(n in cluster.pods for n in gone)):
+            if time.perf_counter() - t0 > 60:
+                raise AssertionError(f"{name}: the operator's watch did not deliver the churn")
+            time.sleep(0.01)
+        seen_s = time.perf_counter() - t0
+        row = probe.step(ts)
+        launches = {k: launches[k] + row["launches"][k] for k in launches}
+        problems = hold_wire_step(name, op, store, svc, row, "delta")
+        if sorted(row["result"].bound) != sorted(added):
+            raise AssertionError(f"{name}: bound {len(row['result'].bound)} pods, not the "
+                                 f"{HTTP_CHURN} added")
+        log(step_line(name, row, problems))
+        log(f"{name}: {2 * HTTP_CHURN} writes through a second client in {writes_s:.4f} s, in "
+            f"the operator's cache {seen_s:.4f} s later; {wire_line(row)}")
+
+        # 3. a spot-interruption notice for the most loaded spot node, sent
+        # over /v1/queue/*; its pods re-bind in the same step
+        name = "http interruption"
+        load = {n.name: len(store.pods_on_node(n.name)) for n in store.nodes.values()
+                if n.meta.labels.get(wk.CAPACITY_TYPE) == wk.CAPACITY_TYPE_SPOT}
+        target = store.nodes[min(load, key=lambda n: (-load[n], n))]
+        target_id = target.provider_id.rsplit("/", 1)[-1]
+        HTTPCloudProvider(svc.endpoint).queue.send({
+            "version": "0", "source": "cloud.compute",
+            "detail-type": "Spot Instance Interruption Warning",
+            "detail": {"instance-id": target_id}})
+        row = probe.step(ts)
+        launches = {k: launches[k] + row["launches"][k] for k in launches}
+        problems = hold_wire_step(name, op, store, svc, row, "delta")
+        if row.get("handled") != 1 or row.get("repended") != load[target.name]:
+            raise AssertionError(f"{name}: handled {row.get('handled')} messages, re-pended "
+                                 f"{row.get('repended')} of the node's {load[target.name]} pods")
+        if target.name in store.nodes or target_id in svc.instances:
+            raise AssertionError(f"{name}: the interrupted node {target.name} still runs")
+        log(step_line(name, row, problems))
+        log(f"{name}: {target.name} held {load[target.name]} pods (spot nodes hold "
+            f"{min(load.values())}-{max(load.values())}); {wire_line(row)}; "
+            f"{len(svc.queue)} messages left; card {card_line()}")
+        if len(svc.queue):
+            raise AssertionError(f"{name}: the queue holds {len(svc.queue)} messages")
+    finally:
+        if op is not None:
+            op.close()
+        for client in clients:
+            client.close()
+        api.stop()
+        svc.stop()
+    log(f"http_tier (a) launches {launches}")
+    hold_pack_launches("http_tier (a)", launches)
+    return dict(launches=launches, errs=errs)
+
+
+def ha_pair(configs) -> None:
+    """(b) of ``http_tier_phase``: ``python -m karpenter_tpu_torch.state.apiserver``
+    and two ``python -m karpenter_tpu_torch --leader-elect`` replicas on
+    the card, subprocesses sharing one lease file under ``build/``, the
+    state tier and an in-process ``CloudHTTPService``."""
+    import os
+    import signal
+    import socket
+    import urllib.error
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from karpenter_tpu_torch.api import ObjectMeta, Pod, Provisioner
+    from karpenter_tpu_torch.cloudprovider import generate_catalog
+    from karpenter_tpu_torch.cloudprovider.httpcloud import CloudHTTPService
+    from karpenter_tpu_torch.state import HTTPCluster
+
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "ha"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    lease = work / "lease"
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    def get(port, path):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=5) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, ""
+        except (urllib.error.URLError, ConnectionError, OSError):
+            return None, ""
+
+    def series(port) -> dict:
+        out = {}
+        for line in get(port, "/metrics")[1].splitlines():
+            if line and not line.startswith("#"):
+                key, value = line.rsplit(" ", 1)
+                out[key] = float(value)
+        return out
+
+    env = dict(os.environ, PYTHONPATH=str(root))
+    procs, logs = {}, {}
+
+    def spawn(tag, args):
+        logs[tag] = open(work / f"{tag}.log", "w")
+        procs[tag] = subprocess.Popen([sys.executable, "-m", *args], cwd=root, env=env,
+                                      stdout=logs[tag], stderr=subprocess.STDOUT)
+
+    def tail(tag) -> str:
+        logs[tag].flush()
+        return (work / f"{tag}.log").read_text()[-2000:]
+
+    def wait(what, predicate, limit, tags=()):
+        t0 = time.perf_counter()
+        while not predicate():
+            for tag in tags:
+                if procs[tag].poll() is not None:
+                    raise AssertionError(f"ha: {tag} exited {procs[tag].returncode} while "
+                                         f"waiting for {what}: {tail(tag)}")
+            if time.perf_counter() - t0 > limit:
+                raise AssertionError(f"ha: no {what} within {limit} s")
+            time.sleep(0.05)
+        return time.perf_counter() - t0
+
+    svc = CloudHTTPService(generate_catalog(n_types=400))
+    for subnet in svc.subnets:
+        subnet.available_ips = 1 << 20
+    svc.start()
+    api_port = free_port()
+    client = None
+    try:
+        t0 = time.perf_counter()
+        spawn("apiserver", ["karpenter_tpu_torch.state.apiserver", "--port", str(api_port)])
+        api = f"http://127.0.0.1:{api_port}"
+        wait("state tier", lambda: get(api_port, "/version")[0] == 200, 120, ("apiserver",))
+        log(f"ha: state tier up in {time.perf_counter() - t0:.2f} s at {api}")
+        client = HTTPCluster(api)
+        client.add_provisioner(Provisioner(meta=ObjectMeta(name="default")))
+        ports = {f"replica-{i}": free_port() for i in range(2)}
+        t0 = time.perf_counter()
+        for tag, port in ports.items():
+            spawn(tag, ["karpenter_tpu_torch", "--leader-elect", "--leader-elect-lease", str(lease),
+                        "--leader-lease-duration", str(HA_LEASE_S),
+                        "--leader-renew-interval", str(HA_RENEW_S),
+                        "--cluster-endpoint", api, "--cloud-endpoint", svc.endpoint,
+                        "--metrics-port", str(port), "--metrics-bind", "127.0.0.1",
+                        "--batch-idle-duration", "1", "--batch-max-duration", "10",
+                        "--tick", "0.1"])
+
+        def leading():
+            return [tag for tag, port in ports.items() if get(port, "/leaderz")[0] == 200]
+
+        wait("replica answering /healthz",
+             lambda: all(get(p, "/healthz")[0] == 200 for p in ports.values()),
+             HA_READY_S, tuple(ports))
+        wait("leader", lambda: len(leading()) == 1, 60, tuple(ports))
+        log(f"ha: two replicas up, one leading, {time.perf_counter() - t0:.2f} s after spawning")
+        for _ in range(10):
+            if len(leading()) != 1:
+                raise AssertionError(f"ha: leaders {leading()}")
+            time.sleep(0.1)
+        leader = leading()[0]
+        standby = next(tag for tag in ports if tag != leader)
+
+        def post_wave(w):
+            names = [f"wave{w}-{i}" for i in range(HA_WAVE)]
+            pods = [Pod(meta=ObjectMeta(name=n, owner_kind="ReplicaSet"),
+                        requests=configs._cell_requests(i % 30)) for i, n in enumerate(names)]
+            t = time.perf_counter()
+            with ThreadPoolExecutor(16) as pool:
+                list(pool.map(client.add_pod, pods))
+            posted_s = time.perf_counter() - t
+            bound_s = wait(f"wave {w} bound", lambda: all(
+                client.pods[n].node_name for n in names), HA_BIND_S, (leader,))
+            return posted_s, bound_s
+
+        def hold_leader(tag, wave):
+            m = series(ports[tag])
+            faults = {k: v for k, v in m.items() if k.startswith("karpenter_tpu_kernel_faults") and v}
+            kernel = [k for k in m if k.startswith("karpenter_tpu_rpc_breaker_state")
+                      and 'service="kernel"' in k]
+            staging = {k: v for k, v in m.items() if k.startswith("karpenter_tpu_device_staging")}
+            if faults or m.get("karpenter_tpu_kernel_backend_health") != 1.0:
+                raise AssertionError(f"ha: {tag} kernel faults {faults}, backend health "
+                                     f"{m.get('karpenter_tpu_kernel_backend_health')}")
+            if not kernel or any(m[k] for k in kernel):
+                raise AssertionError(f"ha: {tag} consulted no kernel breaker (the card never "
+                                     f"dispatched) or one is open: {kernel}")
+            errors = {k: v for k, v in m.items()
+                      if k.startswith("karpenter_tpu_controller_reconcile_errors_total") and v}
+            if errors:
+                raise AssertionError(f"ha: {tag} loops recorded errors: {errors}")
+            log(f"ha: {tag} after wave {wave}: kernel breakers {len(kernel)} closed "
+                f"({', '.join(kernel)}), no kernel fault, staging {staging or 'no event'}")
+
+        posted_s, bound_s = post_wave(1)
+        log(f"ha: wave 1, {HA_WAVE} pods posted in {posted_s:.4f} s, all bound by {leader} "
+            f"{bound_s:.4f} s later")
+        hold_leader(leader, 1)
+        t0 = time.perf_counter()
+        procs[leader].kill()
+        procs[leader].wait(timeout=30)
+        killed = leader
+        takeover_s = wait("takeover", lambda: get(ports[standby], "/leaderz")[0] == 200,
+                          4 * (HA_LEASE_S + HA_POLL_S), (standby,))
+        if takeover_s > HA_LEASE_S + HA_POLL_S + 0.5:
+            raise AssertionError(f"ha: the standby took {takeover_s:.4f} s to lead, more than "
+                                 f"one lease and one acquire poll")
+        if get(ports[standby], "/readyz")[0] != 200:
+            raise AssertionError("ha: the new leader is not ready")
+        log(f"ha: {killed} SIGKILLed; {standby} leads {takeover_s:.4f} s later (lease "
+            f"{HA_LEASE_S} s, renew {HA_RENEW_S} s, acquire poll {HA_POLL_S} s)")
+        leader = standby
+        posted_s, bound_s = post_wave(2)
+        log(f"ha: wave 2, {HA_WAVE} pods posted in {posted_s:.4f} s, all bound by {leader} "
+            f"{bound_s:.4f} s later")
+        hold_leader(leader, 2)
+        # no pod bound twice: every pod's events in the state tier's log name
+        # one node at most, and the cloud committed no token twice
+        status, body = get(api_port, "/watch?since=0&timeout=0")
+        events = json.loads(body)["events"] if status == 200 else None
+        if not events:
+            raise AssertionError(f"ha: the state tier's watch log answered {status}")
+        nodes_of = {}
+        for ev in events:
+            if ev["kind"] == "pods" and ev["object"].get("nodeName"):
+                nodes_of.setdefault(ev["object"]["meta"]["name"], set()).add(
+                    ev["object"]["nodeName"])
+        twice = {k: v for k, v in nodes_of.items() if len(v) > 1}
+        if twice or len(nodes_of) != 2 * HA_WAVE:
+            raise AssertionError(f"ha: {len(nodes_of)} pods bound, bound twice: "
+                                 f"{dict(list(twice.items())[:5])}")
+        audit = svc.launch_audit()
+        if audit["duplicate_tokens"] or audit["untokened"]:
+            raise AssertionError(f"ha: launch audit {audit}")
+        final = HTTPCluster(api, watch=False)
+        machines = list(final.machines.values())
+        final.close()
+        if set(svc.instances) != instance_ids(machines):
+            raise AssertionError(f"ha: {len(svc.instances)} instances, {len(machines)} machines")
+        t0 = time.perf_counter()
+        procs[leader].send_signal(signal.SIGTERM)
+        rc = procs[leader].wait(timeout=ENTRYPOINT_EXIT_S)
+        if rc != 0:
+            raise AssertionError(f"ha: {leader} exited {rc} after SIGTERM: {tail(leader)}")
+        log(f"ha: {len(events)} watch events, {len(nodes_of)} pods each bound once, "
+            f"{audit['launches']} launches on {audit['tokens']} tokens, none twice; {leader} "
+            f"exit 0 {time.perf_counter() - t0:.2f} s after SIGTERM; card {card_line()}")
+    finally:
+        if client is not None:
+            client.close()
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs.values():
+            f.close()
+        svc.stop()
+
+
+def http_tier_phase(ts, configs) -> dict:
+    """Main path, the operator's HTTP tier: (a) one operator over the wire
+    in process, ``Operator.new(provider=HTTPCloudProvider(svc.endpoint),
+    cluster=HTTPCluster(api.endpoint), ...)`` with no solver given, over
+    ``configs.config_http_tier()`` (a ``ClusterAPIServer`` whose store
+    holds 10,000 pending pods, the ``al2-tpl`` template and the spot and
+    on-demand provisioner; a ``CloudHTTPService`` over 400 types): the seed
+    step (the problem ``configs.config_http_seed()``'s at the JAX package's
+    kernel-only cost ``http_seed``, K1, K2 and K3 held against their plain
+    versions on it), a churn step (``HTTP_CHURN`` pods deleted and as many
+    added through a second client, delta-encoded from the watch), and an
+    interruption step (a notice for the most loaded spot node over
+    ``/v1/queue/*``, its pods re-bound in the same step), each held by
+    ``hold_wire_step`` and split by ``WireProbe``; (b) the HA pair
+    (``ha_pair``). Returns (a)'s launches and the largest differences of
+    the kernel check."""
+    t0 = time.perf_counter()
+    out = http_operator(ts, configs)
+    a_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ha_pair(configs)
+    log(f"http_tier: (a) {a_s:.2f} s, (b) {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 #: the replay phase's capsules, kept by the phases that record them:
 #: (tag, what, controller kind)
 REPLAYS = (
@@ -3265,20 +3775,24 @@ def main() -> int:
     sharded = controller_sharded(ts, st, configs)
     consolidated = consolidation(ts, configs)
     operated = operator_phase(ts, configs)
+    wired = http_tier_phase(ts, configs)
     replayed = replay_phase(ts, st)
     shutil.rmtree(CAPSULE_DIR, ignore_errors=True)
     for entry in kernels:
         entry["max_abs_err"] = max(entry["max_abs_err"], controller_errs.get(entry["name"], 0.0),
                                    consolidated["errs"].get(entry["name"], 0.0),
                                    operated["errs"].get(entry["name"], 0.0),
+                                   wired["errs"].get(entry["name"], 0.0),
                                    replayed["errs"].get(entry["name"], 0.0))
     for entry in kernels:
         # the main path: the flat race, the fleet race, the sharded
         # controller's rounds, the deprovisioning passes, the operator's
-        # steps and the replays, each counted alone
+        # steps, the operator's steps over the wire and the replays, each
+        # counted alone
         entry["launches"] = (flat[entry["name"]] + fleet[entry["name"]] + sharded[entry["name"]]
                              + consolidated["launches"][entry["name"]]
                              + operated["launches"][entry["name"]]
+                             + wired["launches"][entry["name"]]
                              + replayed["launches"][entry["name"]])
         if entry["name"] == "pack_member":
             entry["max_abs_err"] = max(entry["max_abs_err"], k2_err)

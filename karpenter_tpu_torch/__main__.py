@@ -7,12 +7,14 @@ ingest from KARPENTER_TPU_* env vars; SIGINT/SIGTERM stop the loops cleanly.
 
 The port's flags are the reference's plus ``--device`` (default ``cuda``),
 which places the operator's default ``TorchSolver``: the operator runs on
-the card unless its caller asks for the CPU. ``--cloud-endpoint``,
-``--cluster-endpoint`` and ``--serve-cluster-api`` are parsed as the
-reference parses them, but the HTTP cloud provider, the HTTP cluster and the
-API server are not ported yet (``ROADMAP.md``, the second half of Queue 1
-item 6): ``main`` exits non-zero with a message naming them, and never runs
-in-process in their place.
+the card unless its caller asks for the CPU, and without CUDA the solver's
+constructor raises. ``--cloud-endpoint`` talks to a ``CloudHTTPService``
+through ``HTTPCloudProvider``, ``--cluster-endpoint`` reconciles against a
+``ClusterAPIServer`` through ``HTTPCluster`` (both under the settings' retry
+policy and circuit breakers), and ``--serve-cluster-api PORT`` serves this
+operator's own store. The HA deployment is ``python -m
+karpenter_tpu_torch.state.apiserver --port P`` plus two replicas started
+with ``--leader-elect --cluster-endpoint ... --cloud-endpoint ...``.
 """
 
 from __future__ import annotations
@@ -66,14 +68,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-#: flags that need the HTTP half of the operator, and what each needs
-_HTTP_FLAGS = (
-    ("cloud_endpoint", "--cloud-endpoint", "the HTTP cloud provider"),
-    ("cluster_endpoint", "--cluster-endpoint", "the HTTP cluster"),
-    ("serve_cluster_api", "--serve-cluster-api", "the cluster API server"),
-)
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
@@ -84,16 +78,6 @@ def main(argv=None) -> int:
 
     configure(level=args.log_level, fmt=args.log_format)
     log = get_logger("main")
-
-    for attr, flag, what in _HTTP_FLAGS:
-        if getattr(args, attr) is not None:
-            print(
-                f"karpenter-tpu: {flag} needs {what}, which is not ported yet "
-                "(ROADMAP.md, Queue 1 item 6, its second half: the HTTP "
-                "provider, the API server, the HTTP cluster and the wire codec)",
-                file=sys.stderr,
-            )
-            return 2
 
     settings = Settings.from_env()
     overrides = {
@@ -109,8 +93,44 @@ def main(argv=None) -> int:
     if overrides:
         settings.apply(overrides)
 
-    ctx = OperatorContext.discover(settings=settings)
-    op = Operator.new(provider=ctx.provider, settings=ctx.settings, device=args.device)
+    from .utils.resilience import breaker_set_from_settings, retry_policy_from_settings
+
+    provider = None
+    if args.cloud_endpoint:
+        from .cloudprovider.httpcloud import HTTPCloudProvider
+
+        provider = HTTPCloudProvider(
+            args.cloud_endpoint,
+            retry_policy=retry_policy_from_settings(settings),
+            breakers=breaker_set_from_settings("cloud", settings),
+            ice_ttl_s=settings.insufficient_capacity_ttl,
+        )
+    ctx = OperatorContext.discover(provider=provider, settings=settings)
+    cluster = None
+    if args.cluster_endpoint:
+        from .state import HTTPCluster
+
+        cluster = HTTPCluster(
+            args.cluster_endpoint,
+            retry_policy=retry_policy_from_settings(settings),
+            breakers=breaker_set_from_settings("apiserver", settings),
+            queue_capacity=settings.watch_queue_capacity,
+        )
+    op = Operator.new(provider=ctx.provider, settings=ctx.settings,
+                      cluster=cluster, device=args.device)
+    cluster_api = None
+    if args.serve_cluster_api is not None:
+        if args.cluster_endpoint:
+            log.warning(
+                "--serve-cluster-api ignored: this operator is a CLIENT of "
+                "--cluster-endpoint; serve the API from the store owner"
+            )
+        else:
+            from .state import ClusterAPIServer
+
+            cluster_api = ClusterAPIServer(
+                backing=op.cluster, port=args.serve_cluster_api
+            ).start()
     import logging
 
     kv(log, logging.INFO, "operator starting",
@@ -176,6 +196,10 @@ def main(argv=None) -> int:
     finally:
         if elector is not None:
             elector.release()  # idempotent after op.close() released it
+        if cluster_api is not None:
+            cluster_api.stop()
+        if cluster is not None:
+            cluster.close()
     kv(log, logging.INFO, "operator stopped")
     return 0
 

@@ -383,6 +383,59 @@ def config_operator_seed(n_pods: int = 50_000, n_types: int = 400):
     return cluster.pending_pods(), provs, []
 
 
+def config_http_tier(n_pods: int = 10_000, n_types: int = 400):
+    """``config_operator``'s deployment over the wire: the cluster becomes
+    the store a ``ClusterAPIServer(backing=store)`` serves, and the cloud a
+    ``CloudHTTPService`` over ``generate_catalog(n_types)`` whose subnets
+    hold 2^20 IPs a zone (not started). The operator is then
+    ``Operator.new(provider=HTTPCloudProvider(svc.endpoint),
+    cluster=HTTPCluster(api.endpoint), settings=settings, clock=clock)``.
+    Over the wire there is no price refresh and no cost ledger: the HTTP
+    provider has no ``pricing`` (the reference's operator builds neither for
+    it). The settings are ``config_operator``'s with the watch intake sized
+    for the seed round's burst (``watch_queue_capacity`` 2^16): binding
+    ``n_pods`` pods and launching their nodes writes one event a bind and
+    several a node, more than the default 8,192 from 10,000 pods on, while
+    the round holds the informer still; an intake that overflows sheds and
+    relists, which sends the next round to a full encode. The operator's ``HTTPCluster`` takes the capacity from the
+    settings, as ``python -m karpenter_tpu_torch`` gives it.
+
+    Returns ``(store, service, settings, clock)``."""
+    from .cloudprovider.httpcloud import CloudHTTPService
+
+    from .api.settings import Settings
+    from .utils.cache import FakeClock
+
+    store = _operator_cluster(n_pods)
+    service = CloudHTTPService(generate_catalog(n_types=n_types))
+    for subnet in service.subnets:
+        subnet.available_ips = 1 << 20
+    settings = Settings(batch_idle_duration=0, batch_max_duration=0,
+                        consolidation_validation_ttl=0, stabilization_window=0,
+                        interruption_queue_name="karpenter-tpu",
+                        watch_queue_capacity=1 << 16)
+    return store, service, settings, FakeClock(start=100_000.0)
+
+
+def config_http_seed(n_pods: int = 10_000, n_types: int = 400):
+    """The operator's seed round over the wire on ``config_http_tier(n_pods,
+    n_types)``: ``(pods, provisioners, existing)`` as the provisioning
+    controller hands them to ``solve_pods``: the store's pending pods and
+    ``[(provisioner, an HTTPCloudProvider's instance types)]`` from a fresh
+    service (started on a free local port for the one catalog call, then
+    stopped), no existing nodes."""
+    from .cloudprovider.httpcloud import HTTPCloudProvider
+
+    store, service, _, _ = config_http_tier(n_pods, n_types)
+    service.start()
+    try:
+        provider = HTTPCloudProvider(service.endpoint)
+        provs = [(p, provider.get_instance_types(p)) for p in store.provisioners.values()]
+    finally:
+        service.stop()
+    return store.pending_pods(), provs, []
+
+
 def config_controller_cells(n_pods: int = 500_000, n_cells: int = 20, n_types: int = 60,
                             n_deploys: int = 12):
     """``config_cells`` as a cluster, for the sharded provisioning
@@ -623,7 +676,10 @@ CONTROLLER_CHURN_MODES = ("delta",) * DELTA_ROUNDS
 #: what-if of a deprovisioning pass on ``config_consolidation()``;
 #: ``operator_seed`` is ``config_operator_seed()``, the operator's seed
 #: round on ``config_operator()`` (a different problem from
-#: ``controller_seed``: spot offerings and the first price refresh).
+#: ``controller_seed``: spot offerings and the first price refresh);
+#: ``http_seed`` is ``config_http_seed()``, the operator's seed round over
+#: the wire on ``config_http_tier()`` (the JAX package's own HTTP cloud and
+#: cluster give the same problem; the HTTP cloud serves no price refresh).
 REFERENCE_COSTS = {
     "50k_full": 1017.0072868143582,
     "10k_topology": 59.197231399244934,
@@ -637,4 +693,5 @@ REFERENCE_COSTS = {
     "controller_seed": 843.6097242015434,
     "consolidation_20k": 55.288573398301494,
     "operator_seed": 705.7113230000035,
+    "http_seed": 167.73068867890268,
 }

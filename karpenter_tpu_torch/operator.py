@@ -98,9 +98,10 @@ class Operator:
         cluster: Optional[Cluster] = None,
         device: str = "cuda",
     ) -> "Operator":
-        """``cluster`` defaults to the in-process store (the reference also
-        takes an ``HTTPCluster``, which comes with the second half of Queue 1
-        item 6). ``device`` places the default solver, which is built only
+        """``cluster`` defaults to the in-process store; pass an
+        ``HTTPCluster`` to run every controller against the apiserver wire
+        surface (reads from the informer cache, writes + admission over
+        HTTP). ``device`` places the default solver, which is built only
         when no ``solver`` is given: the card unless the caller asks for the
         CPU (the port's addition; the reference has no such argument)."""
         settings = settings or Settings()

@@ -724,6 +724,7 @@ class KernelBreakerBoard:
         self.recovery_timeout_s = float(recovery_timeout_s)
         self._clock = clock
         self._set = BreakerSet(
+            "kernel",
             failure_threshold=self.failure_threshold,
             recovery_timeout_s=self.recovery_timeout_s, clock=clock,
         )

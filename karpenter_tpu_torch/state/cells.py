@@ -58,18 +58,6 @@ CellKey = Tuple[str, str]
 #: whose members disagree, and nodes whose provisioner left the cluster
 RESIDUE: CellKey = ("~", "residue")
 
-#: cluster attribute of each kind ``CellIndex`` lists: a copy of the API
-#: server's table (``karpenter_tpu/state/apiserver.py``), which comes with
-#: ``ROADMAP.md`` Queue 1 item 6
-_COLLECTIONS = {
-    "pods": "pods",
-    "nodes": "nodes",
-    "machines": "machines",
-    "provisioners": "provisioners",
-    "nodetemplates": "node_templates",
-    "poddisruptionbudgets": "pdbs",
-}
-
 
 def cell_name(key: CellKey) -> str:
     if key == RESIDUE:
@@ -789,6 +777,8 @@ class CellIndex:
         with self._lock:
             self._refresh_locked()
             if kind not in self._indexed_kinds:
+                from .apiserver import _COLLECTIONS
+
                 coll = getattr(self.backing, _COLLECTIONS[kind])
                 # snapshot under the STORE lock: writers mutate the dict
                 # under it, and a resize mid-iteration would blow up this

@@ -1,5 +1,12 @@
-"""RPC resilience: the retry policy, its error table, and circuit breakers
-(``karpenter_tpu/utils/resilience.py``, without the breakers' call gate).
+"""RPC resilience: the retry policy, its error table, circuit breakers and
+their composition (a copy of ``karpenter_tpu/utils/resilience.py``).
+
+The upstream provider survives a flaky EC2 control plane by retrying
+throttled/5xx calls with backoff (the AWS SDK's adaptive retryer under
+``pkg/providers/...``) and by remembering capacity failures per offering
+(``pkg/cache/unavailableofferings.go``). Every RPC edge of the port
+(``cloudprovider/httpcloud.py``, ``state/httpcluster.py``) gets the same
+three pieces:
 
 * :func:`is_retryable` — the error-classification table. Throttles (429),
   server errors (5xx), connection failures and timeouts are retryable;
@@ -10,19 +17,21 @@
   (``delay = rand() * min(cap, base * 2**attempt)``), a per-attempt timeout
   hint for transports and a total deadline that aborts a retry loop which
   would otherwise overshoot the caller's budget. ``sleep``/``clock``/``rng``
-  are injectable so tests run scripted schedules without real sleeps. The
-  provisioning controller retries transient launch failures through it.
-* :class:`CircuitBreaker` is closed → open → half-open:
-  ``failure_threshold`` consecutive failures open the circuit; once
-  ``recovery_timeout_s`` has elapsed it reads half-open, and then one
-  success closes it and one failure reopens it. :class:`BreakerSet` keeps
-  one breaker per endpoint, created lazily with shared thresholds. The
-  solver's kernel breaker board rides these: it reads ``state`` to gate a
-  dispatch and books each outcome. Both are thread-safe, one lock each, as
-  the reference's are: the sharded round's per-cell solver clones book
-  evidence from several host threads at once. Every transition to open
-  bumps a process-wide count (:func:`breaker_open_count`), which the flight
-  recorder reads around a reconcile for its ``breaker-open`` trigger.
+  are injectable so the fault-injection tests run scripted schedules
+  without real sleeps.
+* :class:`CircuitBreaker` — closed→open→half-open with a probe budget:
+  ``failure_threshold`` consecutive failures open the circuit, calls then
+  fail fast (``CircuitOpenError``, classified terminal so retry loops stop
+  immediately) until ``recovery_timeout_s`` elapses; half-open admits at
+  most ``half_open_probes`` concurrent probes — one success closes the
+  circuit, one failure reopens it. :class:`BreakerSet` keeps one breaker
+  per endpoint; the solver's kernel breaker board rides one too. Every
+  transition to open bumps a process-wide count
+  (:func:`breaker_open_count`), which the flight recorder reads around a
+  reconcile for its ``breaker-open`` trigger.
+
+State is exported through the ``karpenter_tpu_rpc_*`` metrics (requests by
+outcome, retries, breaker state/transitions) labeled by service + endpoint.
 """
 
 from __future__ import annotations
@@ -150,6 +159,9 @@ class RetryPolicy:
 
 # -- circuit breaker ---------------------------------------------------------
 
+#: gauge encoding of breaker state (karpenter_tpu_rpc_breaker_state)
+_STATE_VALUE = {"closed": 0.0, "open": 1.0, "half-open": 2.0}
+
 #: process-wide count of closed/half-open -> open transitions, across every
 #: breaker instance. The flight recorder snapshots it around a reconcile: a
 #: delta means a circuit opened mid-round — one of its anomaly dump triggers.
@@ -161,70 +173,153 @@ def breaker_open_count() -> int:
     return _open_events
 
 
-def _count_open() -> None:
-    global _open_events
-    with _open_events_lock:
-        _open_events += 1
-
-
 class CircuitBreaker:
-    """closed → open → half-open breaker.
+    """closed → open → half-open breaker with a half-open probe budget.
 
-    * closed: ``failure_threshold`` CONSECUTIVE failures open it.
-    * open: reads open until ``recovery_timeout_s`` elapses, then half-open.
-    * half-open: a success closes the breaker, a failure reopens it.
+    * closed: calls pass; ``failure_threshold`` CONSECUTIVE failures open it.
+    * open: calls raise :class:`CircuitOpenError` without touching the wire
+      until ``recovery_timeout_s`` elapses, then the breaker goes half-open.
+    * half-open: at most ``half_open_probes`` in-flight probes are admitted;
+      a probe success closes the breaker, a probe failure reopens it.
     """
 
     def __init__(
         self,
+        service: str = "",
+        endpoint: str = "",
         failure_threshold: int = 5,
         recovery_timeout_s: float = 10.0,
+        half_open_probes: int = 1,
         clock: Callable[[], float] = time.monotonic,
     ):
+        self.service = service
+        self.endpoint = endpoint
         self.failure_threshold = failure_threshold
         self.recovery_timeout_s = recovery_timeout_s
+        self.half_open_probes = half_open_probes
         self._clock = clock
         self._lock = threading.Lock()
         self._state = "closed"
         self._failures = 0
         self._opened_at = 0.0
+        self._probes_inflight = 0
+        self._publish_locked()
 
+    # -- state accounting (all under the lock) ------------------------------
     @property
     def state(self) -> str:
         with self._lock:
-            if self._state == "open" and self._clock() - self._opened_at >= self.recovery_timeout_s:
-                self._state = "half-open"
+            self._maybe_half_open_locked()
             return self._state
+
+    def _labels(self) -> Dict[str, str]:
+        return {"service": self.service, "endpoint": self.endpoint}
+
+    def _publish_locked(self) -> None:
+        metrics.RPC_BREAKER_STATE.set(_STATE_VALUE[self._state], self._labels())
+
+    def _transition_locked(self, to: str) -> None:
+        if to == self._state:
+            return
+        self._state = to
+        if to == "open":
+            global _open_events
+            with _open_events_lock:
+                _open_events += 1
+        metrics.RPC_BREAKER_TRANSITIONS.inc({**self._labels(), "to": to})
+        # breaker trips ride the active trace span too (no-op outside one):
+        # an attributable "circuit opened mid-reconcile" beats a bare metric
+        tracing.add_event(
+            "breaker.transition", service=self.service, endpoint=self.endpoint,
+            to=to, failures=self._failures,
+        )
+        self._publish_locked()
+
+    def _maybe_half_open_locked(self) -> None:
+        if (
+            self._state == "open"
+            and self._clock() - self._opened_at >= self.recovery_timeout_s
+        ):
+            self._transition_locked("half-open")
+            self._probes_inflight = 0
+
+    def _admit(self) -> None:
+        """Gate one call; raises CircuitOpenError when the circuit denies it.
+        In half-open state the probe budget is reserved here and settled in
+        record_success/record_failure."""
+        with self._lock:
+            self._maybe_half_open_locked()
+            if self._state == "closed":
+                return
+            if self._state == "half-open" and self._probes_inflight < self.half_open_probes:
+                self._probes_inflight += 1
+                return
+            raise CircuitOpenError(
+                f"circuit open for {self.service}:{self.endpoint} "
+                f"({self._failures} consecutive failures)"
+            )
 
     def record_success(self) -> None:
         with self._lock:
             self._failures = 0
-            self._state = "closed"
+            self._probes_inflight = 0
+            self._transition_locked("closed")
 
     def record_failure(self) -> None:
         with self._lock:
             self._failures += 1
             if self._state == "half-open":
+                self._probes_inflight = max(0, self._probes_inflight - 1)
                 self._opened_at = self._clock()
-                self._state = "open"  # a failed probe reopens
-                _count_open()
+                self._transition_locked("open")  # failed probe reopens
             elif self._state == "closed" and self._failures >= self.failure_threshold:
                 self._opened_at = self._clock()
-                self._state = "open"
-                _count_open()
+                self._transition_locked("open")
+
+    def call(
+        self,
+        fn: Callable[[], object],
+        classify: Callable[[BaseException], bool] = is_retryable,
+    ):
+        """Run ``fn`` under the breaker, feeding its outcome back. Only
+        failures the classifier deems retryable (server/connection class)
+        count toward opening the circuit: a streak of 4xx client errors from
+        a healthy server must not trip the breaker — nor does it reset the
+        consecutive-failure count."""
+        self._admit()
+        try:
+            result = fn()
+        except CircuitOpenError:
+            raise
+        except BaseException as e:
+            if classify(e):
+                self.record_failure()
+            elif self._state == "half-open":
+                # a terminal answer still proves the server is reachable:
+                # settle the probe as a recovery rather than leaking budget
+                self.record_success()
+            raise
+        self.record_success()
+        return result
 
 
 class BreakerSet:
-    """Per-endpoint circuit breakers, created lazily and sharing thresholds."""
+    """Per-endpoint circuit breakers for one service, created lazily and
+    sharing thresholds — a 5xx storm on /v1/run-instances must not take
+    /v1/describe down with it."""
 
     def __init__(
         self,
+        service: str,
         failure_threshold: int = 5,
         recovery_timeout_s: float = 10.0,
+        half_open_probes: int = 1,
         clock: Callable[[], float] = time.monotonic,
     ):
+        self.service = service
         self.failure_threshold = failure_threshold
         self.recovery_timeout_s = recovery_timeout_s
+        self.half_open_probes = half_open_probes
         self._clock = clock
         self._lock = threading.Lock()
         self._breakers: Dict[str, CircuitBreaker] = {}
@@ -234,8 +329,11 @@ class BreakerSet:
             b = self._breakers.get(endpoint)
             if b is None:
                 b = self._breakers[endpoint] = CircuitBreaker(
+                    service=self.service,
+                    endpoint=endpoint,
                     failure_threshold=self.failure_threshold,
                     recovery_timeout_s=self.recovery_timeout_s,
+                    half_open_probes=self.half_open_probes,
                     clock=self._clock,
                 )
             return b
@@ -247,6 +345,29 @@ class BreakerSet:
             return dict(self._breakers)
 
 
+def resilient_call(
+    fn: Callable[[], object],
+    *,
+    policy: RetryPolicy,
+    breaker: Optional[CircuitBreaker] = None,
+    service: str = "",
+    endpoint: str = "",
+    classify: Callable[[BaseException], bool] = is_retryable,
+):
+    """Retry + breaker composition used by the HTTP transports: every attempt
+    feeds the breaker, and an opening breaker ends the retry loop at once
+    (CircuitOpenError is terminal)."""
+    attempt = fn if breaker is None else (lambda: breaker.call(fn, classify=classify))
+    return policy.call(attempt, classify=classify, service=service, endpoint=endpoint)
+
+
 def retry_policy_from_settings(settings) -> RetryPolicy:
     """Build the shared policy from operator settings (api/settings.py)."""
     return RetryPolicy(max_attempts=int(getattr(settings, "rpc_retry_max_attempts", 4)))
+
+
+def breaker_set_from_settings(service: str, settings) -> BreakerSet:
+    return BreakerSet(
+        service,
+        failure_threshold=int(getattr(settings, "rpc_breaker_failure_threshold", 5)),
+    )

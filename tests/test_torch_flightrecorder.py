@@ -771,3 +771,58 @@ def test_flush_dumps_writes_pending_anomalies(port, tmp_path):
     written = port.fr.FLIGHT.flush_dumps()
     assert len(written) == 1 and os.path.exists(written[0])
     assert port.fr.FLIGHT.flush_dumps() == []  # already on disk
+
+
+# -- a round over the wire, replayed offline (tests/test_flightrecorder.py:707-773) --
+
+
+@pytest.mark.parametrize("pkg", PACKAGES, ids=["ref-recorded", "port-recorded"])
+def test_live_http_reconcile_replays_offline_identically(pkg):
+    """A provisioning round over ``HTTPCluster`` and ``HTTPCloudProvider``
+    (package ``pkg``'s API server and cloud service), its capsule fetched
+    gzipped from ``/debug/flightrecorder/<id>``; with both servers stopped,
+    the port's ``replay_capsule`` re-runs it offline (its network guard on)
+    and matches: digests, placements and unschedulable pods."""
+    import importlib
+
+    from test_torch_apiserver import no_sleep_policy
+    from test_torch_apiserver import pkg_mod as wire_mod
+
+    m, w = pkg_mod(pkg), wire_mod(pkg)
+    kit = importlib.import_module(f"{pkg}.controllers.kit")
+    solver = (TorchSolver(device="cpu") if pkg == PORT
+              else TPUSolver(auto_mesh=False, quality_sync=True))
+    store = w.state.Cluster()
+    api = w.apiserver.ClusterAPIServer(backing=store).start()
+    svc = w.httpcloud.CloudHTTPService(w.cloud.generate_catalog(n_types=20)).start()
+    cluster = w.state.HTTPCluster(api.endpoint, watch=False, retry_policy=no_sleep_policy(w))
+    provider = w.httpcloud.HTTPCloudProvider(svc.endpoint, retry_policy=no_sleep_policy(w))
+    try:
+        controller = m.prov.ProvisioningController(
+            cluster, provider, solver=solver,
+            settings=m.settings.Settings(batch_idle_duration=0, batch_max_duration=0))
+        cluster.add_provisioner(m.api.Provisioner(meta=m.api.ObjectMeta(name="default")))
+        for i in range(5):
+            cluster.add_pod(m.api.Pod(meta=m.api.ObjectMeta(name=f"e2e-{i}", owner_kind="ReplicaSet"),
+                                      requests=m.api.Resources(cpu="500m", memory="1Gi")))
+        loop = kit.SingletonController("provisioning", controller.reconcile)
+        assert loop.run_if_due() and loop.consecutive_errors == 0
+        assert not store.pending_pods() and len(svc.instances) == len(store.machines)
+        server = m.http.OperatorHTTPServer(port=0).start()
+        try:
+            listing = json.loads(get(server.port, "/debug/flightrecorder")[2])["capsules"]
+            cid = listing[0]["id"]
+            assert cid.startswith("provisioning.") and listing[0]["trace_id"]
+            capsule = json.loads(gzip.decompress(get(server.port, f"/debug/flightrecorder/{cid}")[2]))
+        finally:
+            server.stop()
+    finally:
+        cluster.close()
+        api.stop()
+        svc.stop()
+    report = pkg_mod(PORT).replay.replay_capsule(capsule, device="cpu")
+    diffs = report["diffs"]
+    assert diffs["digests_match"] and diffs["placements_match"], diffs
+    assert diffs["unschedulable_match"] and report["match"]
+    assert set(report["replayed"]["placements"]) == {f"e2e-{i}" for i in range(5)}
+

@@ -869,21 +869,10 @@ def test_parser_is_the_references_plus_device():
     assert args.cluster_name == "x" and args.leader_elect and args.device == "cpu"
 
 
-@pytest.mark.parametrize("flag, value, what", [
-    ("--cloud-endpoint", "http://127.0.0.1:1", "HTTP cloud provider"),
-    ("--cluster-endpoint", "http://127.0.0.1:1", "HTTP cluster"),
-    ("--serve-cluster-api", "0", "cluster API server"),
-])
-def test_http_flags_exit_nonzero_naming_the_next_slice(flag, value, what, capsys):
-    rc = pkg_mod(PORT).main.main([flag, value, "--device", "cpu", "--metrics-port", "-1"])
-    err = capsys.readouterr().err
-    assert rc != 0 and what in err and "Queue 1 item 6" in err
-
-
-def test_main_runs_and_stops(monkeypatch):
-    """``main()`` on the CPU in a thread (signal handlers stubbed: they
+def run_main(monkeypatch, argv, until, limit=60.0):
+    """``main(argv)`` on the CPU in a thread (signal handlers stubbed: they
     install only on the main thread), stopped through the event its
-    handler would set."""
+    handler would set once ``until()`` holds. Returns main's exit code."""
     entry = pkg_mod(PORT).main
     created = []
     real_event = threading.Event
@@ -896,17 +885,128 @@ def test_main_runs_and_stops(monkeypatch):
     monkeypatch.setattr(signal, "signal", lambda *a, **k: None)
     monkeypatch.setattr(threading, "Event", TrackedEvent)
     rc = {}
-    t = threading.Thread(target=lambda: rc.setdefault(
-        "rc", entry.main(["--device", "cpu", "--metrics-port", "-1", "--tick", "0.05"])))
+    t = threading.Thread(target=lambda: rc.setdefault("rc", entry.main(
+        [*argv, "--device", "cpu", "--metrics-port", "-1", "--tick", "0.05"])))
     t.start()
-    deadline = time.time() + 30
-    while time.time() < deadline and not created:
-        time.sleep(0.02)
-    time.sleep(0.3)
-    for e in created:
-        e.set()
-    t.join(timeout=30)
-    assert not t.is_alive() and rc.get("rc") == 0
+    try:
+        deadline = time.time() + limit
+        while time.time() < deadline and not (created and until()):
+            assert t.is_alive(), "main returned early"
+            time.sleep(0.05)
+        assert until(), "main never did what the case waits for"
+    finally:
+        for e in created:
+            e.set()
+        t.join(timeout=60)
+    assert not t.is_alive()
+    return rc.get("rc")
+
+
+def http_pod(w, name):
+    return w.api.Pod(meta=w.api.ObjectMeta(name=name, owner_kind="ReplicaSet"),
+                     requests=w.api.Resources(cpu="250m", memory="512Mi"))
+
+
+def test_cloud_endpoint_flag_runs_against_a_live_cloud(monkeypatch):
+    """``--cloud-endpoint``: the operator's provider is an
+    ``HTTPCloudProvider`` on that service (discovery and the loops call it
+    over the wire)."""
+    from test_torch_apiserver import pkg_mod as wire_mod
+
+    w = wire_mod(PORT)
+    svc = w.httpcloud.CloudHTTPService(w.cloud.generate_catalog(n_types=10)).start()
+    try:
+        rc = run_main(monkeypatch, ["--cloud-endpoint", svc.endpoint],
+                      lambda: "/v1/instance-types" in svc.request_log
+                      and "/v1/instances" in svc.request_log)
+    finally:
+        svc.stop()
+    assert rc == 0
+
+
+def test_cluster_endpoint_flag_reconciles_a_live_store(monkeypatch):
+    """``--cluster-endpoint``: the operator reconciles the API server's
+    store through ``HTTPCluster``; pods written there get bound there."""
+    from test_torch_apiserver import pkg_mod as wire_mod
+
+    w = wire_mod(PORT)
+    store = w.state.Cluster()
+    store.add_provisioner(w.api.Provisioner(meta=w.api.ObjectMeta(name="default")))
+    for i in range(3):
+        store.add_pod(http_pod(w, f"live-{i}"))
+    api = w.apiserver.ClusterAPIServer(backing=store).start()
+    try:
+        rc = run_main(monkeypatch, ["--cluster-endpoint", api.endpoint],
+                      lambda: all(p.node_name for p in store.pods.values()) and store.nodes)
+    finally:
+        api.stop()
+    assert rc == 0 and len(store.machines) == len(store.nodes)
+
+
+def test_serve_cluster_api_flag_answers_a_list(monkeypatch):
+    """``--serve-cluster-api PORT`` serves the operator's own store: a
+    list answers, a pod posted there is bound by the operator, and the
+    listener is gone after shutdown."""
+    from test_torch_apiserver import free_port, request
+    from test_torch_apiserver import pkg_mod as wire_mod
+
+    w = wire_mod(PORT)
+    port = free_port()
+    endpoint = f"http://127.0.0.1:{port}"
+    seen = {}
+
+    def served():
+        try:
+            status, body = request(endpoint, "GET", "/api/pods")
+        except OSError:
+            return False
+        if status != 200 or "items" not in body:
+            return False
+        if "posted" not in seen:
+            request(endpoint, "POST", "/api/provisioners",
+                    w.codec.to_wire(w.api.Provisioner(meta=w.api.ObjectMeta(name="default"))))
+            seen["posted"] = request(endpoint, "POST", "/api/pods",
+                                     w.codec.to_wire(http_pod(w, "served-0")))[0]
+            return False
+        pod = request(endpoint, "GET", "/api/pods/served-0")[1]
+        return bool(pod.get("nodeName"))
+
+    rc = run_main(monkeypatch, ["--serve-cluster-api", str(port)], served)
+    assert rc == 0 and seen["posted"] == 201
+    with pytest.raises(OSError):
+        request(endpoint, "GET", "/api/pods")
+
+
+def test_serve_cluster_api_with_cluster_endpoint_warns_and_serves_nothing(monkeypatch, capsys):
+    """A client of ``--cluster-endpoint`` owns no store: ``--serve-cluster-api``
+    is ignored with the reference's warning."""
+    from test_torch_apiserver import free_port, request
+    from test_torch_apiserver import pkg_mod as wire_mod
+
+    w = wire_mod(PORT)
+    api = w.apiserver.ClusterAPIServer().start()
+    port = free_port()
+    err = []
+
+    def warned():
+        err.append(capsys.readouterr().err)
+        return "--serve-cluster-api ignored" in "".join(err)
+
+    try:
+        rc = run_main(monkeypatch, ["--cluster-endpoint", api.endpoint,
+                                    "--serve-cluster-api", str(port)], warned)
+    finally:
+        api.stop()
+    assert rc == 0
+    with pytest.raises(OSError):
+        request(f"http://127.0.0.1:{port}", "GET", "/api/pods")
+
+
+def test_main_runs_and_stops(monkeypatch):
+    """``main()`` on the CPU with the in-process store and fake cloud, run
+    for a moment and stopped through the event its handler would set."""
+    start = time.time()
+    assert run_main(monkeypatch, [], lambda: time.time() - start > 0.3) == 0
 
 
 def free_port():

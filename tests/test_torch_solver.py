@@ -261,6 +261,15 @@ def _operator_seed():
     return operator_seed(REF)
 
 
+def _http_seed():
+    """The operator's seed-round problem over the wire on
+    ``configs.config_http_tier``, rebuilt with the JAX package's cluster,
+    cloud service and HTTP provider."""
+    from test_torch_http_operator import REF, http_seed
+
+    return http_seed(REF)
+
+
 def _consolidation_sim():
     """The first what-if of a deprovisioning pass on
     ``configs.config_consolidation()``, rebuilt with the JAX package's
@@ -291,6 +300,7 @@ def _consolidation_sim():
     ("controller_seed", _controller_seed),
     ("consolidation_20k", _consolidation_sim),
     ("operator_seed", _operator_seed),
+    ("http_seed", _http_seed),
 ])
 def test_reference_costs_are_pinned(name, make):
     """The constants chip_smoke.py holds the card's answers to are what the

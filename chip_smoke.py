@@ -110,7 +110,7 @@ this, DIR, with the chain and each of its kernels (``compare``). Phases:
     provisioning controller's default ``TorchSolver()``, with its
     quality-mode ``TorchSolver`` for what-ifs of 500 pods and more, over
     ``configs.config_consolidation``, pass by pass as the JAX package's
-    ``bench.bench_consolidation`` runs it: three passes on BASELINE's
+    ``bench.bench_consolidation`` runs it: the first pass on BASELINE's
     2,000-node, 20,000-pod fleet, whose first what-if (the whole fleet
     re-placed) must be ``configs.config_consolidation_sim()`` at the JAX
     package's kernel-only cost, with K1, K2 and K3 held against their plain
@@ -170,8 +170,36 @@ this, DIR, with the chain and each of its kernels (``compare``). Phases:
     ``python -m karpenter_tpu_torch.replay`` runs in a subprocess on the
     seed round's dump and, as a counterfactual, on the storm step's with
     its masked offering made available; both must exit 0;
-18. one JSON line of kernel results, the card's name and power limit, and
+18. the solver's fault domain (main path, ``fault_domain_phase``):
+    ``bench.bench_device_faults``' scenario (``configs.config_device_faults``,
+    20,000 pods a round on a fresh ``TorchSolver(dispatch_timeout_s=0.5)``):
+    a storm of six rounds, one scripted device fault each (garbage and NaN
+    plans, a compile failure, a dispatch hang, a device OOM, a staging
+    corruption), each of which must fire and be booked in
+    ``karpenter_tpu_kernel_faults_total`` under the JAX package's kind;
+    every round binds every pod, none invalidly; the breaker opens, the
+    first clean round launches K1, K2 and K3, restages the corrupted
+    ``alloc`` and gives a valid kernel-only plan, and every breaker closes;
+    then the validation ABBA;
+19. the perf sentinel (main path, ``perf_sentinel_phase``):
+    ``bench.bench_perf_sentinel``'s scenario at its defaults: no trip on
+    clean rounds, a trip naming ``solve`` and a bucket within ``mad_k``
+    rounds of a 0.12 s dispatch hang, its capsule carrying the trigger and
+    a profile of the dispatch fetch, replayed to a match on the card;
+20. the chaos soak (main path, ``soak_phase``): ``run_soak`` for 60 s at
+    2,000 live pods with the operator ``python -m karpenter_tpu_torch
+    --device cuda`` in a subprocess, killed and respawned once, the API
+    server restarted once: no violation, every dumped capsule replayed to
+    a match, no duplicate token, no orphan, and a device fault booked on
+    the operator's ``/metrics``; the operator processes' launches are
+    counted from files they write (``SOAK_OPERATOR``);
+21. one JSON line of kernel results, the card's name and power limit, and
     the device JSON as the last line.
+
+Each phase's wall is logged on its own line (``phase``), with the perf
+sentinel's trips in it: every ``Operator.new`` turns the sentinel on, its
+baselines in a fresh ``build/baselines`` (``KARPENTER_TPU_COMPILE_CACHE_DIR``
+for the whole run, subprocesses included).
 
 Before any encode, the native encoder (``karpenter_tpu_torch/native``)
 must have built; its build time is logged.
@@ -184,6 +212,7 @@ from __future__ import annotations
 import contextlib
 import importlib
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -194,6 +223,7 @@ import traceback
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+BASELINE_DIR = Path(__file__).resolve().parent / "build" / "baselines"
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 PACK_KERNELS = ("shared_precompute", "pack_member", "pack_epilogue")
 COST_RTOL = 1e-6  # slice costs against the JAX package's
@@ -204,6 +234,43 @@ SPIN_CYCLES = 100_000_000  # ~50 ms of GPU clock, longer than a window's host wo
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+#: each main-path phase's wall, seconds, in the order run (``phase``)
+PHASE_WALLS: dict = {}
+
+
+def child_env(**extra) -> dict:
+    """The environment of an operator process this run starts: this
+    process's, with the run's baseline directory as
+    ``KARPENTER_TPU_AOT_CACHE_DIR`` (the ``aot_cache_dir`` setting, which
+    ``Operator.new`` hands the profiler first) in place of
+    ``KARPENTER_TPU_COMPILE_CACHE_DIR``: ``Settings.from_env`` (the JAX
+    package's and the port's) refuses every ``KARPENTER_TPU_*`` variable
+    that is not a setting, and the profiler's own override is not one."""
+    env = {k: v for k, v in os.environ.items() if k != "KARPENTER_TPU_COMPILE_CACHE_DIR"}
+    env["KARPENTER_TPU_AOT_CACHE_DIR"] = str(BASELINE_DIR)
+    env.update(extra)
+    return env
+
+
+def phase(name, fn, *args):
+    """Run one main-path phase, log its wall on its own line and the perf
+    sentinel's trips in it (the operators' sentinel is on by default)."""
+    from karpenter_tpu_torch.utils import metrics, profiling
+
+    def trips():
+        with metrics.PERF_REGRESSION._lock:
+            return sum(metrics.PERF_REGRESSION._values.values())
+
+    before = trips()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_WALLS[name] = round(time.perf_counter() - t0, 2)
+    log(f"phase {name}: wall {PHASE_WALLS[name]} s; perf sentinel "
+        f"{'on' if profiling.SENTINEL.enabled else 'off'} at its end, "
+        f"{trips() - before:g} trips in this process")
+    return out
 
 
 def card_line() -> str:
@@ -2092,10 +2159,11 @@ def controller_sharded(ts, st, configs) -> dict:
 
 
 #: consolidation's fleets: (nodes, pods a node, passes at most). ``full`` is
-#: BASELINE.md's 2,000-node, 20,000-pod repack, cut to 3 passes by time
-#: (12-20 s a pass of host work); ``bench`` is ``bench.py``'s default fleet,
+#: BASELINE.md's 2,000-node, 20,000-pod repack, cut to its first pass by
+#: time (20.7-28.1 s a pass of host work): the pass that holds the pinned
+#: ``consolidation_20k`` sim; ``bench`` is ``bench.py``'s default fleet,
 #: run to quiescence as the bench runs it
-CONSOLIDATION_FLEETS = {"full": (2000, 10, 3), "bench": (300, 3, 40)}
+CONSOLIDATION_FLEETS = {"full": (2000, 10, 1), "bench": (300, 3, 40)}
 
 
 class ConsolidationProbe:
@@ -2371,7 +2439,7 @@ def consolidation(ts, configs) -> dict:
     ``configs.config_consolidation``, each pass as ``bench.bench_consolidation``
     runs it (``consolidation_passes`` holds and logs each):
 
-    (a) BASELINE's fleet (2,000 nodes, 20,000 pods), 3 passes. The first
+    (a) BASELINE's fleet (2,000 nodes, 20,000 pods), its first pass. The first
         quality sim of the first pass re-places the whole fleet: its
         problem must be ``configs.config_consolidation_sim()``'s, its
         kernel-only cost the JAX package's ``consolidation_20k``, and on it
@@ -2862,7 +2930,7 @@ def entrypoint_check() -> None:
         with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=5) as r:
             return r.status, r.read().decode()
 
-    env = dict(os.environ, PYTHONPATH=str(root))
+    env = child_env(PYTHONPATH=str(root))
     err_path = lease.with_name("operator_stderr.log")
     err = open(err_path, "w")
     t0 = time.perf_counter()
@@ -3224,7 +3292,7 @@ def ha_pair(configs) -> None:
                 out[key] = float(value)
         return out
 
-    env = dict(os.environ, PYTHONPATH=str(root))
+    env = child_env(PYTHONPATH=str(root))
     procs, logs = {}, {}
 
     def spawn(tag, args):
@@ -3580,6 +3648,528 @@ def replay_phase(ts, st) -> dict:
     return dict(launches=launches, errs=errs)
 
 
+#: the fault-domain phase: the breaker's threshold and recovery timeout
+#: (``bench_device_faults``' own), the validation-overhead ABBA's repeats,
+#: and the kind each scripted fault is booked as
+#: (``karpenter_tpu_kernel_faults_total{kind}``), as the JAX package books it
+FAULT_PODS = 20_000
+FAULT_THRESHOLD = 3
+FAULT_RECOVERY_S = 1.0
+FAULT_ABBA_REPEATS = 8
+FAULT_BOOKED = {"compile-error": "compile-error", "dispatch-hang": "dispatch-timeout",
+                "device-oom": "device-oom", "nan-result": "nonfinite-plan",
+                "garbage-result": "invalid-plan", "staging-corruption": "invalid-plan"}
+
+
+def kernel_faults() -> dict:
+    """``karpenter_tpu_kernel_faults_total`` by kind, in this process."""
+    from karpenter_tpu_torch.utils import metrics
+
+    with metrics.KERNEL_FAULTS._lock:
+        return {dict(k)["kind"]: v for k, v in metrics.KERNEL_FAULTS._values.items()}
+
+
+def faults_moved(before: dict) -> dict:
+    return {k: v - before.get(k, 0.0) for k, v in kernel_faults().items()
+            if v != before.get(k, 0.0)}
+
+
+def invalid_bindings(cluster) -> int:
+    """Bindings that break a node's allocatable (one pod slot each), taints
+    or labels, re-derived from the cluster's state
+    (``bench_device_faults``' own audit)."""
+    from karpenter_tpu_torch.api import Resources
+    from karpenter_tpu_torch.api.requirements import Requirements
+    from karpenter_tpu_torch.api.taints import tolerates_all
+
+    bad = 0
+    by_node = {}
+    for pod in cluster.pods.values():
+        if pod.node_name is not None:
+            by_node.setdefault(pod.node_name, []).append(pod)
+    for node_name, pods in by_node.items():
+        node = cluster.nodes.get(node_name)
+        if node is None:
+            bad += len(pods)
+            continue
+        total = Resources(pods=len(pods))
+        surface = Requirements.from_labels(node.meta.labels)
+        for pod in pods:
+            total = total + pod.requests
+            if not tolerates_all(list(pod.tolerations), tuple(node.taints)):
+                bad += 1
+            elif not any(surface.compatible(t) for t in pod.scheduling_requirement_terms()):
+                bad += 1
+        if not total.fits(node.allocatable):
+            bad += 1
+    return bad
+
+
+def wait_breakers_not_open(board, timeout_s: float = 10.0) -> None:
+    """Wait until no bucket's breaker is open (reading a state turns open
+    into half-open once the recovery timeout has passed), so that the next
+    dispatch is a probe that consults the seams."""
+    deadline = time.monotonic() + timeout_s
+    while "open" in board.states().values():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"fault domain: breakers still open: {board.states()}")
+        time.sleep(0.05)
+
+
+def resident_alloc(solver):
+    """The host copy of ``alloc`` the solver's stager holds for its one
+    resident cell (what the card's copy was uploaded from)."""
+    entries = [e for tag, e in solver._stager._entries.items() if tag[0] == "cell"]
+    if len(entries) != 1:
+        raise AssertionError(f"fault domain: {len(entries)} resident cells, not 1")
+    return entries[0].host["alloc"].copy()
+
+
+def fault_domain_phase(ts, configs) -> dict:
+    """Main path, the solver's fault domain: ``bench.bench_device_faults``'
+    scenario (``configs.config_device_faults()``: 20,000 pods, 60 types, a
+    fresh cluster, controller and ``TorchSolver(device="cuda",
+    dispatch_timeout_s=0.5)`` a round; the kernel breaker at threshold 3
+    and a 1 s recovery). Two warm rounds, then six storm rounds, one
+    scripted fault each (``configs.DEVICE_FAULT_STORM``), each started once
+    no breaker is open, so that its dispatch consults the seams; the
+    compile failure's round first forgets which buckets were built. Each
+    kind must fire, and be booked as ``FAULT_BOOKED`` names it. In latency
+    mode a hung dispatch is a missed race, which books no kernel fault (nor
+    does the reference's ``_poll_dispatch``); the reference books
+    ``dispatch-timeout`` at a synchronous fetch, so the hang's round also
+    solves its own problem on the kernel path alone under a second hang,
+    which must answer None within the deadline. Every storm round binds
+    every pod, with no invalid binding by an audit of allocatable, taints
+    and labels independent of the firewall; the breaker opens during the
+    storm. Then the first clean round, on the staging round's solver (its
+    stager holds the corrupted ``alloc``), must launch K1, K2 and K3,
+    upload ``alloc`` again (the self-heal) and give a kernel-only plan that
+    validates; clean rounds follow until every breaker is closed. Last, the
+    validation ABBA (``FAULT_ABBA_REPEATS`` rounds, on and off, no faults):
+    round p50s and the firewall's own share. Returns the phase's launches."""
+    import statistics as stats_
+
+    import numpy as np
+
+    from karpenter_tpu_torch.solver import validate
+    from karpenter_tpu_torch.solver.solver import KERNEL_BOARD
+    from karpenter_tpu_torch.utils import faults
+
+    make = configs.config_device_faults(n_pods=FAULT_PODS)
+    n_pods = FAULT_PODS
+    seq = iter(range(1 << 20))
+    before_phase = dict(ts.LAUNCHES)
+
+    def one_round(validation_on=True, solver=None):
+        cluster, ctl = make(next(seq), validation_on=validation_on, solver=solver)
+        t0 = time.perf_counter()
+        result = ctl.reconcile()
+        return cluster, ctl, result, time.perf_counter() - t0
+
+    KERNEL_BOARD.configure(failure_threshold=FAULT_THRESHOLD, recovery_timeout_s=FAULT_RECOVERY_S)
+    faults.install_device_faults(None)
+    try:
+        for _ in range(2):
+            _, _, result, dt = one_round()
+            log(f"fault domain warm round: {dt:.4f} s, {len(result.bound)} bound")
+        tripped, stage_solver, storm_s = False, None, []
+        for kind in configs.DEVICE_FAULT_STORM:
+            wait_breakers_not_open(KERNEL_BOARD)
+            if kind == "compile-error":
+                KERNEL_BOARD.forget_builds()
+            plan = faults.DeviceFaultPlan()
+            plan.script([faults.DeviceFault(kind=kind, hang_s=5.0)])
+            booked0, launched0 = kernel_faults(), dict(ts.LAUNCHES)
+            faults.install_device_faults(plan)
+            try:
+                cluster, ctl, result, dt = one_round()
+                extra = ""
+                if kind == "dispatch-hang":
+                    problem = interned(ctl.solver, result.solve)
+                    sync = faults.DeviceFaultPlan().dispatch_hang(seconds=5.0)
+                    faults.install_device_faults(sync)
+                    t0 = time.perf_counter()
+                    if ctl.solver._solve_kernel(problem) is not None or not sync.log:
+                        raise AssertionError("fault domain: the hung kernel-only solve answered")
+                    extra = f", kernel-only solve under a hang {time.perf_counter() - t0:.4f} s"
+            finally:
+                faults.install_device_faults(None)
+            storm_s.append(dt)
+            fired = [f.kind for _, f in plan.log]
+            booked = faults_moved(booked0)
+            bad = invalid_bindings(cluster)
+            tripped |= any(s != "closed" for s in KERNEL_BOARD.states().values())
+            log(f"fault domain storm {kind}: {dt:.4f} s, fired {fired}, booked {booked}, "
+                f"{len(result.bound)} bound, {len(result.unschedulable)} unschedulable, "
+                f"{bad} invalid bindings, breakers {sorted(KERNEL_BOARD.states().values())}, "
+                f"launches {moved_since(ts, launched0)}{extra}")
+            if kind not in fired:
+                raise AssertionError(f"fault domain: the {kind} fault did not fire")
+            if booked.get(FAULT_BOOKED[kind], 0) < 1:
+                raise AssertionError(f"fault domain: {kind} was not booked as "
+                                     f"{FAULT_BOOKED[kind]}: {booked}")
+            if len(result.bound) != n_pods or result.unschedulable or bad:
+                raise AssertionError(f"fault domain: the {kind} round bound "
+                                     f"{len(result.bound)} of {n_pods} pods, {bad} invalid")
+            hold_allocatable(f"fault domain {kind}", cluster)
+            if kind == "staging-corruption":
+                stage_solver = ctl.solver
+        if not tripped:
+            raise AssertionError("fault domain: the storm never opened a breaker")
+
+        # the first clean round: on the staging round's solver, whose
+        # stager holds the corrupted alloc
+        corrupted = resident_alloc(stage_solver)
+        wait_breakers_not_open(KERNEL_BOARD)
+        launched0 = dict(ts.LAUNCHES)
+        cluster, ctl, result, dt = one_round(solver=stage_solver)
+        moved = moved_since(ts, launched0)
+        healed = resident_alloc(stage_solver)
+        problem = interned(stage_solver, result.solve)
+        true_alloc = problem.__dict__["_prep_memo"][1][0]["alloc"]
+        last = stage_solver._stager.last_round
+        log(f"fault domain first clean round: {dt:.4f} s, launches {moved}, stager "
+            f"{ {k: last.get(k) for k in ('hit', 'restage', 'full', 'rows')} }, breakers "
+            f"{sorted(KERNEL_BOARD.states().values())}")
+        hold_pack_launches("fault domain first clean round", moved)
+        if not (np.array_equal(corrupted, true_alloc * 4.0) and np.array_equal(healed, true_alloc)):
+            raise AssertionError("fault domain: the clean round did not restage alloc")
+        if len(result.bound) != n_pods or invalid_bindings(cluster):
+            raise AssertionError("fault domain: the first clean round did not bind every pod")
+        kernel = stage_solver._solve_kernel(problem)
+        if kernel is None or validate(problem, kernel) or kernel.stats.get("backend") != 1.0:
+            raise AssertionError("fault domain: the clean round's kernel-only plan is invalid")
+        log(f"fault domain first clean round: kernel-only cost {kernel.cost!r}, slots "
+            f"{kernel.stats['slots']}")
+        rounds = 1
+        while KERNEL_BOARD.health() < 1.0:
+            if rounds >= 10:
+                raise AssertionError(
+                    f"fault domain: breakers never closed: {KERNEL_BOARD.states()}")
+            wait_breakers_not_open(KERNEL_BOARD)
+            one_round()
+            rounds += 1
+        log(f"fault domain: every breaker closed after {rounds} clean rounds; "
+            f"failures {KERNEL_BOARD.failures}")
+
+        on_s, off_s, shares = [], [], []
+        for flip in (True, False, False, True) * max(1, FAULT_ABBA_REPEATS // 4):
+            _, ctl, result, dt = one_round(validation_on=flip)
+            (on_s if flip else off_s).append(dt)
+            if flip:
+                shares.append(100.0 * ctl._fw_eval_s / dt)
+        log(f"fault domain validation ABBA ({len(on_s) + len(off_s)} rounds): round p50 "
+            f"{stats_.median(on_s):.4f} s on, {stats_.median(off_s):.4f} s off; the "
+            f"firewall's share {stats_.median(shares):.3f}% (median); storm rounds p50 "
+            f"{stats_.median(storm_s):.4f} s")
+    finally:
+        faults.install_device_faults(None)
+        KERNEL_BOARD.configure(failure_threshold=3, recovery_timeout_s=30.0)
+    launches = moved_since(ts, before_phase)
+    log(f"fault domain launches {launches}")
+    hold_pack_launches("fault domain", launches)
+    return launches
+
+
+#: the perf-sentinel phase, ``bench_perf_sentinel``'s defaults
+SENTINEL_WARM_ROUNDS = 6
+SENTINEL_SLOW_ROUNDS = 14
+SENTINEL_HANG_S = 0.12
+SENTINEL_MAD_K = 3
+SENTINEL_DIR = Path(__file__).resolve().parent / "build" / "sentinel"
+
+
+def perf_sentinel_phase(ts, configs) -> dict:
+    """Main path, the perf sentinel: ``bench.bench_perf_sentinel``'s scenario
+    at its defaults (``configs.config_perf_sentinel()``: 600 pods, 20 types,
+    ``TorchSolver(latency_budget_s=1.0, device="cuda")``, a fresh cluster
+    and controller a round). Two unmetered rounds, then the sentinel
+    (``profiling.configure``: baselines in a fresh directory, 6 baseline
+    rounds, ``mad_k`` 3, a 0.5 s profile window at 97 Hz) over 7 clean
+    rounds, which must arm a ``solve`` baseline and trip nothing (the heap
+    frozen after the first, as the operator's run loop does); then a
+    0.12 s ``dispatch-hang`` on every dispatch: within ``mad_k`` rounds one
+    trip must name the ``solve`` phase and a bucket label of the port, and
+    the anomaly capsule it dumps must carry ``TRIGGER_PERF_REGRESSION``, a
+    collapsed profile whose frames include ``_poll_dispatch`` or
+    ``_fetch_bounded``, and replay to a match through ``TorchSolver`` on the
+    card. Returns the phase's launches."""
+    import gzip
+    import re
+    import statistics as stats_
+
+    from karpenter_tpu_torch.replay import replay_capsule
+    from karpenter_tpu_torch.utils import faults, profiling
+    from karpenter_tpu_torch.utils.flightrecorder import (
+        FLIGHT,
+        TRIGGER_PERF_REGRESSION,
+        FlightRecorder,
+    )
+
+    make = configs.config_perf_sentinel()
+    seq = iter(range(1 << 20))
+    before_phase = dict(ts.LAUNCHES)
+
+    def one_round() -> float:
+        _, ctl = make(next(seq))
+        t0 = time.perf_counter()
+        ctl.reconcile()
+        return time.perf_counter() - t0
+
+    import gc
+
+    from karpenter_tpu_torch.utils.gctuning import freeze_long_lived
+
+    shutil.rmtree(SENTINEL_DIR, ignore_errors=True)
+    SENTINEL_DIR.mkdir(parents=True)
+    prev_cap, prev_dump = FLIGHT.capacity, FLIGHT.dump_dir
+    threshold = gc.get_threshold()
+    faults.install_device_faults(None)
+    profiling.PROFILER.stop()
+    profiling.PROFILER.reset()
+    profiling.SENTINEL.reset()
+    try:
+        FLIGHT.configure(max(prev_cap, 8), dump_dir=str(SENTINEL_DIR))
+        one_round()
+        # what the operator's run loop does after its first reconcile: a
+        # full collection of the heap the earlier phases left holds the
+        # interpreter lock, and a profile window it fills samples nothing
+        freeze_long_lived()
+        one_round()
+        profiling.configure(profiling_enabled=False, sample_hz=97.0,
+                            baseline_rounds=SENTINEL_WARM_ROUNDS, sentinel_enabled=True,
+                            mad_k=SENTINEL_MAD_K, baseline_dir=str(SENTINEL_DIR),
+                            profile_window_s=0.5)
+        clean = []
+        for _ in range(SENTINEL_WARM_ROUNDS + 1):
+            clean.append(one_round())
+            profiling.sentinel_tick()
+        snap = profiling.SENTINEL.snapshot()
+        armed = [k for k, doc in snap["phases"].items()
+                 if k.startswith("solve|") and doc["state"] == "armed" and doc["baseline"]]
+        false_trips = profiling.SENTINEL.trips_total
+        log(f"perf sentinel: clean rounds p50 {stats_.median(clean):.4f} s, armed {armed}, "
+            f"baselines {sorted(snap['phases'])}, false trips {false_trips}")
+        if not armed or false_trips:
+            raise AssertionError(f"perf sentinel: armed {armed}, {false_trips} false trips")
+        plan = faults.DeviceFaultPlan().dispatch_hang(seconds=SENTINEL_HANG_S, n=100_000)
+        faults.install_device_faults(plan)
+        trip, detected, slow = None, None, []
+        try:
+            for r in range(1, SENTINEL_SLOW_ROUNDS + 1):
+                slow.append(one_round())
+                fired = profiling.sentinel_tick()
+                if trip is None and fired:
+                    trip, detected = fired[0], r
+                if trip is not None and "capsule" in trip:
+                    break
+        finally:
+            faults.install_device_faults(None)
+        log(f"perf sentinel: slow rounds {[round(x, 4) for x in slow]} s, "
+            f"{len(plan.log)} hangs fired, trip {trip}, detected in round {detected}; "
+            f"profiler {profiling.PROFILER.snapshot()}")
+        label = re.compile(r"^g\d+o\d+e\d+s\d+z\d+r\d+k\d+(b\d+)?$")
+        if trip is None or detected > SENTINEL_MAD_K or trip["phase"] != "solve" \
+                or not label.match(trip["bucket"] or ""):
+            raise AssertionError(f"perf sentinel: trip {trip} in round {detected}")
+        if "capsule" not in trip:
+            raise AssertionError("perf sentinel: the trip's capsule never assembled")
+        path = FlightRecorder._dump_path(trip["capsule"], str(SENTINEL_DIR))
+        with gzip.open(path, "rt") as fh:
+            dumped = json.load(fh)
+        profile = dumped.get("outputs", {}).get("profile", [])
+        in_fetch = [line for line in profile if "_poll_dispatch" in line
+                    or "_fetch_bounded" in line]
+        if TRIGGER_PERF_REGRESSION not in dumped.get("anomalies", []) or not in_fetch:
+            raise AssertionError(f"perf sentinel: capsule anomalies {dumped.get('anomalies')}, "
+                                 f"{len(profile)} profile lines, {len(in_fetch)} in the fetch: "
+                                 f"{profile[:20]}")
+        t0 = time.perf_counter()
+        before = dict(ts.LAUNCHES)
+        report = replay_capsule(json.loads(json.dumps(dumped, default=str)), device="cuda")
+        log(f"perf sentinel: capsule {trip['capsule']} ({Path(path).stat().st_size} bytes), "
+            f"{len(profile)} profile lines, {len(in_fetch)} in the dispatch fetch; replay "
+            f"{'MATCH' if report['match'] else 'DIVERGED'} in {time.perf_counter() - t0:.2f} s, "
+            f"launches {moved_since(ts, before)}")
+        if not report["match"]:
+            raise AssertionError(
+                f"perf sentinel: the capsule diverged on replay: {report['diffs']}")
+    finally:
+        faults.install_device_faults(None)
+        profiling.PROFILER.stop()
+        profiling.PROFILER.reset()
+        profiling.SENTINEL.reset()
+        profiling.SENTINEL.configure(enabled=False, sentinel_enabled=False, mad_k=3,
+                                     baseline_rounds=20, baseline_path=None)
+        FLIGHT.configure(prev_cap, dump_dir=prev_dump)
+        shutil.rmtree(SENTINEL_DIR, ignore_errors=True)
+        gc.unfreeze()
+        gc.set_threshold(*threshold)
+    launches = moved_since(ts, before_phase)
+    log(f"perf sentinel launches {launches}")
+    hold_pack_launches("perf sentinel", launches)
+    return launches
+
+
+#: the soak phase: ``SoakConfig``'s default length, and the live population
+#: (not the default 300: at 300 no round reaches ``race_min_pods``)
+SOAK_DURATION_S = 60.0
+SOAK_LIVE_PODS = 2000
+SOAK_DIR = Path(__file__).resolve().parent / "build" / "soak"
+
+#: what the soak's operator processes run in place of ``python -m
+#: karpenter_tpu_torch``: the same entry point, with a thread that writes
+#: the process's kernel launch counts (``torch_solver.LAUNCHES``) to a file
+#: of its own every half second and at exit, so that the launches made in
+#: the operator processes can be read after the run
+SOAK_OPERATOR = """
+import json, os, sys, threading, time, runpy, atexit
+from karpenter_tpu_torch.solver import torch_solver as ts
+path = os.path.join(os.environ["CHIP_SMOKE_LAUNCH_DIR"], f"launches-{os.getpid()}.json")
+def dump():
+    tmp = path + ".tmp"
+    with open(tmp, "w") as fh:
+        json.dump(dict(ts.LAUNCHES), fh)
+    os.replace(tmp, path)
+def loop():
+    while True:
+        time.sleep(0.5)
+        dump()
+threading.Thread(target=loop, daemon=True).start()
+atexit.register(dump)
+sys.argv[0] = "karpenter_tpu_torch"
+runpy.run_module("karpenter_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+@contextlib.contextmanager
+def counted_operators(launch_dir: Path):
+    """Run the soak harness's operator processes through ``SOAK_OPERATOR``."""
+    import os
+
+    from karpenter_tpu_torch.soak import harness
+
+    popen = harness.subprocess.Popen
+
+    def wrapped(args, *a, **kw):
+        if list(args[1:3]) == ["-m", "karpenter_tpu_torch"]:
+            args = [args[0], "-c", SOAK_OPERATOR] + list(args[3:])
+            env = dict(kw.get("env") or os.environ)
+            env.pop("KARPENTER_TPU_COMPILE_CACHE_DIR", None)
+            kw["env"] = dict(env, **child_env(CHIP_SMOKE_LAUNCH_DIR=str(launch_dir)))
+        return popen(args, *a, **kw)
+
+    harness.subprocess.Popen = wrapped
+    try:
+        yield
+    finally:
+        harness.subprocess.Popen = popen
+
+
+@contextlib.contextmanager
+def operator_series(seen: dict):
+    """While the monitor samples the operator's ``/metrics``, also keep the
+    kernel fault counts (the largest a process showed, by its start time)
+    and the kernel breaker series it serves."""
+    import urllib.request
+
+    from karpenter_tpu_torch.soak import monitor
+
+    sample = monitor.InvariantMonitor.sample_operator
+
+    def sampled(self, metrics_url):
+        ok = sample(self, metrics_url)
+        if ok:
+            try:
+                with urllib.request.urlopen(metrics_url, timeout=2.0) as resp:
+                    rows = monitor.parse_metrics(resp.read().decode())
+            except Exception:
+                return ok
+            start = next((v for n, _, v in rows
+                          if n == "karpenter_tpu_process_start_time_seconds"), None)
+            for name, labels, value in rows:
+                if name == "karpenter_tpu_kernel_faults_total":
+                    key = (start, labels.get("kind"))
+                    seen["faults"][key] = max(seen["faults"].get(key, 0.0), value)
+                elif (name == "karpenter_tpu_rpc_breaker_state"
+                      and labels.get("service") == "kernel"):
+                    seen["breakers"].add((labels.get("endpoint"), labels.get("state"), value))
+        return ok
+
+    monitor.InvariantMonitor.sample_operator = sampled
+    try:
+        yield
+    finally:
+        monitor.InvariantMonitor.sample_operator = sample
+
+
+def soak_phase(ts) -> dict:
+    """Main path, the chaos soak: ``run_soak`` from the harness's own code
+    (``karpenter_tpu_torch.soak``) for ``SOAK_DURATION_S`` of churn, seed
+    11, ``SOAK_LIVE_PODS`` live pods, the rate calibrated by the harness's
+    rule (``rate_hz=0``), the API server and the cloud in this process
+    over real HTTP, the operator ``python -m karpenter_tpu_torch --device
+    cuda`` in a subprocess on the card, SIGKILLed and respawned once, the
+    API server restarted once, the timeline's device-fault bursts in the
+    operator's ``device_fault_script``. The report must show no violation,
+    its replay section present with every dumped capsule matched (replayed
+    here, on the card), no client token committed twice and no orphan; the
+    operator's ``/metrics`` must have shown a booked device fault and the
+    kernel breaker's series. Logs the rate, events/s, pod-ready p99, the RSS
+    slope and the capsules replayed. Returns the launches of the operator
+    processes (read from ``SOAK_OPERATOR``'s files) and of the replays."""
+    from karpenter_tpu_torch.soak import SoakConfig, run_soak
+
+    shutil.rmtree(SOAK_DIR, ignore_errors=True)
+    (SOAK_DIR / "launches").mkdir(parents=True)
+    seen = {"faults": {}, "breakers": set()}
+    before = dict(ts.LAUNCHES)
+    t0 = time.perf_counter()
+    with counted_operators(SOAK_DIR / "launches"), operator_series(seen):
+        report = run_soak(SoakConfig(duration_s=SOAK_DURATION_S, rate_hz=0.0, seed=11,
+                                     live_pods=SOAK_LIVE_PODS, device="cuda",
+                                     dump_dir=str(SOAK_DIR / "dump")))
+    wall = time.perf_counter() - t0
+    here = moved_since(ts, before)
+    launches = dict(here)
+    counted = sorted((SOAK_DIR / "launches").glob("launches-*.json"))
+    for path in counted:
+        for k, v in json.loads(path.read_text()).items():
+            launches[k] = launches.get(k, 0) + v
+    replay = report.get("replay") or {}
+    all_matched = (replay.get("found") is not None and not replay.get("mismatched")
+                   and not replay.get("errors"))
+    booked = {}
+    for (_, kind), value in seen["faults"].items():
+        booked[kind] = booked.get(kind, 0.0) + value
+    log(f"soak: wall {wall:.2f} s, churn {report['duration_s']} s at rate {report['rate_hz']} "
+        f"(target {report['rate_target_hz']}), {report['events_total']} events, "
+        f"{report['events_per_s']} events/s, pod-ready p50 {report['pod_ready_p50_s']} s p99 "
+        f"{report['pod_ready_p99_s']} s over {report['pod_ready_samples']} pods, loop lag max "
+        f"{report['loop_lag_max_s']} s, RSS slope {report['mem_slope_bytes_per_s']} B/s over "
+        f"{report['mem_segments']} segments, {report['operator_incarnations']} incarnations, "
+        f"restarts {report['restarts']}, dominant stage {report['dominant_stage']}")
+    log(f"soak: events {report['events_by_kind']}, op failures {report['op_failures']}, "
+        f"launch audit {report['launch_audit']}, perf {report['perf']}")
+    log(f"soak: capsules {replay}, all matched {all_matched}; device faults booked "
+        f"{booked}; kernel breaker series {sorted(seen['breakers'], key=str)[:6]}; launches "
+        f"{launches} ({len(counted)} operator processes; replays here {here})")
+    if report["violations"]:
+        raise AssertionError(f"soak: violations {report['violations']}")
+    if not all_matched:
+        raise AssertionError(f"soak: replay {replay}")
+    if report["duplicate_tokens"] or report["orphan_instances"]:
+        raise AssertionError(f"soak: duplicate tokens {report['duplicate_tokens']}, orphans "
+                             f"{report['orphan_instances']}")
+    if not any(v > 0 for v in booked.values()) or not seen["breakers"]:
+        raise AssertionError(f"soak: the operator's /metrics showed faults {booked} and kernel "
+                             f"breakers {seen['breakers']}")
+    shutil.rmtree(SOAK_DIR, ignore_errors=True)
+    hold_pack_launches("soak", launches)
+    return launches
+
+
 def load_tree(root: Path, tag: str):
     """Another checkout's ``torch_solver`` module and kernel library, built
     from its own sources by its own ``_build`` (into its own ``build/``),
@@ -3700,6 +4290,13 @@ def main() -> int:
     from karpenter_tpu_torch.solver import _build
 
     shutil.rmtree(CAPSULE_DIR, ignore_errors=True)
+    # the perf sentinel's baselines of every operator this run starts (in
+    # process and in subprocesses, which get it as
+    # KARPENTER_TPU_AOT_CACHE_DIR: child_env) go to a fresh directory:
+    # nothing of an earlier run carries in
+    shutil.rmtree(BASELINE_DIR, ignore_errors=True)
+    BASELINE_DIR.mkdir(parents=True)
+    os.environ["KARPENTER_TPU_COMPILE_CACHE_DIR"] = str(BASELINE_DIR)
     from karpenter_tpu_torch.solver import staging as st
     from karpenter_tpu_torch.solver import torch_solver as ts
 
@@ -3731,6 +4328,7 @@ def main() -> int:
         problems[name] = (encode(pods, provs, existing), time.perf_counter() - t0)
 
     solver = TorchSolver()
+    t_checks = time.perf_counter()
     checked = {name: check(ts, name, problem, solver) for name, (problem, _) in problems.items()}
     errs = {k: max(c["errs"][k] for c in checked.values()) for k in checked["50k_full"]["errs"]}
     awkward_check(ts, problems["50k_full"][0], solver, 26, 2310)
@@ -3743,6 +4341,8 @@ def main() -> int:
     del checked
     kernel_only(ts, problems, configs)
     kernels.append(probe_check(ts))
+    PHASE_WALLS["kernel_checks"] = round(time.perf_counter() - t_checks, 2)
+    log(f"phase kernel_checks: wall {PHASE_WALLS['kernel_checks']} s")
     # fresh problem objects for the race: the kernel-only solves above leave
     # nothing on them that the race reads, but a first solve should be one
     for name, make in (
@@ -3751,7 +4351,7 @@ def main() -> int:
         ("10k_crossgroup", configs.config_10k_crossgroup),
     ):
         problems[name] = (encode(*make()), problems[name][1])
-    flat = race_phase(ts, problems, configs)
+    flat = phase("flat_race", race_phase, ts, problems, configs)
     log(f"flat race launches {flat}")
     problems = {name: problems[name] for name in ("50k_full", "10k_topology")}  # K1's breakdown
 
@@ -3759,25 +4359,31 @@ def main() -> int:
     cells, provs, catalog = configs.config_cells()
     log(f"fleet config: {sum(map(len, cells))} pods in {len(cells)} cells, "
         f"built in {time.perf_counter() - t0:.2f} s")
-    hazard_check(ts, configs, cells, provs, catalog)
-    fc = fleet_check(ts, st, configs, cells, provs, catalog)
+    phase("hazard", hazard_check, ts, configs, cells, provs, catalog)
+    fc = phase("fleet_check", fleet_check, ts, st, configs, cells, provs, catalog)
     k1_breakdown(ts, problems, solver, fc["real"], fc["key"])
     del problems
     for entry in kernels:
         entry["max_abs_err"] = max(entry["max_abs_err"], fc["errs"].get(entry["name"], 0.0))
     kernels += fleet_timings(ts, st, fc)
     del fc
-    fleet, k2_err, fleet_encode_s = fleet_slice(ts, configs, cells, provs, catalog)
+    fleet, k2_err, fleet_encode_s = phase("fleet_slice", fleet_slice, ts, configs, cells, provs,
+                                          catalog)
     del cells
-    session_delta(ts, configs)
-    session_fleet(ts, configs, fleet_encode_s)
-    controller_errs = controller_round(ts, configs)
-    sharded = controller_sharded(ts, st, configs)
-    consolidated = consolidation(ts, configs)
-    operated = operator_phase(ts, configs)
-    wired = http_tier_phase(ts, configs)
-    replayed = replay_phase(ts, st)
+    phase("session_delta", session_delta, ts, configs)
+    phase("session_fleet", session_fleet, ts, configs, fleet_encode_s)
+    controller_errs = phase("controller_round", controller_round, ts, configs)
+    sharded = phase("controller_sharded", controller_sharded, ts, st, configs)
+    consolidated = phase("consolidation", consolidation, ts, configs)
+    operated = phase("operator", operator_phase, ts, configs)
+    wired = phase("http_tier", http_tier_phase, ts, configs)
+    replayed = phase("replay", replay_phase, ts, st)
     shutil.rmtree(CAPSULE_DIR, ignore_errors=True)
+    faulted = phase("fault_domain", fault_domain_phase, ts, configs)
+    sentinel = phase("perf_sentinel", perf_sentinel_phase, ts, configs)
+    soaked = phase("soak", soak_phase, ts)
+    shutil.rmtree(BASELINE_DIR, ignore_errors=True)
+    log(f"phase walls (s): {PHASE_WALLS}")
     for entry in kernels:
         entry["max_abs_err"] = max(entry["max_abs_err"], controller_errs.get(entry["name"], 0.0),
                                    consolidated["errs"].get(entry["name"], 0.0),
@@ -3787,13 +4393,16 @@ def main() -> int:
     for entry in kernels:
         # the main path: the flat race, the fleet race, the sharded
         # controller's rounds, the deprovisioning passes, the operator's
-        # steps, the operator's steps over the wire and the replays, each
-        # counted alone
+        # steps, the operator's steps over the wire, the replays, the fault
+        # domain, the perf sentinel and the soak (its operator processes
+        # and its replays), each counted alone
         entry["launches"] = (flat[entry["name"]] + fleet[entry["name"]] + sharded[entry["name"]]
                              + consolidated["launches"][entry["name"]]
                              + operated["launches"][entry["name"]]
                              + wired["launches"][entry["name"]]
-                             + replayed["launches"][entry["name"]])
+                             + replayed["launches"][entry["name"]]
+                             + faulted[entry["name"]] + sentinel[entry["name"]]
+                             + soaked.get(entry["name"], 0))
         if entry["name"] == "pack_member":
             entry["max_abs_err"] = max(entry["max_abs_err"], k2_err)
         if entry["launches"] < 1:

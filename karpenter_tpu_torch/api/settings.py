@@ -420,13 +420,6 @@ class Settings:
             from ..utils.faults import DeviceFaultPlan
 
             DeviceFaultPlan.parse(self.device_fault_script)  # loud on malformed
-            # the port's solver has no device-fault seams yet (dispatch,
-            # result and staging hooks): a plan it would silently ignore
-            # must fail here instead
-            raise ValueError(
-                "deviceFaultScript: the PyTorch solver applies no device "
-                "faults yet (ROADMAP.md, Queue 1 item 4)"
-            )
         if self.leader_election_enabled and not self.leader_election_lease_path:
             raise ValueError(
                 "leaderElectionLeasePath is required when leader election is enabled"

@@ -436,6 +436,80 @@ def config_http_seed(n_pods: int = 10_000, n_types: int = 400):
     return store.pending_pods(), provs, []
 
 
+#: the fault-domain storm: one round a kind, each of the six device-fault
+#: kinds once. The JAX package's ``bench_device_faults`` scripts
+#: garbage, NaN, garbage, hang, OOM, staging and no compile failure; the
+#: port's storm takes a compile failure in place of the second garbage plan
+DEVICE_FAULT_STORM = ("garbage-result", "nan-result", "compile-error", "dispatch-hang",
+                      "device-oom", "staging-corruption")
+
+
+def _uniform_round(catalog, prefix: str, n_pods: int, cpu: str, memory: str, solver,
+                   owner_kind="ReplicaSet", **settings_kw):
+    """A fresh cluster with one provisioner and ``n_pods`` pending pods of
+    one shape, and a provisioning controller over a fresh fake provider."""
+    from .api.settings import Settings
+    from .cloudprovider import FakeCloudProvider
+    from .controllers.provisioning import ProvisioningController
+    from .state import Cluster
+
+    cluster = Cluster()
+    controller = ProvisioningController(
+        cluster, FakeCloudProvider(catalog=catalog), solver=solver,
+        settings=Settings(batch_idle_duration=0, batch_max_duration=0, **settings_kw),
+    )
+    cluster.add_provisioner(Provisioner(meta=ObjectMeta(name="default")))
+    for i in range(n_pods):
+        cluster.add_pod(Pod(meta=ObjectMeta(name=f"{prefix}-{i}", owner_kind=owner_kind),
+                            requests=Resources(cpu=cpu, memory=memory)))
+    return cluster, controller
+
+
+def config_device_faults(n_pods: int = 20_000, n_types: int = 60, device: str = "cuda"):
+    """``bench.bench_device_faults``' scenario (``bench.py:2977-3154``): a
+    fresh cluster and ``ProvisioningController`` a round, ``n_pods`` pods of
+    250m/512Mi, one provisioner, a fake provider over one shared
+    ``generate_catalog(n_types)``, and a fresh ``TorchSolver(device=device,
+    dispatch_timeout_s=0.5)`` whose race breaker re-probes every 0.2 s.
+
+    Returns ``make(tag, validation_on=True, solver=None) -> (cluster,
+    controller)``: the round's pods are named ``df{tag}-{i}``; ``solver``
+    reuses a solver of an earlier round (its stager's resident tensors)."""
+    from .solver import TorchSolver
+
+    catalog = generate_catalog(n_types=n_types)
+
+    def make(tag, validation_on: bool = True, solver=None):
+        if solver is None:
+            solver = TorchSolver(dispatch_timeout_s=0.5, device=device)
+            solver._race_retry_interval_s = 0.2
+        return _uniform_round(catalog, f"df{tag}", n_pods, "250m", "512Mi", solver,
+                              solver_validation_enabled=validation_on)
+
+    return make
+
+
+def config_perf_sentinel(n_pods: int = 600, n_types: int = 20, device: str = "cuda"):
+    """``bench.bench_perf_sentinel``'s rounds (``bench.py:3497-3545``): a
+    fresh cluster and controller a round, ``n_pods`` pods of 250m/512Mi
+    (above ``race_min_pods``, so the race dispatches the chain), a fake
+    provider over one shared ``generate_catalog(n_types)``, and a fresh
+    ``TorchSolver(latency_budget_s=1.0, device=device)``: the wide budget
+    keeps the race polling through an injected hang below the dispatch
+    timeout. Returns ``make(tag) -> (cluster, controller)``."""
+    from .solver import TorchSolver
+
+    catalog = generate_catalog(n_types=n_types)
+
+    def make(tag):
+        # the reference's pods carry no owner
+        return _uniform_round(catalog, f"perf{tag}", n_pods, "250m", "512Mi",
+                              TorchSolver(latency_budget_s=1.0, device=device),
+                              owner_kind=None)
+
+    return make
+
+
 def config_controller_cells(n_pods: int = 500_000, n_cells: int = 20, n_types: int = 60,
                             n_deploys: int = 12):
     """``config_cells`` as a cluster, for the sharded provisioning

@@ -3,9 +3,9 @@
 A copy of ``karpenter_tpu/controllers/provisioning.py``'s flat and sharded
 rounds, solving through the PyTorch solver (``TorchSolver`` by default, on
 the card), with the reference's flight-recorder capsule. Left out until
-their slices are ported (``ROADMAP.md``, Queue 1): the federation gate and
-``profiling.note_phase`` (item 9), and the multi-device tier (item 10). The
-constructor refuses settings that turn on what is left out.
+their slices are ported (``ROADMAP.md``, Queue 1): the federation gate
+(item 9) and the multi-device tier (item 10). The constructor refuses
+settings that turn on what is left out.
 
 The rebuild of core's provisioning controller + ``Scheduler.Solve()`` call path
 (reference call stack in SURVEY §3.2): a batcher windows pending pods (idle 1s /
@@ -48,7 +48,7 @@ from ..solver.result import NewNodeSpec, SolveResult
 from ..solver.session import EncodeSession
 from ..solver.solver import GreedySolver, Solver, TorchSolver
 from ..state.cluster import Cluster
-from ..utils import metrics
+from ..utils import metrics, profiling
 from ..utils.decisions import DECISIONS
 from ..utils.lifecycle import LIFECYCLE, track_cluster_for_pruning
 from ..utils.events import Recorder
@@ -222,9 +222,8 @@ class ProvisioningController:
     ):
         self.cluster = cluster
         self.provider = provider
-        # federation, the multi-device tier and the solver's device-fault
-        # seams are not ported yet: a setting that turns one on must not be
-        # ignored
+        # federation and the multi-device tier are not ported yet: a setting
+        # that turns one on must not be ignored
         for flag, item in (
             ("federation_enabled", "federation, Queue 1 item 9"),
             ("mesh_enabled", "the multi-device tier, Queue 1 item 10"),
@@ -234,11 +233,6 @@ class ProvisioningController:
                     f"{flag}: not ported to the PyTorch controller yet "
                     f"(ROADMAP.md, {item})"
                 )
-        if settings is not None and settings.device_fault_script:
-            raise NotImplementedError(
-                "device_fault_script: the PyTorch solver applies no device "
-                "faults yet (ROADMAP.md, Queue 1 item 4)"
-            )
         self.solver = solver or TorchSolver()
         self.settings = settings or Settings()
         self.recorder = recorder or Recorder()
@@ -867,6 +861,7 @@ class ProvisioningController:
         )
         spent = time.perf_counter() - t0
         self._fw_eval_s += spent
+        profiling.note_phase("validate", "full", spent)
         metrics.SOLVE_PHASE.observe(spent, {"phase": "validate", "mode": "full"})
         return violations
 
@@ -1088,8 +1083,7 @@ class ProvisioningController:
         the residue for the rest of the round) so the cell basis — and the
         per-cell digest streams — stay stable across cascade rounds.
 
-        A copy of the reference's round, with these differences: no
-        ``profiling.note_phase`` is taken (``ROADMAP.md`` Queue 1 item 9);
+        A copy of the reference's round, with this difference:
         ``stage_fleet`` takes no superproblem width, since
         the multi-device tier is not ported (item 10; ``mesh_enabled`` makes
         the constructor raise). A worker's exception, a kernel's launch
@@ -1277,6 +1271,7 @@ class ProvisioningController:
                 session=None if borrowed else router.session(RESIDUE),
             )
             arb_s = time.perf_counter() - t_arb
+            profiling.note_phase("arbitrate", "sharded", arb_s)
             metrics.SOLVE_PHASE.observe(
                 arb_s, {"phase": "arbitrate", "mode": "sharded"}
             )
@@ -1331,6 +1326,7 @@ class ProvisioningController:
                 else (session.last_mode, session.last_full_reason)
             )
             if i not in reused:
+                profiling.note_phase("cell", session.last_mode, solve_s)
                 metrics.SOLVE_PHASE.observe(
                     solve_s, {"phase": "cell", "mode": session.last_mode}
                 )

@@ -22,10 +22,6 @@ deliberate differences or under the Queue 1 item that brings what is missing:
   since the port compiles nothing per shape (its kernel library is loaded
   in ``TorchSolver.__init__``). The ``aot_*`` settings are accepted,
   validated and unread.
-* Left out: ``profiling.configure``, ``sentinel_tick`` and the
-  ``stop-profiler`` step (the profiler, item 9).
-  ``profiling_enabled=True`` makes ``new`` raise; ``perf_sentinel_enabled``
-  has no effect until item 9.
 * Federation (item 9) and the multi-device tier (item 10) raise in the
   provisioning controller's constructor, as in earlier slices.
 """
@@ -106,13 +102,6 @@ class Operator:
         CPU (the port's addition; the reference has no such argument)."""
         settings = settings or Settings()
         settings.validate()
-        if settings.profiling_enabled:
-            # the continuous profiler, tracemalloc's top allocators and the
-            # perf sentinel come together with the profiler module
-            raise NotImplementedError(
-                "profilingEnabled: the profiler is not ported yet "
-                "(ROADMAP.md, Queue 1 item 9)"
-            )
         clock = clock or Clock()
         cluster = cluster if cluster is not None else Cluster()
         provider = provider or FakeCloudProvider()
@@ -196,9 +185,15 @@ class Operator:
         KERNEL_BOARD.configure(
             failure_threshold=settings.kernel_breaker_failure_threshold,
         )
-        # the reference arms a scripted device-fault timeline here from
-        # settings.device_fault_script; the port's solver has no fault seams
-        # yet, so Settings.validate refused a script above (Queue 1 item 4)
+        # scripted device-fault timeline (chaos/soak only; empty in
+        # production) — armed from boot so the soak's wall-clock bursts
+        # land inside the solver seams of THIS process
+        if settings.device_fault_script:
+            from .utils.faults import DeviceFaultPlan, install_device_faults
+
+            install_device_faults(
+                DeviceFaultPlan.parse(settings.device_fault_script)
+            )
         provisioning = ProvisioningController(
             cluster, provider, solver=solver, settings=settings, recorder=recorder
         )
@@ -216,10 +211,21 @@ class Operator:
                 else None
             ),
         )
-        # the reference configures its continuous profiler and the
-        # perf-regression sentinel here (profiling.configure); neither is
-        # ported (Queue 1 item 9): profiling_enabled raised above, and
-        # perf_sentinel_enabled (default on) has no effect until then
+        # continuous profiler + perf-regression sentinel: the continuous
+        # sampler starts only under the (costly) profiling switch, while
+        # the sentinel's round-cadence band math defaults on. The baselines
+        # go to aot_cache_dir when it is set, else to the port's own
+        # directory (utils/profiling.py), never the JAX package's
+        from .utils import profiling
+
+        profiling.configure(
+            profiling_enabled=settings.profiling_enabled,
+            sample_hz=settings.profiling_sample_hz,
+            baseline_rounds=settings.profiling_baseline_rounds,
+            sentinel_enabled=settings.perf_sentinel_enabled,
+            mad_k=settings.perf_sentinel_mad_k,
+            baseline_dir=settings.aot_cache_dir or None,
+        )
         termination = TerminationController(cluster, provider, recorder=recorder, clock=clock)
         deprovisioning = DeprovisioningController(
             cluster, provider, termination, solver=solver, settings=settings,
@@ -310,7 +316,9 @@ class Operator:
         self.drift.reconcile()
         self.deprovisioning.reconcile()
         self.provisioning.reconcile()
-        # the reference ticks its perf sentinel here (Queue 1 item 9)
+        from .utils import profiling
+
+        profiling.sentinel_tick()
         self.termination.reconcile()
         self.garbagecollect.reconcile()
         for scraper in self.scrapers:
@@ -381,10 +389,10 @@ class Operator:
            must never keep serving ready probes (or block a supervised
            restart with EADDRINUSE).
 
-        The reference has two more steps, which the port leaves out: it
-        stops the profiler first (Queue 1 item 9), and between 1 and 2 it
-        drains its background XLA compiles (the port compiles nothing per
-        shape, so there is nothing to drain).
+        Before step 1 the sampling profiler stops (``stop-profiler``). The
+        reference has one more step, which the port leaves out: between 1
+        and 2 it drains its background XLA compiles (the port compiles
+        nothing per shape, so there is nothing to drain).
 
         Every step is individually guarded: a failure in one must not skip
         the rest (previously only the port release was guarded) — and the
@@ -415,7 +423,13 @@ class Operator:
 
             FLIGHT.flush_dumps()
 
+        def _stop_profiler():
+            from .utils.profiling import PROFILER
+
+            PROFILER.stop()
+
         try:
+            step("stop-profiler", _stop_profiler)
             if self.interruption is not None:
                 step("join-interruption-workers",
                      lambda: self.interruption.close(wait=True))
@@ -449,7 +463,11 @@ class Operator:
                 retry_due = bool(self.cluster.pending_pods())
             if self.provisioning.batcher.ready() or retry_due:
                 self.provisioning.reconcile()
-                # the reference ticks its perf sentinel here (item 9)
+                # round boundary for the perf sentinel: evaluate phase
+                # EWMAs against their baseline bands once per reconcile
+                from .utils import profiling
+
+                profiling.sentinel_tick()
                 if not state["frozen"]:
                     # freeze AFTER the first reconcile built the long-lived
                     # state (pods, nodes, encoder caches) so gen-2 GC scans

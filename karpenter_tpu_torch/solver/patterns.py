@@ -32,6 +32,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils import metrics
 from .encode import EncodedProblem
 from .host import Opened, _finish_leftovers, _fit_rows, plan_cost
 
@@ -50,6 +51,20 @@ except Exception:  # pragma: no cover
 # pin their problem; the bound keeps that to a handful of encodes.
 _POOL_CACHE_MAX = 4
 _pool_cache: Dict[int, tuple] = {}
+
+
+def _count_improvement(savings: float, pool: "Optional[_Pool]" = None) -> None:
+    """Metric semantics (the reference's): PATTERN_IMPROVEMENTS counts every
+    solve that hands back a pattern-improved plan (cached or computed — the
+    delivery rate); PATTERN_SAVINGS counts each problem's dollar delta ONCE,
+    on first delivery, so a steady-state reconcile loop replaying the cached
+    plan doesn't scale the cumulative-dollars metric with reconcile
+    frequency."""
+    metrics.PATTERN_IMPROVEMENTS.inc()
+    if pool is None or not pool.savings_counted:
+        metrics.PATTERN_SAVINGS.inc(value=savings)
+        if pool is not None:
+            pool.savings_counted = True
 
 
 def _cache_put(cache: Dict[int, tuple], key: int, value: tuple, cap: int) -> None:
@@ -237,6 +252,8 @@ class _Pool:
         # similarity-remapped pools must run at least one full CG pricing
         # cycle before the gap gate may trust their master objective
         self.needs_reprice = False
+        # savings metric counted at most once per problem (see _count_improvement)
+        self.savings_counted = False
         # rounded integer plan cached once CG converges: warm re-solves of the
         # same problem return it for the cost of one dict hit
         self.rounded: Optional[Tuple[List[Opened], float]] = None
@@ -450,6 +467,7 @@ def pattern_improve(
         if pool.converged and pool.rounded is not None:
             opens, cost = pool.rounded
             if cost < incumbent_cost - 1e-9:
+                _count_improvement(incumbent_cost - cost, pool)
                 return opens, cost
             return None
     else:
@@ -518,5 +536,6 @@ def pattern_improve(
         pool.rounded = rounded
     opens, cost = rounded
     if cost < incumbent_cost - 1e-9:
+        _count_improvement(incumbent_cost - cost, pool)
         return opens, cost
     return None

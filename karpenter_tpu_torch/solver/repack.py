@@ -52,6 +52,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils import metrics
 from .encode import EncodedProblem
 from .host import Opened, _finish_leftovers, plan_cost, refill_existing, _units_rate
 
@@ -72,12 +73,13 @@ _seen: "weakref.WeakValueDictionary[int, EncodedProblem]" = weakref.WeakValueDic
 class _RepackPlan:
     """Finished joint plan: existing placements + new-node opens + cost."""
 
-    __slots__ = ("placements", "opens", "cost")
+    __slots__ = ("placements", "opens", "cost", "savings_counted")
 
     def __init__(self, placements, opens, cost):
         self.placements = placements
         self.opens = opens
         self.cost = cost
+        self.savings_counted = False
 
 
 def _price_pair_patterns(
@@ -535,5 +537,9 @@ def repack_improve(
 def _deliver(entry: _RepackPlan, incumbent_cost: float):
     if entry.cost >= incumbent_cost - 1e-9:
         return None
+    metrics.PATTERN_IMPROVEMENTS.inc()
+    if not entry.savings_counted:
+        entry.savings_counted = True
+        metrics.PATTERN_SAVINGS.inc(value=incumbent_cost - entry.cost)
     # copies out: the caller's finalize path mutates placements in place
     return entry.placements.copy(), list(entry.opens), entry.cost

@@ -45,7 +45,7 @@ import numpy as np
 from ..api.objects import Pod, Provisioner
 from ..api.taints import tolerates_all
 from ..cloudprovider.types import InstanceType
-from ..utils import metrics
+from ..utils import metrics, profiling
 from .encode import (
     ENCODE_LOCK,
     _group_members,
@@ -299,6 +299,7 @@ class EncodeSession:
             problem.__dict__["_encode_mode"] = self.last_mode
             self._note_shape(problem)
             encode_s = time.perf_counter() - t0
+            profiling.note_phase("encode", self.last_mode, encode_s)
             metrics.SOLVE_PHASE.observe(
                 encode_s, {"phase": "encode", "mode": self.last_mode}
             )

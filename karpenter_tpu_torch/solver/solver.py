@@ -16,6 +16,14 @@ And a launch or build error of the port's own kernels raises:
 it is a fault of the program, not device evidence for the breaker to book
 while a host answer hides it.
 
+The device-fault seams are the reference's (``utils/faults.py``): a
+scripted dispatch hang, device OOM, NaN or garbage result, staging
+corruption or compile failure becomes breaker evidence of a named kind and
+a host answer, never a binding. Only the injected ``InjectedDeviceError``
+is caught. The port compiles nothing per shape, so the compile seam is
+consulted at a bucket label's first dispatch in the process and at the
+first after its breaker opened (``KernelBreakerBoard.first_dispatch``).
+
 ``stage_fleet`` is the sharded round's fleet dispatch: the dirty cells'
 problems, each with the solver that will solve it, are grouped by bucket
 and each chunk is solved in one batched call (``pack_solve_fleet``); each
@@ -47,7 +55,7 @@ import torch
 from ..api.objects import Pod, Provisioner
 from ..cloudprovider.types import InstanceType
 from ..native import load_encoder
-from ..utils import metrics
+from ..utils import faults, metrics, profiling
 from ..utils.resilience import BreakerSet
 # the cheap per-axis bound for the hot path; the tight LP bound lives in bounds.py
 from .bounds import fractional_lower_bound as lower_bound
@@ -90,6 +98,7 @@ def _observe_phase(problem: EncodedProblem, phase: str, seconds: float) -> None:
     (stamped by EncodeSession / solve_pods; plain full encodes default) —
     karpenter_tpu_solve_phase_seconds{phase,mode}."""
     mode = problem.__dict__.get("_encode_mode", "full")
+    profiling.note_phase(phase, mode, seconds)
     metrics.SOLVE_PHASE.observe(
         seconds,
         {"phase": phase, "mode": mode},
@@ -704,7 +713,9 @@ class KernelBreakerBoard:
     success. An open bucket does not dispatch until ``recovery_timeout_s``
     has passed; the next dispatch is then the half-open probe. The port
     builds one kernel library per source hash, not one executable per
-    bucket, so there is nothing to evict: quarantine only blocks the label.
+    bucket, so there is no executable to evict: quarantine blocks the
+    label, and forgets that it was built (``first_dispatch``), as the
+    reference's eviction forces its half-open probe through a compile.
     ``failures`` counts the evidence by kind, as
     ``karpenter_tpu_kernel_faults_total{kind}`` does; the health gauge
     (``karpenter_tpu_kernel_backend_health``) is the fraction of consulted
@@ -717,6 +728,10 @@ class KernelBreakerBoard:
 
     def __init__(self, failure_threshold: int = 3, recovery_timeout_s: float = 30.0):
         self._lock = threading.Lock()
+        # labels dispatched at least once since the process started or
+        # since their breaker last opened: where the reference's executable
+        # is resident. Kept across configure, as the reference's AOT cache is.
+        self._built: set = set()
         self._make(failure_threshold, recovery_timeout_s, time.monotonic)
 
     def _make(self, failure_threshold, recovery_timeout_s, clock) -> None:
@@ -745,6 +760,30 @@ class KernelBreakerBoard:
     def reset(self) -> None:
         self.configure()
 
+    def first_dispatch(self, label: str) -> None:
+        """The compile seam (``utils/faults.py``, site ``"compile"``). The
+        port compiles nothing per shape, so the seam is consulted where the
+        reference compiles: the first dispatch of ``label`` in the process,
+        and the first after its breaker opened. A scripted
+        ``compile-error`` raises ``InjectedDeviceError`` there, and the
+        label stays unbuilt, so the next dispatch consults the seam again
+        (the reference's failed compile leaves no executable either)."""
+        with self._lock:
+            if label in self._built:
+                return
+        if faults.device_fault("compile") is not None:
+            raise faults.InjectedDeviceError(
+                f"injected compile failure for bucket {label}"
+            )
+        with self._lock:
+            self._built.add(label)
+
+    def forget_builds(self) -> None:
+        """Every label counts as unbuilt again (tests: the reference's
+        counterpart is a cold AOT cache)."""
+        with self._lock:
+            self._built.clear()
+
     def allows(self, label: str) -> bool:
         """True when the bucket may dispatch: breaker closed, or half-open
         (the dispatch is the probe)."""
@@ -767,11 +806,18 @@ class KernelBreakerBoard:
         self._publish()
 
     def fail(self, label: str, kind: str) -> None:
-        """Device-path failure evidence of one ``kind``."""
+        """Device-path failure evidence of one ``kind``; the transition to
+        open forgets that the label was built (the reference's quarantine
+        eviction)."""
         metrics.KERNEL_FAULTS.inc({"kind": kind})
         with self._lock:
             self.failures[kind] = self.failures.get(kind, 0) + 1
-        self._set.get(label).record_failure()
+        breaker = self._set.get(label)
+        before = breaker.state
+        breaker.record_failure()
+        if breaker.state == "open" and before != "open":
+            with self._lock:
+                self._built.discard(label)
         self._publish()
 
     def health(self) -> float:
@@ -862,6 +908,87 @@ def _fetch_bounded(buf: _Pending, timeout_s: float) -> np.ndarray:
     return buf.materialize()
 
 
+class _HungBuffer:
+    """An injected dispatch hang: wraps a dispatch's ``_Pending`` so that it
+    reports not ready until the scripted hang has passed, and
+    ``materialize`` sleeps out the rest. The chain itself still runs on the
+    card, and the stager's fence (set by ``_launch_chain`` on the chain's
+    own event) still orders the next restage after it. A test and chaos
+    artifact: production buffers are never wrapped."""
+
+    __slots__ = ("_inner", "_until")
+
+    def __init__(self, inner: _Pending, until: float):
+        self._inner = inner
+        self._until = until
+
+    @property
+    def events(self):
+        return self._inner.events
+
+    @property
+    def done(self):
+        return self._inner.done
+
+    def is_ready(self) -> bool:
+        if time.perf_counter() < self._until:
+            return False
+        return self._inner.is_ready()
+
+    def materialize(self) -> np.ndarray:
+        remaining = self._until - time.perf_counter()
+        if remaining > 0:
+            time.sleep(remaining)
+        return self._inner.materialize()
+
+    def device_ms(self) -> Optional[float]:
+        return self._inner.device_ms()
+
+
+def _apply_dispatch_fault(pending: _Pending):
+    """Dispatch-site fault seam (``utils/faults.py``): raises
+    ``InjectedDeviceError`` on an injected device OOM, wraps the buffer on
+    an injected hang, returns it untouched otherwise."""
+    fault = faults.device_fault("dispatch")
+    if fault is None:
+        return pending
+    if fault.kind == "device-oom":
+        raise faults.InjectedDeviceError(
+            "injected RESOURCE_EXHAUSTED: device out of memory"
+        )
+    hang = fault.hang_s if fault.hang_s == fault.hang_s else float("inf")
+    return _HungBuffer(pending, time.perf_counter() + min(hang, 3600.0))
+
+
+def _injected_kind(error: Exception) -> str:
+    """The breaker kind of an ``InjectedDeviceError``: the dispatch seam's
+    OOM, else the compile seam's failure (the reference's classification)."""
+    return "device-oom" if "RESOURCE_EXHAUSTED" in str(error) else "compile-error"
+
+
+def _apply_result_fault(unpacked):
+    """Result-site fault seam, applied to the UNPACKED kernel answer
+    (order, unplaced, costs, exhausted, new_opt, new_active, ys):
+
+    * ``nan-result``     — costs become non-finite (the breaker's
+      nonfinite-plan detection must refuse to decode it);
+    * ``garbage-result`` — assignment counts are corrupted into a
+      plausible-shaped overpack that claims an impossibly cheap plan, so
+      that it wins the cost race and the count validator must stop it."""
+    fault = faults.device_fault("result")
+    if fault is None:
+        return unpacked
+    order, unplaced, costs, exhausted, new_opt, new_active, ys = unpacked
+    if fault.kind == "nan-result":
+        costs = np.full_like(np.asarray(costs, dtype=np.float64), np.nan)
+    elif fault.kind == "garbage-result":
+        ys = np.asarray(ys).copy()
+        ys[ys > 0] = ys[ys > 0] * 3 + 1  # overpacks every used slot
+        unplaced = 0  # "everything placed"
+        costs = np.full_like(np.asarray(costs, dtype=np.float64), 1e-6)
+    return order, unplaced, costs, exhausted, new_opt, new_active, ys
+
+
 class _Dispatch(NamedTuple):
     """One problem's asynchronous kernel dispatch and what unpacking it
     needs."""
@@ -887,7 +1014,7 @@ class _FleetBuffer:
     __slots__ = ("pending", "key", "t_dispatch", "width", "abandoned", "copies", "_lock",
                  "_host")
 
-    def __init__(self, pending: _Pending, key: BucketKey, t_dispatch: float, width: int):
+    def __init__(self, pending, key: BucketKey, t_dispatch: float, width: int):
         self.pending = pending
         self.key = key  # the fleet bucket (B > 1)
         self.t_dispatch = t_dispatch
@@ -1005,7 +1132,16 @@ def stage_fleet(
                 continue
             if not KERNEL_BOARD.allows(fleet_key.label()):
                 continue  # quarantined fleet bucket: the cells race one by one
-            stats["device_stacked"] += _stage_fleet_chunk(chunk, key, fleet_key, cleared)
+            try:
+                stacked = _stage_fleet_chunk(chunk, key, fleet_key, cleared)
+            except faults.InjectedDeviceError as e:
+                # an injected device OOM or compile failure at the fleet
+                # dispatch is booked as at a cell's, and the cells race one
+                # by one (the reference's fleet path consults no seam: it
+                # dispatches only executables its background worker built)
+                KERNEL_BOARD.fail(fleet_key.label(), _injected_kind(e))
+                continue
+            stats["device_stacked"] += stacked
             stats["dispatches"] += 1
             stats["cells_batched"] += len(chunk)
             stats["buckets"].append(fleet_key.label())
@@ -1030,6 +1166,7 @@ def _stage_fleet_chunk(chunk, key: BucketKey, fleet_key: BucketKey, cleared: set
             solver._host_cache[id(problem)] = (problem, PackInputs(**prep[0]), *prep[1:4],
                                               prep[6], prep[7], [None])
         preps.append(prep)
+    t_stage = time.perf_counter()
     resident = [solver._resident(problem) for solver, problem in chunk]
     pad_fields, *pad_members = fleet_padding(key)
     pad = {**pad_fields, **dict(zip(_MEMBER_LEAVES, pad_members))}
@@ -1054,8 +1191,14 @@ def _stage_fleet_chunk(chunk, key: BucketKey, fleet_key: BucketKey, cleared: set
     args = (PackInputs(*(staged[f] for f in PackInputs._fields)),) + tuple(
         staged[f] for f in _MEMBER_LEAVES
     )
+    stage_s = time.perf_counter() - t_stage
+    profiling.note_phase("stage", "sharded", stage_s)
+    metrics.SOLVE_PHASE.observe(stage_s, {"phase": "stage", "mode": "sharded"})
+    KERNEL_BOARD.first_dispatch(fleet_key.label())
     t_dispatch = time.perf_counter()
-    pending = _Pending.enqueue(lambda: pack_solve_fleet(*args, key.S, key.Z), owner.device)
+    pending = _apply_dispatch_fault(
+        _Pending.enqueue(lambda: pack_solve_fleet(*args, key.S, key.Z), owner.device)
+    )
     shared = _FleetBuffer(pending, fleet_key, t_dispatch, len(chunk))
     for row, ((_, problem), prep) in enumerate(zip(chunk, preps)):
         problem.__dict__["_fleet_dispatch"] = _FleetDispatch(
@@ -1509,9 +1652,19 @@ class TorchSolver(Solver):
         if not KERNEL_BOARD.allows(key.label()):
             return None
         t_dispatch = time.perf_counter()
-        pending = self._launch_chain(
-            (inputs, orders_d, alphas_d, looks_d, rsvs_d, swaps_d), s_new, n_zones, side=True
-        )
+        try:
+            KERNEL_BOARD.first_dispatch(key.label())
+            pending = _apply_dispatch_fault(self._launch_chain(
+                (inputs, orders_d, alphas_d, looks_d, rsvs_d, swaps_d), s_new, n_zones,
+                side=True,
+            ))
+        except faults.InjectedDeviceError as e:
+            # an injected device OOM or compile failure is breaker evidence,
+            # and the host path answers this round. Only the injected error
+            # is caught: a real launch error raises (the reference's bare
+            # ``except Exception`` here is deliberately not copied)
+            KERNEL_BOARD.fail(key.label(), _injected_kind(e))
+            return None
         return _Dispatch(pending, orders, swaps, s_new, n_zones, inputs, key, t_dispatch)
 
     def _poll_dispatch(self, problem: EncodedProblem, dispatched, deadline: float,
@@ -1548,14 +1701,19 @@ class TorchSolver(Solver):
         problem.__dict__.pop("_race_miss_count", None)
         raw = pending.materialize()
         if ready_at:
+            # an observed transition: the sentinel's per-bucket feed (a
+            # buffer ready at the first look times nothing)
+            profiling.note_bucket_dispatch(
+                dispatched.key.label(), ready_at - dispatched.t_dispatch
+            )
             problem.__dict__["_dispatch_s"] = ready_at - dispatched.t_dispatch
         if pending.events is not None:
             problem.__dict__["_dispatch_device_ms"] = pending.device_ms()
         inputs = dispatched.inputs
-        unpacked = unpack_solve_fused(
+        unpacked = _apply_result_fault(unpack_solve_fused(
             raw, dispatched.orders.shape[0], dispatched.s_new, inputs.count.shape[0],
             inputs.ex_valid.shape[0], dispatched.orders, dispatched.swaps,
-        )
+        ))
         return self._judge(problem, unpacked, dispatched.key, host_cost)
 
     def _poll_fleet(self, problem: EncodedProblem, slot: _FleetDispatch, deadline: float,
@@ -1586,14 +1744,15 @@ class TorchSolver(Solver):
         self._race_fails = 0
         problem.__dict__.pop("_race_miss_count", None)
         raw = shared.materialize()[slot.row]
+        key = shared.key
         if ready_at:
+            profiling.note_bucket_dispatch(key.label(), ready_at - shared.t_dispatch)
             problem.__dict__["_dispatch_s"] = ready_at - shared.t_dispatch
         if shared.pending.events is not None:
             problem.__dict__["_dispatch_device_ms"] = shared.device_ms()
-        key = shared.key
-        unpacked = unpack_solve_fused(
+        unpacked = _apply_result_fault(unpack_solve_fused(
             raw, slot.orders.shape[0], slot.s_new, key.G, key.E, slot.orders, slot.swaps
-        )
+        ))
         result = self._judge(problem, unpacked, key, host_cost)
         if result is not None:
             result.stats["fleet_b"] = float(key.B)
@@ -1657,6 +1816,12 @@ class TorchSolver(Solver):
             # the host fallback answers this round instead of blocking it
             KERNEL_BOARD.fail(self._bucket_key(problem).label(), "dispatch-timeout")
             return None
+        except faults.InjectedDeviceError as e:
+            # an injected device OOM or compile failure: breaker evidence,
+            # and the host answers. Any other error raises (the reference's
+            # ``except Exception`` is deliberately not copied)
+            KERNEL_BOARD.fail(self._bucket_key(problem).label(), _injected_kind(e))
+            return None
         if run is None:
             return None  # quarantined bucket: the host paths answer
         unpacked, s_new, passes = run
@@ -1698,23 +1863,32 @@ class TorchSolver(Solver):
         """The fused solve on ``tensors`` (``(PackInputs, orders, alphas,
         looks, rsvs, swaps)`` on the device), doubling the slot budget while
         members ran out of slots; with ``problem``, its resident entry
-        follows the budget, and a pass whose bucket is quarantined ends the
-        solve (None). Returns the unpacked result, the slot budget it was
-        solved at and the number of fused passes it took."""
+        follows the budget, a pass whose bucket is quarantined ends the
+        solve (None), and each pass consults the compile seam and feeds the
+        sentinel its dispatch time. The dispatch and result fault seams
+        apply to every pass. Returns the unpacked result, the slot budget it
+        was solved at and the number of fused passes it took."""
         inputs = tensors[0]
         k, Gp, Ep = orders.shape[0], inputs.count.shape[0], inputs.ex_valid.shape[0]
         passes = 0
         while True:
-            if problem is not None and not KERNEL_BOARD.allows(
-                    self._bucket_key(problem, s_new).label()):
-                return None
+            label = None if problem is None else self._bucket_key(problem, s_new).label()
+            if label is not None:
+                if not KERNEL_BOARD.allows(label):
+                    return None
+                KERNEL_BOARD.first_dispatch(label)
             passes += 1
             t_dispatch = time.perf_counter()
-            buf = _fetch_bounded(self._launch_chain(tensors, s_new, n_zones),
-                                 self.dispatch_timeout_s)
-            if problem is not None:
-                problem.__dict__["_dispatch_s"] = time.perf_counter() - t_dispatch
-            unpacked = unpack_solve_fused(buf, k, s_new, Gp, Ep, orders, swaps)
+            buf = _fetch_bounded(
+                _apply_dispatch_fault(self._launch_chain(tensors, s_new, n_zones)),
+                self.dispatch_timeout_s,
+            )
+            if label is not None:
+                dispatch_s = time.perf_counter() - t_dispatch
+                profiling.note_bucket_dispatch(label, dispatch_s)
+                problem.__dict__["_dispatch_s"] = dispatch_s
+            unpacked = _apply_result_fault(
+                unpack_solve_fused(buf, k, s_new, Gp, Ep, orders, swaps))
             _, unplaced, _, exhausted, _, _, _ = unpacked
             # grow S only when members actually ran out of slots; leftover pods
             # with free slots are genuinely unschedulable
@@ -1764,9 +1938,9 @@ class TorchSolver(Solver):
         staged = self._stager.stage(tag, leaves)
         # accrued across prestage and the solve's own staging; solve_pods
         # reports it as ``stage_s``
-        problem.__dict__["_stage_s"] = (
-            problem.__dict__.get("_stage_s", 0.0) + time.perf_counter() - t_stage
-        )
+        stage_s = time.perf_counter() - t_stage
+        problem.__dict__["_stage_s"] = problem.__dict__.get("_stage_s", 0.0) + stage_s
+        _observe_phase(problem, "stage", stage_s)
         entry = (
             problem, PackInputs(*(staged[f] for f in PackInputs._fields)), orders, swaps,
             *(staged[f] for f in _MEMBER_LEAVES), s_new, n_zones,
@@ -1813,6 +1987,7 @@ class TorchSolver(Solver):
         memo = problem.__dict__.get("_prep_memo")
         if memo is not None and memo[0] == memo_key:
             return memo[1] + (s_new, memo[2])
+        t_presolve = time.perf_counter()
         G, O, E, R = problem.G, problem.O, problem.E, len(problem.resource_axes)
         Gp = bucket.G if bucket else bucket_groups(G)
         Op = bucket.O if bucket else bucket_options(O)
@@ -1900,6 +2075,7 @@ class TorchSolver(Solver):
         )
         out = (fields, orders, alphas, looks, rsvs, swaps)
         problem.__dict__["_prep_memo"] = (memo_key, out, Zp)
+        _observe_phase(problem, "presolve", time.perf_counter() - t_presolve)
         return out + (s_new, Zp)
 
     def _estimate_slots(self, problem: EncodedProblem) -> int:
@@ -1953,6 +2129,7 @@ class TorchSolver(Solver):
         new_active: np.ndarray,
         ys: np.ndarray,
     ) -> SolveResult:
+        t_decode = time.perf_counter()
         E = problem.E
         s_new = new_opt.shape[0]
         # slot columns are [existing (padded) | new]
@@ -2009,6 +2186,7 @@ class TorchSolver(Solver):
                 NewNodeSpec(option=option, pod_names=NameSlice(new_segs[s]), option_index=j)
             )
             cost += option.price
+        _observe_phase(problem, "decode", time.perf_counter() - t_decode)
         return SolveResult(
             new_nodes=new_nodes,
             existing_assignments=existing_assignments,

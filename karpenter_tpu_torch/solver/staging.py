@@ -36,7 +36,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..utils import metrics
+from ..utils import faults, metrics
 from . import torch_solver as ts
 
 
@@ -186,7 +186,28 @@ class DeviceStager:
     def stage(self, tag: tuple, leaves: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Device tensors for ``leaves``, reusing or patching the resident
         entry of ``tag`` where the bytes allow. ``tag`` must pin every static
-        of the padded shape (bucket dims, K, fleet width)."""
+        of the padded shape (bucket dims, K, fleet width).
+
+        The device-fault seam (``utils/faults.py``, site ``"staging"``) is
+        the reference's: a scripted ``staging-corruption`` multiplies
+        ``alloc`` (or the first non-empty float leaf) by 4 on its way to the
+        device, leaving the caller's dict untouched. The corrupted bytes are
+        what the stager keeps as the leaf's host copy, so the next clean
+        round's true bytes differ and the leaf restages: the self-heal."""
+        fault = faults.device_fault("staging")
+        if fault is not None:
+            # an inflated node capacity makes the kernel overpack, a
+            # violation no cost comparison can mask
+            leaves = dict(leaves)
+            victim = "alloc" if "alloc" in leaves else next(
+                (k for k, v in leaves.items()
+                 if np.asarray(v).dtype.kind == "f" and np.asarray(v).size),
+                None,
+            )
+            if victim is not None:
+                corrupted = np.asarray(leaves[victim]).copy()
+                corrupted *= 4.0
+                leaves[victim] = corrupted
         if not self.enabled:
             # fresh tensors every call: nothing resident is overwritten
             return {k: self._upload(np.asarray(v)) for k, v in leaves.items()}

@@ -44,6 +44,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils import metrics
 from .encode import EncodedProblem
 from .host import Opened, _units_rate, plan_cost
 
@@ -72,13 +73,17 @@ class _Finished:
     result for replay, plus the raw (opt_arr, ys_arr) plan arrays so the plan
     can transfer to content-similar problems (group-signature remap)."""
 
-    __slots__ = ("result", "cost", "opt_arr", "ys_arr", "won")
+    __slots__ = ("result", "cost", "opt_arr", "ys_arr", "savings_counted", "won")
 
     def __init__(self, result, cost, opt_arr, ys_arr):
         self.result = result
         self.cost = cost
         self.opt_arr = opt_arr
         self.ys_arr = ys_arr
+        # PATTERN_SAVINGS counts each problem's delta ONCE: a steady-state
+        # reconcile loop replaying the cached plan must not re-count the same
+        # dollars every cycle
+        self.savings_counted = False
         # True once this plan beat a REAL FFD incumbent on this problem. The
         # pre-FFD probe (infinite incumbent) may only short-circuit the FFD
         # with won plans — a built-or-transferred plan can come out WORSE
@@ -89,13 +94,20 @@ class _Finished:
 
 def _deliver(finished: "_Finished", incumbent_cost: float):
     """Return a fresh stats shell of the cached result when it beats the
-    incumbent, and mark a plan that beat a real incumbent as won."""
+    incumbent, and mark a plan that beat a real incumbent as won; metric
+    bookkeeping (improvements per delivery, savings once)."""
     import dataclasses
 
     if finished.cost >= incumbent_cost - 1e-9:
         return None
+    # delivery rate counts EVERY solve served by the closer, probe included;
+    # the dollar delta needs a real incumbent and counts once per problem
+    metrics.PATTERN_IMPROVEMENTS.inc()
     if incumbent_cost != float("inf"):
         finished.won = True  # beat a real incumbent; probes may now trust it
+        if not finished.savings_counted:
+            finished.savings_counted = True
+            metrics.PATTERN_SAVINGS.inc(value=incumbent_cost - finished.cost)
     return dataclasses.replace(finished.result, stats=dict(finished.result.stats))
 
 

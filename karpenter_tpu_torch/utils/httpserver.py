@@ -51,13 +51,20 @@ Debug surface (the pprof-flag analogue, always on and cheap):
   (``?provisioner=``, ``?cell=``, ``?gang=``, ``?window=``) cross-linked to
   DecisionRecords, and the conservation verdict (attributed == metered).
   ``{"enabled": false}`` while ``cost_ledger_enabled`` is off.
+* ``/debug/profile`` — the sampling CPU profiler (utils/profiling.py):
+  collapsed-stack text by default (heaviest first, per-thread-role tagged),
+  ``?format=speedscope`` for a speedscope JSON document, ``?seconds=N``
+  blocks while an on-demand sampling window runs (works even when
+  ``profiling_enabled`` is off — the thread exists only for the window),
+  ``?start=1`` / ``?stop=1`` toggle continuous sampling, ``?reset=1``
+  clears the table first, ``?status=1`` returns the profiler state.
+* ``/debug/perf`` — the perf-regression sentinel (utils/profiling.py):
+  per-(phase, mode) and per-bucket baselines (p50/p99/MAD), live EWMAs,
+  band positions and streaks, plus the trip-history ring — the first stop
+  after ``karpenter_tpu_perf_regression_total`` fires.
+
 ``GET /debug`` is the index: a JSON route list with one-line descriptions,
 served from the ``DEBUG_ROUTES`` table — one source of truth, no drift.
-
-Left out of the port until the module they serve is ported (``ROADMAP.md``,
-Queue 1 item 9): ``/debug/profile`` and ``/debug/perf`` (the profiler and
-the perf sentinel). They are neither in the route table nor in the index,
-and a request for one gets the 404 of an unknown path.
 """
 
 from __future__ import annotations
@@ -76,9 +83,7 @@ from .slo import SLO
 from .tracing import TRACER, Tracer
 
 #: The one-source-of-truth debug route table: path -> one-line description.
-#: ``GET /debug`` serves it verbatim. The reference's table also lists
-#: ``/debug/profile`` and ``/debug/perf``, which the port leaves out (module
-#: docstring).
+#: ``GET /debug`` serves it verbatim.
 DEBUG_ROUTES = {
     "/debug/traces": (
         "retained root span trees, newest first (?trace_id= narrows to one "
@@ -106,6 +111,15 @@ DEBUG_ROUTES = {
     "/debug/costs": (
         "cost-ledger rollups: spend, savings/loss streams, burn rate and "
         "conservation verdict (?provisioner=, ?cell=, ?gang=, ?window=)"
+    ),
+    "/debug/profile": (
+        "sampling CPU profiler: collapsed stacks (?format=speedscope, "
+        "?seconds= runs an on-demand window, ?start=1/?stop=1 toggle "
+        "continuous mode, ?reset=1, ?status=1)"
+    ),
+    "/debug/perf": (
+        "perf-regression sentinel: per-phase/bucket baselines, live EWMA "
+        "vs MAD band, streaks and trip history"
     ),
 }
 
@@ -313,6 +327,63 @@ class OperatorHTTPServer:
                             gang=carg("gang"), window=window,
                         )
                     body = json.dumps(payload, default=str).encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/json")
+                elif path == "/debug/profile":
+                    from . import profiling
+
+                    q = parse_qs(query)
+
+                    def parg(name):
+                        return q.get(name, [None])[0]
+
+                    profiler = profiling.PROFILER
+                    if parg("reset") in ("1", "true"):
+                        profiler.reset()
+                    if parg("start") in ("1", "true"):
+                        profiler.start()
+                        body = json.dumps(profiler.snapshot()).encode()
+                        self.send_response(200)
+                        self.send_header("Content-Type", "application/json")
+                    elif parg("stop") in ("1", "true"):
+                        profiler.stop()
+                        body = json.dumps(profiler.snapshot()).encode()
+                        self.send_response(200)
+                        self.send_header("Content-Type", "application/json")
+                    elif parg("status") in ("1", "true"):
+                        body = json.dumps(profiler.snapshot()).encode()
+                        self.send_response(200)
+                        self.send_header("Content-Type", "application/json")
+                    else:
+                        try:
+                            seconds = float(parg("seconds") or 0)
+                        except ValueError:
+                            seconds = 0.0
+                        if seconds > 0:
+                            # blocking on-demand window (capped): sample,
+                            # wait it out on THIS handler thread (the server
+                            # is threading), then export what it caught
+                            import time as _time
+
+                            seconds = min(seconds, 60.0)
+                            profiler.start_window(seconds)
+                            deadline = _time.monotonic() + seconds + 0.25
+                            while profiler.running and _time.monotonic() < deadline:
+                                _time.sleep(0.02)
+                        if parg("format") == "speedscope":
+                            body = json.dumps(profiler.speedscope()).encode()
+                            self.send_response(200)
+                            self.send_header("Content-Type", "application/json")
+                        else:
+                            body = (profiler.collapsed() + "\n").encode()
+                            self.send_response(200)
+                            self.send_header("Content-Type", "text/plain")
+                elif path == "/debug/perf":
+                    from . import profiling
+
+                    body = json.dumps(
+                        profiling.SENTINEL.snapshot(), default=str
+                    ).encode()
                     self.send_response(200)
                     self.send_header("Content-Type", "application/json")
                 elif path in ("/debug", "/debug/"):

@@ -10,11 +10,10 @@ and scraper staleness pruner use):
   ``/proc/self/statm`` (falling back to ``resource.getrusage`` off Linux);
   always on, effectively free.
 * ``karpenter_tpu_tracemalloc_top_bytes{site}`` — the top allocation sites
-  by live bytes, exported only when ``install(memory_profiling=True)``
-  turns tracemalloc on (tracemalloc costs real CPU/memory; it is a
-  diagnosis tool, not a default). The reference's operator turns it on with
-  ``settings.profiling_enabled``, which the port's operator refuses until
-  the profiler is ported (``ROADMAP.md``, Queue 1 item 9).
+  by live bytes, exported only when ``settings.profiling_enabled`` (the
+  unified profiling switch — it also starts the CPU sampling profiler in
+  utils/profiling.py) turns tracemalloc on (tracemalloc costs real
+  CPU/memory; it is a diagnosis tool, not a default).
 
 ``karpenter_tpu_reconcile_loop_lag_seconds`` (the third runtime-health
 signal) is fed directly by the controller kit at dispatch time — lag is a
@@ -111,8 +110,12 @@ def _refresh() -> None:
     # full swap (not .set): cells that vanished leave the exposition, and
     # with no hook this publishes exactly the one unlabeled series
     metrics.PROCESS_MEMORY.replace_series(series)
-    # the reference also sets PROFILER_SAMPLES from the sampling profiler
-    # here; the profiler is not ported (ROADMAP.md, Queue 1 item 9)
+    try:
+        from . import profiling
+
+        metrics.PROFILER_SAMPLES.set(float(profiling.PROFILER.samples))
+    except Exception:
+        pass  # a scrape must never fail on the profiler hook
     if not _memory_profiling:
         return
     import tracemalloc

@@ -40,7 +40,9 @@ def test_scan_sees_the_whole_port():
     for name in ("operator", "__main__", "context", "cloudprovider/imagefamily",
                  "cloudprovider/launchtemplate", "utils/riskcache", "utils/costledger",
                  "utils/runtimehealth", "utils/gctuning", "utils/leaderelection",
-                 "utils/httpserver", "api/codec", "utils/flightrecorder", "replay"):
+                 "utils/httpserver", "api/codec", "utils/flightrecorder", "replay",
+                 "utils/profiling", "soak/__init__", "soak/__main__", "soak/churn",
+                 "soak/harness", "soak/monitor"):
         assert f"karpenter_tpu_torch/{name}.py" in PORT_FILES
     assert len(PORT_FILES) >= 18
 
@@ -65,7 +67,8 @@ def test_importing_the_port_loads_no_jax():
         "import karpenter_tpu_torch.operator, karpenter_tpu_torch.__main__, karpenter_tpu_torch.context\n"
         "import karpenter_tpu_torch.utils.httpserver, karpenter_tpu_torch.utils.leaderelection\n"
         "import karpenter_tpu_torch.api.codec, karpenter_tpu_torch.utils.flightrecorder\n"
-        "import karpenter_tpu_torch.replay\n"
+        "import karpenter_tpu_torch.replay, karpenter_tpu_torch.utils.profiling\n"
+        "import karpenter_tpu_torch.soak, karpenter_tpu_torch.soak.__main__\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'karpenter_tpu')"
         " or m.startswith(('jax.', 'karpenter_tpu.')))\n"
         "print(','.join(bad))\n"

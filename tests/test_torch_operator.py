@@ -498,16 +498,66 @@ def test_default_solver_is_the_card_unless_asked():
 
 
 @pytest.mark.parametrize("settings_kw, match", [
-    (dict(profiling_enabled=True), "Queue 1 item 9"),
     (dict(federation_enabled=True, arbiter_endpoint="http://127.0.0.1:1"), "item 9"),
     (dict(mesh_enabled=True), "item 10"),
-], ids=["profiling", "federation", "mesh"])
+], ids=["federation", "mesh"])
 def test_unported_settings_raise(settings_kw, match):
     m = pkg_mod(PORT)
     provider = m.cloud.FakeCloudProvider(catalog=m.cloud.generate_catalog(n_types=5))
     with pytest.raises(NotImplementedError, match=match):
         m.operator.Operator.new(provider=provider, device="cpu",
                                 settings=m.settings.Settings(**settings_kw))
+
+
+def test_profiling_enabled_starts_the_sampler_and_stop_profiler_stops_it(tmp_path):
+    """``profiling_enabled`` starts the continuous sampler at the settings'
+    rate and turns tracemalloc's allocators on, as the reference's operator
+    does; the sentinel is configured from the settings with its baselines
+    under ``aot_cache_dir``; ``close()``'s ``stop-profiler`` step ends the
+    sampler thread."""
+    from karpenter_tpu_torch.utils import profiling, runtimehealth
+
+    m, op = port_operator(profiling_enabled=True, profiling_sample_hz=97.0,
+                          perf_sentinel_mad_k=4, aot_cache_dir=str(tmp_path))
+    try:
+        assert profiling.PROFILER.running and profiling.PROFILER._hz == 97.0
+        assert runtimehealth._memory_profiling
+        snap = profiling.SENTINEL.snapshot()
+        assert snap["enabled"] and snap["sentinel_enabled"] and snap["mad_k"] == 4
+        assert snap["baseline_path"] == str(tmp_path / profiling.BASELINE_FILENAME)
+        deadline = time.time() + 10
+        while profiling.PROFILER.samples == 0 and time.time() < deadline:
+            time.sleep(0.02)
+        assert profiling.PROFILER.samples > 0
+    finally:
+        op.close()
+    assert not profiling.PROFILER.running
+    runtimehealth.install(memory_profiling=False)
+    profiling.configure()
+
+
+def test_device_fault_script_installs_its_plan(monkeypatch):
+    """``Operator.new`` arms ``device_fault_script`` as the process's device
+    fault plan, as the reference's does (``tests/test_solver_faultdomain.py``'s
+    ``test_operator_installs_plan_from_settings``), in both packages."""
+    pending = {}
+    for pkg in PACKAGES:
+        m = pkg_mod(pkg)
+        faults = importlib.import_module(f"{pkg}.utils.faults")
+        provider = m.cloud.FakeCloudProvider(catalog=m.cloud.generate_catalog(n_types=5))
+        settings = m.settings.Settings(
+            batch_idle_duration=0, batch_max_duration=0,
+            device_fault_script="t=0,kind=garbage-result,n=2;t=0,kind=dispatch-hang,hang=0.5",
+        )
+        op = new_operator(m, provider, settings)
+        try:
+            plan = faults._DEVICE_PLAN
+            pending[pkg] = (plan.pending("result"), plan.pending("dispatch"), plan.serialize())
+        finally:
+            op.close()
+            faults.install_device_faults(None)
+    assert pending[PORT] == pending[REF] == (
+        2, 1, "t=0,kind=garbage-result;t=0,kind=garbage-result;t=0,kind=dispatch-hang,hang=0.5")
 
 
 def test_kernel_telemetry_matches_reference():
@@ -643,9 +693,9 @@ def test_run_loop_survives_crashing_controller():
 
 
 def test_close_order_and_guarded_steps(monkeypatch):
-    """``close()`` joins the interruption workers, flushes the flight
-    recorder's dumps, releases the lease, and stops the HTTP server last,
-    even when a step fails."""
+    """``close()`` stops the sampling profiler, joins the interruption
+    workers, flushes the flight recorder's dumps, releases the lease, and
+    stops the HTTP server last, even when a step fails."""
     m, op = port_operator(interruption_queue_name="q")
     calls = []
     op.interruption.close = lambda wait=False: calls.append(("interruption", wait))
@@ -660,9 +710,12 @@ def test_close_order_and_guarded_steps(monkeypatch):
         def stop(self):
             calls.append(("http",))
 
+    from karpenter_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(profiling.PROFILER, "stop", lambda: calls.append(("profiler",)))
     op.elector, op.http_server = Elector(), Server()
     op.close()
-    assert calls == [("interruption", True), ("flush",), ("lease",), ("http",)]
+    assert calls == [("profiler",), ("interruption", True), ("flush",), ("lease",), ("http",)]
 
 
 def test_operator_new_configures_the_flight_recorder(tmp_path):
@@ -736,7 +789,7 @@ def server():
 def test_debug_index_is_the_reference_table_less_the_unported_routes(server):
     ref = pkg_mod(REF).http.DEBUG_ROUTES
     port = pkg_mod(PORT).http.DEBUG_ROUTES
-    left_out = {"/debug/profile", "/debug/perf"}
+    left_out = set()  # /debug/profile and /debug/perf came with the profiler
     assert port == {k: v for k, v in ref.items() if k not in left_out}
     srv = server()
     index = json.loads(get(srv.port, "/debug")[1])["routes"]
@@ -749,7 +802,8 @@ def test_debug_index_is_the_reference_table_less_the_unported_routes(server):
     ("/debug/decisions?limit=5", 200), ("/debug/cells", 200), ("/debug/lifecycle", 200),
     ("/debug/lifecycle?pod=nobody", 404), ("/debug/federation", 200), ("/debug/slo", 200),
     ("/debug/costs", 200), ("/debug/flightrecorder", 200), ("/debug/flightrecorder/c-1", 404),
-    ("/debug/profile", 404), ("/debug/perf", 404), ("/nope", 404),
+    ("/debug/profile", 200), ("/debug/profile?status=1", 200), ("/debug/perf", 200),
+    ("/nope", 404),
 ])
 def test_endpoint_status(server, path, status):
     srv = server()

@@ -291,7 +291,6 @@ class TestNoFallback:
     @pytest.mark.parametrize("kw", [
         {"cell_sharding_enabled": True, "mesh_enabled": True},
         {"federation_enabled": True, "arbiter_endpoint": "http://localhost:1"},
-        {"device_fault_script": "t=0,kind=compile-error"},
     ])
     def test_unported_settings_refuse_to_construct(self, kw):
         settings = Settings()
@@ -302,8 +301,42 @@ class TestNoFallback:
                                    solver=cpu_solver(), settings=settings)
 
     def test_device_fault_script_fails_validation(self):
-        with pytest.raises(ValueError, match="applies no device faults"):
-            Settings().apply({"device_fault_script": "t=0,kind=compile-error"})
+        """A malformed script fails validation loudly; a well-formed one is
+        accepted now that the solver has its device-fault seams."""
+        for bad in ("t=0,kind=bogus", "t=0", "t=0,kind=nan-result,n=x"):
+            with pytest.raises(ValueError):
+                Settings().apply({"device_fault_script": bad})
+        settings = Settings().apply({"device_fault_script": "t=0,kind=compile-error"})
+        assert settings.device_fault_script == "t=0,kind=compile-error"
+
+    def test_device_fault_script_constructs_and_its_faults_are_evidence(self, monkeypatch):
+        """A controller takes a script now; installed, its faults land in
+        the solver's seams as breaker evidence, and the round still binds
+        every pod."""
+        from karpenter_tpu_torch.solver.solver import KERNEL_BOARD
+        from karpenter_tpu_torch.utils import faults
+
+        script = "t=0,kind=garbage-result"
+        settings = Settings(batch_idle_duration=0, batch_max_duration=0,
+                            device_fault_script=script)
+        cluster = Cluster()
+        controller = ProvisioningController(
+            cluster, FakeCloudProvider(catalog=generate_catalog(n_types=20)),
+            solver=TorchSolver(device="cpu", latency_budget_s=30.0), settings=settings,
+        )
+        cluster.add_provisioner(make_provisioner())
+        for pod in make_pods(40, cpu="1", memory="1Gi"):
+            cluster.add_pod(pod)
+        KERNEL_BOARD.reset()
+        faults.install_device_faults(faults.DeviceFaultPlan.parse(script))
+        try:
+            result = controller.reconcile()
+        finally:
+            plan = faults.install_device_faults(None)
+        assert [s for s, _ in plan.log] == ["result"]
+        assert KERNEL_BOARD.failures == {"invalid-plan": 1}
+        assert len(result.bound) == 40 and not result.unschedulable
+        KERNEL_BOARD.reset()
 
     def test_kernel_error_raises_out_of_reconcile(self, env, monkeypatch):
         """A launch error of the port's kernels is a fault of the program:

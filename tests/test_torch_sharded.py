@@ -387,6 +387,40 @@ def test_fleet_round_matches_reference(_decision_logs):
     assert seen[1]["fleet_dispatches"] == 1.0 and seen[1]["fleet_cells_batched"] == 2.0
 
 
+def phase_series(env) -> dict:
+    """``karpenter_tpu_solve_phase_seconds``: observations per (phase,
+    mode) series."""
+    import importlib
+
+    hist = importlib.import_module(f"{env.pkg}.utils.metrics").SOLVE_PHASE
+    with hist._lock:
+        return dict(hist._totals)
+
+
+def test_fleet_rounds_emit_the_references_solve_phase_series(_decision_logs):
+    """Twin sharded rounds observe the same ``solve_phase_seconds`` series
+    as many times each, the fleet path's ``{phase="stage", mode="sharded"}``
+    among them (one observation a fleet dispatch)."""
+    warm_reference()
+    _decision_logs["karpenter_tpu"].clear()
+    moved = []
+
+    def check(envs):
+        before = {pkg: phase_series(env) for pkg, env in envs.items()}
+        reconcile_twins(envs, _decision_logs)
+        delta = {}
+        for pkg, env in envs.items():
+            after = phase_series(env)
+            delta[pkg] = {k: n - before[pkg].get(k, 0) for k, n in after.items()
+                          if n != before[pkg].get(k, 0)}
+        assert delta["karpenter_tpu_torch"] == delta["karpenter_tpu"]
+        moved.append(delta["karpenter_tpu_torch"])
+
+    fleet_rounds(fleet_envs(), check)
+    stage = (("mode", "sharded"), ("phase", "stage"))
+    assert [d.get(stage) for d in moved] == [1, 1]
+
+
 def test_port_answers_alike_at_one_and_four_workers(_decision_logs):
     """Worker count changes the wall clock, never the answer: the fleet
     rounds on the port at 1 and at 4 workers."""

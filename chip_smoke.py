@@ -100,11 +100,11 @@ this, DIR, with the chain and each of its kernels (``compare``). Phases:
     types, 8 workers): a seed round, whose 20 cells must each be the
     ``config_cells`` problem, batched in two fleet dispatches (b16, b4)
     with the launches ``SHARDED_SEED_LAUNCHES`` names, then churn rounds
-    0-2 in the modes ``SHARDED_CHURN_MODES`` names; every round binds every
+    in the modes ``SHARDED_CHURN_MODES`` names; every round binds every
     pending pod within allocatable, with no plan rejected, each cell's
     problem equal to a full encode of its session's pods, each fleet row
     equal to the plain chain and each fleet buffer copied to the host
-    once (``sharded_round``); then the same config at 16k pods in 8 cells
+    once (``sharded_round``); then the same config at 8k pods in 8 cells
     at 1 worker and at 8, which must agree on digests and launches;
 14. deprovisioning (main path): ``DeprovisioningController`` on the
     provisioning controller's default ``TorchSolver()``, with its
@@ -1874,7 +1874,12 @@ SHARDED_SEED_LAUNCHES = {"shared_precompute": 2, "pack_member": 4, "pack_epilogu
 #: package's answer at 2,000 pods, ``tests/test_torch_sharded.py``): only
 #: the 4 churned cells hold pending pods; round 0's cells delta-encode, and
 #: later rounds' cells, emptied by the seed round's binds, start afresh
-SHARDED_CHURN_MODES = {0: ("delta", ""), 1: ("full", "first-encode"), 2: ("full", "first-encode")}
+#: (cut to round 0 to keep the run inside its limit; rounds 1-2 encoded in
+#: full, "first-encode", and ``tests/test_torch_sharded.py`` holds both modes)
+SHARDED_CHURN_MODES = {0: ("delta", "")}
+#: the worker check's fleet: 8 cells of 1,000 pods (cut from 2,000 a cell
+#: to keep the run inside its limit; every cell still races, in one b8 fleet)
+WORKER_CHECK_PODS = 8_000
 
 
 class ShardedProbe:
@@ -2051,15 +2056,15 @@ def controller_sharded(ts, st, configs) -> dict:
     """Main path, sharded provisioning controller: ``ProvisioningController``
     with its default ``TorchSolver()`` over ``configs.config_controller_cells``
     (500k pending pods in 20 cells of 25k, 60 types; 8 workers, fleet chunks
-    of up to 16): a seed round, then churn rounds 0-2 applied through the
-    cluster. Every round is held by ``sharded_round``. The seed round must
+    of up to 16): a seed round, then the churn rounds of
+    ``SHARDED_CHURN_MODES`` applied through the cluster. Every round is held by ``sharded_round``. The seed round must
     solve 20 cells with none reused and no residue, each cell's problem
     the ``config_cells`` problem (so its cost is at most the JAX package's
     kernel-only ``cells_seed``), in two fleet dispatches of widths 4 and 16
     that batch all 20 cells, launching what ``SHARDED_SEED_LAUNCHES`` says.
     A churn round must solve the 4 churned cells (none reused, no residue)
     in the modes ``SHARDED_CHURN_MODES`` names. Then the worker check:
-    ``config_controller_cells(16_000, 8)``'s seed round on twin clusters at
+    ``config_controller_cells(WORKER_CHECK_PODS, 8)``'s seed round on twin clusters at
     1 worker and at 8, which must give equal digests and launch counts,
     each with its fleet rows equal to the plain chain and each fleet
     buffer copied to the host once. Returns the main run's launches."""
@@ -2085,7 +2090,7 @@ def controller_sharded(ts, st, configs) -> dict:
     launches = {k: 0 for k in ts.LAUNCHES}
     try:
         torch.cuda.reset_peak_memory_stats()
-        for rnd in ["seed", 0, 1, 2]:
+        for rnd in ["seed", *SHARDED_CHURN_MODES]:
             name = f"sharded round {rnd}"
             if rnd != "seed":
                 churn_round(rnd)
@@ -2130,7 +2135,8 @@ def controller_sharded(ts, st, configs) -> dict:
     # the worker check: twin clusters, 1 worker against 8
     twins = {}
     for workers in (1, 8):
-        cluster, provider, settings, _ = configs.config_controller_cells(n_pods=16_000, n_cells=8)
+        cluster, provider, settings, _ = configs.config_controller_cells(
+            n_pods=WORKER_CHECK_PODS, n_cells=8)
         settings.cell_shard_workers = workers
         ctl = ProvisioningController(cluster, provider, settings=settings)
         probe = ShardedProbe(ctl, solver_mod, prov_mod, hostpool)
@@ -3655,7 +3661,9 @@ def replay_phase(ts, st) -> dict:
 FAULT_PODS = 20_000
 FAULT_THRESHOLD = 3
 FAULT_RECOVERY_S = 1.0
-FAULT_ABBA_REPEATS = 8
+#: the validation ABBA's rounds: one ABBA cycle (cut from two to keep the
+#: run inside its limit)
+FAULT_ABBA_REPEATS = 4
 FAULT_BOOKED = {"compile-error": "compile-error", "dispatch-hang": "dispatch-timeout",
                 "device-oom": "device-oom", "nan-result": "nonfinite-plan",
                 "garbage-result": "invalid-plan", "staging-corruption": "invalid-plan"}
@@ -4012,32 +4020,74 @@ def perf_sentinel_phase(ts, configs) -> dict:
     return launches
 
 
-#: the soak phase: ``SoakConfig``'s default length, and the live population
-#: (not the default 300: at 300 no round reaches ``race_min_pods``)
+#: the soak phase: ``SoakConfig``'s default length and seed, at a fixed
+#: rate, so that the fault timeline is the seed's and not the host's. The
+#: timeline's draws depend on the rate and on ``live_pods`` (the churn
+#: draws come first from one ``random.Random(seed)``), and the harness's
+#: calibration (``rate_hz=0``) measured 70.0-190.2 events/s on the card's
+#: host: each rate drew other bursts (PERF.md, Findings). 70.0 is the lowest
+#: rate the card's host calibrated.
 SOAK_DURATION_S = 60.0
-SOAK_LIVE_PODS = 2000
+SOAK_SEED = 11
+SOAK_RATE_HZ = 70.0
+#: the live population, sized by the load it makes: at 70 events/s the
+#: churn draws only scale-ups until the population reaches 80% of it
+#: (3,200 pods, ~46 s in), so pods pend at the whole rate, and with the
+#: operator's own batch windows (its Settings defaults, upstream's 1 s
+#: idle and 10 s max, in place of the harness's 0.1 s and 0.5 s) a round
+#: holds ~700 pods, above ``race_min_pods`` (450): every round of the
+#: respawned operator races the kernel chain and consults the fault seams.
+#: The population then stops growing before the respawned operator's
+#: memory window opens (30 s after it is ready), so the RSS budget reads a
+#: plateau, not the population's growth (at 6,000 it grew to the end and
+#: read 916 KiB/s). At 2,000 live pods and the harness's windows a round
+#: held 5-237 pods and only the respawn's first round raced (PERF.md,
+#: Findings)
+SOAK_LIVE_PODS = 4000
+SOAK_BATCH_IDLE_S = 1.0
+SOAK_BATCH_MAX_S = 10.0
 SOAK_DIR = Path(__file__).resolve().parent / "build" / "soak"
+#: the kind the reference books each device fault as (in latency mode a
+#: hung dispatch is a missed race and books nothing: ROADMAP.md, Queue 3)
+SOAK_BOOKED = {"compile-error": "compile-error", "device-oom": "device-oom",
+               "nan-result": "nonfinite-plan", "garbage-result": "invalid-plan",
+               "staging-corruption": "invalid-plan", "dispatch-hang": None}
+#: a fault that fired this long before a snapshot has been judged: a round
+#: books its fault inside its own solve, well inside this
+SOAK_SETTLED_S = 2.0
 
 #: what the soak's operator processes run in place of ``python -m
-#: karpenter_tpu_torch``: the same entry point, with a thread that writes
-#: the process's kernel launch counts (``torch_solver.LAUNCHES``) to a file
-#: of its own every half second and at exit, so that the launches made in
-#: the operator processes can be read after the run
+#: karpenter_tpu_torch``: the same entry point, with a thread that writes,
+#: every half second and at exit, the process's kernel launch counts
+#: (``torch_solver.LAUNCHES``), the device faults its ``DeviceFaultPlan``
+#: fired (``log``/``timeline``: site and kind, with the plan's clock), and
+#: what it booked on ``karpenter_tpu_kernel_faults_total``, to a file of its
+#: own, so that they can be read after the run
 SOAK_OPERATOR = """
 import json, os, sys, threading, time, runpy, atexit
 from karpenter_tpu_torch.solver import torch_solver as ts
+from karpenter_tpu_torch.utils import faults, metrics
 path = os.path.join(os.environ["CHIP_SMOKE_LAUNCH_DIR"], f"launches-{os.getpid()}.json")
-def dump():
-    tmp = path + ".tmp"
-    with open(tmp, "w") as fh:
-        json.dump(dict(ts.LAUNCHES), fh)
-    os.replace(tmp, path)
+lock = threading.Lock()
+def dump(final=False):
+    plan = faults._DEVICE_PLAN
+    with metrics.KERNEL_FAULTS._lock:
+        booked = {dict(k).get("kind"): v for k, v in metrics.KERNEL_FAULTS._values.items()}
+    row = {"launches": dict(ts.LAUNCHES), "booked": booked, "final": final,
+           "fired": [[t, site, f.kind] for t, site, f in list(plan.timeline)] if plan else [],
+           "elapsed": plan.elapsed() if plan else 0.0,
+           "pending": plan.pending() if plan else 0}
+    with lock:
+        tmp = path + ".tmp"
+        with open(tmp, "w") as fh:
+            json.dump(row, fh)
+        os.replace(tmp, path)
 def loop():
     while True:
         time.sleep(0.5)
         dump()
 threading.Thread(target=loop, daemon=True).start()
-atexit.register(dump)
+atexit.register(dump, True)
 sys.argv[0] = "karpenter_tpu_torch"
 runpy.run_module("karpenter_tpu_torch", run_name="__main__", alter_sys=True)
 """
@@ -4104,45 +4154,106 @@ def operator_series(seen: dict):
         monitor.InvariantMonitor.sample_operator = sample
 
 
+def soak_bursts(script) -> str:
+    """The timeline's device-fault and rpc bursts, for one log line."""
+    dev = [(round(e.t, 2), e.get("fault_kind"), int(e.get("n", 1))) for e in script.events
+           if e.kind == "device-fault-burst"]
+    rpc = [(round(e.t, 2), e.get("endpoint"), int(e.get("n", 2)), int(e.get("status", 503)))
+           for e in script.events if e.kind == "rpc-fault-burst"]
+    kills = [(round(e.t, 2), e.get("signal")) for e in script.events
+             if e.kind == "operator-restart"]
+    return f"device-fault bursts {dev}; rpc bursts {rpc}; operator restarts {kills}"
+
+
+def soak_faults(rows) -> tuple:
+    """Per operator process (its ``SOAK_OPERATOR`` file): the faults its
+    plan fired, by kind (those fired ``SOAK_SETTLED_S`` before its last
+    snapshot, or all of them at a clean exit), and what it booked. Returns
+    (fired by kind, booked by kind, the processes whose bookings fall short
+    of their fired faults under the reference's kinds)."""
+    fired_all, booked_all, short = {}, {}, []
+    for pid, row in rows:
+        fired = {}
+        for t, _site, kind in row.get("fired", []):
+            if row.get("final") or t <= row.get("elapsed", 0.0) - SOAK_SETTLED_S:
+                fired[kind] = fired.get(kind, 0) + 1
+        want = {}
+        for kind, n in fired.items():
+            booked_as = SOAK_BOOKED.get(kind, kind)
+            if booked_as is not None:
+                want[booked_as] = want.get(booked_as, 0) + n
+        booked = {k: v for k, v in row.get("booked", {}).items() if v}
+        if any(booked.get(k, 0.0) < n for k, n in want.items()):
+            short.append((pid, fired, booked))
+        for kind, n in fired.items():
+            fired_all[kind] = fired_all.get(kind, 0) + n
+        for kind, v in booked.items():
+            booked_all[kind] = booked_all.get(kind, 0.0) + v
+    return fired_all, booked_all, short
+
+
 def soak_phase(ts) -> dict:
     """Main path, the chaos soak: ``run_soak`` from the harness's own code
     (``karpenter_tpu_torch.soak``) for ``SOAK_DURATION_S`` of churn, seed
-    11, ``SOAK_LIVE_PODS`` live pods, the rate calibrated by the harness's
-    rule (``rate_hz=0``), the API server and the cloud in this process
-    over real HTTP, the operator ``python -m karpenter_tpu_torch --device
-    cuda`` in a subprocess on the card, SIGKILLed and respawned once, the
-    API server restarted once, the timeline's device-fault bursts in the
-    operator's ``device_fault_script``. The report must show no violation,
-    its replay section present with every dumped capsule matched (replayed
-    here, on the card), no client token committed twice and no orphan; the
-    operator's ``/metrics`` must have shown a booked device fault and the
-    kernel breaker's series. Logs the rate, events/s, pod-ready p99, the RSS
-    slope and the capsules replayed. Returns the launches of the operator
-    processes (read from ``SOAK_OPERATOR``'s files) and of the replays."""
+    ``SOAK_SEED`` at the fixed ``SOAK_RATE_HZ`` (logging what the harness's
+    calibration would have chosen), ``SOAK_LIVE_PODS`` live pods, the
+    operator's own batch windows, the API server and the cloud in this
+    process over real HTTP, the operator ``python -m karpenter_tpu_torch
+    --device cuda`` in a subprocess on the card, SIGKILLed and respawned
+    once (and respawned again should it exit at boot), the API server
+    restarted once, the timeline's device-fault bursts in the operator's
+    ``device_fault_script``. The report must show no violation, its replay
+    section present with every dumped capsule matched (replayed here, on
+    the card), no client token committed twice and no orphan; the
+    operators must have fired at least one device fault, and every fault
+    they fired must be booked on their ``karpenter_tpu_kernel_faults_total``
+    under the kind the reference books it as; their ``/metrics`` must have
+    shown the kernel breaker's series. Logs the timeline's bursts, the
+    rate, events/s, pod-ready p99, the RSS slope, the capsules replayed and
+    the faults fired and booked by kind. Returns the launches of the
+    operator processes (read from ``SOAK_OPERATOR``'s files) and of the
+    replays."""
     from karpenter_tpu_torch.soak import SoakConfig, run_soak
+    from karpenter_tpu_torch.soak.churn import ChurnScript
+    from karpenter_tpu_torch.soak.harness import calibrate_rate
 
     shutil.rmtree(SOAK_DIR, ignore_errors=True)
     (SOAK_DIR / "launches").mkdir(parents=True)
+    t0 = time.perf_counter()
+    would = calibrate_rate(SoakConfig.rate_target_hz)
+    cfg = SoakConfig(duration_s=SOAK_DURATION_S, rate_hz=SOAK_RATE_HZ, seed=SOAK_SEED,
+                     live_pods=SOAK_LIVE_PODS, batch_idle_s=SOAK_BATCH_IDLE_S,
+                     batch_max_s=SOAK_BATCH_MAX_S, device="cuda",
+                     dump_dir=str(SOAK_DIR / "dump"))
+    cfg.script = ChurnScript.generate(
+        seed=cfg.seed, duration_s=cfg.duration_s, rate_hz=cfg.rate_hz,
+        live_pods=cfg.live_pods, operator_restarts=cfg.operator_restarts,
+        apiserver_restarts=cfg.apiserver_restarts)
+    log(f"soak: rate {SOAK_RATE_HZ} events/s fixed (the harness's calibration would have "
+        f"chosen {would:.1f} in {time.perf_counter() - t0:.2f} s), seed {SOAK_SEED}, "
+        f"{SOAK_LIVE_PODS} live pods, batch windows {SOAK_BATCH_IDLE_S}/{SOAK_BATCH_MAX_S} s; "
+        f"{soak_bursts(cfg.script)}")
     seen = {"faults": {}, "breakers": set()}
     before = dict(ts.LAUNCHES)
     t0 = time.perf_counter()
     with counted_operators(SOAK_DIR / "launches"), operator_series(seen):
-        report = run_soak(SoakConfig(duration_s=SOAK_DURATION_S, rate_hz=0.0, seed=11,
-                                     live_pods=SOAK_LIVE_PODS, device="cuda",
-                                     dump_dir=str(SOAK_DIR / "dump")))
+        report = run_soak(cfg)
     wall = time.perf_counter() - t0
     here = moved_since(ts, before)
     launches = dict(here)
-    counted = sorted((SOAK_DIR / "launches").glob("launches-*.json"))
-    for path in counted:
-        for k, v in json.loads(path.read_text()).items():
+    rows = []
+    for path in sorted((SOAK_DIR / "launches").glob("launches-*.json")):
+        row = json.loads(path.read_text())
+        rows.append((path.stem.split("-")[-1], row))
+        for k, v in row["launches"].items():
             launches[k] = launches.get(k, 0) + v
+    fired, booked, short = soak_faults(rows)
     replay = report.get("replay") or {}
     all_matched = (replay.get("found") is not None and not replay.get("mismatched")
                    and not replay.get("errors"))
-    booked = {}
+    scraped = {}
     for (_, kind), value in seen["faults"].items():
-        booked[kind] = booked.get(kind, 0.0) + value
+        scraped[kind] = scraped.get(kind, 0.0) + value
     log(f"soak: wall {wall:.2f} s, churn {report['duration_s']} s at rate {report['rate_hz']} "
         f"(target {report['rate_target_hz']}), {report['events_total']} events, "
         f"{report['events_per_s']} events/s, pod-ready p50 {report['pod_ready_p50_s']} s p99 "
@@ -4152,9 +4263,12 @@ def soak_phase(ts) -> dict:
         f"restarts {report['restarts']}, dominant stage {report['dominant_stage']}")
     log(f"soak: events {report['events_by_kind']}, op failures {report['op_failures']}, "
         f"launch audit {report['launch_audit']}, perf {report['perf']}")
-    log(f"soak: capsules {replay}, all matched {all_matched}; device faults booked "
-        f"{booked}; kernel breaker series {sorted(seen['breakers'], key=str)[:6]}; launches "
-        f"{launches} ({len(counted)} operator processes; replays here {here})")
+    log(f"soak: device faults fired {fired}, booked {booked} (the operators' /metrics showed "
+        f"{scraped}); per process "
+        f"{[(pid, row.get('fired'), row.get('booked'), row.get('pending')) for pid, row in rows]}")
+    log(f"soak: capsules {replay}, all matched {all_matched}; kernel breaker series "
+        f"{sorted(seen['breakers'], key=str)[:6]}; launches {launches} ({len(rows)} operator "
+        f"processes; replays here {here})")
     if report["violations"]:
         raise AssertionError(f"soak: violations {report['violations']}")
     if not all_matched:
@@ -4162,11 +4276,280 @@ def soak_phase(ts) -> dict:
     if report["duplicate_tokens"] or report["orphan_instances"]:
         raise AssertionError(f"soak: duplicate tokens {report['duplicate_tokens']}, orphans "
                              f"{report['orphan_instances']}")
-    if not any(v > 0 for v in booked.values()) or not seen["breakers"]:
-        raise AssertionError(f"soak: the operator's /metrics showed faults {booked} and kernel "
-                             f"breakers {seen['breakers']}")
+    if not fired or short or not seen["breakers"]:
+        raise AssertionError(f"soak: device faults fired {fired}, booked {booked}, processes "
+                             f"booking fewer than they fired {short}, kernel breakers "
+                             f"{seen['breakers']}")
     shutil.rmtree(SOAK_DIR, ignore_errors=True)
     hold_pack_launches("soak", launches)
+    return launches
+
+
+#: the federation phase: (a) ``bench.bench_federation_storm``'s fleet at
+#: its parameters (``configs.federation_storm``); (b) two operators on the
+#: card federated over HTTP through an in-process ``ArbiterHTTPServer``
+FED_DIR = Path(__file__).resolve().parent / "build" / "federation"
+#: (b): each region's seed (pods, of which region-affine lone pods: one
+#: lease each), the partitioned region's round and the healed step's
+FED_SEED = {"region-a": (10_000, 2_000), "region-b": (2_000, 500)}
+FED_PARTITION_PODS = 1_000
+FED_HEAL_PODS = 500
+FED_TYPES = 400
+#: the arbiter's staleness window, and the client breakers' recovery (the
+#: reference's default), both on the wall clock
+FED_STALE_S = 4.0
+FED_RECOVERY_S = 10.0
+
+
+def federation_storm_part() -> dict:
+    """(a) ``configs.federation_storm``: three regions on ``GreedySolver``
+    (the reference's harness is host-only; it runs no kernel) under
+    ``federation_storm_script``. It must show no unschedulable pod at any
+    round end, the lost region's gangs re-entered whole, a mean cost within
+    1.5x of the single-cluster oracle, no launch audit violation and every
+    federation capsule replayed with ``match``; then the newest capsule
+    with sub-capsules through ``python -m karpenter_tpu_torch.replay`` must
+    exit 0."""
+    from karpenter_tpu_torch import configs
+    from karpenter_tpu_torch.utils.flightrecorder import FLIGHT
+
+    prev = (FLIGHT.capacity, FLIGHT.dump_dir)
+    t0 = time.perf_counter()
+    try:
+        report, fleet = configs.federation_storm(device="cuda")
+        storm_s = time.perf_counter() - t0
+        log(f"federation storm: {report}")
+        log(f"federation storm: round costs {[round(c, 4) for c in fleet.costs]} $/h, verdict "
+            f"digests {[c['outputs']['verdict']['digest'][:12] for c in fleet.capsules]}, "
+            f"failed-over gangs {fleet.failover_gangs}, capsules in the ring "
+            f"{sum(1 for c in FLIGHT.list() if c['controller'] == 'federation')}")
+        bad = [k for k in ("fed_zero_unschedulable", "fed_gangs_reentered_whole",
+                           "within_cost_band", "fed_replay_all_matched") if not report[k]]
+        if bad or report["audit_violations"] or not report["gangs_failed_over"]:
+            raise AssertionError(f"federation storm: {bad}, report {report}")
+        capsule = [c for c in fleet.capsules if c["sub_capsules"]][-1]
+        shutil.rmtree(FED_DIR, ignore_errors=True)
+        path = FLIGHT.dump(capsule["id"], str(FED_DIR))
+        t1 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "karpenter_tpu_torch.replay", path],
+                             cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                             timeout=REPLAY_CLI_S)
+        summary = "\n".join(out.stdout.strip().splitlines()[:14])
+        log(f"federation storm: replay CLI on {capsule['id']} (epoch {capsule['epoch']}, "
+            f"{len(capsule['sub_capsules'])} sub-capsules; {Path(path).stat().st_size} bytes): "
+            f"exit {out.returncode} in {time.perf_counter() - t1:.2f} s:\n{summary}")
+        if out.returncode != 0 or "(federation): MATCH" not in out.stdout:
+            raise AssertionError(f"federation storm: replay CLI exit {out.returncode}\n"
+                                 f"{out.stderr[-3000:]}")
+        log(f"federation part (a) federation_storm: wall {time.perf_counter() - t0:.2f} s (the "
+            f"storm {storm_s:.2f} s, the replay CLI {time.perf_counter() - t1:.2f} s)")
+    finally:
+        FLIGHT.configure(prev[0], dump_dir=prev[1])
+        shutil.rmtree(FED_DIR, ignore_errors=True)
+    return report
+
+
+class CountingTransport:
+    """An operator's arbiter transport: the HTTP one, counted by route, with
+    a partition switch that fails every call as a dead network would."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.partitioned = False
+        self.calls = {}
+
+    def __call__(self, route, body):
+        self.calls[route] = self.calls.get(route, 0) + 1
+        if self.partitioned:
+            raise ConnectionError(f"arbiter {route}: partitioned")
+        return self.inner(route, body)
+
+
+def federated_region(name: str, endpoint: str, device: str = "cuda"):
+    """One region: an in-process cluster, a fake cloud over
+    ``generate_catalog(FED_TYPES)`` with 2^20 IPs a zone, and ``Operator.new``
+    with ``federation_enabled`` against ``endpoint`` on ``device``."""
+    from karpenter_tpu_torch.api import ObjectMeta, Provisioner
+    from karpenter_tpu_torch.api.settings import Settings
+    from karpenter_tpu_torch.cloudprovider import FakeCloudProvider, generate_catalog
+    from karpenter_tpu_torch.operator import Operator
+    from karpenter_tpu_torch.state import Cluster
+
+    provider = FakeCloudProvider(catalog=generate_catalog(n_types=FED_TYPES))
+    for subnet in provider.subnets:
+        subnet.available_ips = 1 << 20
+    settings = Settings(cluster_name=name, federation_enabled=True, arbiter_endpoint=endpoint,
+                        batch_idle_duration=0, batch_max_duration=0,
+                        consolidation_validation_ttl=0)
+    op = Operator.new(provider=provider, settings=settings, cluster=Cluster(), device=device)
+    op.cluster.add_provisioner(Provisioner(meta=ObjectMeta(name="default")))
+    op.federation.transport = CountingTransport(op.federation.transport)
+    return op
+
+
+def federated_pods(op, prefix: str, n: int, affine: int) -> None:
+    """``n`` pods of ``configs.CELL_CPUS``/``CELL_MEMS`` shapes, the first
+    ``affine`` of them region-affine (``karpenter.tpu/region-affinity: *``,
+    one lease each)."""
+    from karpenter_tpu_torch import configs
+    from karpenter_tpu_torch.api import ObjectMeta, Pod, Resources
+    from karpenter_tpu_torch.api import labels as wk
+
+    for i in range(n):
+        ann = {wk.REGION_AFFINITY: "*"} if i < affine else {}
+        op.cluster.add_pod(Pod(
+            meta=ObjectMeta(name=f"{prefix}-{i}", annotations=ann, owner_kind="ReplicaSet"),
+            requests=Resources(cpu=configs.CELL_CPUS[i % 4], memory=configs.CELL_MEMS[i % 4])))
+
+
+def federated_step(ts, name, op, arbiter, units: int) -> dict:
+    """One operator step inside one arbiter round: the region's summary,
+    the step (the gate's leases over HTTP, then the round on the card), the
+    pure verdict over the round's recorded inputs held against every live
+    answer and every degraded decision, and the chain's launches."""
+    from karpenter_tpu_torch.federation.arbiter import arbiter_verdict
+
+    fed, transport = op.federation, op.federation.transport
+    calls = dict(transport.calls)
+    fed.push_summary(launch_headroom=100_000)
+    arbiter.begin_round()
+    pending = len(op.cluster.pending_pods())
+    existing = len(op.cluster.nodes)
+    solves = []
+    solve_pods = op.provisioning.solver.solve_pods
+
+    def recorded(*a, **kw):
+        result = solve_pods(*a, **kw)
+        solves.append(result)
+        return result
+
+    op.provisioning.solver.solve_pods = recorded
+    before = dict(ts.LAUNCHES)
+    t0 = time.perf_counter()
+    try:
+        op.step()
+    finally:
+        op.provisioning.solver.solve_pods = solve_pods
+    wall = time.perf_counter() - t0
+    launches = moved_since(ts, before)
+    degraded = fed.drain_degraded_log()
+    inputs, verdict = arbiter.round_capsule_parts(degraded)
+    live = list(arbiter._round_assignments)
+    pure = arbiter_verdict(json.loads(json.dumps(inputs)))
+    if pure["digest"] != verdict["digest"] or len(pure["assignments"]) != len(live) + len(
+            degraded):
+        raise AssertionError(f"federation {name}: the pure verdict differs from the round's")
+    for got, want in zip(pure["assignments"], live + [None] * len(degraded)):
+        if want is not None and (got["token"], got["outcome"], got["target"]) != (
+                want["token"], want["outcome"], want["target"]):
+            raise AssertionError(f"federation {name}: unit {got['token']}: pure {got}, live {want}")
+        if want is None and got["outcome"] != "degraded-local":
+            raise AssertionError(f"federation {name}: degraded unit {got}")
+    if len(live) + len(degraded) != units:
+        raise AssertionError(f"federation {name}: {len(live)} leased + {len(degraded)} degraded "
+                             f"units, not {units}")
+    made = {k: transport.calls.get(k, 0) - calls.get(k, 0) for k in transport.calls}
+    bound = sum(1 for p in op.cluster.pods.values() if p.node_name is not None)
+    stats = solves[0].stats if solves else {}
+    hold_allocatable(f"federation {name}", op.cluster)
+    if op.cluster.pending_pods():
+        raise AssertionError(f"federation {name}: {len(op.cluster.pending_pods())} pods pending")
+    if launches["shared_precompute"] < 1 or launches["pack_member"] < 2 or \
+            launches["pack_epilogue"] < 1:
+        raise AssertionError(f"federation {name}: the round did not launch K1, K2 twice and "
+                             f"K3: {launches}")
+    targets = {}
+    for a in live:
+        targets[a["target"]] = targets.get(a["target"], 0) + 1
+    log(f"federation {name} ({fed.cluster_name}): {pending} pods at E={existing}, step "
+        f"{wall:.4f} s; {sum(made.values())} HTTP calls {made}; {len(live)} leases "
+        f"{sorted(set(a['outcome'] for a in live))} targets {targets}, {len(degraded)} degraded, "
+        f"epoch {arbiter.epoch}, mode {fed.mode}; the pure verdict agrees on every unit; "
+        f"backend {stats.get('backend')}, race_winner {stats.get('race_winner')}, cost "
+        f"{solves[0].cost if solves else None}; {len(op.cluster.nodes)} nodes, {bound} bound; "
+        f"launches {launches}")
+    return dict(wall=round(wall, 4), launches=launches, degraded=len(degraded),
+                leases=len(live))
+
+
+def federated_operators_part(ts) -> dict:
+    """(b) An ``ArbiterHTTPServer`` in this process and two
+    ``Operator.new(device="cuda")`` regions federated over HTTP: a seed of
+    ``FED_SEED`` pods in each, region-affine units routed by leases; a
+    partition of region-a's arbiter link (its lease breaker opens, it runs
+    a degraded local round, the degraded log fills, the arbiter's sweep
+    declares it lost: an epoch); a heal (the breakers recover after
+    ``FED_RECOVERY_S``, region-a's summary rejoins it: another epoch, and a
+    lease minted before the heal is fenced); then a round on region-b at
+    the new epoch. Every step's pure verdict agrees with the live one on
+    every unit, and each region's every round launches K1, K2 twice and
+    K3. Returns the launches."""
+    from karpenter_tpu_torch.federation.arbiter import FederationArbiter
+    from karpenter_tpu_torch.federation.server import ArbiterHTTPServer
+
+    t0 = time.perf_counter()
+    arbiter = FederationArbiter(summary_stale_s=FED_STALE_S)
+    server = ArbiterHTTPServer(arbiter, port=0).start()
+    ops = {}
+    steps = {}
+    try:
+        for name in FED_SEED:
+            ops[name] = federated_region(name, server.endpoint)
+        a, b = ops["region-a"], ops["region-b"]
+        for name, (n, affine) in FED_SEED.items():
+            federated_pods(ops[name], f"{name}-seed", n, affine)
+            steps[f"seed {name}"] = federated_step(ts, f"seed {name}", ops[name], arbiter, affine)
+        old_token = next(t for t in sorted(a.federation.leases))
+        a.federation.transport.partitioned = True
+        federated_pods(a, "region-a-cut", FED_PARTITION_PODS, FED_PARTITION_PODS)
+        steps["partition"] = federated_step(ts, "partition region-a", a, arbiter,
+                                            FED_PARTITION_PODS)
+        status = a.federation.status()
+        if status["mode"] != "degraded" or status["breakers"]["POST /v1/lease"] != "open" or \
+                steps["partition"]["degraded"] != FED_PARTITION_PODS:
+            raise AssertionError(f"federation partition: {status}")
+        t1 = time.perf_counter()
+        epoch0 = arbiter.epoch
+        lost = []
+        while time.perf_counter() - t1 < FED_RECOVERY_S + 0.5 or not lost:
+            b.federation.push_summary(launch_headroom=100_000)  # region-b keeps talking
+            lost += arbiter.sweep_lost()
+            if time.perf_counter() - t1 > 60.0:
+                raise AssertionError("federation partition: the sweep never declared region-a lost")
+            time.sleep(0.5)
+        a.federation.transport.partitioned = False
+        accepted = a.federation.push_summary(launch_headroom=100_000)
+        fenced = a.federation.confirm(old_token)
+        log(f"federation partition: degraded log {steps['partition']['degraded']} entries, "
+            f"breakers {status['breakers']}, last error {status['last_error']}; swept lost "
+            f"{lost} (epoch {epoch0} -> {arbiter.epoch - 1}); heal after "
+            f"{time.perf_counter() - t1:.2f} s: region-a's summary accepted {accepted}, mode "
+            f"{a.federation.mode}, epoch {arbiter.epoch}; the lease {old_token} minted before "
+            f"the heal confirmed {fenced}")
+        if lost != ["region-a"] or not accepted or fenced or a.federation.mode != "federated" \
+                or arbiter.epoch != epoch0 + 2:
+            raise AssertionError("federation heal: the epoch fence did not hold")
+        federated_pods(b, "region-b-heal", FED_HEAL_PODS, FED_HEAL_PODS)
+        steps["heal"] = federated_step(ts, "heal region-b", b, arbiter, FED_HEAL_PODS)
+    finally:
+        for op in ops.values():
+            op.close()
+        server.stop()
+    launches = {k: sum(s["launches"][k] for s in steps.values()) for k in ts.LAUNCHES}
+    log(f"federation part (b) federated_operators: wall {time.perf_counter() - t0:.2f} s, "
+        f"steps {{{', '.join(f'{k!r}: {v['wall']}' for k, v in steps.items())}}}, launches "
+        f"{launches}")
+    return launches
+
+
+def federation_phase(ts) -> dict:
+    """Main path, federation: part (a) on the host (``federation_storm_part``)
+    and part (b) on the card (``federated_operators_part``). Returns the
+    launches of (b)."""
+    federation_storm_part()
+    launches = federated_operators_part(ts)
+    hold_pack_launches("federation", launches)
+    log(f"federation launches {launches}")
     return launches
 
 
@@ -4382,6 +4765,7 @@ def main() -> int:
     faulted = phase("fault_domain", fault_domain_phase, ts, configs)
     sentinel = phase("perf_sentinel", perf_sentinel_phase, ts, configs)
     soaked = phase("soak", soak_phase, ts)
+    federated = phase("federation", federation_phase, ts)
     shutil.rmtree(BASELINE_DIR, ignore_errors=True)
     log(f"phase walls (s): {PHASE_WALLS}")
     for entry in kernels:
@@ -4394,15 +4778,15 @@ def main() -> int:
         # the main path: the flat race, the fleet race, the sharded
         # controller's rounds, the deprovisioning passes, the operator's
         # steps, the operator's steps over the wire, the replays, the fault
-        # domain, the perf sentinel and the soak (its operator processes
-        # and its replays), each counted alone
+        # domain, the perf sentinel, the soak (its operator processes and
+        # its replays) and the federated operators, each counted alone
         entry["launches"] = (flat[entry["name"]] + fleet[entry["name"]] + sharded[entry["name"]]
                              + consolidated["launches"][entry["name"]]
                              + operated["launches"][entry["name"]]
                              + wired["launches"][entry["name"]]
                              + replayed["launches"][entry["name"]]
                              + faulted[entry["name"]] + sentinel[entry["name"]]
-                             + soaked.get(entry["name"], 0))
+                             + soaked.get(entry["name"], 0) + federated[entry["name"]])
         if entry["name"] == "pack_member":
             entry["max_abs_err"] = max(entry["max_abs_err"], k2_err)
         if entry["launches"] < 1:

@@ -769,3 +769,128 @@ REFERENCE_COSTS = {
     "operator_seed": 705.7113230000035,
     "http_seed": 167.73068867890268,
 }
+
+
+def federation_storm(gang_size: int = 4, lone_pods: int = 9, rounds: int = 12,
+                     n_types: int = 12, round_s: float = 10.0, storm_fraction: float = 0.5,
+                     device: str = "cuda"):
+    """``bench.bench_federation_storm`` (``bench.py:2798-2975``) on the
+    port's ``FederatedFleet``: three regions under
+    ``federation_storm_script`` (a regional spot storm, an arbiter
+    partition with a gang arriving inside it, a blackout held past the
+    staleness sweep, a heal), against a single-cluster oracle of the same
+    union workload. Returns the bench's report, every key as the reference
+    computes it, and the fleet. ``device`` places the replay's solver; the
+    fleet's regions and the oracle solve on ``GreedySolver``, as the
+    reference's do."""
+    from .api.settings import Settings
+    from .cloudprovider import FakeCloudProvider
+    from .controllers.provisioning import ProvisioningController
+    from .federation.fleet import FederatedFleet
+    from .soak.churn import federation_storm_script
+    from .solver.solver import GreedySolver
+    from .state import Cluster
+    from .utils.flightrecorder import FLIGHT
+
+    regions = ("us-east", "us-west", "eu-west")
+    storm_region, partition_region, blackout_region = "us-east", "us-west", "eu-west"
+    oracle_cluster = Cluster()
+    oracle_provider = FakeCloudProvider(catalog=generate_catalog(n_types=n_types))
+    for s in oracle_provider.subnets:
+        s.available_ips = 1 << 20
+    # the bench's modest risk penalty: spot pools price in, the storm has victims
+    overrides = {"interruption_penalty_cost": 0.5}
+    oracle_ctl = ProvisioningController(
+        oracle_cluster, oracle_provider, solver=GreedySolver(),
+        settings=Settings(batch_idle_duration=0, batch_max_duration=0, spot_enabled=True,
+                          **overrides),
+    )
+    oracle_cluster.add_provisioner(Provisioner(meta=ObjectMeta(name="default")))
+
+    def gang_pod(name, gang):
+        return Pod(meta=ObjectMeta(name=name, labels={wk.POD_GROUP: gang},
+                                   annotations={wk.POD_GROUP_MIN_MEMBERS: str(gang_size)},
+                                   owner_kind="Job"),
+                   requests=Resources(cpu="500m", memory="512Mi"))
+
+    for region in regions:
+        for i in range(gang_size):
+            oracle_cluster.add_pod(gang_pod(f"gang-{region}-{i}", f"gang-{region}"))
+        for i in range(lone_pods):
+            oracle_cluster.add_pod(Pod(
+                meta=ObjectMeta(name=f"web-{region}-{i}", owner_kind="ReplicaSet"),
+                requests=Resources(cpu="500m", memory="512Mi")))
+    for i in range(gang_size):
+        oracle_cluster.add_pod(gang_pod(f"gang-degraded-{i}", "gang-degraded"))
+    oracle_ctl.reconcile()
+    oracle_cost = 0.0
+    for node in oracle_cluster.nodes.values():
+        oracle_cost += oracle_provider.pricing.price(*node.capacity_pool()) or 0.0
+
+    FLIGHT.configure(128)  # sub-capsule collection diffs the ring per round
+    fleet = FederatedFleet(regions=regions, n_types=n_types, round_s=round_s,
+                           settings_overrides=overrides)
+    for region in regions:
+        fleet.add_gang(region, f"gang-{region}", members=gang_size, regions="*")
+        fleet.add_pods(region, f"web-{region}", lone_pods)
+    script = federation_storm_script(storm_region, blackout_region, partition_region,
+                                     round_s=round_s, rounds=rounds,
+                                     storm_fraction=storm_fraction)
+    unsched_p100 = storms = blackouts = 0
+    for r in range(rounds):
+        if r == 2:
+            # multi-region work arriving inside the partition: a degraded round
+            fleet.add_gang(partition_region, "gang-degraded", members=gang_size, regions="*")
+        for ev in script.due(now=r * round_s):
+            region = str(ev.get("region"))
+            if ev.kind == "region-blackout":
+                fleet.blackout(region)
+                blackouts += 1
+            elif ev.kind == "region-heal":
+                fleet.heal(region)
+            elif ev.kind == "arbiter-partition":
+                fleet.partition(region)
+            elif ev.kind == "arbiter-heal":
+                fleet.heal_partition(region)
+            elif ev.kind == "regional-spot-storm":
+                storms += fleet.storm_spot(region, float(ev.get("fraction", 0.5)))
+        fleet.run_round()
+        unsched_p100 = max(unsched_p100, fleet.pending_total())
+
+    leases_granted = sum(1 for c in fleet.capsules
+                         for a in c["outputs"]["verdict"]["assignments"]
+                         if a.get("outcome") in ("granted", "renewed"))
+    gangs_reentered = sorted(fleet.failover_gangs)
+    gangs_whole = all(fleet.gang_whole_in_one_cluster(g) for g in gangs_reentered)
+    mean_cost = sum(fleet.costs) / len(fleet.costs) if fleet.costs else 0.0
+    frac = round(mean_cost / oracle_cost, 4) if oracle_cost > 0 else None
+    reports = fleet.replay_all(device=device)
+    degraded_replays = sum(1 for rep in reports
+                           if rep.get("diffs", {}).get("degraded_assignments", 0))
+    final_epoch = fleet.capsules[-1]["outputs"]["verdict"]["epoch"]
+    post_heal_replays = sum(1 for rep, c in zip(reports, fleet.capsules)
+                            if c["epoch"] == final_epoch)
+    report = {
+        "regions": len(regions),
+        "rounds": rounds,
+        "storm_reclaims": storms,
+        "blackouts": blackouts,
+        "degraded_rounds": fleet.degraded_rounds,
+        "epoch_final": final_epoch,
+        "leases_granted": leases_granted,
+        "fed_unschedulable_p100": unsched_p100,
+        "fed_zero_unschedulable": bool(unsched_p100 == 0),
+        "gangs_failed_over": len(gangs_reentered),
+        "fed_gangs_reentered_whole": bool(gangs_reentered and gangs_whole),
+        "oracle_cost": round(oracle_cost, 4),
+        "mean_cost": round(mean_cost, 4),
+        "fed_cost_vs_oracle_frac": frac,
+        "within_cost_band": bool(frac is not None and frac <= 1.5),
+        "capsules": len(fleet.capsules),
+        "sub_capsules": sum(len(c["sub_capsules"]) for c in fleet.capsules),
+        "degraded_round_replays": degraded_replays,
+        "post_heal_replays": post_heal_replays,
+        "fed_replay_all_matched": bool(reports and all(rep["match"] for rep in reports)),
+        "audit_violations": len(fleet.audit_violations),
+    }
+    return report, fleet

@@ -225,8 +225,7 @@ class InterruptionController:
         # encoder + arm the batch window synchronously (note_interrupted)
         self.provisioning = provisioning
         # federation hook (operator wiring): realized risk events feed the
-        # arbiter through the next capacity summary; None = single-cluster.
-        # Federation is not ported (Queue 1 item 9), so it stays None.
+        # arbiter through the next capacity summary; None = single-cluster
         self.federation = None
         # cost-ledger hook (operator wiring): exactly-once reclaims charge
         # the restart tax; rebalance replacements report price regressions

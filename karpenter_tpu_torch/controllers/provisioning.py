@@ -2,10 +2,9 @@
 
 A copy of ``karpenter_tpu/controllers/provisioning.py``'s flat and sharded
 rounds, solving through the PyTorch solver (``TorchSolver`` by default, on
-the card), with the reference's flight-recorder capsule. Left out until
-their slices are ported (``ROADMAP.md``, Queue 1): the federation gate
-(item 9) and the multi-device tier (item 10). The constructor refuses
-settings that turn on what is left out.
+the card), with the reference's flight-recorder capsule and federation
+gate. Left out until its slice is ported (``ROADMAP.md``, Queue 1): the
+multi-device tier (item 10). The constructor refuses ``mesh_enabled``.
 
 The rebuild of core's provisioning controller + ``Scheduler.Solve()`` call path
 (reference call stack in SURVEY §3.2): a batcher windows pending pods (idle 1s /
@@ -222,10 +221,9 @@ class ProvisioningController:
     ):
         self.cluster = cluster
         self.provider = provider
-        # federation and the multi-device tier are not ported yet: a setting
-        # that turns one on must not be ignored
+        # the multi-device tier is not ported yet: a setting that turns it on
+        # must not be ignored
         for flag, item in (
-            ("federation_enabled", "federation, Queue 1 item 9"),
             ("mesh_enabled", "the multi-device tier, Queue 1 item 10"),
         ):
             if getattr(settings, flag, False):
@@ -305,8 +303,11 @@ class ProvisioningController:
         # ticked down once per reconcile, expired entries dropped — bounded
         # by construction (every entry starts at gang_restart_boost_rounds).
         self._gang_restart_boost: Dict[str, int] = {}
-        # multi-cluster federation is not ported: both stay None, and this
-        # controller IS the single-cluster system
+        # multi-cluster federation (federation/): the operator attaches a
+        # FederationClient when federation_enabled; the fleet harness also
+        # wires ``federation_transfer(pods, target) -> bool`` to physically
+        # move a routed unit. Both default off — with either absent the
+        # gate is a no-op and this controller IS the single-cluster system.
         self.federation = None
         self.federation_transfer: Optional[Callable[[List[Pod], str], bool]] = None
         cluster.watch(self._on_event)
@@ -390,6 +391,73 @@ class ProvisioningController:
                     self.batcher.note_arrival()
                 LIFECYCLE.intake(pod.name)
 
+    # -- federation gate ----------------------------------------------------
+    def _federation_gate(self, pods: List[Pod]) -> List[Pod]:
+        """Route multi-region-eligible units (``karpenter.tpu/
+        region-affinity``) through the federation arbiter. Gangs route as
+        ONE unit (atomicity crosses clusters); pods without the affinity
+        surface are never touched. Returns the pods that stay local."""
+        from ..federation.client import gang_region_affinity, region_affinity
+
+        fed = self.federation
+        by_gang: Dict[str, List[Pod]] = {}
+        lone: List[Tuple[Pod, List[str]]] = []
+        for p in pods:
+            regions = region_affinity(p)
+            if regions is None:
+                continue
+            g = p.pod_group()
+            if g:
+                by_gang.setdefault(g, []).append(p)
+            else:
+                lone.append((p, regions))
+        if not by_gang and not lone:
+            return pods
+        routed: set = set()
+        for gname in sorted(by_gang):
+            members = sorted(by_gang[gname], key=lambda p: p.meta.name)
+            regions = gang_region_affinity(members) or ["*"]
+            lease = fed.request_lease(
+                gname, regions, gang=gname, units=len(members)
+            )
+            self._route_unit(lease, members, routed)
+        for p, regions in sorted(lone, key=lambda t: t[0].meta.name):
+            lease = fed.request_lease(p.meta.name, regions, units=1)
+            self._route_unit(lease, [p], routed)
+        if not routed:
+            return pods
+        return [p for p in pods if p.meta.name not in routed]
+
+    def _route_unit(
+        self, lease: Optional[Dict], members: List[Pod], routed: set
+    ) -> None:
+        """Act on one unit's lease. Remote transfers are double-gated: the
+        lease must survive the epoch+TTL fence (``confirm``) AND the
+        transfer hook must succeed — anything less keeps the unit local,
+        which is always safe (local autonomy needs no fence)."""
+        fed = self.federation
+        if lease is None:
+            return  # degraded or no-capacity: schedule locally
+        target = lease.get("target")
+        if not target or target == fed.cluster_name:
+            return  # home IS the globally-cheapest cluster
+        transfer = self.federation_transfer
+        if transfer is None:
+            return  # advisory without a transfer path
+        if not fed.confirm(lease["token"]):
+            return  # fenced/expired lease: a healed partition lands here
+        if not transfer(list(members), target):
+            return
+        for p in members:
+            routed.add(p.meta.name)
+            DECISIONS.record(
+                "placement", "federation-routed", pod=p.meta.name,
+                reason=(
+                    f"leased to {target} "
+                    f"(epoch {lease.get('epoch')}, token {lease['token']})"
+                ),
+            )
+
     # -- the reconcile loop body -------------------------------------------
     def reconcile(self) -> ProvisioningResult:
         from ..utils.flightrecorder import FLIGHT
@@ -458,6 +526,19 @@ class ProvisioningController:
         if not pods:
             self.batcher.reset(upto_generation=batch_gen)
             return result
+
+        if self.federation is not None:
+            # the federation gate runs BEFORE the round-0 capsule capture: a
+            # pod routed to another cluster never enters this cluster's
+            # capsule, so the recorded round replays byte-identically with
+            # no federation client at all. Every gate outcome except a
+            # confirmed remote transfer keeps the pod local — degraded,
+            # no-capacity, unconfirmed fence, and home-is-cheapest all fall
+            # through to today's single-cluster path.
+            pods = self._federation_gate(pods)
+            if not pods:
+                self.batcher.reset(upto_generation=batch_gen)
+                return result
 
         provisioners = sorted(
             self.cluster.provisioners.values(), key=lambda p: -p.weight

@@ -22,8 +22,11 @@ deliberate differences or under the Queue 1 item that brings what is missing:
   since the port compiles nothing per shape (its kernel library is loaded
   in ``TorchSolver.__init__``). The ``aot_*`` settings are accepted,
   validated and unread.
-* Federation (item 9) and the multi-device tier (item 10) raise in the
-  provisioning controller's constructor, as in earlier slices.
+* The multi-device tier (item 10) raises in the provisioning
+  controller's constructor, as in earlier slices. Federation is wired as
+  the reference wires it: a ``FederationClient`` when
+  ``federation_enabled``, the late-bound ``/debug/federation`` and the
+  ``federation-summary`` heartbeat.
 """
 
 from __future__ import annotations
@@ -64,10 +67,10 @@ class Operator:
     drift: DriftController
     garbagecollect: GarbageCollectionController
     pricing: Optional[object] = None
-    # federation arbiter link: the reference builds it when
-    # settings.federation_enabled; federation is not ported (Queue 1 item
-    # 9), and the provisioning controller refuses the setting, so it stays
-    # None
+    # federation arbiter link (federation/client.py), present only when
+    # settings.federation_enabled: provisioning routes multi-region pods
+    # through it, interruption feeds it realized regional risk, and the
+    # summary tick rides the operator loop at summary_interval_s
     federation: Optional[object] = None
     # cost ledger (utils/costledger.py), present only when
     # settings.cost_ledger_enabled and the provider serves a price book:
@@ -276,10 +279,23 @@ class Operator:
             deprovisioning.costs = costledger
             if interruption is not None:
                 interruption.costs = costledger
-        # the reference builds its FederationClient here when
-        # settings.federation_enabled; the provisioning controller above
-        # already refused that setting (Queue 1 item 9)
         federation = None
+        if settings.federation_enabled:
+            from .federation.client import FederationClient
+
+            federation = FederationClient(
+                cluster_name=settings.cluster_name,
+                endpoint=settings.arbiter_endpoint,
+                settings=settings,
+                clock=clock,
+                provider=provider,
+                cluster=cluster,
+                risk_cache=risk_cache,
+                cost_ledger=costledger,
+            )
+            provisioning.federation = federation
+            if interruption is not None:
+                interruption.federation = federation
         drift = DriftController(cluster, provider, settings=settings, recorder=recorder)
         garbagecollect = GarbageCollectionController(
             cluster, provider, recorder=recorder, clock=clock
@@ -354,9 +370,13 @@ class Operator:
         if self.http_server is not None and getattr(self.http_server, "cells", None) is None:
             # late-bind the sharded-control-plane partition view the same way
             self.http_server.cells = self.provisioning.cell_status
-        # the reference late-binds /debug/federation to its federation
-        # client here; federation is not ported, so the route serves
-        # {"enabled": false}
+        if (
+            self.http_server is not None
+            and getattr(self.http_server, "federation", None) is None
+            and self.federation is not None
+        ):
+            # /debug/federation serves the client's live arbiter-link view
+            self.http_server.federation = self.federation.status
         if (
             self.http_server is not None
             and getattr(self.http_server, "costs", None) is None
@@ -498,8 +518,16 @@ class Operator:
             controllers.append(
                 SingletonController("pricing", self.pricing.reconcile, interval=300.0)
             )
-        # the reference adds the federation-summary heartbeat here when a
-        # federation client exists (Queue 1 item 9)
+        if self.federation is not None:
+            # the capacity-summary heartbeat: failures degrade (the breaker
+            # opens, the gate schedules locally) — they never crash the loop,
+            # but the kit's backoff still paces a dead arbiter link
+            controllers.append(
+                SingletonController(
+                    "federation-summary", self.federation.tick,
+                    interval=self.settings.summary_interval_s,
+                )
+            )
         controllers.append(SingletonController("drift", self.drift.reconcile, interval=300.0))
         controllers.append(
             SingletonController(

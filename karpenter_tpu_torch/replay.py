@@ -8,7 +8,7 @@
     python -m karpenter_tpu_torch.replay <capsule> --override provisioner.default.limits.cpu=500
 
 A copy of ``karpenter_tpu/replay.py``, replaying through the port's
-``TorchSolver``. It differs from the reference in four ways, each also
+``TorchSolver``. It differs from the reference in three ways, each also
 listed in ``ROADMAP.md``'s deliberate differences:
 
 * ``_make_solver`` maps the solver names of both packages' capsules
@@ -17,9 +17,9 @@ listed in ``ROADMAP.md``'s deliberate differences:
   ``TorchSolver(latency_budget_s=30.0, device=device)``;
 * ``replay_capsule(..., device=...)`` and ``--device`` default to ``cuda``,
   as the operator's entry point does. There is no fallback: without CUDA
-  and without ``--device cpu`` the ``TorchSolver`` constructor raises;
-* a ``federation`` capsule raises ``ValueError`` (``main`` exits 1): the
-  federation fleet is not ported (``ROADMAP.md`` Queue 1 item 9);
+  and without ``--device cpu`` the ``TorchSolver`` constructor raises. A
+  federation capsule's sub-capsules replay through the same solver name
+  and device (``_replay_federation``);
 * a sharded round replays on per-cell clones of the replay's solver, each
   behind a digest tap, one cell at a time (``_replay_provisioning``); the
   reference's cells share its one tapped solver.
@@ -620,11 +620,12 @@ def replay_capsule(
         capsule = apply_overrides(capsule, overrides)
     controller_kind = capsule.get("controller", "provisioning")
     if controller_kind == "federation":
-        # the reference re-runs the federation arbiter's verdict and each
-        # member's sub-capsule here; the port has no federation fleet yet
-        raise ValueError(
-            "federation capsules need the federation fleet, which is not "
-            "ported (ROADMAP.md Queue 1 item 9)"
+        # federation capsules carry no cluster/provider inputs of their own
+        # — the arbiter's verdict is a pure function of its recorded inputs,
+        # and the per-cluster rounds live in embedded sub-capsules
+        return _replay_federation(
+            capsule, counterfactual, forbid_network=forbid_network,
+            solver=solver, device=device,
         )
     settings = settings_from_wire(capsule.get("inputs", {}).get("settings", {}))
     rid = f"replay.{next(_replay_seq)}"
@@ -789,6 +790,73 @@ def replay_capsule(
         report["match"] = True if truncated else diffs["action_match"]
     report["diffs"] = diffs
     return report
+
+
+def _replay_federation(
+    capsule: Dict,
+    counterfactual: bool,
+    forbid_network: bool = True,
+    solver: Optional[str] = None,
+    device: str = "cuda",
+) -> Dict:
+    """Replay one federated round: re-run the arbiter's PURE verdict
+    function over the capsule's recorded inputs (requests in recorded
+    order, degraded requests included) and byte-compare verdict + digest;
+    then recursively replay every per-cluster sub-capsule. ``match`` is the
+    conjunction — a federated round only matches when the global routing
+    AND every local round reproduce. The port's difference: each
+    sub-capsule replays through the caller's solver name and ``device``, so
+    ``--solver torch`` replays a card round's sub-capsule on the card."""
+    from .federation.arbiter import arbiter_verdict
+
+    inputs = capsule.get("inputs", {})
+    recorded_verdict = capsule.get("outputs", {}).get("verdict", {}) or {}
+    replayed_verdict = arbiter_verdict(inputs)
+    verdict_match = (
+        replayed_verdict.get("digest") == recorded_verdict.get("digest")
+        and replayed_verdict.get("assignments")
+        == recorded_verdict.get("assignments")
+        and replayed_verdict.get("rebalance")
+        == recorded_verdict.get("rebalance")
+    )
+    sub_reports: List[Dict] = []
+    for sub in capsule.get("sub_capsules", []):
+        # sub-capsules replay WITHOUT the federation overrides: a cluster
+        # counterfactual changes where units would route, not what a
+        # recorded local round actually solved
+        report = replay_capsule(
+            dict(sub.get("capsule") or {}),
+            forbid_network=forbid_network, solver=solver, device=device,
+        )
+        sub_reports.append({
+            "cluster": sub.get("cluster", ""),
+            "capsule_id": report.get("capsule_id", ""),
+            "match": report.get("match"),
+            "diffs": report.get("diffs", {}),
+        })
+    subs_match = all(r["match"] for r in sub_reports)
+    degraded = [
+        a for a in replayed_verdict.get("assignments", [])
+        if a.get("outcome") == "degraded-local"
+    ]
+    return {
+        "capsule_id": capsule.get("id", ""),
+        "controller": "federation",
+        "counterfactual": counterfactual,
+        "epoch": replayed_verdict.get("epoch"),
+        "replayed": {"verdict": replayed_verdict},
+        "recorded": {"verdict": recorded_verdict},
+        "truncated_by_error": False,
+        "sub_reports": sub_reports,
+        "diffs": {
+            "verdict_match": verdict_match,
+            "digest_recorded": recorded_verdict.get("digest"),
+            "digest_replayed": replayed_verdict.get("digest"),
+            "sub_capsules_match": subs_match,
+            "degraded_assignments": len(degraded),
+        },
+        "match": verdict_match and subs_match,
+    }
 
 
 def _actions_equal(a: Optional[Dict], b: Optional[Dict]) -> bool:
@@ -1107,10 +1175,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     except OverrideError as e:
         print(f"bad override: {e}", file=sys.stderr)
         return 1
-    except ValueError as e:
-        # a capsule this port cannot replay (a federation round)
-        print(f"cannot replay capsule: {e}", file=sys.stderr)
-        return 1
 
     if args.json:
         print(json.dumps(report, indent=2, default=str))
@@ -1165,6 +1229,19 @@ def _print_summary(report: Dict) -> None:
                   f"(ondemand={rep_cost.get('ondemand_per_hr')}$/hr) "
                   f"equal={diffs.get('cost_delta_match')}")
         print(f"  decisions: equal={diffs.get('decisions_match')}")
+    elif report["controller"] == "federation":
+        verdict = report.get("replayed", {}).get("verdict", {})
+        print(f"  epoch: {report.get('epoch')}  "
+              f"assignments: {len(verdict.get('assignments') or [])} "
+              f"({diffs.get('degraded_assignments', 0)} degraded-local)  "
+              f"rebalance: {len(verdict.get('rebalance') or [])}")
+        print(f"  verdict digest: recorded={diffs.get('digest_recorded')} "
+              f"replayed={diffs.get('digest_replayed')} "
+              f"equal={diffs.get('verdict_match')}")
+        for sub in report.get("sub_reports", []):
+            print(f"  sub-capsule {sub['capsule_id']} "
+                  f"({sub['cluster']}): match={sub['match']}")
+        print(f"  sub_capsules_match={diffs.get('sub_capsules_match')}")
     elif report["controller"] == "rebalance":
         rep = report.get("replayed", {})
         for a in rep.get("rebalance_actions") or []:

@@ -28,7 +28,15 @@ The port's differences from the reference's harness: ``SoakConfig.device``
 (default ``cuda``, no fallback) places the operator's solver through its
 ``--device`` flag and the monitor's offline replay; the spawned operator's
 environment carries no JAX platform and no AOT pre-compile switch, since
-the port compiles nothing per shape.
+the port compiles nothing per shape. And an operator that exits before it
+is ready (the first spawn or a respawn after a kill) is respawned after
+``restart_delay_s``, up to ``BOOT_RESPAWNS`` times, as a Deployment
+restarts a crashed pod: the operator's boot check fails fast by design
+(``context.py``), so a scripted burst of 503s on ``/v1/instance-types``
+at boot kills it. Each such respawn counts under ``restarts
+["operator_boot_exit"]``; past the bound the soak fails with that reason.
+The reference's harness never respawns it, and its soak then fails with
+every later pod pending.
 """
 
 from __future__ import annotations
@@ -52,8 +60,15 @@ from typing import Dict, List, Optional, Tuple
 from ..api import labels as wk
 from ..api.codec import to_wire
 from ..api.objects import ObjectMeta, Pod, Provisioner, Resources
+from ..utils.logging import get_logger
 from .churn import ChurnScript
 from .monitor import InvariantMonitor
+
+_log = get_logger("soak")
+
+#: respawns of an operator that exits before it is ready, per boot (the
+#: port's addition; the module docstring)
+BOOT_RESPAWNS = 3
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -206,8 +221,14 @@ class SoakHarness:
         self.events_applied = 0
         self.events_by_kind: Dict[str, int] = {}
         self.op_failures = 0
-        self.restarts = {"operator_kill": 0, "operator_term": 0, "apiserver": 0}
+        self.restarts = {"operator_kill": 0, "operator_term": 0, "apiserver": 0,
+                         "operator_boot_exit": 0}
         self._incarnation = 0
+        # the boot watch of a respawned operator (its own thread, so the
+        # timeline keeps pumping while the operator boots), and the reason
+        # the soak fails when an operator kept exiting at boot
+        self._boot_watch: Optional[threading.Thread] = None
+        self.boot_failure: Optional[str] = None
         self._workers: List[threading.Thread] = []
 
     # -- accounting ----------------------------------------------------------
@@ -269,15 +290,14 @@ class SoakHarness:
         self.monitor.start_sampling(
             f"http://127.0.0.1:{self.operator_port}/metrics"
         )
-        if not self._wait_operator_ready():
+        if not self._boot_operator():
             # fail LOUD and EARLY: churning for minutes against an operator
             # that never booted produces misleading invariant violations
             # ("pods permanently unschedulable") instead of the actual
             # diagnosis, and misdirects gate triage
             raise RuntimeError(
-                "operator never became scrapeable within "
-                f"{self.cfg.boot_timeout_s}s — see "
-                f"{os.path.join(self.dump_dir, 'operator-0.log')}"
+                f"{self.boot_failure} — see "
+                f"{os.path.join(self.dump_dir, f'operator-{self._incarnation - 1}.log')}"
             )
         return self
 
@@ -323,13 +343,59 @@ class SoakHarness:
         )
 
     def _wait_operator_ready(self, timeout: Optional[float] = None) -> bool:
+        """True once the operator serves ``/metrics``; False at the boot
+        timeout or as soon as the process has exited (the port's: the
+        reference waits out the timeout for a process that is gone)."""
         deadline = time.monotonic() + (timeout or self.cfg.boot_timeout_s)
         url = f"http://127.0.0.1:{self.operator_port}/healthz"
+        proc = self.operator
         while time.monotonic() < deadline:
             if self.monitor.sample_operator(url.replace("/healthz", "/metrics")):
                 return True
+            if proc is not None and proc.poll() is not None:
+                return False
             time.sleep(0.5)
         return False
+
+    def _log_tail(self, lines: int = 12) -> str:
+        path = os.path.join(self.dump_dir, f"operator-{self._incarnation - 1}.log")
+        try:
+            with open(path) as fh:
+                return "".join(fh.readlines()[-lines:]).strip()
+        except OSError:
+            return ""
+
+    def _boot_operator(self) -> bool:
+        """Wait until the operator just spawned is ready. When it exits
+        first, log the tail of its log and respawn it after
+        ``restart_delay_s``, up to ``BOOT_RESPAWNS`` times, each counted
+        under ``restarts["operator_boot_exit"]``. Past the bound, or when
+        it never became ready, ``boot_failure`` holds the reason and the
+        answer is False."""
+        respawns = 0
+        while True:
+            if self._wait_operator_ready():
+                return True
+            proc = self.operator
+            if proc is None or proc.poll() is None:
+                self.boot_failure = (
+                    f"operator never became scrapeable within {self.cfg.boot_timeout_s}s")
+                return False
+            tail = self._log_tail()
+            if respawns >= BOOT_RESPAWNS:
+                self.boot_failure = (
+                    f"operator_boot_exit: the operator exited with code {proc.returncode} "
+                    f"before it was ready, {respawns} respawns in a row; its log ends: {tail}")
+                _log.error(self.boot_failure)
+                return False
+            _log.warning("operator exited with code %s before it was ready; respawning "
+                         "in %.1f s; its log ends: %s", proc.returncode,
+                         self.cfg.restart_delay_s, tail)
+            respawns += 1
+            with self._counts_lock:
+                self.restarts["operator_boot_exit"] += 1
+            time.sleep(self.cfg.restart_delay_s)
+            self._spawn_operator()
 
     # -- chaos control events (pump thread) ----------------------------------
     def restart_apiserver(self) -> None:
@@ -369,6 +435,10 @@ class SoakHarness:
         time.sleep(self.cfg.restart_delay_s)
         self._spawn_operator()
         self._count("operator-restart")
+        # the port's: watch the respawn's boot on a thread of its own (the
+        # timeline keeps pumping) and respawn it again if it exits first
+        self._boot_watch = threading.Thread(target=self._boot_operator, daemon=True)
+        self._boot_watch.start()
 
     def _resolve_pools(self, pattern: Tuple[str, str, str]) -> List[Tuple[str, str, str]]:
         out = []
@@ -584,7 +654,12 @@ class SoakHarness:
         for w in self._workers:
             w.join(timeout=10)
         churn_duration = time.monotonic() - t_start  # the rate denominator
-        settle_deadline = time.monotonic() + self.cfg.settle_timeout_s
+        if self._boot_watch is not None:
+            self._boot_watch.join(timeout=self.cfg.boot_timeout_s * (BOOT_RESPAWNS + 1))
+        # no settle wait behind an operator that kept exiting at boot: it
+        # would only add "pods still pending" to the real reason
+        settle_deadline = time.monotonic() + (
+            0.0 if self.boot_failure else self.cfg.settle_timeout_s)
         while time.monotonic() < settle_deadline:
             if self._pending_count() == 0 and not self._orphans():
                 break
@@ -615,6 +690,10 @@ class SoakHarness:
             restarts=dict(self.restarts),
             perf_trips_expected=self.cfg.perf_trips_expected,
         )
+        if self.boot_failure:
+            # the reason first: every later violation follows from it
+            report["violations"] = [self.boot_failure] + list(report.get("violations", []))
+            report["ok"] = False
         report["wall_s"] = round(time.monotonic() - t_start, 2)
         report["events_by_kind"] = dict(sorted(self.events_by_kind.items()))
         report["op_failures"] = self.op_failures

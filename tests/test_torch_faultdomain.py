@@ -491,3 +491,63 @@ def test_fleet_dispatch_hang_is_a_miss_and_the_host_answers():
         assert shared.abandoned and shared.copies == 0
     finally:
         f.install_device_faults(None)
+
+
+# ---------------------------------------------------------------------------
+# Faults armed by time, as the soak arms them
+# ---------------------------------------------------------------------------
+
+#: the soak timeline's device-fault kinds (``ChurnScript.generate``)
+SOAK_KINDS = ("compile-error", "staging-corruption", "nan-result", "garbage-result",
+              "device-oom")
+
+
+@pytest.mark.parametrize("kind", SOAK_KINDS)
+def test_timed_fault_fires_and_books_as_the_reference(kind):
+    """The soak's operator arms its faults by time (``DeviceFaultPlan.at``)
+    and a fault fires only when a later round consults its seam. Twin
+    latency-mode solvers (the operator's mode) solve a first 600-pod round
+    before the fault arms and a second, on the same bucket, after: the
+    reference and the port fire and book alike. A ``compile-error`` armed
+    for a bucket already built meets no seam and stays pending in both;
+    a ``staging-corruption`` fires at the second round's restage; a
+    ``nan-result`` or ``garbage-result`` fires on the kernel's answer even
+    though the host path wins the race; each fired fault is booked under
+    the reference's kind."""
+    out = {}
+    for pkg in PACKAGES:
+        m = MODS[pkg]
+        if pkg == REF:
+            solver = TPUSolver(auto_mesh=False, aot_precompile=False, latency_budget_s=1.0)
+        else:
+            solver = TorchSolver(device="cpu", latency_budget_s=1.0)
+        now = [0.0]
+        plan = m.faults.DeviceFaultPlan(clock=lambda: now[0])
+        plan.at(5.0, m.faults.DeviceFault(kind=kind))
+        first = problem_of(pkg, 1, "armed1", n=600)
+        if pkg == REF:
+            solver.warm_problem(first, wait=True)  # latency mode dispatches built buckets only
+        m.faults.install_device_faults(plan)
+        try:
+            b0 = faults_booked(pkg)
+            r1 = solver.solve(first)
+            b1 = faults_booked(pkg)
+            now[0] = 10.0  # past the arming time: the next consult pops it
+            second = problem_of(pkg, 2, "armed2", n=600)
+            r2 = solver.solve(second)
+        finally:
+            m.faults.install_device_faults(None)
+        out[pkg] = dict(
+            first=delta(b0, b1), fired=[f.kind for _, f in plan.log],
+            booked=delta(b1, faults_booked(pkg)), pending=plan.pending(),
+            backends=(r1.stats.get("backend"), r2.stats.get("backend")),
+            valid=m.validate.validate(second, r2),
+        )
+    assert out[PORT] == out[REF]
+    got = out[PORT]
+    assert got["first"] == {} and got["valid"] == []
+    if kind == "compile-error":
+        assert got["fired"] == [] and got["booked"] == {} and got["pending"] == 1
+    else:
+        assert got["fired"] == [kind] and got["pending"] == 0
+        assert got["booked"] == {BOOKED[kind]: 1.0}

@@ -498,15 +498,53 @@ def test_default_solver_is_the_card_unless_asked():
 
 
 @pytest.mark.parametrize("settings_kw, match", [
-    (dict(federation_enabled=True, arbiter_endpoint="http://127.0.0.1:1"), "item 9"),
     (dict(mesh_enabled=True), "item 10"),
-], ids=["federation", "mesh"])
+], ids=["mesh"])
 def test_unported_settings_raise(settings_kw, match):
     m = pkg_mod(PORT)
     provider = m.cloud.FakeCloudProvider(catalog=m.cloud.generate_catalog(n_types=5))
     with pytest.raises(NotImplementedError, match=match):
         m.operator.Operator.new(provider=provider, device="cpu",
                                 settings=m.settings.Settings(**settings_kw))
+
+
+def test_federation_settings_wire_the_arbiter_link():
+    """``federation_enabled`` builds the reference's ``FederationClient``
+    for ``arbiter_endpoint`` (over HTTP), hands it to provisioning and
+    interruption, late-binds ``/debug/federation`` to its status, and adds
+    the ``federation-summary`` heartbeat at ``summary_interval_s``, as the
+    JAX package's operator does."""
+    from karpenter_tpu_torch.federation.client import HTTPArbiterTransport
+
+    mods = {pkg: pkg_mod(pkg) for pkg in PACKAGES}
+    ops = {}
+    for pkg, m in mods.items():
+        settings = m.settings.Settings(
+            cluster_name="us-east", federation_enabled=True,
+            arbiter_endpoint="http://127.0.0.1:1", summary_interval_s=7.0,
+            interruption_queue_name="q", batch_idle_duration=0, batch_max_duration=0)
+        provider = m.cloud.FakeCloudProvider(catalog=m.cloud.generate_catalog(n_types=5))
+        ops[pkg] = new_operator(m, provider, settings)
+    op = ops[PORT]
+    try:
+        fed = op.federation
+        assert fed is not None and fed.cluster_name == "us-east"
+        assert isinstance(fed.transport, HTTPArbiterTransport)
+        assert fed.transport.endpoint == "http://127.0.0.1:1"
+        assert op.provisioning.federation is fed and op.interruption.federation is fed
+        assert fed.status() == ops[REF].federation.status()
+        names = {}
+        for pkg, o in ops.items():
+            stop = threading.Event()
+            stop.set()  # the loop builds its controllers and returns
+            o._run_loop(stop, 0.01)
+            names[pkg] = [c.name for c in o.controllers]
+        assert names[PORT] == names[REF]
+        beats = [c for c in op.controllers if c.name == "federation-summary"]
+        assert [c.interval for c in beats] == [7.0]
+    finally:
+        for o in ops.values():
+            o.close()
 
 
 def test_profiling_enabled_starts_the_sampler_and_stop_profiler_stops_it(tmp_path):

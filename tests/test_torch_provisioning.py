@@ -290,7 +290,6 @@ class TestNoFallback:
 
     @pytest.mark.parametrize("kw", [
         {"cell_sharding_enabled": True, "mesh_enabled": True},
-        {"federation_enabled": True, "arbiter_endpoint": "http://localhost:1"},
     ])
     def test_unported_settings_refuse_to_construct(self, kw):
         settings = Settings()
@@ -299,6 +298,66 @@ class TestNoFallback:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ProvisioningController(Cluster(), FakeCloudProvider(catalog=generate_catalog(n_types=5)),
                                    solver=cpu_solver(), settings=settings)
+
+    def test_federation_gate_routes_leased_units(self):
+        """``federation_enabled`` constructs, and the gate routes each
+        region-affine unit (a lone pod, or a gang whole) by its lease: a
+        unit leased elsewhere and confirmed moves through
+        ``federation_transfer`` and leaves the round; one leased home, a
+        pod without the affinity, and everything while the arbiter link is
+        down stay local and bind here."""
+        from karpenter_tpu_torch.federation.arbiter import FederationArbiter
+        from karpenter_tpu_torch.federation.client import (
+            DirectArbiterTransport, FederationClient)
+        from karpenter_tpu_torch.utils.cache import FakeClock
+
+        settings = Settings(federation_enabled=True, arbiter_endpoint="http://localhost:1",
+                            cluster_name="home", batch_idle_duration=0, batch_max_duration=0)
+        cluster = Cluster()
+        cluster.add_provisioner(Provisioner(meta=ObjectMeta(name="default")))
+        ctl = ProvisioningController(cluster, FakeCloudProvider(catalog=generate_catalog(n_types=5)),
+                                     solver=cpu_solver(), settings=settings)
+        clock = FakeClock(0.0)
+        arbiter = FederationArbiter(clock=clock)
+        transport = DirectArbiterTransport(arbiter)
+        ctl.federation = FederationClient("home", transport=transport, clock=clock)
+        moved = []
+
+        def transfer(pods, target):  # the fleet's: the unit leaves this cluster
+            moved.append((target, sorted(p.name for p in pods)))
+            for p in pods:
+                cluster.delete_pod(p.name)
+            return True
+
+        ctl.federation_transfer = transfer
+        # "away" is the cheaper member for a unit that may go anywhere
+        arbiter.submit_summary({"cluster": "home", "region": "home", "seq": 1,
+                                "marginal_price": 0.5, "risk_peak": 0.0, "headroom": 100})
+        arbiter.submit_summary({"cluster": "away", "region": "away", "seq": 1,
+                                "marginal_price": 0.1, "risk_peak": 0.0, "headroom": 100})
+
+        def pod(name, regions=None, gang=None):
+            ann = {wk.REGION_AFFINITY: regions} if regions else {}
+            labels = {}
+            if gang:
+                labels[wk.POD_GROUP] = gang
+                ann[wk.POD_GROUP_MIN_MEMBERS] = "2"
+            return Pod(meta=ObjectMeta(name=name, annotations=ann, labels=labels,
+                                       owner_kind="ReplicaSet"),
+                       requests=Resources(cpu="250m", memory="256Mi"))
+
+        for p in (pod("anywhere", "*"), pod("stay", "home"), pod("plain"),
+                  pod("g-0", "*", gang="g"), pod("g-1", "*", gang="g")):
+            cluster.add_pod(p)
+        result = ctl.reconcile()
+        assert moved == [("away", ["g-0", "g-1"]), ("away", ["anywhere"])]
+        assert sorted(result.bound) == ["plain", "stay"]
+        transport.partitioned = True
+        cluster.add_pod(pod("cut-off", "*"))
+        result = ctl.reconcile()
+        assert sorted(result.bound) == ["cut-off"] and len(moved) == 2
+        assert ctl.federation.mode == "degraded"
+        assert [r["token"] for r in ctl.federation.drain_degraded_log()] == ["home/cut-off"]
 
     def test_device_fault_script_fails_validation(self):
         """A malformed script fails validation loudly; a well-formed one is

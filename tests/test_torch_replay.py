@@ -15,9 +15,10 @@ JAX package's capsules and its own.
   ``TestCounterfactuals`` (an offering mask diverts a placement, a raised
   limit schedules a blocked pod, ``limits.<r>=none`` removes one ceiling,
   a settings override, bad overrides), on the port.
-* What the port refuses: a ``federation`` capsule (``ValueError``, exit 1,
-  naming ``ROADMAP.md`` Queue 1 item 9) and, without CUDA, the default
-  ``device="cuda"``.
+* A ``federation`` capsule of either package replays: the arbiter's pure
+  verdict and every sub-capsule, through ``replay_capsule`` and the CLI
+  (``tests/test_torch_federation.py`` holds the rest of it).
+* What the port refuses: without CUDA, the default ``device="cuda"``.
 """
 
 from __future__ import annotations
@@ -218,18 +219,39 @@ def test_counterfactual_unmasks_an_ice_offering(port):
     assert report["counterfactual"] is True and report["replayed"]["placements"]
 
 
-# -- what the port refuses -----------------------------------------------------------
+# -- federation capsules ----------------------------------------------------------------
 
 
-def test_federation_capsule_names_the_next_slice(port, tmp_path, capsys):
-    capsule = {"id": "fed.1", "controller": "federation", "inputs": {"available": {}},
-               "outputs": {"verdict": {}}, "sub_capsules": []}
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
-        port.replay.replay_capsule(capsule, device="cpu")
+@pytest.mark.parametrize("source", PACKAGES)
+def test_federation_capsule_replays(source, port, tmp_path, capsys):
+    """A federated round of either package's ``FederatedFleet`` (a gang
+    routed by lease, a region partitioned from the arbiter with a degraded
+    decision) replays in the port: the verdict's digest and every
+    sub-capsule match, and the CLI exits 0 and prints the federation
+    report."""
+    import importlib
+
+    fleet_mod = importlib.import_module(f"{source}.federation.fleet")
+    fr = importlib.import_module(f"{source}.utils.flightrecorder")
+    fr.FLIGHT.configure(64)
+    fleet = fleet_mod.FederatedFleet(n_types=6,
+                                     settings_overrides={"interruption_penalty_cost": 0.5})
+    fleet.add_gang("us-east", "train", members=2, regions="*")
+    fleet.partition("us-west")
+    fleet.add_pods("us-west", "cut", 2, regions="*")
+    capsule = json.loads(json.dumps(fleet.run_round(), default=str))
+    assert capsule["controller"] == "federation" and capsule["sub_capsules"]
+    report = port.replay.replay_capsule(capsule, device="cpu")
+    assert report["match"] is True, report["diffs"]
+    assert report["diffs"]["verdict_match"] and report["diffs"]["sub_capsules_match"]
+    assert report["diffs"]["degraded_assignments"] == 2
     path = tmp_path / "fed.json"
     path.write_text(json.dumps(capsule))
-    assert port.replay.main([str(path), "--device", "cpu"]) == 1
-    assert "item 9" in capsys.readouterr().err
+    assert port.replay.main([str(path), "--device", "cpu"]) == 0
+    assert "(federation): MATCH" in capsys.readouterr().out
+
+
+# -- what the port refuses -----------------------------------------------------------
 
 
 def test_solver_names_of_both_packages(port):

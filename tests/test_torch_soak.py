@@ -259,3 +259,157 @@ def test_scaled_port_soak_end_to_end():
     assert report["mem_segments"] >= 1
     assert report["replay"]["mismatched"] == [] and report["replay"]["errors"] == []
     assert report["ok"], report["violations"]
+
+
+# ---------------------------------------------------------------------------
+# The fixed rate, and the respawn of an operator that exits at boot
+# ---------------------------------------------------------------------------
+
+#: the rates the harness calibrated on the card's host for the card run's
+#: soak (seed 11, 60 s, 2,000 live pods)
+CARD_RATES = (70.0, 99.1, 109.7, 136.8, 190.2)
+
+
+def bursts(script) -> list:
+    return [(round(e.t, 3), e.kind, e.get("fault_kind"), e.get("endpoint"), e.get("n"),
+             e.get("status")) for e in script.events
+            if e.kind in ("device-fault-burst", "rpc-fault-burst")]
+
+
+def test_fault_timeline_follows_the_rate_at_a_fixed_seed():
+    """The reason the card run fixes the soak's rate: at one seed the
+    device-fault and rpc bursts (kinds, times, endpoints, counts) change
+    with the rate the harness calibrates, in both packages alike, and are
+    the same on every generation at a fixed rate."""
+    timelines = {}
+    for rate in CARD_RATES:
+        per_pkg = [bursts(soak_mod(pkg, "churn").ChurnScript.generate(
+            seed=11, duration_s=60.0, rate_hz=rate, live_pods=2000,
+            operator_restarts=((0.25, "kill"),), apiserver_restarts=(0.6,)))
+            for pkg in PACKAGES]
+        assert per_pkg[0] == per_pkg[1]
+        timelines[rate] = per_pkg[0]
+    device = {rate: [b for b in t if b[1] == "device-fault-burst"] for rate, t in timelines.items()}
+    assert len({tuple(d) for d in device.values()}) == len(CARD_RATES)
+    assert len({tuple(t) for t in timelines.values()}) == len(CARD_RATES)
+    again = bursts(soak_mod(PORT, "churn").ChurnScript.generate(
+        seed=11, duration_s=60.0, rate_hz=70.0, live_pods=2000,
+        operator_restarts=((0.25, "kill"),), apiserver_restarts=(0.6,)))
+    assert again == timelines[70.0]
+
+
+class _Metrics:
+    """A stand-in ``/metrics`` that answers once ``ready()`` is true."""
+
+    def __init__(self, ready):
+        import http.server
+        import threading
+
+        outer = self
+        self.ready = ready
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802
+                body = b"karpenter_tpu_process_start_time_seconds 1\n"
+                self.send_response(200 if outer.ready() else 503)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        threading.Thread(target=self.server.serve_forever, daemon=True).start()
+
+    @property
+    def port(self):
+        return self.server.server_address[1]
+
+    def stop(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def boot_harness(tmp_path, exits: int):
+    """A port harness whose operator spawns are processes that exit at once
+    (code 1, a boot log ending in the 503 the boot check saw) ``exits``
+    times, then one that stays up and serves ``/metrics``."""
+    import subprocess
+    import sys
+
+    harness = soak_mod(PORT, "harness")
+    h = harness.SoakHarness(harness.SoakConfig(rate_hz=60.0, duration_s=5.0, live_pods=10,
+                                               restart_delay_s=0.05, boot_timeout_s=20.0,
+                                               device="cpu", dump_dir=str(tmp_path)))
+    spawns = []
+    served = _Metrics(lambda: len(spawns) > exits)
+    h.operator_port = served.port
+
+    def spawn():
+        (tmp_path / f"operator-{h._incarnation}.log").write_text(
+            "ConnectivityError: cloud provider unreachable: HTTP Error 503\n")
+        h._incarnation += 1
+        spawns.append(1)
+        code = "import sys; sys.exit(1)" if len(spawns) <= exits else "import time; time.sleep(60)"
+        h.operator = subprocess.Popen([sys.executable, "-c", code])
+
+    h._spawn_operator = spawn
+    return h, served, spawns
+
+
+@pytest.mark.parametrize("exits", [1, 3])
+def test_operator_that_exits_at_boot_is_respawned(tmp_path, exits):
+    """An operator that exits before it is ready is respawned after
+    ``restart_delay_s``, each respawn counted under
+    ``restarts["operator_boot_exit"]``, until one boots (within the bound
+    of ``BOOT_RESPAWNS``)."""
+    h, served, spawns = boot_harness(tmp_path, exits)
+    try:
+        h._spawn_operator()
+        assert h._boot_operator() is True
+        assert h.restarts["operator_boot_exit"] == exits and len(spawns) == exits + 1
+        assert h.boot_failure is None
+    finally:
+        h.operator.kill()
+        served.stop()
+
+
+def test_operator_exiting_past_the_bound_fails_with_its_reason(tmp_path):
+    """Past ``BOOT_RESPAWNS`` respawns the boot gives up with the reason
+    ``operator_boot_exit`` and the log's tail; ``run()`` then puts that
+    reason first among the violations and does not wait out the settle."""
+    harness = soak_mod(PORT, "harness")
+    h, served, spawns = boot_harness(tmp_path, exits=harness.BOOT_RESPAWNS + 1)
+    try:
+        h._spawn_operator()
+        assert h._boot_operator() is False
+        assert h.restarts["operator_boot_exit"] == harness.BOOT_RESPAWNS
+        assert len(spawns) == harness.BOOT_RESPAWNS + 1
+        assert h.boot_failure.startswith("operator_boot_exit:")
+        assert "HTTP Error 503" in h.boot_failure
+    finally:
+        served.stop()
+
+
+def test_soak_respawns_an_operator_killed_by_503s_at_boot(tmp_path):
+    """End to end on the CPU: the SIGKILLed operator's respawn meets a
+    scripted burst of four 503s on ``/v1/instance-types`` at boot (its
+    boot check retries four times, then exits, as the reference's does);
+    the harness respawns it, the respawn boots, and the soak ends with no
+    violation and the exit counted under ``operator_boot_exit``."""
+    harness = soak_mod(PORT, "harness")
+    script = soak_mod(PORT, "churn").ChurnScript()
+    script.at(0.2).deploy_up("app-a", 12)
+    script.at(2.0).operator_restart("kill")
+    script.at(2.0).rpc_fault_burst("/v1/instance-types", n=4, status=503)
+    script.at(3.0).deploy_up("app-b", 8)
+    script.at(5.0).deploy_down("app-a", 12)
+    report = harness.run_soak(harness.SoakConfig(
+        duration_s=6.0, rate_hz=60.0, script=script, device="cpu", settle_timeout_s=30.0,
+        dump_dir=str(tmp_path)))
+    assert report["restarts"]["operator_boot_exit"] == 1, report["restarts"]
+    assert report["restarts"]["operator_kill"] == 1
+    assert report["violations"] == [] and report["ok"]
+    assert "503" in (tmp_path / "operator-1.log").read_text()
+    assert report["operator_incarnations"] == 2

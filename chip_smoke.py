@@ -82,6 +82,28 @@ this, DIR, with the chain and each of its kernels (``compare``). Phases:
     plan must validate and cost at most its pinned kernel-only cost. Each
     of these two phases logs its launch counts and fails unless K1, K2 and
     K3 launched in it;
+11a. the meshed tier (main path, ``mesh_phase``), on logical shards of the
+    one card: (a) on 50k_full at its solve's slot budget, the 1D mesh at 2
+    and 4 shards and the 2D mesh at 2x1 and 4x1, each buffer equal to the
+    un-meshed chain's bit for bit and timed beside it; the meshed tier's
+    four wrappers against their plain versions on the card (K1's shards and
+    the member argmin bit for bit, the argmin also on NaN, +-inf and ties;
+    K2's shards' integers bit for bit); (b)
+    ``configs.config_mesh_superproblem()`` (500k pods, 16 cells) through
+    ``stage_fleet`` with per-cell sessions, a seed round and churn rounds
+    0-1, on a 2x2 mesh against the meshless fleet path on copies of the
+    same problems: every row bit for bit, kernel plans and digests equal,
+    every plan valid, a 2x2 superproblem dispatch a round,
+    ``karpenter_tpu_mesh_dispatch_total`` and ``{phase=gather}`` moved,
+    then ``solve_pods`` per cell; the flat race on a 1D mesh of 4 shards
+    at 50k_full (first solve and repeat, then a kernel-only solve at the
+    pinned cost); (c) one sharded controller round with
+    ``mesh_enabled`` on a 2x2-meshed solver and on a meshless twin (8,000
+    pods, 8 cells): every pod bound within allocatable, equal digests and
+    fleet dispatches; (d) ``Operator.new(mesh_enabled=True)`` on the one
+    card builds no mesh (run last, after the federation phase, as
+    ``mesh_one_card``: ``Operator.new`` reconfigures process-wide state).
+    The four wrappers' launches are counted around (b) and (c);
 12. provisioning controller (main path): ``ProvisioningController`` with
     its default ``TorchSolver()`` over ``configs.config_controller_reconcile``
     (50k pending pods, 400 types): a seed round, then eight churn rounds
@@ -130,7 +152,7 @@ this, DIR, with the chain and each of its kernels (``compare``). Phases:
     interruption storm on the most loaded 10% of the spot nodes until the
     queue drains
     (each step re-binds what it drained, never onto an offering the storm
-    marked unavailable; K1, K2, K3 and ``rtt_probe`` must launch), three
+    marked unavailable; K1, K2, K3 and ``rtt_probe`` must launch), two
     template-drift passes after an image rotation, each replacing one node
     on the new image; then ``python -m karpenter_tpu_torch`` in a
     subprocess on the card, which must answer its probes, serve /metrics
@@ -167,9 +189,9 @@ this, DIR, with the chain and each of its kernels (``compare``). Phases:
     a JSON round trip, and must match (``replay_phase``, which names the
     one divergence it allows); K1, K2 and K3 are held against their plain
     versions on the seed round's rebuilt problem; then
-    ``python -m karpenter_tpu_torch.replay`` runs in a subprocess on the
-    seed round's dump and, as a counterfactual, on the storm step's with
-    its masked offering made available; both must exit 0;
+    ``python -m karpenter_tpu_torch.replay`` runs in two subprocesses side
+    by side, on the seed round's dump and, as a counterfactual, on the storm
+    step's with its masked offering made available; both must exit 0;
 18. the solver's fault domain (main path, ``fault_domain_phase``):
     ``bench.bench_device_faults``' scenario (``configs.config_device_faults``,
     20,000 pods a round on a fresh ``TorchSolver(dispatch_timeout_s=0.5)``):
@@ -1724,6 +1746,595 @@ def session_fleet(ts, configs, fleet_encode_s) -> dict:
     return launches
 
 
+#: the meshed tier's phase (``mesh_phase``): meshes of logical shards of the
+#: one card, at the shapes the phase holds the kernels at, and the sizes of
+#: its controller round
+MESH_KERNEL_MESHES = (("1d", 2), ("1d", 4), ("2d", (2, 1)), ("2d", (4, 1)))
+MESH_SUPER_SHAPE = (2, 2)
+MESH_SUPER_ROUNDS = ("seed", 0, 1)
+MESH_CONTROLLER_PODS = 8_000
+MESH_CONTROLLER_CELLS = 8
+MESH_WRAPPERS = ("shard_precompute_part", "shard_precompute_finish", "shard_member",
+                 "member_argmin")
+MESH_DEVICE = "cuda:0"  # the card whose logical shards the meshes name
+
+
+def logical_mesh(kind, shape):
+    """A mesh of logical shards of card 0: one device named once a shard."""
+    from karpenter_tpu_torch import parallel
+
+    if kind == "1d":
+        return parallel.make_mesh(shape, devices=[MESH_DEVICE] * shape)
+    return parallel.make_mesh2d(shape, devices=[MESH_DEVICE] * (shape[0] * shape[1]))
+
+
+def mesh_place(kind, mesh, tensors):
+    from karpenter_tpu_torch import parallel
+
+    if kind == "1d":
+        return parallel.shard_portfolio(mesh, *tensors)
+    return parallel.shard_problem2d(mesh, *tensors)
+
+
+def event_ms(fn, reps: int = 3) -> tuple:
+    """(device ms between events around one call, host ms of the call):
+    medians over ``reps`` calls after a warm one. A meshed chain joins its
+    shards' streams back to the caller's, so the end event follows every
+    shard's work; the device time includes the card waiting on the host's
+    launches."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    dev, host = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(start.elapsed_time(end))
+    return statistics.median(dev), statistics.median(host)
+
+
+@contextlib.contextmanager
+def plain_mesh_kernels(meshed):
+    """The meshed tier's wrappers take their plain versions on the card's
+    tensors (the un-meshed K1, K2 and K3 stay kernels)."""
+    saved = meshed._plain
+    meshed._plain = lambda t: True
+    try:
+        yield
+    finally:
+        meshed._plain = saved
+
+
+def mesh_kernel_check(ts, configs) -> list:
+    """(a) The meshed tier's kernels on 50k_full at the slot budget its
+    solve reaches: the 1D mesh at 2 and 4 logical shards and the 2D mesh at
+    2x1 and 4x1, each meshed buffer equal to the un-meshed chain's bit for
+    bit and timed beside it; each new wrapper against its plain version on
+    the card (K1's shard outputs and the member argmin's bit for bit, K2's
+    integers bit for bit and its member costs to MEMBER_COST_RTOL), the
+    member argmin also on costs holding NaN, +-inf and ties. Returns the
+    ``kernels`` entries of the four wrappers (launches filled in later)."""
+    import torch
+
+    from karpenter_tpu_torch.solver import TorchSolver, encode, meshed
+
+    solver = TorchSolver()
+    problem = encode(*configs.config_50k_full())
+    _, orders, _, _, _, swaps, s_new, nz = solver._prepare(problem)
+    tensors = device_problem(ts, solver, problem)
+    _, S, _ = solver._run_fused(tensors, orders, swaps, s_new, nz)
+    inputs, o, a, l, r, sw = tensors
+    G, O, E, R, Z = ts._dims(inputs)
+    K = o.shape[0]
+    want = ts.pack_solve_fused(*tensors, S, nz)
+    base_ms = event_ms(lambda: ts.pack_solve_fused(*tensors, S, nz))
+    log(f"mesh kernels on 50k_full: G={G} O={O} E={E} R={R} Z={Z} K={K} S={S}; un-meshed chain "
+        f"{base_ms[0]:.4f} ms between events ({base_ms[1]:.4f} ms host; behind a spin, the "
+        f"device alone: {time_ms(lambda: ts.pack_solve_fused(*tensors, S, nz)):.4f} ms)")
+    for kind, shape in MESH_KERNEL_MESHES:
+        mesh = logical_mesh(kind, shape)
+        placed = mesh_place(kind, mesh, tensors)
+        before = dict(meshed.LAUNCHES)
+        got = ts.pack_solve_meshed(mesh, *placed, S, nz)
+        torch.cuda.synchronize()
+        moved = {k: meshed.LAUNCHES[k] - before[k] for k in before}
+        if not torch.equal(got, want):
+            at = torch.nonzero(got != want).flatten()[:8].tolist()
+            raise AssertionError(f"mesh {kind} {shape}: buffer differs from the un-meshed chain at {at}")
+        # the 2D chains take 70-250 ms each: one timed call after the warm one
+        dev, host = event_ms(lambda: ts.pack_solve_meshed(mesh, *placed, S, nz),
+                             reps=3 if kind == "1d" else 1)
+        log(f"mesh {kind} {shape}: buffer equal to the un-meshed chain bit for bit; {dev:.4f} ms "
+            f"between events ({host:.4f} ms host; un-meshed {base_ms[0]:.4f} ms), launches a "
+            f"chain {moved}")
+
+    errs = {}
+    # K1 on two option shards against its plain version and the un-meshed K1
+    mesh = logical_mesh("2d", (2, 1))
+    placed = mesh_place("2d", mesh, tensors)
+    shards = [meshed._Shard(mesh, i) for i in range(2)]
+    ins = [ts._unsqueeze(type(inputs)(*(p.shards[i] for p in placed[0]))) for i in range(2)]
+    members = [tuple(m.shards[i].unsqueeze(0) for m in placed[1:]) for i in range(2)]
+    k1 = meshed.shard_precompute_all(shards, ins, S)
+    with plain_mesh_kernels(meshed):
+        k1_plain = meshed.shard_precompute_all(shards, ins, S)
+    whole = ts.shared_precompute(inputs, S, nz)
+    for got, want_s in zip(k1, k1_plain):
+        hold_shared("mesh K1 shard", ts._row(got, 0), ts._row(want_s, 0))
+    for f in ("units", "units_rsv", "val_pair"):
+        if not torch.equal(torch.cat([getattr(k, f)[0] for k in k1], 1), getattr(whole, f)):
+            raise AssertionError(f"mesh K1: the shards' {f} is not the un-meshed K1's, split")
+    if not torch.equal(k1[0].lam[0], whole.lam):
+        raise AssertionError("mesh K1: lam differs from the un-meshed K1's")
+    errs["shard_precompute_part"] = errs["shard_precompute_finish"] = 0.0
+    # K2 on two option shards against its plain version
+    m1 = meshed.shard_member_phase(shards, ins, k1, members, S)
+    m2 = meshed.shard_member_phase(shards, ins, k1, members, S, [m.cost for m in m1])
+    with plain_mesh_kernels(meshed):
+        p1 = meshed.shard_member_phase(shards, ins, k1, members, S)
+        p2 = meshed.shard_member_phase(shards, ins, k1, members, S, [m.cost for m in m1])
+    errs["shard_member"] = max(
+        hold_members(f"mesh K2 shard {s} phase {ph}", ts._row(g, 0), ts._row(w, 0))
+        for ph, (gs, ws) in enumerate(((m1, p1), (m2, p2)), 1) for s, (g, w) in enumerate(zip(gs, ws)))
+    # the member argmin in the 1D chain, and on NaN, +-inf and ties
+    mesh4 = logical_mesh("1d", 4)
+    placed4 = mesh_place("1d", mesh4, tensors)
+    with plain_mesh_kernels(meshed):
+        plain_buf = ts.pack_solve_meshed(mesh4, *placed4, S, nz)
+    if not torch.equal(plain_buf, want):
+        raise AssertionError("mesh 1d: the chain with the member argmin's plain version differs")
+    errs["member_argmin"] = member_argmin_nan_check(meshed)
+    log(f"mesh plain checks: K1 shards bit for bit (and the un-meshed K1 split), K2 shards "
+        f"max_abs_err {errs['shard_member']}, member argmin bit for bit")
+    return mesh_timings(ts, meshed, tensors, S, nz, shards, ins, members, k1, errs)
+
+
+def member_argmin_nan_check(meshed) -> float:
+    """The member argmin's three kernels against their plain versions over 4
+    shards of 2 members on ``nan_costs``: offers, seeds, phase-2 members and
+    final buffers bit for bit, the seed and the winner jnp.argmin's."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.solver import torch_solver as ts
+
+    n, kl, G, T, NS, S, B = 4, 2, 16, 6, 40, 12, 2
+    K = n * kl
+    rng = np.random.default_rng(19)
+    dev = MESH_DEVICE
+    orders = torch.from_numpy(rng.permuted(np.tile(np.arange(G, dtype=np.int32), (n, B, kl, 1)),
+                                           axis=-1)).to(dev)
+    alphas = torch.from_numpy(rng.random((n, B, kl)).astype(np.float32)).to(dev)
+    looks = torch.from_numpy(rng.random((n, B, kl)) < 0.5).to(dev)
+    rsvs = torch.from_numpy(rng.random((n, B, kl)) < 0.5).to(dev)
+    swaps = torch.from_numpy(rng.permuted(np.tile(np.arange(G, dtype=np.int32), (B, kl, 1)),
+                                          axis=-1)).to(dev)
+    for c1, c2 in nan_costs(K):
+        c1 = torch.tensor([c1] * B, dtype=torch.float32).reshape(B, n, kl).transpose(0, 1).contiguous().to(dev)
+        c2 = torch.tensor([c2] * B, dtype=torch.float32).reshape(B, n, kl).transpose(0, 1).contiguous().to(dev)
+        bufs = torch.stack([
+            torch.from_numpy(rng.integers(0, 1 << 20, 4 + 4 * kl + 2 * S + T * NS).astype(np.int32))
+            for _ in range(n * B)]).reshape(n, B, -1).to(dev)
+        for s in range(n):
+            for b in range(B):
+                bufs[s, b, 0] = int(rng.integers(0, 2))
+                bufs[s, b, 2] = int(rng.integers(0, kl))
+                bufs[s, b, 4 : 4 + 2 * kl] = torch.cat([c1[s, b], c2[s, b]]).view(torch.int32)
+                # each shard's K3 picks its own winner: make the head say so
+                local = torch.cat([c1[s, b], c2[s, b]]).cpu()
+                j = int(torch.argmin(local))
+                bufs[s, b, 0], bufs[s, b, 2] = int(j >= kl), j % kl
+        outs = []
+        for plain in (False, True):
+            ctx = plain_mesh_kernels(meshed) if plain else contextlib.nullcontext()
+            with ctx:
+                offers = torch.zeros((n, B, 5 + G), dtype=torch.int32, device=dev)
+                for s in range(n):
+                    meshed.seed_offer(c1[s], s * kl, orders[s], alphas[s], looks[s], rsvs[s], offers[s])
+                picked = meshed.seed_pick(offers, swaps)
+                outs.append((offers, *picked, meshed.final_pick(bufs, picked[4], kl)))
+        for g, w in zip(*outs):
+            if not torch.equal(g, w):
+                raise AssertionError("member argmin: a kernel differs from its plain version")
+        flat1 = c1.transpose(0, 1).reshape(B, K).cpu()
+        flat2 = c2.transpose(0, 1).reshape(B, K).cpu()
+        final = outs[0][-1].cpu()
+        for b in range(B):
+            j = int(torch.argmin(flat1[b]))
+            best = int(torch.argmin(torch.cat([flat1[b], flat2[b]])))
+            if int(final[b, 1]) != j or (int(final[b, 0]), int(final[b, 2])) != (int(best >= K), best % K):
+                raise AssertionError(f"member argmin: seed/winner not torch.argmin's on {flat1[b]}, {flat2[b]}")
+    return 0.0
+
+
+MESH_K2_PARTS = ("k2_prices", "k2m_kernel")
+
+
+def member_argmin_bytes(n: int, kl: int, G: int, Ll: int) -> int:
+    """Bytes the member argmin's three kernels must move for one row, each
+    read once and each write once: the offer (a shard's kl costs, the best
+    member's order row, alpha, look and rsv; the offer out), the pick (every
+    offer's cost and index, the winner's alpha, look, rsv and order row, the
+    shard's swaps; its phase-2 orders, alphas, looks, rsvs and seed out) and
+    the final pick (every shard's head and 4 kl costs and flags, the seed,
+    the winner's rows; the portfolio's buffer out)."""
+    offer = 4 * kl + 4 * G + 6 + 4 * (5 + G)
+    pick = 8 * n + 4 * (3 + G) + 4 * kl * G + 4 * kl * G + 6 * kl + 4
+    final = 4 * n * (4 + 4 * kl) + 4 * (Ll - 4 - 4 * kl) + 4 + 4 * (Ll + 4 * kl * (n - 1))
+    return offer + pick + final
+
+
+def mesh_timings(ts, meshed, tensors, S, nz, shards, ins, members, k1, errs) -> list:
+    """Kernel, plain-version and bound times of the four wrappers at
+    50k_full's shapes (two option shards; K2 on one shard, whole, so that a
+    launch's time is its own, not an exchange's). ``shard_member``'s device
+    time is its kernels' (``k2_prices``, ``k2m_kernel``) in a profiler
+    trace of a phase, over the phase's launches; the phase's time between
+    events, host issue included, is logged beside it."""
+    import torch
+
+    inputs, o, a, l, r, sw = tensors
+    G, O, E, R, Z = ts._dims(ins[0])
+    K = o.shape[0]
+    dev = MESH_DEVICE
+    B, nt = 1, meshed.k1_tiles(O, dev)
+    part = torch.zeros((2, B, G, nt), dtype=torch.int32, device=dev)
+    part_plain = torch.zeros((2, B, G, 1), dtype=torch.int32, device=dev)
+    parts = torch.zeros((2, 2, B, G, nt), dtype=torch.int32, device=dev)
+    parts_plain = torch.zeros((2, 2, B, G, 1), dtype=torch.int32, device=dev)
+    sp = meshed.shard_precompute_part(ins[0], S, parts[0])
+    meshed.shard_precompute_part(ins[1], S, parts[1])
+    sp_plain = meshed.shard_precompute_part_ref(ins[0], S, parts_plain[0])
+    meshed.shard_precompute_part_ref(ins[1], S, parts_plain[1])
+    ms, plain_ms, bounds = {}, {}, {}
+    ms["shard_precompute_part"] = time_ms(lambda: meshed.shard_precompute_part(ins[0], S, part))
+    plain_ms["shard_precompute_part"] = time_ms(
+        lambda: meshed.shard_precompute_part_ref(ins[0], S, part_plain), per=1)
+    ms["shard_precompute_finish"] = time_ms(lambda: meshed.shard_precompute_finish(ins[0], sp, parts))
+    plain_ms["shard_precompute_finish"] = time_ms(
+        lambda: meshed.shard_precompute_finish_ref(ins[0], sp_plain, parts_plain), per=1)
+    x, sk = ins[0], k1[0]
+    part_in = nbytes(x.demand, x.demand_units, x.count, x.node_cap, x.quota, x.colocate, x.compat,
+                     x.alloc, x.price, x.opt_valid, x.ex_compat, x.ex_valid)
+    part_out = nbytes(sk.units, sk.units_rsv, sk.rsv_group, sk.zone_limited, sk.exok_pad, part)
+    bounds["shard_precompute_part"] = bound(part_in + part_out, 2 * G * O * R * 3)
+    fin_in = nbytes(x.demand, x.count, x.node_cap, x.colocate, x.compat, x.alloc, x.opt_valid,
+                    sk.units, sk.units_rsv, parts)
+    fin_out = nbytes(sk.lam, sk.val_pair, sk.units_rsv)
+    bounds["shard_precompute_finish"] = bound(fin_in + fin_out, G * O * G * R * 5 + G * O * G * 3)
+    # K2 on one shard holding every column: a phase's device time over its launches
+    one = [shards[0]]
+    whole = [ts._unsqueeze(inputs)]
+    shared = [ts._unsqueeze(ts.shared_precompute(inputs, S, nz))]
+    mem = [members[0]]
+    launches = 2 + len(meshed.STAGES) * G
+
+    def k2_phase():
+        return meshed.shard_member_phase(one, whole, shared, mem, S)
+
+    phase_ms, _ = event_ms(k2_phase, reps=3)
+    k2_parts = kernel_parts_ms(k2_phase, MESH_K2_PARTS, calls=3)
+    k2_device = sum(k2_parts.get(p, 0.0) for p in MESH_K2_PARTS)
+    if k2_device <= 0.0:
+        raise AssertionError(f"mesh timings: no device time of {MESH_K2_PARTS} in the trace: {k2_parts}")
+    ms["shard_member"] = k2_device / launches
+    log(f"mesh shard_member on one shard: a {launches}-launch phase {phase_ms:.4f} ms between events, "
+        f"its kernels {k2_device:.4f} ms on the card (profiler, ms a phase: {k2_parts}); host issue "
+        f"{phase_ms - k2_device:.4f} ms of the phase ({100 * (1 - k2_device / phase_ms):.1f}%), "
+        f"{(phase_ms - k2_device) / launches:.4f} ms a launch")
+    with plain_mesh_kernels(meshed):
+        pdev, _ = event_ms(lambda: meshed.shard_member_phase(one, whole, shared, mem, S), reps=1)
+    plain_ms["shard_member"] = pdev / launches
+    m = meshed.shard_member_phase(one, whole, shared, mem, S)[0]
+    sh = shared[0]
+    k2_in = nbytes(inputs.demand, inputs.demand_units, inputs.count, inputs.node_cap,
+                   inputs.colocate, inputs.compat, inputs.alloc, inputs.price, inputs.opt_zone,
+                   sh.units, sh.units_rsv, sh.quota, sh.exok_pad, o, a, l, r)
+    k2_in += nbytes(sh.val_pair) if bool(l.any()) else 0
+    k2_out = nbytes(m.cost, m.unplaced, m.exhausted, m.new_opt, m.new_active, m.ys)
+    b2 = bound(k2_in + k2_out, k2_op_count(inputs, l, S))
+    bounds["shard_member"] = (b2[0] / launches, b2[1])
+    # the member argmin: its three kernels once each, at the 1D mesh's 4 shards
+    kl, n = K // 4, 4
+    cost = torch.rand((1, kl), device=dev)
+    offers = torch.zeros((n, 1, 5 + G), dtype=torch.int32, device=dev)
+    ol = o[:kl].unsqueeze(0).contiguous()
+    al, ll, rl, swl = (t[:kl].unsqueeze(0).contiguous() for t in (a, l, r, sw))
+    bufs = torch.zeros((n, 1, 4 + 4 * kl + 2 * S + G * (E + S)), dtype=torch.int32, device=dev)
+    b1 = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    calls = {
+        "offer": lambda: meshed.seed_offer(cost, 0, ol, al, ll, rl, offers[0]),
+        "pick": lambda: meshed.seed_pick(offers, swl),
+        "final": lambda: meshed.final_pick(bufs, b1, kl),
+    }
+    parts_ms = {k: time_ms(f) for k, f in calls.items()}
+    with plain_mesh_kernels(meshed):
+        plain_parts = {k: time_ms(f, per=1) for k, f in calls.items()}
+    ms["member_argmin"] = sum(parts_ms.values()) / 3
+    plain_ms["member_argmin"] = sum(plain_parts.values()) / 3
+    arg_bytes = member_argmin_bytes(n, kl, G, bufs.shape[-1])
+    bounds["member_argmin"] = (bound(arg_bytes, 0)[0] / 3, "bytes")
+    log(f"mesh timings: " + "; ".join(
+        f"{k} kernel {ms[k]:.6f} ms, plain {plain_ms[k]:.6f} ms, bound {bounds[k][0]:.3e} ms "
+        f"({bounds[k][1]})" for k in MESH_WRAPPERS)
+        + f"; member argmin kernels {parts_ms} (plain {plain_parts}), {arg_bytes} bytes a row; "
+        f"shard_member's kernel ms a launch of a {launches}-launch phase (plain: between events)")
+    replaces = "karpenter_tpu/solver/jax_solver.py:842"
+    return [
+        {"name": k, "route": "cuda", "source": "karpenter_tpu_torch/solver/csrc/pack_solve.cu",
+         "replaces": replaces, "launches": None, "max_abs_err": errs[k], "ms": ms[k],
+         "plain_ms": plain_ms[k], "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+         "library_ms": None}
+        for k in MESH_WRAPPERS
+    ]
+
+
+def kernel_plan(solver, problem, dispatch):
+    """The plan a fleet row decodes to, and the row."""
+    from karpenter_tpu_torch.solver.torch_solver import unpack_solve_fused
+
+    shared = dispatch.shared
+    row = shared.materialize()[dispatch.row]
+    order, unplaced, costs, exhausted, new_opt, new_active, ys = unpack_solve_fused(
+        row, dispatch.orders.shape[0], dispatch.s_new, shared.key.G, shared.key.E,
+        dispatch.orders, dispatch.swaps)
+    return solver._decode(problem, order, new_opt, new_active, ys), row, unplaced
+
+
+def plan_key(result):
+    return sorted((n.option.instance_type.name, n.option.zone, n.option.capacity_type,
+                   tuple(sorted(n.pod_names))) for n in result.new_nodes)
+
+
+def mesh_superproblem(ts, configs) -> dict:
+    """(b) ``configs.config_mesh_superproblem()`` at full size: a seed round
+    of every cell and churn rounds 0-1, each cell with its own
+    ``EncodeSession``, through ``stage_fleet`` on per-cell solvers holding
+    one 2x2 logical mesh (superproblem mode) and, on copies of the same
+    problems, on meshless per-cell solvers (the fleet path). Every row bit
+    for bit, every kernel plan and digest equal, every plan valid, a
+    superproblem dispatch a round on the 2x2 axes, the mesh dispatch
+    counter and ``{phase=gather}`` moved; then ``solve_pods`` on the meshed
+    solvers (the race), each result held by ``hold_reconcile``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.solver import EncodeSession, TorchSolver, encode, stage_fleet, validate
+    from karpenter_tpu_torch.solver.solver import KERNEL_BOARD, problem_digest
+    from karpenter_tpu_torch.utils import metrics
+
+    KERNEL_BOARD.reset()
+    knobs = configs.MESH_SUPERPROBLEM
+    t0 = time.perf_counter()
+    cells, provs, catalog = configs.config_mesh_superproblem()
+    n = len(cells)
+    log(f"mesh superproblem config: {sum(map(len, cells))} pods in {n} cells, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    mesh = logical_mesh("2d", MESH_SUPER_SHAPE)
+    supers = [TorchSolver(mesh=mesh, superproblem_max_cells=knobs["superproblem_max_cells"])
+              for _ in range(n)]
+    fleets = [TorchSolver() for _ in range(n)]
+    sessions = [EncodeSession() for _ in range(n)]
+    dispatched0 = metrics.MESH_DISPATCH.value({"axes": "2x2"})
+    gathers0 = metrics.SOLVE_PHASE.count({"phase": "gather", "mode": "sharded"})
+    for rnd in MESH_SUPER_ROUNDS:
+        t0 = time.perf_counter()
+        if rnd == "seed":
+            dirty = list(range(n))
+        else:
+            events = configs.churn_mesh_cells(cells, rnd, knobs["churn_cells"], knobs["n_pods"],
+                                              knobs["n_deploys"])
+            dirty = list(events)
+            for c, (removed, added) in events.items():
+                for q in removed:
+                    sessions[c].pod_event("DELETED", q)
+                for q in added:
+                    sessions[c].pod_event("ADDED", q)
+        requests = [{"pods": list(cells[c].values()), "provisioners": [(provs[c], catalog)],
+                     "session": sessions[c]} for c in dirty]
+        owners = [supers[c] for c in dirty]
+        staged = [s.encode_for_staging(**req) for s, req in zip(owners, requests)]
+        copies = [dataclasses.replace(q) for q in staged]
+        t1 = time.perf_counter()
+        for s, q in zip(owners, staged):
+            s.prestage(q)
+        st_super = stage_fleet(list(zip(owners, staged)), max_batch=knobs["fleet_max_batch"],
+                               superproblem_max_cells=knobs["superproblem_max_cells"])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        st_fleet = stage_fleet([(fleets[c], q) for c, q in zip(dirty, copies)],
+                               max_batch=knobs["fleet_max_batch"])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if (st_super["superproblems"] < 1 or st_super["mesh_axes"] != "2x2"
+                or st_super["cells_batched"] != len(dirty) or st_fleet["cells_batched"] != len(dirty)):
+            raise AssertionError(f"mesh superproblem round {rnd}: stats {st_super} / {st_fleet}")
+        kernel_costs = []
+        for c, q, cp in zip(dirty, staged, copies):
+            got, row, unplaced = kernel_plan(supers[c], q, q.__dict__["_fleet_dispatch"])
+            want, row_f, _ = kernel_plan(fleets[c], cp, cp.__dict__["_fleet_dispatch"])
+            if not np.array_equal(row, row_f):
+                raise AssertionError(f"mesh superproblem round {rnd} cell {c}: the meshed row "
+                                     f"differs from the fleet row")
+            if plan_key(got) != plan_key(want) or problem_digest(q) != problem_digest(cp):
+                raise AssertionError(f"mesh superproblem round {rnd} cell {c}: plans or digests differ")
+            if unplaced == 0 and validate(q, got):
+                raise AssertionError(f"mesh superproblem round {rnd} cell {c}: the kernel plan "
+                                     f"fails validation")
+            kernel_costs.append(got.cost)
+        t4 = time.perf_counter()
+        results = [s.solve_pods(**req, pre_encoded=q) for s, req, q in zip(owners, requests, staged)]
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        for c, s, res in zip(dirty, owners, results):
+            want_mode = "full" if rnd == "seed" else "delta"
+            if sessions[c].last_mode != want_mode:
+                raise AssertionError(f"mesh superproblem round {rnd} cell {c}: encoded "
+                                     f"{sessions[c].last_mode}, not {want_mode}")
+            # a seed round's session encodes in full: its own problem is the full encode
+            full = (interned(s, res) if rnd == "seed"
+                    else encode(sessions[c].ordered_pods(), [(provs[c], catalog)]))
+            hold_reconcile(f"mesh superproblem round {rnd} cell {c}", s, res, full, validate)
+        log(f"mesh superproblem round {rnd}: {len(dirty)} cells, encode "
+            f"{t1 - t0:.4f} s, prestage + meshed stage_fleet {t2 - t1:.4f} s "
+            f"({st_super['dispatches']} dispatch, {st_super['buckets']}), fleet stage_fleet "
+            f"{t3 - t2:.4f} s ({st_fleet['buckets']}), every row bit for bit and every kernel "
+            f"plan and digest equal ({t4 - t3:.4f} s), solve_pods {t5 - t4:.4f} s; kernel plan "
+            f"costs {sorted({round(x, 6) for x in kernel_costs})}, race backends "
+            f"{sorted({r.stats['backend'] for r in results})}, kernel rows won "
+            f"{sum(r.stats.get('race_winner', 0.0) == 1.0 for r in results)}")
+    dispatched = metrics.MESH_DISPATCH.value({"axes": "2x2"}) - dispatched0
+    gathers = metrics.SOLVE_PHASE.count({"phase": "gather", "mode": "sharded"}) - gathers0
+    if dispatched < len(MESH_SUPER_ROUNDS) or gathers < len(MESH_SUPER_ROUNDS):
+        raise AssertionError(f"mesh superproblem: mesh dispatches {dispatched}, gathers {gathers}")
+    log(f"mesh superproblem: karpenter_tpu_mesh_dispatch_total{{axes=2x2}} +{dispatched:g}, "
+        f"solve_phase_seconds{{phase=gather}} +{gathers} observations")
+    return {"dispatches": dispatched, "gathers": gathers}
+
+
+def mesh_flat(ts, configs) -> None:
+    """(b) continued, the 1D mesh on the flat path: ``TorchSolver(mesh=<4
+    logical shards>).solve`` on 50k_full in latency mode, a first solve and
+    a repeat (the chain dispatched on the side stream over the shards, the
+    member argmin picking the seed and the winner), held by ``hold_race``;
+    then a kernel-only solve of a fresh problem, at the JAX package's
+    pinned cost."""
+    import dataclasses
+
+    import torch
+
+    from karpenter_tpu_torch.solver import TorchSolver, encode, meshed, validate
+    from karpenter_tpu_torch.solver.solver import KERNEL_BOARD
+
+    KERNEL_BOARD.reset()
+    mesh = logical_mesh("1d", 4)
+    solver = TorchSolver(mesh=mesh)
+    problem = encode(*configs.config_50k_full())
+    ref = configs.REFERENCE_COSTS["50k_full"]
+    for attempt in ("first", "repeat"):
+        before = dict(meshed.LAUNCHES)
+        t0 = time.perf_counter()
+        result = solver.solve(problem)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        moved = {k: meshed.LAUNCHES[k] - before[k] for k in before}
+        hold_race(f"mesh flat race {attempt}", problem, result, validate)
+        if result.cost > ref * (1 + COST_RTOL):
+            raise AssertionError(f"mesh flat race: cost {result.cost!r} above the kernel's {ref!r}")
+        if attempt == "first" and moved["member_argmin"] < 1:
+            raise AssertionError(f"mesh flat race: the meshed chain was not dispatched: {moved}")
+        log(f"mesh flat race {attempt} (1D, 4 shards): backend {result.stats['backend']}, cost "
+            f"{result.cost!r}, kernel device {result.stats.get('dispatch_device_ms')} ms, solve "
+            f"{wall:.4f} s, meshed launches {moved}")
+    fresh = dataclasses.replace(problem)  # the same pods, no race memory
+    got = TorchSolver(mesh=mesh)._solve_kernel(fresh)
+    if validate(fresh, got) or abs(got.cost - ref) > COST_RTOL * ref:
+        raise AssertionError(f"mesh flat kernel-only: cost {got.cost!r}, the JAX package's {ref!r}")
+    log(f"mesh flat kernel-only (1D, 4 shards): cost {got.cost!r} (the JAX package's {ref!r}), "
+        f"{got.stats['fused_passes']:g} fused passes, slots {got.stats['slots']:g}")
+
+
+def mesh_controller(ts, configs) -> None:
+    """(c) One sharded controller round with ``mesh_enabled`` on a solver
+    holding a 2x2 logical mesh, and its meshless twin, on
+    ``config_controller_cells(8,000 pods, 8 cells)``: every pod bound within
+    allocatable in both, the same per-cell digests and fleet dispatches, and
+    the meshed round's cells staged as a superproblem."""
+    import torch
+
+    from karpenter_tpu_torch.controllers.provisioning import ProvisioningController
+    from karpenter_tpu_torch.solver import TorchSolver, meshed
+    from karpenter_tpu_torch.solver.solver import KERNEL_BOARD
+
+    KERNEL_BOARD.reset()
+    seen = {}
+    for arm in ("mesh", "meshless"):
+        cluster, provider, settings, _ = configs.config_controller_cells(
+            n_pods=MESH_CONTROLLER_PODS, n_cells=MESH_CONTROLLER_CELLS)
+        settings.mesh_enabled = True
+        solver = TorchSolver(mesh=logical_mesh("2d", MESH_SUPER_SHAPE) if arm == "mesh" else None)
+        ctl = ProvisioningController(cluster, provider, solver=solver, settings=settings)
+        before, mbefore = dict(ts.LAUNCHES), dict(meshed.LAUNCHES)
+        t0 = time.perf_counter()
+        res = ctl.reconcile()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        name = f"mesh controller ({arm})"
+        if cluster.pending_pods() or res.unschedulable:
+            raise AssertionError(f"{name}: {len(cluster.pending_pods())} pods pending")
+        hold_allocatable(name, cluster)
+        st = res.solve.stats
+        digests = [(s["name"], s["digest"]) for s in ctl.cells.last_round]
+        seen[arm] = (digests, st["fleet_dispatches"], st["fleet_cells_batched"])
+        moved = {k: ts.LAUNCHES[k] - before[k] for k in before}
+        mmoved = {k: meshed.LAUNCHES[k] - mbefore[k] for k in mbefore}
+        log(f"{name}: {len(cluster.pods)} pods bound on {len(cluster.nodes)} nodes in {wall:.4f} s; "
+            f"cells {st['cells']:g}, fleet dispatches {st['fleet_dispatches']:g}, cells batched "
+            f"{st['fleet_cells_batched']:g}, superproblems {st.get('superproblems', 0.0):g}; "
+            f"launches {moved}, meshed {mmoved}")
+        if arm == "mesh" and st.get("superproblems", 0.0) < 1:
+            raise AssertionError(f"{name}: no superproblem dispatch: {st}")
+    if seen["mesh"] != seen["meshless"]:
+        raise AssertionError(f"mesh controller: the meshed round differs from its twin: {seen}")
+
+
+def mesh_one_card() -> None:
+    """(d) ``Operator.new(settings=Settings(mesh_enabled=True))`` on this
+    card: one card, so no mesh, as the reference builds none on one
+    device."""
+    import torch
+
+    from karpenter_tpu_torch.api.settings import Settings
+    from karpenter_tpu_torch.operator import Operator
+
+    op = Operator.new(settings=Settings(mesh_enabled=True))
+    try:
+        solver = op.provisioning.solver
+        if torch.cuda.device_count() == 1 and (solver.mesh_shape is not None
+                                               or solver._ensure_mesh() is not None):
+            raise AssertionError(f"one card built a mesh: {solver.mesh_shape}, {solver.mesh}")
+        log(f"mesh one card: Operator.new(mesh_enabled=True) on {torch.cuda.device_count()} card "
+            f"builds mesh_shape {solver.mesh_shape}, mesh {solver._ensure_mesh()}")
+    finally:
+        op.close()
+
+
+def mesh_phase(ts, configs) -> tuple:
+    """The meshed tier (``parallel/mesh.py``, ``solver/meshed.py``) on
+    logical shards of the one card: (a) ``mesh_kernel_check``, then the main
+    path, (b) ``mesh_superproblem`` and ``mesh_flat`` and (c)
+    ``mesh_controller``, with the meshed wrappers' counts set to 0 just
+    before (b) and read just after (c). Returns the four wrappers' kernel
+    entries with their main-path launches. (d), ``mesh_one_card``, runs at
+    the end of the run: ``Operator.new`` reconfigures process-wide state
+    (the perf sentinel, lifecycle tracking, the decision log), which the
+    phases in between must not run under."""
+    from karpenter_tpu_torch.solver import meshed
+
+    kernels = mesh_kernel_check(ts, configs)
+    for k in meshed.LAUNCHES:
+        meshed.LAUNCHES[k] = 0
+    mesh_superproblem(ts, configs)
+    mesh_flat(ts, configs)
+    mesh_controller(ts, configs)
+    launches = dict(meshed.LAUNCHES)
+    log(f"mesh launches on the main path {launches}")
+    for entry in kernels:
+        entry["launches"] = launches[entry["name"]]
+        if entry["launches"] < 1:
+            raise AssertionError(f"{entry['name']} was not launched on the meshed main path")
+    return kernels
+
+
 def controller_round(ts, configs) -> dict:
     """Main path, provisioning controller: ``ProvisioningController(cluster,
     provider, settings=...)`` with its default ``TorchSolver()`` over
@@ -2563,7 +3174,7 @@ def consolidation(ts, configs) -> dict:
 #: interruption storm reclaims, and the drift passes after the image
 #: rotation (a whole rotation at ~900 nodes is one pass a node)
 OPERATOR_STORM_FRAC = 0.10
-OPERATOR_DRIFT_PASSES = 3
+OPERATOR_DRIFT_PASSES = 2
 #: seconds the entry point's subprocess may take to answer its probes, and
 #: to exit after SIGTERM
 ENTRYPOINT_READY_S = 180.0
@@ -3517,21 +4128,33 @@ def replay_solves(solves) -> str:
                      for p, e, b, be, w, v in rows) or "no TorchSolver solve"
 
 
-def replay_cli(tag, *args) -> str:
-    """``python -m karpenter_tpu_torch.replay`` on capsule ``tag``'s dump in
-    a subprocess on the card: it must exit 0. Returns its summary."""
+def replay_cli(*runs) -> list:
+    """``python -m karpenter_tpu_torch.replay`` on each run's capsule dump
+    (``(tag, *args)``), the subprocesses on the card side by side: each must
+    exit 0. Returns their summaries, in order."""
     root = Path(__file__).resolve().parent
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "karpenter_tpu_torch.replay",
-                          CAPSULE_PATHS[tag], *args], cwd=root, capture_output=True,
-                         text=True, timeout=REPLAY_CLI_S)
-    wall = time.perf_counter() - t0
-    summary = "\n".join(out.stdout.strip().splitlines()[:12])
-    if out.returncode != 0:
-        raise AssertionError(f"replay CLI on ({tag}) {list(args)}: exit code {out.returncode}\n"
-                             f"{summary}\n{out.stderr[-3000:]}")
-    log(f"replay CLI on ({tag}) {list(args)}: exit 0 in {wall:.2f} s:\n{summary}")
-    return summary
+    procs = [(tag, args, subprocess.Popen(
+        [sys.executable, "-m", "karpenter_tpu_torch.replay", CAPSULE_PATHS[tag], *args],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for tag, *args in runs]
+    summaries = []
+    try:
+        for tag, args, proc in procs:
+            stdout, stderr = proc.communicate(timeout=REPLAY_CLI_S)
+            wall = time.perf_counter() - t0
+            summary = "\n".join(stdout.strip().splitlines()[:12])
+            if proc.returncode != 0:
+                raise AssertionError(f"replay CLI on ({tag}) {list(args)}: exit code "
+                                     f"{proc.returncode}\n{summary}\n{stderr[-3000:]}")
+            log(f"replay CLI on ({tag}) {list(args)}: exit 0 in {wall:.2f} s:\n{summary}")
+            summaries.append(summary)
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return summaries
 
 
 def replay_phase(ts, st) -> dict:
@@ -3646,9 +4269,9 @@ def replay_phase(ts, st) -> dict:
         errs[k] = max(errs.get(k, 0.0), v)
     del c, rebuilt
     log(f"replay launches {launches}; card {card_line()}")
-    replay_cli("a")
     it, zone, ct = ice[0]
-    summary = replay_cli("c", "--override", f"offerings={it}/{zone}/{ct}=available")
+    # the two CLI runs side by side, so that the phase's wall pays for one
+    _, summary = replay_cli(("a",), ("c", "--override", f"offerings={it}/{zone}/{ct}=available"))
     if "counterfactual of capsule" not in summary:
         raise AssertionError(f"replay CLI on (c): not a counterfactual: {summary}")
     return dict(launches=launches, errs=errs)
@@ -4755,6 +5378,7 @@ def main() -> int:
     del cells
     phase("session_delta", session_delta, ts, configs)
     phase("session_fleet", session_fleet, ts, configs, fleet_encode_s)
+    mesh_kernels = phase("mesh", mesh_phase, ts, configs)
     controller_errs = phase("controller_round", controller_round, ts, configs)
     sharded = phase("controller_sharded", controller_sharded, ts, st, configs)
     consolidated = phase("consolidation", consolidation, ts, configs)
@@ -4766,6 +5390,8 @@ def main() -> int:
     sentinel = phase("perf_sentinel", perf_sentinel_phase, ts, configs)
     soaked = phase("soak", soak_phase, ts)
     federated = phase("federation", federation_phase, ts)
+    # the mesh phase's (d), last: its Operator.new reconfigures process-wide state
+    phase("mesh_one_card", mesh_one_card)
     shutil.rmtree(BASELINE_DIR, ignore_errors=True)
     log(f"phase walls (s): {PHASE_WALLS}")
     for entry in kernels:
@@ -4791,6 +5417,7 @@ def main() -> int:
             entry["max_abs_err"] = max(entry["max_abs_err"], k2_err)
         if entry["launches"] < 1:
             raise AssertionError(f"{entry['name']} was not launched on the main path")
+    kernels += mesh_kernels
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

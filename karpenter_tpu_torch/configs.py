@@ -203,6 +203,74 @@ def churn_cells(cells, r: int, per_round: int = 4, n_pods: int = 500_000, n_depl
     return list(churn_cell_events(cells, r, per_round, n_pods, n_deploys))
 
 
+#: ``bench.bench_mesh_superproblem``'s defaults (``bench.py:978-981``): the
+#: fleet, the cells churned a round, the superproblem cap and the fleet cap
+MESH_SUPERPROBLEM = dict(n_pods=500_000, n_cells=16, n_deploys=12, n_types=60, churn_cells=4,
+                         superproblem_max_cells=64, fleet_max_batch=16)
+
+
+def _mesh_pod(cell: int, name: str, shape: int) -> Pod:
+    return Pod(meta=ObjectMeta(name=name), requests=_cell_requests(shape),
+               node_selector={"bench.pool": f"m{cell}"})
+
+
+def config_mesh_superproblem(n_pods: int = 500_000, n_cells: int = 16, n_types: int = 60,
+                             n_deploys: int = 12):
+    """The meshed tier's fleet (``bench.bench_mesh_superproblem``): ``n_pods``
+    deployment-shaped pods in ``n_cells`` cells, each node-selected onto its
+    own provisioner ``mesh-NN`` over one shared catalog, ``n_deploys``
+    deployments a cell. Returns ``(cells, provisioners, catalog)`` as
+    ``config_cells`` does; ``MESH_SUPERPROBLEM`` holds the scenario's other
+    knobs and ``churn_mesh_cells`` its churn."""
+    catalog = generate_catalog(n_types=n_types)
+    provs = []
+    for c in range(n_cells):
+        p = Provisioner(meta=ObjectMeta(name=f"mesh-{c:02d}"), labels={"bench.pool": f"m{c}"})
+        p.meta.resource_version = c + 1
+        provs.append(p)
+    per_cell = n_pods // n_cells
+    per_dep = per_cell // n_deploys + 1
+    cells = []
+    for c in range(n_cells):
+        pods = {}
+        for d in range(n_deploys):
+            for i in range(per_dep):
+                if len(pods) >= per_cell:
+                    break
+                name = f"m{c}-d{d}-{i}"
+                pods[name] = _mesh_pod(c, name, d)
+        cells.append(pods)
+    return cells, provs, catalog
+
+
+def churn_mesh_cells(cells, r: int, churn_cells: int = 4, n_pods: int = 500_000,
+                     n_deploys: int = 12) -> dict:
+    """Churn round ``r`` of ``bench.bench_mesh_superproblem``, applied in
+    place to ``cells`` (``config_mesh_superproblem`` output) after rounds
+    0..r-1: in each of ``churn_cells`` cells, 1% of the cell's pods leave
+    deployment ``d{r % n_deploys}`` and as many join as new pods of
+    deployment ``(r + 5) % n_deploys``'s shape. Returns ``{cell: (removed
+    pods, added pods)}`` in churn order."""
+    n_cells = len(cells)
+    n_churn = max(n_pods // n_cells // 100, 1)
+    serial = r * churn_cells * n_churn
+    churned = [(r * churn_cells + j) % n_cells for j in range(churn_cells)]
+    down, up = r % n_deploys, (r + 5) % n_deploys
+    events = {}
+    for c in churned:
+        pods = cells[c]
+        removed = [pods.pop(name) for name in
+                   [n for n in pods if n.startswith(f"m{c}-d{down}-")][:n_churn]]
+        added = []
+        for i in range(n_churn):
+            name = f"m{c}-up{serial}-{i}"
+            pods[name] = _mesh_pod(c, name, up)
+            added.append(pods[name])
+        serial += n_churn
+        events[c] = (removed, added)
+    return events
+
+
 DELTA_ROUNDS = 8
 
 

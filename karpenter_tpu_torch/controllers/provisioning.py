@@ -3,8 +3,10 @@
 A copy of ``karpenter_tpu/controllers/provisioning.py``'s flat and sharded
 rounds, solving through the PyTorch solver (``TorchSolver`` by default, on
 the card), with the reference's flight-recorder capsule and federation
-gate. Left out until its slice is ported (``ROADMAP.md``, Queue 1): the
-multi-device tier (item 10). The constructor refuses ``mesh_enabled``.
+gate. With ``mesh_enabled`` the sharded round's fleet staging takes the
+superproblem width (``superproblem_max_cells``), as the reference's does;
+the solver's mesh (``TorchSolver(mesh=...)``, or the one the operator
+resolves from ``mesh_shape``) decides whether a dispatch is meshed.
 
 The rebuild of core's provisioning controller + ``Scheduler.Solve()`` call path
 (reference call stack in SURVEY §3.2): a batcher windows pending pods (idle 1s /
@@ -188,9 +190,12 @@ def clone_solver(solver: Solver) -> Optional[Solver]:
     solver beside a CPU one, which raises without CUDA. And only a
     ``TypeError`` (a solver whose constructor needs arguments) gives None:
     the reference's ``except Exception`` would turn a CPU round serial
-    without a word, and on the card hide a CUDA error. No mesh fields are
-    carried: the multi-device tier is not ported. The replay harness clones
-    the solver inside its digest tap through this (``replay.py``)."""
+    without a word, and on the card hide a CUDA error. The mesh config rides
+    along as the reference's does: every clone stamps the main solver's
+    mesh dims into its bucket keys (superproblem grouping batches across
+    clones) and shares its resolved mesh, so that a round builds one mesh.
+    The replay harness clones the solver inside its digest tap through this
+    (``replay.py``)."""
     try:
         if isinstance(solver, TorchSolver):
             clone = type(solver)(device=solver.device)
@@ -207,6 +212,14 @@ def clone_solver(solver: Solver) -> Optional[Solver]:
         clone._stager.capacity_bytes = st.capacity_bytes
     if hasattr(solver, "dispatch_timeout_s") and hasattr(clone, "dispatch_timeout_s"):
         clone.dispatch_timeout_s = solver.dispatch_timeout_s
+    if hasattr(solver, "mesh_shape") and hasattr(clone, "mesh_shape"):
+        clone.mesh_shape = solver.mesh_shape
+        clone.superproblem_max_cells = getattr(
+            solver, "superproblem_max_cells", clone.superproblem_max_cells
+        )
+        if getattr(solver, "mesh", None) is not None:
+            clone.mesh = solver.mesh
+            clone.auto_mesh = False
     return clone
 
 
@@ -221,16 +234,6 @@ class ProvisioningController:
     ):
         self.cluster = cluster
         self.provider = provider
-        # the multi-device tier is not ported yet: a setting that turns it on
-        # must not be ignored
-        for flag, item in (
-            ("mesh_enabled", "the multi-device tier, Queue 1 item 10"),
-        ):
-            if getattr(settings, flag, False):
-                raise NotImplementedError(
-                    f"{flag}: not ported to the PyTorch controller yet "
-                    f"(ROADMAP.md, {item})"
-                )
         self.solver = solver or TorchSolver()
         self.settings = settings or Settings()
         self.recorder = recorder or Recorder()
@@ -1164,11 +1167,11 @@ class ProvisioningController:
         the residue for the rest of the round) so the cell basis — and the
         per-cell digest streams — stay stable across cascade rounds.
 
-        A copy of the reference's round, with this difference:
-        ``stage_fleet`` takes no superproblem width, since
-        the multi-device tier is not ported (item 10; ``mesh_enabled`` makes
-        the constructor raise). A worker's exception, a kernel's launch
-        error among them, re-raises here through ``map_all``."""
+        A copy of the reference's round: with ``mesh_enabled``,
+        ``stage_fleet`` takes the superproblem width, and a clone solver on a
+        2D mesh solves its chunk as one meshed dispatch. A worker's
+        exception, a kernel's launch error among them, re-raises here
+        through ``map_all``."""
         import hashlib
 
         from ..parallel.hostpool import default_workers, map_all
@@ -1312,6 +1315,11 @@ class ProvisioningController:
             fleet_stats = stage_fleet(
                 [(solvers[i], staged[i]) for i in sorted(staged)],
                 max_batch=self.settings.fleet_max_batch,
+                superproblem_max_cells=(
+                    self.settings.superproblem_max_cells
+                    if self.settings.mesh_enabled
+                    else 0
+                ),
             )
             metrics.FLEET_ROUND_DISPATCHES.set(
                 float(fleet_stats["dispatches"])
@@ -1483,6 +1491,9 @@ class ProvisioningController:
             merged.stats["fleet_dispatches"] = float(fleet_stats["dispatches"])
             merged.stats["fleet_cells_batched"] = float(
                 fleet_stats["cells_batched"]
+            )
+            merged.stats["superproblems"] = float(
+                fleet_stats.get("superproblems", 0)
             )
         router.note_round_modes(modes)
         router.last_round = summaries

@@ -167,16 +167,23 @@ class Operator:
             provider, "enable_slice_topology"
         ):
             provider.enable_slice_topology()
-        # No AOT cache and no mesh: the reference configures its AOT
-        # executable cache here and resolves the 2D mesh shape. The port
-        # compiles nothing per shape (the kernel library is loaded in
-        # TorchSolver.__init__), so the aot_* settings are read by nothing;
-        # mesh_enabled makes the provisioning controller raise (Queue 1 item
-        # 10).
+        # No AOT cache: the reference configures its AOT executable cache
+        # here; the port compiles nothing per shape (the kernel library is
+        # loaded in TorchSolver.__init__), so the aot_* settings are read by
+        # nothing. The 2D meshed tier: the configured mesh shape resolved
+        # against the cards this host has (None below two, so that one card
+        # keeps the meshless path)
+        mesh_shape = None
+        if settings.mesh_enabled:
+            from .parallel import parse_mesh_shape
+
+            mesh_shape = parse_mesh_shape(settings.mesh_shape)
         if solver is None:
             solver = TorchSolver(
                 dispatch_timeout_s=settings.kernel_dispatch_timeout_s,
                 device=device,
+                mesh_shape=mesh_shape,
+                superproblem_max_cells=settings.superproblem_max_cells,
             )
             # the reference's solver takes these in its constructor
             solver._stager.enabled = settings.device_staging_enabled

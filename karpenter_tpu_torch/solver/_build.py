@@ -47,6 +47,19 @@ _SIGNATURES = {
     "kts_fleet_stack": [_P, _I, _L, _P],
     # x, y, n, stream
     "kts_rtt_probe": [_P, _P, _L, _P],
+    # the meshed tier (solver/meshed.py)
+    # 19 pointers, B G O E R Z S, stream
+    "kts_k1_part": [_P] * 19 + [_I] * 7 + [_P],
+    # 14 pointers, n B G O E R Z S, stream
+    "kts_k1_finish": [_P] * 14 + [_I] * 8 + [_P],
+    # 45 pointers, B K G O E R Z S c0 n self stage t, stream
+    "kts_k2m": [_P] * 45 + [_I] * 13 + [_P],
+    # 6 pointers, B K G k0, stream
+    "kts_seed_offer": [_P] * 6 + [_I] * 4 + [_P],
+    # 7 pointers, n B K G, stream
+    "kts_seed_pick": [_P] * 7 + [_I] * 4 + [_P],
+    # 3 pointers, n B Ll kl, stream
+    "kts_final_pick": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 
@@ -110,6 +123,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # B G O -> bytes of K1's scratch
     lib.kts_shared_precompute_scratch.argtypes = [_I] * 3
     lib.kts_shared_precompute_scratch.restype = _L
+    # O -> columns of K1's partials; G O E R Z S -> bytes of a meshed K2 member's state
+    lib.kts_k1_tiles.argtypes = [_I]
+    lib.kts_k1_tiles.restype = _L
+    lib.kts_k2m_state_bytes.argtypes = [_I] * 6
+    lib.kts_k2m_state_bytes.restype = _L
     return lib
 
 

@@ -17,6 +17,11 @@
 // to the host. The plain PyTorch versions of all three live beside their
 // wrappers in solver/torch_solver.py.
 //
+// The meshed tier's kernels (the 2D mesh's option shards and the 1D mesh's
+// member argmin, replacing what XLA partitions for _get_jit(..., mesh=...),
+// jax_solver.py:842-900) follow K3; their wrappers, plain versions and the
+// exchanges between shards are in solver/meshed.py.
+//
 // Batch axis. Every entry takes B stacked problems of one shape and solves
 // them in the same four launches: this is the fleet dispatch of the sharded
 // round (pack_solve_fleet, jax_solver.py:615-643, which runs the B=1 program
@@ -835,6 +840,229 @@ __global__ void __launch_bounds__(kK2PriceThreads) k2_prices(K2Args p) {
   a.price_t[(size_t)k * G * O + i] = fmaxf(__fmaf_rn(m, -kDiscount, pr), kFloor * pr);
 }
 
+// ---------------------------------------------------------------------------
+// The slot code of a K2 step, shared by k2_scan and the meshed tier's
+// k2m_kernel, so that one change reaches both and they stay bit for bit
+// equal. Each thread of a block owns the slots [s0, s1); slot s's record is
+// the W = kSlRem + R words at slots + s * W. Loops over a thread's slots
+// only, apart from k2_zone_clip, which has a barrier.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int* slot_at(int* slots, int W, int s) { return slots + (size_t)s * W; }
+__device__ __forceinline__ float* slot_rem(int* slots, int W, int s) {
+  return reinterpret_cast<float*>(slots + (size_t)s * W + kSlRem);
+}
+
+// The slots before step 0: the existing nodes with their remaining capacity,
+// zone, validity and relation bits; the fresh slots closed and empty.
+__device__ __forceinline__ void k2_init_slots(int* slots, int W, int s0, int s1, int E, int R,
+                                              const float* ex_rem, const int* ex_zone,
+                                              const bool* ex_valid, const int* rel_slot_bits) {
+  for (int s = s0; s < s1; ++s) {
+    const bool ex = s < E;
+    int* sl = slot_at(slots, W, s);
+    float* rs = slot_rem(slots, W, s);
+    for (int r = 0; r < R; ++r) rs[r] = ex ? ex_rem[(size_t)s * R + r] : 0.0f;
+    sl[kSlOpt] = -1;
+    sl[kSlZone] = ex ? ex_zone[s] : 0;
+    sl[kSlAct] = ex ? static_cast<int>(ex_valid[s]) : 0;
+    sl[kSlBits] = ex ? rel_slot_bits[s] : 0;
+  }
+}
+
+// Slot s's fit for the step's group: the pods its remaining capacity takes
+// (dfit a pod), at most the group's node cap, when the slot admits the group
+// (comp) and its host and zone relation bits allow it.
+__device__ __forceinline__ void k2_slot_fit(int* slots, int W, int s, bool comp, int hf, int hn,
+                                            bool rel, int zf, int zn, const int* zbits, int Z,
+                                            const float* dfit, int R, int cap) {
+  int* sl = slot_at(slots, W, s);
+  if (comp) {
+    const int sb = sl[kSlBits];
+    comp = (sb & hf) == 0 && (sb & hn) == hn;
+    if (comp && rel) {
+      const int zb = zbits[min(max(sl[kSlZone], 0), Z - 1)];
+      comp = (zb & zf) == 0 && (zb & zn) == zn;
+    }
+  }
+  sl[kSlFit] = comp ? min(fit_units(slot_rem(slots, W, s), dfit, R), cap) : 0;
+}
+
+// Zone quotas: a slot takes at most what its zone's quota (quota_of(z))
+// leaves after the slots before it in that zone; one scan for every zone at
+// once, the warps' partials in zpart ([nw][Z]). Has a barrier.
+template <class Quota>
+__device__ __forceinline__ void k2_zone_clip(int* slots, int W, int s0, int s1, int Z,
+                                             unsigned* zpart, Quota quota_of) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  for (int z = 0; z < Z; ++z) {
+    unsigned v = 0;
+    for (int s = s0; s < s1; ++s)
+      if (slot_at(slots, W, s)[kSlZone] == z) v += static_cast<unsigned>(slot_at(slots, W, s)[kSlFit]);
+    const unsigned incl = warp_scan(v);
+    if (lane == 31) zpart[wid * Z + z] = incl;
+    unsigned run = incl - v;
+    for (int s = s0; s < s1; ++s) {
+      int* sl = slot_at(slots, W, s);
+      if (sl[kSlZone] == z) {
+        sl[kSlPlace] = static_cast<int>(run);  // the slots before s in zone z, within the warp
+        run += static_cast<unsigned>(sl[kSlFit]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int s = s0; s < s1; ++s) {
+    int* sl = slot_at(slots, W, s);
+    const int z = sl[kSlZone];
+    if (z < 0 || z >= Z) {
+      sl[kSlFit] = 0;
+      continue;
+    }
+    unsigned before = static_cast<unsigned>(sl[kSlPlace]);
+    for (int j = 0; j < wid; ++j) before += zpart[j * Z + z];
+    const int allow = static_cast<int>(static_cast<unsigned>(quota_of(z)) - before);
+    sl[kSlFit] = min(sl[kSlFit], max(allow, 0));
+  }
+}
+
+// Colocated groups take a slot only whole. The thread's fit sum (lf, which
+// wraps like the int32 cumsum), the OR of its fits, and its free slots.
+__device__ __forceinline__ void k2_fit_sums(int* slots, int W, int s0, int s1, int E, bool coloc,
+                                            int cnt, unsigned& lf, unsigned& high, int& lfree) {
+  lf = high = 0;
+  lfree = 0;
+  for (int s = s0; s < s1; ++s) {
+    int* sl = slot_at(slots, W, s);
+    int f = sl[kSlFit];
+    if (coloc) f = f >= cnt ? cnt : 0;
+    sl[kSlFit] = f;
+    lf += static_cast<unsigned>(f);
+    high |= static_cast<unsigned>(f);
+    lfree += (s >= E && !sl[kSlAct]) ? 1 : 0;
+  }
+}
+
+// Greedy fill front to back: each slot takes what of the group's cnt pods
+// the fits before it leave (before: the fits of the threads before this
+// one), its capacity drops by the pods' demand d, and zone-limited groups
+// count their placements per zone. Returns the thread's placed pods.
+__device__ __forceinline__ unsigned k2_fill(int* slots, int W, int s0, int s1, unsigned before, int cnt,
+                                            const float* d, int R, bool zl, int Z, int* placed_z) {
+  unsigned placed = 0;
+  for (int s = s0; s < s1; ++s) {
+    int* sl = slot_at(slots, W, s);
+    const int f = sl[kSlFit];
+    const int pl = min(max(static_cast<int>(static_cast<unsigned>(cnt) - before), 0), f);
+    before += static_cast<unsigned>(f);
+    sl[kSlPlace] = pl;
+    placed += static_cast<unsigned>(pl);
+    if (pl != 0) {
+      float* rs = slot_rem(slots, W, s);
+      for (int r = 0; r < R; ++r) rs[r] = __fmaf_rn(static_cast<float>(pl), -d[r], rs[r]);
+      const int z = sl[kSlZone];
+      if (zl && z >= 0 && z < Z) atomicAdd(&placed_z[z], pl);
+    }
+  }
+  return placed;
+}
+
+// An option's scores for a want of w pods in its bucket (inb), u pods a node
+// at price pr: the lump (whole nodes for the want) and the rate (price a
+// pod, for options no larger than the want).
+__device__ __forceinline__ float lump_score(bool inb, int w, int u, float pr) {
+  return inb && u > 0 ? static_cast<float>(ceil_div(w, u)) * pr : kInf;
+}
+__device__ __forceinline__ float rate_score(bool inb, int w, int u, float pr) {
+  return inb && u > 0 && u <= w ? pr / fmaxf(static_cast<float>(u), 1.0f) : kInf;
+}
+
+// A bucket's two segments from its choices: the lump's or the rate option's
+// full nodes (c_a pods a node, want_a pods), then the tail option's
+// remainder (c_t, want_t; empty unless the rate mix wins). c_lump, b_rate
+// and b_tail are the minima, c_rate and pe_rate the rate option's units and
+// effective price, u_lump and u_tail the lump's and tail option's units.
+// Returns whether the lump wins.
+__device__ __forceinline__ bool k2_bucket_segments(int want, float c_lump, float b_rate, int c_rate,
+                                                   float pe_rate, float b_tail, int u_lump, int u_tail,
+                                                   int& c_a, int& want_a, int& c_t, int& want_t) {
+  const int n_full = want / max(c_rate, 1);
+  const int rem_w = want - n_full * c_rate;
+  const float tail_cost = rem_w > 0 ? b_tail : 0.0f;
+  const float cost_mixed = b_rate < kInf ? __fmaf_rn(static_cast<float>(n_full), pe_rate, tail_cost) : kInf;
+  const bool lump = c_lump <= cost_mixed;
+  const bool feasible = want > 0 && fminf(c_lump, cost_mixed) < kInf;
+  c_a = max(lump ? u_lump : c_rate, 1);
+  want_a = feasible ? (lump ? want : n_full * c_rate) : 0;
+  c_t = max(u_tail, 1);
+  want_t = feasible && !lump ? rem_w : 0;
+  return lump;
+}
+
+// Slot s opened on an option with alloc row c, taking fill pods of demand d.
+__device__ __forceinline__ void k2_open_slot(int* slots, int W, int s, int fill, const float* d, int R,
+                                             const float* c, int opt, int zone) {
+  float* rs = slot_rem(slots, W, s);
+  for (int r = 0; r < R; ++r) rs[r] = __fmaf_rn(static_cast<float>(fill), -d[r], c[r]);
+  int* sl = slot_at(slots, W, s);
+  sl[kSlOpt] = opt;
+  sl[kSlZone] = zone;
+  sl[kSlAct] = 1;
+}
+
+// Allocate the free slots to the segments in rank order (r0: the 0-based
+// rank of this thread's first free slot): a free slot of rank below
+// total_open joins the segment its rank falls in, open(s, sid, fill) opening
+// it on that segment's option; then the step's placements go to yrow, and a
+// slot that took pods publishes the group's presence bits sm on itself and
+// its zone.
+template <class Open>
+__device__ __forceinline__ void k2_open_slots(int* slots, int W, int s0, int s1, int E, int Z, int r0,
+                                              int total_open, int nseg, const int* seg_start,
+                                              const int* seg_c, const int* seg_want, int sm, int* zbits,
+                                              int* yrow, Open open) {
+  for (int s = s0; s < s1; ++s) {
+    int* sl = slot_at(slots, W, s);
+    int fill = 0;
+    if (s >= E && !sl[kSlAct]) {
+      if (r0 < total_open) {
+        int sid = -1;  // segment starts <= rank, minus one: skips empty segments
+        for (int j = 0; j < nseg; ++j) sid += r0 >= seg_start[j] ? 1 : 0;
+        sid = min(max(sid, 0), nseg - 1);
+        const int c_i = seg_c[sid];
+        const unsigned used = static_cast<unsigned>(r0 - seg_start[sid]) * static_cast<unsigned>(c_i);
+        fill = min(max(static_cast<int>(static_cast<unsigned>(seg_want[sid]) - used), 0), c_i);
+        open(s, sid, fill);
+      }
+      ++r0;
+    }
+    const int y = sl[kSlPlace] + fill;
+    yrow[s] = y;
+    if (y > 0) {
+      sl[kSlBits] |= sm;
+      const int z = sl[kSlZone];
+      if (sm != 0 && z >= 0 && z < Z) atomicOr(&zbits[z], sm);
+    }
+  }
+}
+
+// The member's fresh slots (new_opt, new_active: its S entries) and the f32
+// sum of their prices (price_of(s, opt)) over this thread's slots, which the
+// caller sums over the block: k2_scan's partition and order.
+template <class Price>
+__device__ __forceinline__ float k2_member_slots(int* slots, int W, int s0, int s1, int E, int* new_opt,
+                                                 bool* new_active, Price price_of) {
+  float csum = 0.0f;
+  for (int s = max(s0, E); s < s1; ++s) {
+    const int* sl = slot_at(slots, W, s);
+    const int so = sl[kSlOpt];
+    const bool act = sl[kSlAct] && so >= 0;
+    new_opt[s - E] = so;
+    new_active[s - E] = act;
+    if (act) csum += price_of(s, so);
+  }
+  return csum;
+}
+
 // K2b replaces the scan of _pack_member (jax_solver.py:330-535): one block per
 // (member k, batch row b) runs the T steps. Bound: latency, T dependent steps
 // of block-wide rounds on K*B SMs (the bytes it must move take ~2 us at
@@ -903,8 +1131,7 @@ __global__ void __launch_bounds__(kK2Threads) k2_scan(K2Args p) {
   float* sc = reinterpret_cast<float*>(state);  // [O][lump or tail, rate]
   int* slots = reinterpret_cast<int*>(state + round16(8 * static_cast<size_t>(O)));
   const int W = kSlRem + R;
-  auto slot = [&](int s) { return slots + (size_t)s * W; };
-  auto srem = [&](int s) { return reinterpret_cast<float*>(slots + (size_t)s * W + kSlRem); };
+  auto slot = [&](int s) { return slot_at(slots, W, s); };
   // this thread's slots [s0, s1): NS/BT of them or one more, so every warp
   // holds slots however small NS is
   const int s0 = static_cast<int>((long long)tid * NS / BT);
@@ -937,14 +1164,7 @@ __global__ void __launch_bounds__(kK2Threads) k2_scan(K2Args p) {
   }
   for (int i = tid; i < G * Z; i += BT) gq[i] = a.quota[i];
   for (int z = tid; z < Z; z += BT) zbits[z] = a.rel_zone_bits[z];
-  for (int s = s0; s < s1; ++s) {
-    const bool ex = s < E;
-    for (int r = 0; r < R; ++r) srem(s)[r] = ex ? a.ex_rem[(size_t)s * R + r] : 0.0f;
-    slot(s)[kSlOpt] = -1;
-    slot(s)[kSlZone] = ex ? a.ex_zone[s] : 0;
-    slot(s)[kSlAct] = ex ? static_cast<int>(a.ex_valid[s]) : 0;
-    slot(s)[kSlBits] = ex ? a.rel_slot_bits[s] : 0;
-  }
+  k2_init_slots(slots, W, s0, s1, E, R, a.ex_rem, a.ex_zone, a.ex_valid, a.rel_slot_bits);
   __syncthreads();
   const int src = s_src;
   const bool look = s_look, rsv = s_rsv, prefer_big = s_alpha >= 1.0f;
@@ -1006,56 +1226,12 @@ __global__ void __launch_bounds__(kK2Threads) k2_scan(K2Args p) {
       } else {
         comp = a.exok_pad[(size_t)g * NS + s];
       }
-      if (comp) {
-        const int sb = slot(s)[kSlBits];
-        comp = (sb & hf) == 0 && (sb & hn) == hn;
-        if (comp && rel) {
-          const int zb = zbits[min(max(slot(s)[kSlZone], 0), Z - 1)];
-          comp = (zb & zf) == 0 && (zb & zn) == zn;
-        }
-      }
-      slot(s)[kSlFit] = comp ? min(fit_units(srem(s), dfit, R), cap) : 0;
+      k2_slot_fit(slots, W, s, comp, hf, hn, rel, zf, zn, zbits, Z, dfit, R, cap);
     }
-    if (zl) {
-      // zone quotas: a slot takes at most what its zone's quota leaves after
-      // the slots before it in that zone; one scan for every zone at once
-      for (int z = 0; z < Z; ++z) {
-        unsigned v = 0;
-        for (int s = s0; s < s1; ++s)
-          if (slot(s)[kSlZone] == z) v += static_cast<unsigned>(slot(s)[kSlFit]);
-        const unsigned incl = warp_scan(v);
-        if (lane == 31) zpart[wid * Z + z] = incl;
-        unsigned run = incl - v;
-        for (int s = s0; s < s1; ++s)
-          if (slot(s)[kSlZone] == z) {
-            slot(s)[kSlPlace] = static_cast<int>(run);  // the slots before s in zone z, within the warp
-            run += static_cast<unsigned>(slot(s)[kSlFit]);
-          }
-      }
-      __syncthreads();
-      for (int s = s0; s < s1; ++s) {
-        const int z = slot(s)[kSlZone];
-        if (z < 0 || z >= Z) {
-          slot(s)[kSlFit] = 0;
-          continue;
-        }
-        unsigned before = static_cast<unsigned>(slot(s)[kSlPlace]);
-        for (int j = 0; j < wid; ++j) before += zpart[j * Z + z];
-        const int allow = static_cast<int>(static_cast<unsigned>(quota_of(z)) - before);
-        slot(s)[kSlFit] = min(slot(s)[kSlFit], max(allow, 0));
-      }
-    }
-    // colocated groups take a slot only whole; count the free slots too
-    unsigned lf = 0, high = 0;  // lf wraps like the int32 cumsum
-    int lfree = 0;
-    for (int s = s0; s < s1; ++s) {
-      int f = slot(s)[kSlFit];
-      if (coloc) f = f >= cnt ? cnt : 0;
-      slot(s)[kSlFit] = f;
-      lf += static_cast<unsigned>(f);
-      high |= static_cast<unsigned>(f);
-      lfree += (s >= E && !slot(s)[kSlAct]) ? 1 : 0;
-    }
+    if (zl) k2_zone_clip(slots, W, s0, s1, Z, zpart, quota_of);
+    unsigned lf, high;
+    int lfree;
+    k2_fit_sums(slots, W, s0, s1, E, coloc, cnt, lf, high, lfree);
     // ---- round 1: one scan of (fit, free) over the slots ----
     const unsigned xf = warp_scan(lf);
     const int xfree = warp_scan(lfree);
@@ -1080,24 +1256,7 @@ __global__ void __launch_bounds__(kK2Threads) k2_scan(K2Args p) {
       n_free = __reduce_add_sync(kFull, pfree);
       wraps = __reduce_or_sync(kFull, lane < nw ? static_cast<unsigned>(s_scan_high[lane]) : 0u) != 0;
     }
-    // greedy fill front to back
-    unsigned placed_local = 0;
-    {
-      unsigned b = before_f;
-      for (int s = s0; s < s1; ++s) {
-        const int f = slot(s)[kSlFit];
-        const int pl = min(max(static_cast<int>(static_cast<unsigned>(cnt) - b), 0), f);
-        b += static_cast<unsigned>(f);
-        slot(s)[kSlPlace] = pl;
-        placed_local += static_cast<unsigned>(pl);
-        if (pl != 0) {
-          float* rs = srem(s);
-          for (int r = 0; r < R; ++r) rs[r] = __fmaf_rn(static_cast<float>(pl), -d[r], rs[r]);
-          const int z = slot(s)[kSlZone];
-          if (zl && z >= 0 && z < Z) atomicAdd(&placed_z[z], pl);
-        }
-      }
-    }
+    const unsigned placed_local = k2_fill(slots, W, s0, s1, before_f, cnt, d, R, zl, Z, placed_z);
     // without wrap-around the greedy fill places min(cnt, total fit); with
     // it, the places are summed as the plain version sums them
     const int placed = !wraps ? min(cnt, static_cast<int>(tot_f))
@@ -1166,9 +1325,8 @@ __global__ void __launch_bounds__(kK2Threads) k2_scan(K2Args p) {
           const bool inb = in_bucket(b, o);
           if (!argmax) {
             const float pr = pe[o];
-            const float s0 = inb && u > 0 ? static_cast<float>(ceil_div(w, u)) * pr : kInf;
-            const float s1 =
-                !tail && inb && u > 0 && u <= w ? pr / fmaxf(static_cast<float>(u), 1.0f) : kInf;
+            const float s0 = lump_score(inb, w, u, pr);
+            const float s1 = !tail ? rate_score(inb, w, u, pr) : kInf;
             if (inb) {
               sc[2 * o] = s0;
               sc[2 * o + 1] = s1;
@@ -1236,21 +1394,11 @@ __global__ void __launch_bounds__(kK2Threads) k2_scan(K2Args p) {
         }
         const int b = b0 + lane;
         if (b < Zb) {
-          const int c_rate = urow[o_rate];
-          const int n_full = want / max(c_rate, 1);
-          const int rem_w = want - n_full * c_rate;
-          const float tail_cost = rem_w > 0 ? b_tail : 0.0f;
-          const float cost_mixed =
-              b_rate < kInf ? __fmaf_rn(static_cast<float>(n_full), pe[o_rate], tail_cost) : kInf;
-          const bool lump = c_lump <= cost_mixed;
-          const bool feasible = want > 0 && fminf(c_lump, cost_mixed) < kInf;
-          const int a_opt = lump ? o_lump : o_rate;
-          seg_opt[b] = a_opt;
-          seg_c[b] = max(urow[a_opt], 1);
-          seg_want[b] = feasible ? (lump ? want : n_full * c_rate) : 0;
+          const bool lump = k2_bucket_segments(want, c_lump, b_rate, urow[o_rate], pe[o_rate], b_tail,
+                                               urow[o_lump], urow[o_tail], seg_c[b], seg_want[b],
+                                               seg_c[Zb + b], seg_want[Zb + b]);
+          seg_opt[b] = lump ? o_lump : o_rate;
           seg_opt[Zb + b] = o_tail;
-          seg_c[Zb + b] = max(urow[o_tail], 1);
-          seg_want[Zb + b] = (feasible && !lump) ? rem_w : 0;
         }
       }
       __syncwarp();
@@ -1278,37 +1426,11 @@ __global__ void __launch_bounds__(kK2Threads) k2_scan(K2Args p) {
 
     // ---- allocate free slots to segments, in rank order ----
     const int total_open = s_total_open;
-    {
-      int r0 = before_free;  // 0-based rank of this thread's first free slot
-      for (int s = s0; s < s1; ++s) {
-        int fill = 0;
-        if (s >= E && !slot(s)[kSlAct]) {
-          if (r0 < total_open) {
-            int sid = -1;  // segment starts <= rank, minus one: skips empty segments
-            for (int j = 0; j < nseg; ++j) sid += r0 >= seg_start[j] ? 1 : 0;
-            sid = min(max(sid, 0), nseg - 1);
-            const int o_i = seg_opt[sid], c_i = seg_c[sid];
-            const unsigned used = static_cast<unsigned>(r0 - seg_start[sid]) * static_cast<unsigned>(c_i);
-            fill = min(max(static_cast<int>(static_cast<unsigned>(seg_want[sid]) - used), 0), c_i);
-            const float* c = a.alloc + (size_t)o_i * R;
-            float* rs = srem(s);
-            for (int r = 0; r < R; ++r) rs[r] = __fmaf_rn(static_cast<float>(fill), -d[r], c[r]);
-            slot(s)[kSlOpt] = o_i;
-            slot(s)[kSlZone] = a.opt_zone[o_i];
-            slot(s)[kSlAct] = 1;
-          }
-          ++r0;
-        }
-        const int y = slot(s)[kSlPlace] + fill;
-        yrow[s] = y;
-        if (y > 0) {
-          // publish the group's presence bits on its slots and zones
-          slot(s)[kSlBits] |= sm;
-          const int z = slot(s)[kSlZone];
-          if (sm != 0 && z >= 0 && z < Z) atomicOr(&zbits[z], sm);
-        }
-      }
-    }
+    k2_open_slots(slots, W, s0, s1, E, Z, before_free, total_open, nseg, seg_start, seg_c, seg_want,
+                  sm, zbits, yrow, [&](int s, int sid, int fill) {
+                    const int o_i = seg_opt[sid];
+                    k2_open_slot(slots, W, s, fill, d, R, a.alloc + (size_t)o_i * R, o_i, a.opt_zone[o_i]);
+                  });
     if (tid == 0) {
       const int l2 = left - s_opened;
       unplaced += l2;
@@ -1318,14 +1440,9 @@ __global__ void __launch_bounds__(kK2Threads) k2_scan(K2Args p) {
   }
 
   // ---- member result ----
-  float csum = 0.0f;
-  for (int s = max(s0, E); s < s1; ++s) {
-    const int so = slot(s)[kSlOpt];
-    const bool act = slot(s)[kSlAct] && so >= 0;
-    a.new_opt[(size_t)k * a.S + (s - E)] = so;
-    a.new_active[(size_t)k * a.S + (s - E)] = act;
-    if (act) csum += a.price[min(max(so, 0), O - 1)];
-  }
+  const float csum = k2_member_slots(slots, W, s0, s1, E, a.new_opt + (size_t)k * a.S,
+                                     a.new_active + (size_t)k * a.S,
+                                     [&](int, int so) { return a.price[min(max(so, 0), O - 1)]; });
   const float total = block_sum_f(csum, sh);
   if (tid == 0) {
     a.cost[k] = __fmaf_rn(static_cast<float>(unplaced), kPenalty, total);
@@ -1500,6 +1617,732 @@ bool k2_plan(const K2Limits& lim, int G, int O, int R, int Z, int NS, int smem_l
   return false;
 }
 
+// ---------------------------------------------------------------------------
+// The meshed tier: kernels of one shard of a device mesh (solver/meshed.py)
+// ---------------------------------------------------------------------------
+//
+// These replace what XLA partitions for the JAX package's meshed programs
+// (_get_jit(..., mesh=...), _pin and mesh_constraints, jax_solver.py:140-190,
+// 842-900). Shards exchange between launches, by device copies ordered by
+// events (meshed.py); no kernel waits on another shard inside a launch.
+//
+//   k1_mesh_combine  the K1 partials of every option shard (the rate minima,
+//                    a min; the reserve fits, an any) reduced into the first
+//                    column of the layout k1_val_pair reads; k1_units and
+//                    k1_val_pair then run unchanged over a shard's columns
+//   k2m_kernel       one stage of one step of K2 on an option shard, with
+//                    each member's slot state in global memory, replicated
+//                    on every shard (kStInit, kStFill .. kStApply, kStEnd)
+//   mesh_seed_offer, mesh_seed_pick, mesh_final_pick
+//                    the 1D mesh's cross-shard member argmin
+//
+// Every cross-shard value is a min, an OR, or an argmax or argmin with a
+// fixed tie rule, so a meshed chain's outputs equal the un-meshed chain's
+// bit for bit; the member cost is summed by k2m_kernel's end stage with
+// k2_scan's thread partition and block reduction, in the same order.
+
+constexpr int kMeshThreads = 256;       // k1_mesh_combine, mesh_seed_pick, mesh_final_pick
+constexpr int kMeshTile = 4 * kMeshThreads;  // mesh_final_pick: ints of the buffer a block writes
+constexpr long long kMeshMaxBlocks = 4096;
+
+struct K1CombineArgs {
+  const int* parts;  // [n][2][per]: rate minima (f32 bits), then reserve fits
+  int* out;          // [2][per]: the reductions in tile column 0, neutral elsewhere
+  int n, nt;
+  long long per;     // B * G * nt
+};
+
+__global__ void __launch_bounds__(kMeshThreads) k1_mesh_combine(K1CombineArgs a) {
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < a.per; i += step) {
+    if (i % a.nt != 0) {
+      a.out[i] = __float_as_int(kInf);
+      a.out[a.per + i] = 0;
+      continue;
+    }
+    float m = kInf;
+    int f = 0;
+    for (int j = 0; j < a.n; ++j) {
+      const int* p = a.parts + (size_t)j * 2 * a.per;
+      for (int c = 0; c < a.nt; ++c) {
+        m = fminf(m, __int_as_float(p[i + c]));
+        f |= p[a.per + i + c];
+      }
+    }
+    a.out[i] = __float_as_int(m);
+    a.out[a.per + i] = f != 0 ? 1 : 0;
+  }
+}
+
+struct K2MArgs {
+  const float* demand;          // [G, R]
+  const float* demand_units;    // [G, R]
+  const int* count;             // [G]
+  const int* node_cap;          // [G]
+  const bool* colocate;         // [G]
+  const bool* compat;           // [G, O] the shard's columns
+  const float* alloc;           // [O, R]
+  const float* price;           // [O]
+  const int* opt_zone;          // [O]
+  const float* ex_rem;          // [E, R]
+  const int* ex_zone;           // [E]
+  const bool* ex_valid;         // [E]
+  const int* rel_set;           // [G]
+  const int* rel_host_forbid;   // [G]
+  const int* rel_host_need;     // [G]
+  const int* rel_zone_forbid;   // [G]
+  const int* rel_zone_need;     // [G]
+  const int* rel_slot_bits;     // [E]
+  const int* rel_zone_bits;     // [Z]
+  const int* units;             // [G, O]
+  const int* units_rsv;         // [G, O]
+  const bool* rsv_group;        // [G]
+  const int* quota;             // [G, Z]
+  const bool* zone_limited;     // [G]
+  const float* val_pair;        // [G, O, G]
+  const bool* exok_pad;         // [G, E+S]
+  const int* orders;            // [K, G]
+  const float* alphas;          // [K]
+  const bool* looks;            // [K]
+  const bool* rsvs;             // [K]
+  const int* swaps;             // [K, G] (phase 2 only)
+  const float* seed_costs;      // [K] phase-1 costs, or null for phase 1
+  float* price_t;               // [K, G, O] lookahead prices (k2_prices, the shard's columns)
+  unsigned char* state;         // [B][K][k2m_state_bytes] per-member state
+  int* xa;  // [n][B][K][2 Zb]      fill: lump and rate minima (f32 bits)
+  int* xb;  // [n][B][K][2][Zb][RW] pick: lump and rate records
+  int* xc;  // [n][B][K][Zb]        tail: tail minima
+  int* xd;  // [n][B][K][Zb][RW]    tail_pick: tail records
+  int* xe;  // [n][B][K][(S+31)/32] apply: the next group's slot bits
+  int* ys;                      // [K, G, E+S]
+  float* cost;                  // [K]
+  int* unplaced;                // [K]
+  bool* exhausted;              // [K]
+  int* new_opt;                 // [K, S]
+  bool* new_active;             // [K, S]
+  int B, K, G, O, E, R, Z, S, c0, n, self, stage, t;
+};
+
+enum { kStInit = -1, kStFill = 0, kStPick = 1, kStTail = 2, kStTailPick = 3, kStApply = 4, kStEnd = 5 };
+// state scalars
+enum { kScLook, kScRsv, kScAlpha, kScLeft, kScFree, kScUnplaced, kScExhausted, kSc = 8 };
+// an exchanged option record: value, global index, units, effective price,
+// price, zone, then the alloc row
+enum { kRcValue, kRcIdx, kRcUnits, kRcPe, kRcPrice, kRcZone, kRcAlloc };
+
+struct K2MLayout {  // word offsets of one member's state
+  size_t order, scal, zbits, want, cmin, rec, slots, sprice, sc, words;
+};
+
+__host__ __device__ __forceinline__ K2MLayout k2m_layout(int G, int O, int E, int R, int Z, int S) {
+  const size_t NS = (size_t)E + S, Zb = Z + 1, RW = kRcAlloc + R, W = kSlRem + R;
+  K2MLayout l;
+  size_t w = 0;
+  l.order = w; w += G;
+  l.scal = w; w += kSc;
+  l.zbits = w; w += Z;
+  l.want = w; w += Zb;
+  l.cmin = w; w += 3 * Zb;          // per bucket: lump, rate and tail minima
+  l.rec = w; w += 3 * Zb * RW;      // the lump, rate and tail choices
+  l.slots = w; w += NS * W;
+  l.sprice = w; w += NS;            // an opened slot's option price
+  l.sc = w; w += 2 * (size_t)O;     // the shard's option scores
+  l.words = w;
+  return l;
+}
+
+__host__ __device__ __forceinline__ size_t k2m_state_bytes(int G, int O, int E, int R, int Z, int S) {
+  return round16(4 * k2m_layout(G, O, E, R, Z, S).words);
+}
+
+// K2MArgs of batch row b: inputs, prices and outputs advanced by row b (the
+// state and the exchange regions are indexed by row where they are read).
+__device__ __forceinline__ K2MArgs k2m_row(K2MArgs a, size_t b) {
+  const size_t K = a.K, G = a.G, O = a.O, E = a.E, R = a.R, Z = a.Z, S = a.S, NS = a.E + a.S;
+  a.demand += b * G * R;
+  a.demand_units += b * G * R;
+  a.count += b * G;
+  a.node_cap += b * G;
+  a.colocate += b * G;
+  a.compat += b * G * O;
+  a.alloc += b * O * R;
+  a.price += b * O;
+  a.opt_zone += b * O;
+  a.ex_rem += b * E * R;
+  a.ex_zone += b * E;
+  a.ex_valid += b * E;
+  a.rel_set += b * G;
+  a.rel_host_forbid += b * G;
+  a.rel_host_need += b * G;
+  a.rel_zone_forbid += b * G;
+  a.rel_zone_need += b * G;
+  a.rel_slot_bits += b * E;
+  a.rel_zone_bits += b * Z;
+  a.units += b * G * O;
+  a.units_rsv += b * G * O;
+  a.rsv_group += b * G;
+  a.quota += b * G * Z;
+  a.zone_limited += b * G;
+  a.exok_pad += b * G * NS;
+  a.orders += b * K * G;
+  a.alphas += b * K;
+  a.looks += b * K;
+  a.rsvs += b * K;
+  if (a.swaps != nullptr) a.swaps += b * K * G;
+  if (a.seed_costs != nullptr) a.seed_costs += b * K;
+  a.price_t += b * K * G * O;
+  a.ys += b * K * G * NS;
+  a.cost += b * K;
+  a.unplaced += b * K;
+  a.exhausted += b * K;
+  a.new_opt += b * K * S;
+  a.new_active += b * K * S;
+  return a;
+}
+
+__device__ float block_min_f(float v, Scratch& sh) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  v = warp_min(v);
+  if (lane == 0) sh.f[wid] = v;
+  __syncthreads();
+  if (wid == 0) {
+    float x = warp_min(lane < nw ? sh.f[lane] : kInf);
+    if (lane == 0) sh.f[32] = x;
+  }
+  __syncthreads();
+  const float r = sh.f[32];
+  __syncthreads();
+  return r;
+}
+
+// The block's largest (v, i), lowest i on ties, on every thread.
+__device__ void block_argmax(float& v, int& i, Scratch& sh) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  warp_argmax_r(v, i);
+  if (lane == 0) {
+    sh.f[wid] = v;
+    sh.i[wid] = i;
+  }
+  __syncthreads();
+  if (wid == 0) {
+    float x = lane < nw ? sh.f[lane] : neg_inf();
+    int j = lane < nw ? sh.i[lane] : kIntMax;
+    warp_argmax_r(x, j);
+    if (lane == 0) {
+      sh.f[32] = x;
+      sh.i[32] = j;
+    }
+  }
+  __syncthreads();
+  v = sh.f[32];
+  i = sh.i[32];
+  __syncthreads();
+}
+
+// The exclusive prefix of v over the block's threads in thread order, and
+// the total; unsigned, so that sums wrap like XLA's int32 sums.
+__device__ unsigned block_scan(unsigned v, unsigned* part, unsigned& total) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const unsigned x = warp_scan(v);
+  if (lane == 31) part[wid] = x;
+  __syncthreads();
+  const unsigned pf = lane < nw ? part[lane] : 0u;
+  const unsigned before = x - v + __reduce_add_sync(kFull, lane < wid ? pf : 0u);
+  total = __reduce_add_sync(kFull, pf);
+  __syncthreads();
+  return before;
+}
+
+// k2m_kernel replaces one stage of a step of _pack_member (jax_solver.py:
+// 330-535) as XLA partitions it over the options axis: grid (K, B), one
+// block of kK2Threads per member, which owns the slots [tid * NS / BT,
+// (tid + 1) * NS / BT) as k2_scan's threads do. The computations on slots
+// are k2_scan's own functions (k2_init_slots .. k2_member_slots), on state
+// in global memory, replicated on every shard; the option rounds run over
+// the shard's columns and exchange minima and records. Bound: latency, a few block-wide rounds a launch, five launches
+// and five exchanges a step.
+__global__ void __launch_bounds__(kK2Threads) k2m_kernel(K2MArgs p) {
+  __shared__ Scratch sh;
+  __shared__ unsigned s_part[32];
+  __shared__ unsigned s_zpart[32 * kMaxZ];
+  __shared__ int s_placed_z[kMaxZ];
+  __shared__ int seg_rec[kMaxSeg], seg_c[kMaxSeg], seg_want[kMaxSeg], seg_start[kMaxSeg];
+  __shared__ int s_total_open, s_opened;
+
+  const int b = blockIdx.y, k = blockIdx.x;
+  const K2MArgs a = k2m_row(p, b);
+  const int tid = threadIdx.x, BT = blockDim.x;
+  const int G = a.G, O = a.O, E = a.E, R = a.R, Z = a.Z, S = a.S, Zb = Z + 1, NS = E + S;
+  const int RW = kRcAlloc + R, W = kSlRem + R, nseg = 2 * Zb;
+  const K2MLayout L = k2m_layout(G, O, E, R, Z, S);
+  int* st = reinterpret_cast<int*>(a.state + ((size_t)b * a.K + k) * k2m_state_bytes(G, O, E, R, Z, S));
+  int* order = st + L.order;
+  int* scal = st + L.scal;
+  int* zbits = st + L.zbits;
+  int* want = st + L.want;
+  float* cmin = reinterpret_cast<float*>(st + L.cmin);
+  int* rec = st + L.rec;  // [3][Zb][RW]: lump, rate, tail
+  int* slots = st + L.slots;
+  float* sprice = reinterpret_cast<float*>(st + L.sprice);
+  float* sc = reinterpret_cast<float*>(st + L.sc);
+  auto slot = [&](int s) { return slot_at(slots, W, s); };
+  const int s0 = static_cast<int>((long long)tid * NS / BT);
+  const int s1 = static_cast<int>((long long)(tid + 1) * NS / BT);
+  const size_t PA = 2 * (size_t)Zb, PB = 2 * (size_t)Zb * RW, PC = Zb, PD = (size_t)Zb * RW;
+  const size_t PE = (S + 31) / 32;
+  auto region = [&](int* x, int j, size_t per) { return x + (((size_t)j * a.B + b) * a.K + k) * per; };
+
+  if (a.stage == kStInit) {
+    // the scoring config: member k's own, or the phase-1 winner's in phase 2
+    int src = k;
+    if (a.seed_costs != nullptr) {
+      float best = a.seed_costs[0];
+      src = 0;
+      for (int j = 1; j < a.K; ++j)
+        if (argmin_before(a.seed_costs[j], j, best, src)) {
+          best = a.seed_costs[j];
+          src = j;
+        }
+    }
+    if (tid == 0) {
+      scal[kScLook] = a.looks[src];
+      scal[kScRsv] = a.rsvs[src];
+      scal[kScAlpha] = __float_as_int(a.alphas[src]);
+      scal[kScUnplaced] = 0;
+      scal[kScExhausted] = 0;
+    }
+    for (int t = tid; t < G; t += BT)
+      order[t] = a.seed_costs != nullptr ? a.orders[(size_t)src * G + a.swaps[(size_t)k * G + t]]
+                                         : a.orders[(size_t)k * G + t];
+    for (int z = tid; z < Z; z += BT) zbits[z] = a.rel_zone_bits[z];
+    k2_init_slots(slots, W, s0, s1, E, R, a.ex_rem, a.ex_zone, a.ex_valid, a.rel_slot_bits);
+    for (int s = s0; s < s1; ++s) sprice[s] = 0.0f;
+    // no fresh slot is open before step 0: every shard's bits are clear
+    for (int j = 0; j < a.n; ++j)
+      for (size_t w = tid; w < PE; w += BT) region(a.xe, j, PE)[w] = 0;
+    return;
+  }
+
+  if (a.stage == kStEnd) {
+    // the member result: k2_scan's partition and block sum of the prices
+    const float csum = k2_member_slots(slots, W, s0, s1, E, a.new_opt + (size_t)k * S,
+                                       a.new_active + (size_t)k * S,
+                                       [&](int s, int) { return sprice[s]; });
+    const float total = block_sum_f(csum, sh);
+    if (tid == 0) {
+      a.cost[k] = __fmaf_rn(static_cast<float>(scal[kScUnplaced]), kPenalty, total);
+      a.unplaced[k] = scal[kScUnplaced];
+      a.exhausted[k] = scal[kScExhausted] != 0;
+    }
+    return;
+  }
+
+  const int t = a.t;
+  const int g = order[t];
+  const int cnt = a.count[g];
+  const bool look = scal[kScLook] != 0, rsv = scal[kScRsv] != 0;
+  const bool prefer_big = __int_as_float(scal[kScAlpha]) >= 1.0f;
+  const int* urow = (rsv ? a.units_rsv : a.units) + (size_t)g * O;
+  const float* pe = look ? a.price_t + ((size_t)k * G + t) * O : a.price;
+  const int zf = a.rel_zone_forbid[g], zn = a.rel_zone_need[g];
+  const bool rel = (zf | zn) != 0;
+  const bool zl = a.zone_limited[g] || rel;
+  const int hn = a.rel_host_need[g];
+  auto in_bucket = [&](int bk, int o) { return bk == Z || a.opt_zone[o] == bk; };
+  // a shard's in-band argmax over its columns: value, global index
+  auto pick = [&](int bk, int j, float band, float& v, int& i) {
+    v = neg_inf();
+    i = kIntMax;
+    for (int o = tid; o < O; o += BT) {
+      const int u = urow[o];
+      const float pref = prefer_big ? static_cast<float>(u) : -static_cast<float>(u);
+      arg_better(v, i, in_bucket(bk, o) && sc[2 * o + j] <= band ? pref : -kInf, a.c0 + o);
+    }
+    block_argmax(v, i, sh);
+  };
+  auto put_record = [&](int* r, float v, int i) {
+    const int o = i - a.c0;
+    r[kRcValue] = __float_as_int(v);
+    r[kRcIdx] = i;
+    r[kRcUnits] = urow[o];
+    r[kRcPe] = __float_as_int(pe[o]);
+    r[kRcPrice] = __float_as_int(a.price[o]);
+    r[kRcZone] = a.opt_zone[o];
+    for (int q = 0; q < R; ++q) r[kRcAlloc + q] = __float_as_int(a.alloc[(size_t)o * R + q]);
+  };
+  // the winning record over every shard's: largest value, lowest index
+  auto combine = [&](int* x, size_t per, size_t off, int* dst) {
+    int best = 0;
+    for (int j = 1; j < a.n; ++j) {
+      const int* r = region(x, j, per) + off;
+      const int* q = region(x, best, per) + off;
+      const float v = __int_as_float(r[kRcValue]), bv = __int_as_float(q[kRcValue]);
+      if (v > bv || (v == bv && r[kRcIdx] < q[kRcIdx])) best = j;
+    }
+    const int* r = region(x, best, per) + off;
+    for (int q = 0; q < RW; ++q) dst[q] = r[q];
+  };
+  auto tail_want = [&](int bk) {
+    const int w = want[bk];
+    const int c_rate = rec[(Zb + bk) * RW + kRcUnits];
+    return w - (w / max(c_rate, 1)) * c_rate;
+  };
+
+  if (a.stage == kStFill) {
+    int* yrow = a.ys + ((size_t)k * G + t) * NS;
+    if (cnt == 0) {
+      // a group with no pods places, wants and opens nothing
+      for (int s = s0; s < s1; ++s) yrow[s] = 0;
+      return;
+    }
+    const int cap = a.node_cap[g], hf = a.rel_host_forbid[g];
+    const bool coloc = a.colocate[g];
+    const float* d = a.demand + (size_t)g * R;
+    const float* dfit = rsv && a.rsv_group[g] ? a.demand_units + (size_t)g * R : d;
+    const int* qrow = a.quota + (size_t)g * Z;
+    auto quota_of = [&](int z) -> int {
+      if (!rel) return qrow[z];
+      const int zb = zbits[z];
+      return (zb & zf) == 0 && (zb & zn) == zn ? qrow[z] : 0;
+    };
+    if (tid < Z) s_placed_z[tid] = 0;
+    // fit open capacity: an open slot admits g when the shard that holds its
+    // option said so (the bits exchanged after the last step)
+    for (int s = s0; s < s1; ++s) {
+      bool comp;
+      if (s >= E) {
+        const int j = s - E;
+        unsigned bit = 0;
+        for (int x = 0; x < a.n; ++x) bit |= static_cast<unsigned>(region(a.xe, x, PE)[j >> 5]) >> (j & 31);
+        comp = (bit & 1u) != 0;
+      } else {
+        comp = a.exok_pad[(size_t)g * NS + s];
+      }
+      k2_slot_fit(slots, W, s, comp, hf, hn, rel, zf, zn, zbits, Z, dfit, R, cap);
+    }
+    if (zl) k2_zone_clip(slots, W, s0, s1, Z, s_zpart, quota_of);
+    unsigned lf, high, tot_f, n_free;
+    int lfree;
+    k2_fit_sums(slots, W, s0, s1, E, coloc, cnt, lf, high, lfree);
+    const unsigned before_f = block_scan(lf, s_part, tot_f);
+    block_scan(static_cast<unsigned>(lfree), s_part, n_free);
+    const unsigned placed_local = k2_fill(slots, W, s0, s1, before_f, cnt, d, R, zl, Z, s_placed_z);
+    const int placed = block_sum(static_cast<int>(placed_local), sh);
+    const int left = cnt - placed;
+    if (tid == 0) {
+      scal[kScLeft] = left;
+      scal[kScFree] = static_cast<int>(n_free);
+      // the wants, bucket by bucket (zone buckets, then the unrestricted one)
+      unsigned acc = 0;
+      for (int bk = 0; bk < Zb; ++bk) {
+        int w = 0;
+        if (hn != 0) {
+          w = 0;  // hostname-need groups cannot open fresh nodes
+        } else if (!zl) {
+          w = bk == Z ? left : 0;
+        } else if (bk < Z) {
+          const int wz = min(max(quota_of(bk) - s_placed_z[bk], 0), left);
+          w = max(min(wz, static_cast<int>(static_cast<unsigned>(left) - acc)), 0);
+          acc += static_cast<unsigned>(wz);
+        }
+        want[bk] = w;
+      }
+    }
+    __syncthreads();
+    // the shard's lump and rate minima of every bucket with a want
+    int* xa = region(a.xa, a.self, PA);
+    for (int bk = 0; bk < Zb; ++bk) {
+      const int w = want[bk];
+      float a0 = kInf, a1 = kInf;
+      if (w > 0) {
+        for (int o = tid; o < O; o += BT) {
+          const int u = urow[o];
+          const bool inb = in_bucket(bk, o);
+          const float v0 = lump_score(inb, w, u, pe[o]);
+          const float v1 = rate_score(inb, w, u, pe[o]);
+          if (inb) {
+            sc[2 * o] = v0;
+            sc[2 * o + 1] = v1;
+          }
+          a0 = fminf(a0, v0);
+          a1 = fminf(a1, v1);
+        }
+        a0 = block_min_f(a0, sh);
+        a1 = block_min_f(a1, sh);
+      }
+      if (tid == 0) {
+        xa[2 * bk] = __float_as_int(a0);
+        xa[2 * bk + 1] = __float_as_int(a1);
+      }
+    }
+    return;
+  }
+
+  if (cnt != 0 && a.stage == kStPick) {
+    // the global minima, then the shard's in-band argmaxes
+    int* xb = region(a.xb, a.self, PB);
+    for (int bk = 0; bk < Zb; ++bk) {
+      if (want[bk] <= 0) continue;
+      float m0 = kInf, m1 = kInf;
+      for (int j = 0; j < a.n; ++j) {
+        const int* x = region(a.xa, j, PA);
+        m0 = fminf(m0, __int_as_float(x[2 * bk]));
+        m1 = fminf(m1, __int_as_float(x[2 * bk + 1]));
+      }
+      if (tid == 0) {
+        cmin[3 * bk] = m0;
+        cmin[3 * bk + 1] = m1;
+      }
+      for (int j = 0; j < 2; ++j) {
+        float v;
+        int i;
+        pick(bk, j, (j == 0 ? m0 : m1) * kTieBand, v, i);
+        if (tid == 0) put_record(xb + ((size_t)j * Zb + bk) * RW, v, i);
+      }
+    }
+    return;
+  }
+
+  if (cnt != 0 && a.stage == kStTail) {
+    // the global lump and rate choices, then the shard's tail minima
+    for (int q = tid; q < 2 * Zb; q += BT) {
+      const int j = q / Zb, bk = q % Zb;
+      if (want[bk] > 0) combine(a.xb, PB, ((size_t)j * Zb + bk) * RW, rec + ((size_t)j * Zb + bk) * RW);
+    }
+    __syncthreads();
+    int* xc = region(a.xc, a.self, PC);
+    for (int bk = 0; bk < Zb; ++bk) {
+      const int w = want[bk] > 0 ? tail_want(bk) : 0;
+      float a0 = kInf;
+      if (w > 0) {
+        for (int o = tid; o < O; o += BT) {
+          const int u = urow[o];
+          const bool inb = in_bucket(bk, o);
+          const float v0 = lump_score(inb, w, u, pe[o]);
+          if (inb) sc[2 * o] = v0;
+          a0 = fminf(a0, v0);
+        }
+        a0 = block_min_f(a0, sh);
+      }
+      if (tid == 0) xc[bk] = __float_as_int(a0);
+    }
+    return;
+  }
+
+  if (cnt != 0 && a.stage == kStTailPick) {
+    int* xd = region(a.xd, a.self, PD);
+    for (int bk = 0; bk < Zb; ++bk) {
+      if (want[bk] <= 0 || tail_want(bk) <= 0) continue;
+      float m = kInf;
+      for (int j = 0; j < a.n; ++j) m = fminf(m, __int_as_float(region(a.xc, j, PC)[bk]));
+      if (tid == 0) cmin[3 * bk + 2] = m;
+      float v;
+      int i;
+      pick(bk, 0, m * kTieBand, v, i);
+      if (tid == 0) put_record(xd + (size_t)bk * RW, v, i);
+    }
+    return;
+  }
+
+  if (a.stage != kStApply) return;
+  if (cnt != 0) {
+    const float* d = a.demand + (size_t)g * R;
+    for (int bk = tid; bk < Zb; bk += BT)
+      if (want[bk] > 0 && tail_want(bk) > 0) combine(a.xd, PD, (size_t)bk * RW, rec + (2 * (size_t)Zb + bk) * RW);
+    __syncthreads();
+    const int left = scal[kScLeft], n_free = scal[kScFree];
+    if (tid == 0) {
+      // segments: (full or lump) + tail per bucket; seg_rec names the record
+      // (0 lump, 1 rate, 2 tail) whose option the segment opens
+      for (int bk = 0; bk < Zb; ++bk) {
+        const int w = want[bk];
+        seg_rec[bk] = seg_rec[Zb + bk] = 0;
+        seg_c[bk] = seg_c[Zb + bk] = 1;
+        seg_want[bk] = seg_want[Zb + bk] = 0;
+        if (w <= 0) continue;
+        const int* rl = rec + (size_t)bk * RW;
+        const int* rr = rec + ((size_t)Zb + bk) * RW;
+        const int* rt = rec + (2 * (size_t)Zb + bk) * RW;
+        // the tail record was chosen only where the bucket has a remainder
+        const bool tail = tail_want(bk) > 0;
+        const bool lump = k2_bucket_segments(w, cmin[3 * bk], cmin[3 * bk + 1], rr[kRcUnits],
+                                             __int_as_float(rr[kRcPe]), tail ? cmin[3 * bk + 2] : kInf,
+                                             rl[kRcUnits], tail ? rt[kRcUnits] : 1, seg_c[bk],
+                                             seg_want[bk], seg_c[Zb + bk], seg_want[Zb + bk]);
+        seg_rec[bk] = lump ? 0 : 1;
+        seg_rec[Zb + bk] = 2;
+      }
+      // starts in rank order, and what the free slots take of each segment
+      int carry = 0, opened = 0;
+      for (int j = 0; j < nseg; ++j) {
+        const int nj = ceil_div(seg_want[j], seg_c[j]);
+        seg_start[j] = carry;
+        const long long taken = min(max(n_free - carry, 0), nj);
+        opened += static_cast<int>(min(static_cast<long long>(seg_want[j]), taken * seg_c[j]));
+        carry += nj;
+      }
+      s_total_open = carry;
+      s_opened = opened;
+    }
+    unsigned lfree = 0, n_free_u;
+    for (int s = s0; s < s1; ++s) lfree += (s >= E && !slot(s)[kSlAct]) ? 1u : 0u;
+    const int r0 = static_cast<int>(block_scan(lfree, s_part, n_free_u));  // also orders thread 0's segments
+    const int total_open = s_total_open;
+    k2_open_slots(slots, W, s0, s1, E, Z, r0, total_open, nseg, seg_start, seg_c, seg_want, a.rel_set[g],
+                  zbits, a.ys + ((size_t)k * G + t) * NS, [&](int s, int sid, int fill) {
+                    const int* r = rec + ((size_t)seg_rec[sid] * Zb + sid % Zb) * RW;
+                    k2_open_slot(slots, W, s, fill, d, R, reinterpret_cast<const float*>(r + kRcAlloc),
+                                 r[kRcIdx], r[kRcZone]);
+                    sprice[s] = __int_as_float(r[kRcPrice]);
+                  });
+    if (tid == 0) {
+      const int l2 = left - s_opened;
+      scal[kScUnplaced] += l2;
+      if (l2 > 0 && total_open > n_free) scal[kScExhausted] = 1;
+    }
+  }
+  __syncthreads();  // the opened slots, for the bits below
+  // which open slots hold an option of this shard that admits the next group
+  if (t + 1 < G) {
+    const int gn = order[t + 1];
+    int* xe = region(a.xe, a.self, PE);
+    for (size_t w = tid; w < PE; w += BT) {
+      unsigned bits = 0;
+      for (int q = 0; q < 32; ++q) {
+        const int j = static_cast<int>(w * 32) + q;
+        if (j >= S) break;
+        const int so = slot(E + j)[kSlOpt];
+        if (slot(E + j)[kSlAct] && so >= a.c0 && so < a.c0 + O && a.compat[(size_t)gn * O + (so - a.c0)])
+          bits |= 1u << q;
+      }
+      xe[w] = static_cast<int>(bits);
+    }
+  }
+}
+
+struct SeedArgs {
+  const float* cost;   // [B, K] this shard's phase-1 costs
+  const int* orders;   // [B, K, G]
+  const float* alphas; // [B, K]
+  const bool* looks;   // [B, K]
+  const bool* rsvs;    // [B, K]
+  int* out;            // [B, 5 + G] the offer
+  int B, K, G, k0;
+};
+
+// The member argmin's offer (1D mesh): per row, one warp picks this shard's
+// best phase-1 member (the first NaN, else the first minimum) and writes
+// its cost bits, global index, alpha bits, look, rsv and order row.
+__global__ void mesh_seed_offer(SeedArgs a) {
+  const int b = blockIdx.x;
+  const float* c = a.cost + (size_t)b * a.K;
+  const int j = warp_argmin([&](int q) { return c[q]; }, a.K);
+  int* out = a.out + (size_t)b * (5 + a.G);
+  const size_t m = (size_t)b * a.K + j;
+  if (threadIdx.x == 0) {
+    out[0] = __float_as_int(c[j]);
+    out[1] = a.k0 + j;
+    out[2] = __float_as_int(a.alphas[m]);
+    out[3] = a.looks[m] ? 1 : 0;
+    out[4] = a.rsvs[m] ? 1 : 0;
+  }
+  for (int t = threadIdx.x; t < a.G; t += blockDim.x) out[5 + t] = a.orders[m * a.G + t];
+}
+
+struct PickArgs {
+  const int* offers;  // [n][B][5 + G]
+  const int* swaps;   // [B, K, G] this shard's members
+  int* orders2;       // [B, K, G]
+  float* alphas2;     // [B, K]
+  bool* looks2;       // [B, K]
+  bool* rsvs2;        // [B, K]
+  int* b1;            // [B]
+  int n, B, K, G;
+};
+
+// The offer a row picks: the first NaN, else the lowest cost, the lowest
+// global index on ties (jnp.argmin over the whole portfolio).
+__device__ __forceinline__ const int* mesh_best_offer(const PickArgs& a, int b) {
+  const size_t per = 5 + (size_t)a.G;
+  int best = 0;
+  for (int s = 1; s < a.n; ++s) {
+    const int* r = a.offers + ((size_t)s * a.B + b) * per;
+    const int* q = a.offers + ((size_t)best * a.B + b) * per;
+    if (argmin_before(__int_as_float(r[0]), r[1], __int_as_float(q[0]), q[1])) best = s;
+  }
+  return a.offers + ((size_t)best * a.B + b) * per;
+}
+
+// The member argmin's pick (1D mesh): the seed over every shard's offer,
+// and this shard's phase-2 members, orders2[k] = seed order[swaps[k]] under
+// the seed's alpha, look and rsv. Grid (B).
+__global__ void __launch_bounds__(kMeshThreads) mesh_seed_pick(PickArgs a) {
+  const int b = blockIdx.x;
+  const int* r = mesh_best_offer(a, b);
+  const int* order = r + 5;
+  const size_t KG = (size_t)a.K * a.G;
+  for (size_t i = threadIdx.x; i < KG; i += blockDim.x)
+    a.orders2[b * KG + i] = order[a.swaps[b * KG + i]];
+  for (int q = threadIdx.x; q < a.K; q += blockDim.x) {
+    a.alphas2[(size_t)b * a.K + q] = __int_as_float(r[2]);
+    a.looks2[(size_t)b * a.K + q] = r[3] != 0;
+    a.rsvs2[(size_t)b * a.K + q] = r[4] != 0;
+  }
+  if (threadIdx.x == 0) a.b1[b] = r[1];
+}
+
+struct FinalArgs {
+  const int* bufs;  // [n][B][Ll] each shard's K3 buffer over its kl members
+  const int* b1;    // [B] the global phase-1 seed
+  int* out;         // [B][L] the whole portfolio's buffer
+  int n, B, Ll, kl;
+};
+
+// The member argmin over the 2K costs (1D mesh, on the root): every block
+// finds the row's winner among the shards' K3 winners (the first NaN, else
+// the lowest cost, the lowest global index on ties) and writes its
+// kMeshTile ints of the row: the head, the costs and flags in global member
+// order, the winner's rows. Grid (tiles, B).
+__global__ void __launch_bounds__(kMeshThreads) mesh_final_pick(FinalArgs a) {
+  const int b = blockIdx.y, kl = a.kl, K = a.n * kl;
+  const size_t Ll = a.Ll, L = Ll + 4 * (size_t)kl * (a.n - 1);
+  auto buf = [&](int s) { return a.bufs + ((size_t)s * a.B + b) * Ll; };
+  int best = 0, bg = 0;
+  float bv = 0.0f;
+  for (int s = 0; s < a.n; ++s) {
+    const int* q = buf(s);
+    const int ph = q[0], bk = q[2];
+    const float v = __int_as_float(q[4 + ph * kl + bk]);
+    const int gi = ph * K + s * kl + bk;
+    if (s == 0 || argmin_before(v, gi, bv, bg)) {
+      best = s;
+      bv = v;
+      bg = gi;
+    }
+  }
+  const int* w = buf(best);
+  int* out = a.out + (size_t)b * L;
+  const size_t p0 = (size_t)blockIdx.x * kMeshTile, p1 = p0 + kMeshTile < L ? p0 + kMeshTile : L;
+  for (size_t q = p0 + threadIdx.x; q < p1; q += blockDim.x) {
+    int v;
+    if (q == 0) {
+      v = w[0];
+    } else if (q == 1) {
+      v = a.b1[b];
+    } else if (q == 2) {
+      v = best * kl + w[2];
+    } else if (q == 3) {
+      v = w[3];
+    } else if (q < 4 + 4 * (size_t)K) {
+      const int j = static_cast<int>(q - 4), part = j / K, m = j % K;  // part: c1, c2, ex1, ex2
+      v = buf(m / kl)[4 + part * kl + m % kl];
+    } else {
+      v = w[q - 4 * (size_t)K + 4 * (size_t)kl];
+    }
+    out[q] = v;
+  }
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -1600,6 +2443,137 @@ int kts_pack_epilogue(
   const size_t len = 4 + 4 * (size_t)K + 2 * (size_t)S + (size_t)T * NS;
   const dim3 grid(static_cast<unsigned>((len + kK3Tile - 1) / kK3Tile), B);
   k3_pack_epilogue<<<grid, kK3Threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The meshed tier's entries (solver/meshed.py): each launches on `stream`
+// for one shard; the exchanges between shards are the caller's.
+// ---------------------------------------------------------------------------
+
+// Columns of k1_units' partials for O options.
+long long kts_k1_tiles(int O) { return k1_tiles(O); }
+
+// K1's part on one option shard: k1_units over its O columns, the partial
+// minima and fits into `part` ([2][B][G][k1_tiles(O)] words).
+int kts_k1_part(
+    const float* demand, const float* demand_units, const int* count, const int* node_cap,
+    const int* quota, const bool* colocate, const bool* compat, const float* alloc,
+    const float* price, const bool* opt_valid, const bool* ex_compat, const bool* ex_valid,
+    int* units, int* units_rsv, bool* rsv_group, bool* zone_limited, bool* exok_pad,
+    bool* is_new, void* part, int B, int G, int O, int E, int R, int Z, int S, void* stream) {
+  float* part_min = static_cast<float*>(part);
+  int* part_fit = reinterpret_cast<int*>(part_min + (size_t)B * G * k1_tiles(O));
+  K1Args a{demand, demand_units, count, node_cap, quota, colocate, compat, alloc, price,
+           opt_valid, ex_compat, ex_valid, units, units_rsv, rsv_group, nullptr, zone_limited,
+           nullptr, exok_pad, is_new, part_min, part_fit, G, O, E, R, Z, S, 1};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  void (*units_k)(K1Args) = R == 3 ? k1_units<3> : k1_units<0>;
+  units_k<<<dim3(k1_tiles(O), G, B), kK1Threads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1's finish on one option shard: the n shards' partials (`parts`,
+// [n][2][B][G][tiles]) combined into `scratch` ([2][B][G][tiles]), then
+// k1_val_pair over the shard's O columns.
+int kts_k1_finish(
+    const float* demand, const float* demand_units, const int* count, const int* node_cap,
+    const bool* colocate, const bool* compat, const float* alloc, const bool* opt_valid,
+    const int* units, int* units_rsv, float* lam, float* val_pair, const int* parts,
+    int* scratch, int n, int B, int G, int O, int E, int R, int Z, int S, void* stream) {
+  const int nt = k1_tiles(O);
+  const long long per = (long long)B * G * nt;
+  K1CombineArgs c{parts, scratch, n, nt, per};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long blocks = (per + kMeshThreads - 1) / kMeshThreads;
+  k1_mesh_combine<<<static_cast<unsigned>(blocks < kMeshMaxBlocks ? blocks : kMeshMaxBlocks), kMeshThreads, 0, st>>>(c);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = k1_pair_rows(B, G, O);
+  K1Args a{demand, demand_units, count, node_cap, nullptr, colocate, compat, alloc, nullptr,
+           opt_valid, nullptr, nullptr, const_cast<int*>(units), units_rsv, nullptr, lam, nullptr,
+           val_pair, nullptr, nullptr, reinterpret_cast<float*>(scratch), scratch + per, G, O, E, R, Z,
+           S, rows};
+  void (*pair_k)(K1Args) = R == 3 ? k1_val_pair<3> : k1_val_pair<0>;
+  const dim3 grid((O + kK1PairTile - 1) / kK1PairTile, (G + rows - 1) / rows, B);
+  pair_k<<<grid, kK1Threads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of one member's state in k2m_kernel at these widths (O: the shard's columns).
+long long kts_k2m_state_bytes(int G, int O, int E, int R, int Z, int S) {
+  return static_cast<long long>(k2m_state_bytes(G, O, E, R, Z, S));
+}
+
+// K2 on one option shard: stage -1 starts a phase (k2_prices over the
+// shard's columns, then the member state), 0-4 run stage `stage` of step t,
+// 5 ends it (the member results).
+int kts_k2m(
+    const float* demand, const float* demand_units, const int* count, const int* node_cap,
+    const bool* colocate, const bool* compat, const float* alloc, const float* price,
+    const int* opt_zone, const float* ex_rem, const int* ex_zone, const bool* ex_valid,
+    const int* rel_set, const int* rel_host_forbid, const int* rel_host_need,
+    const int* rel_zone_forbid, const int* rel_zone_need, const int* rel_slot_bits,
+    const int* rel_zone_bits, const int* units, const int* units_rsv, const bool* rsv_group,
+    const int* quota, const bool* zone_limited, const float* val_pair, const bool* exok_pad,
+    const int* orders, const float* alphas, const bool* looks, const bool* rsvs,
+    const int* swaps, const float* seed_costs, float* price_t, unsigned char* state, int* xa,
+    int* xb, int* xc, int* xd, int* xe, int* ys, float* cost, int* unplaced, bool* exhausted,
+    int* new_opt, bool* new_active, int B, int K, int G, int O, int E, int R, int Z, int S,
+    int c0, int n, int self, int stage, int t, void* stream) {
+  if (R > kMaxR || Z > kMaxZ || stage < kStInit || stage > kStEnd)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (stage == kStInit) {
+    K2Limits lim;
+    cudaError_t err = k2_limits(&lim);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (k2_price_bytes(G) + lim.prices_static > lim.optin) return static_cast<int>(cudaErrorInvalidValue);
+    K2Args pa{demand, demand_units, count, node_cap, colocate, compat, alloc, price, opt_zone,
+              ex_rem, ex_zone, ex_valid, rel_set, rel_host_forbid, rel_host_need,
+              rel_zone_forbid, rel_zone_need, rel_slot_bits, rel_zone_bits, units, units_rsv,
+              rsv_group, quota, zone_limited, val_pair, exok_pad, orders, alphas, looks, rsvs,
+              swaps, seed_costs, cost, unplaced, exhausted, new_opt, new_active, ys, price_t,
+              nullptr, 0, K, G, O, E, R, Z, S};
+    const size_t tiles = ((size_t)G * O + kK2PriceThreads - 1) / kK2PriceThreads;
+    k2_prices<<<dim3(static_cast<unsigned>(tiles), K, B), kK2PriceThreads, k2_price_bytes(G), st>>>(pa);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  K2MArgs a{demand, demand_units, count, node_cap, colocate, compat, alloc, price, opt_zone,
+            ex_rem, ex_zone, ex_valid, rel_set, rel_host_forbid, rel_host_need, rel_zone_forbid,
+            rel_zone_need, rel_slot_bits, rel_zone_bits, units, units_rsv, rsv_group, quota,
+            zone_limited, val_pair, exok_pad, orders, alphas, looks, rsvs, swaps, seed_costs,
+            price_t, state, xa, xb, xc, xd, xe, ys, cost, unplaced, exhausted, new_opt,
+            new_active, B, K, G, O, E, R, Z, S, c0, n, self, stage, t};
+  k2m_kernel<<<dim3(K, B), kK2Threads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The 1D mesh's member argmin: this shard's offer (its best phase-1 member).
+int kts_seed_offer(const float* cost, const int* orders, const float* alphas, const bool* looks,
+                   const bool* rsvs, int* out, int B, int K, int G, int k0, void* stream) {
+  SeedArgs a{cost, orders, alphas, looks, rsvs, out, B, K, G, k0};
+  mesh_seed_offer<<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The seed over the n shards' offers and this shard's phase-2 members.
+int kts_seed_pick(const int* offers, const int* swaps, int* orders2, float* alphas2, bool* looks2,
+                  bool* rsvs2, int* b1, int n, int B, int K, int G, void* stream) {
+  PickArgs a{offers, swaps, orders2, alphas2, looks2, rsvs2, b1, n, B, K, G};
+  mesh_seed_pick<<<B, kMeshThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The winner over the 2K costs from the n shards' K3 buffers ([n][B][Ll],
+// kl members each) into out ([B][Ll + 4 kl (n - 1)]).
+int kts_final_pick(const int* bufs, const int* b1, int* out, int n, int B, int Ll, int kl,
+                   void* stream) {
+  FinalArgs a{bufs, b1, out, n, B, Ll, kl};
+  const size_t L = (size_t)Ll + 4 * (size_t)kl * (n - 1);
+  const dim3 grid(static_cast<unsigned>((L + kMeshTile - 1) / kMeshTile), B);
+  mesh_final_pick<<<grid, kMeshThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

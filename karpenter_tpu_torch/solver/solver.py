@@ -29,6 +29,13 @@ problems, each with the solver that will solve it, are grouped by bucket
 and each chunk is solved in one batched call (``pack_solve_fleet``); each
 cell's ``solve`` then polls its row in its race.
 
+The multi-device tier is the reference's: a ``TorchSolver`` with a mesh
+(``parallel.mesh``) solves over its shards (``pack_solve_meshed``), the 1D
+portfolio mesh splitting the members, the 2D options x fleet mesh the option
+columns and, in ``stage_fleet``'s superproblem mode, the batch rows.
+``auto_mesh`` builds a mesh only from two cards up, so one card keeps the
+meshless path; a mesh of logical shards of one card is passed explicitly.
+
 ``Solver.solve_pods`` is what a controller calls: encode (through an
 ``EncodeSession`` when one is given), intern the problem by content
 (``problem_digest``), solve, then re-solve with relaxed preferences and
@@ -81,6 +88,7 @@ from .torch_solver import (
     make_orders,
     pack_solve_fleet,
     pack_solve_fused,
+    pack_solve_meshed,
     rtt_probe,
     unpack_solve_fused,
 )
@@ -1011,12 +1019,13 @@ class _FleetBuffer:
     its deadline: siblings then take it only if it is ready, and never wait
     on it. ``copies`` counts the host copies (one a dispatch)."""
 
-    __slots__ = ("pending", "key", "t_dispatch", "width", "abandoned", "copies", "_lock",
+    __slots__ = ("pending", "key", "mesh", "t_dispatch", "width", "abandoned", "copies", "_lock",
                  "_host")
 
-    def __init__(self, pending, key: BucketKey, t_dispatch: float, width: int):
+    def __init__(self, pending, key: BucketKey, t_dispatch: float, width: int, mesh=None):
         self.pending = pending
         self.key = key  # the fleet bucket (B > 1)
+        self.mesh = mesh  # the mesh the dispatch was split over, or None
         self.t_dispatch = t_dispatch
         self.width = width  # real cells batched (<= key.B; the rest is padding)
         self.abandoned = False
@@ -1033,8 +1042,16 @@ class _FleetBuffer:
     def materialize(self) -> np.ndarray:
         with self._lock:
             if self._host is None:
+                t0 = time.perf_counter()
                 self._host = self.pending.materialize()
                 self.copies += 1
+                if self.mesh is not None:
+                    # the wait for a meshed dispatch's [B, L] result, which
+                    # the shards gathered on the first one: the meshed
+                    # tier's {phase=gather}
+                    gather_s = time.perf_counter() - t0
+                    profiling.note_phase("gather", "sharded", gather_s)
+                    metrics.SOLVE_PHASE.observe(gather_s, {"phase": "gather", "mode": "sharded"})
             return self._host
 
     def device_ms(self) -> Optional[float]:
@@ -1060,6 +1077,7 @@ class _FleetDispatch:
 
 def stage_fleet(
     entries: Sequence[Tuple["TorchSolver", EncodedProblem]], max_batch: int = 16,
+    superproblem_max_cells: int = 0,
 ) -> dict:
     """Batch same-bucket kernel dispatches into single device calls.
 
@@ -1086,13 +1104,27 @@ def stage_fleet(
     fleet_key``; otherwise the chunk is stacked on the host and staged
     through the first solver's stager under ``("fleet",) + fleet_key``.
 
+    **Superproblem mode** (the 2D meshed tier): when a group's owner holds
+    a 2D (options x fleet) mesh and ``superproblem_max_cells >= 2``, the
+    chunk width cap is raised to ``superproblem_max_cells``, and the batch
+    is padded up to the mesh's fleet-axis multiple: same-bucket cells are
+    solved as ONE meshed dispatch (rows split over ``fleet``, option columns
+    over ``options``), staged through the owner's stager under ``("super",
+    axes) + fleet_key`` with the rule table's placement. On the 1D mesh the
+    stacked chunk is placed by ``shard_fleet``.
+
     Returns ``dispatches``, ``cells_batched``, ``eligible``, the fleet
-    ``buckets`` and how many chunks were ``device_stacked``."""
+    ``buckets``, how many chunks were ``device_stacked``, and the meshed
+    tier's ``superproblems`` (2D-mesh dispatches) and ``mesh_axes``."""
+    from ..parallel import FLEET_AXIS, is_mesh2d, mesh_axes_label
+
     stats = {"dispatches": 0, "cells_batched": 0, "eligible": 0, "buckets": [],
-             "device_stacked": 0}
+             "device_stacked": 0, "superproblems": 0, "mesh_axes": ""}
     if max_batch < 2 or len(entries) < 2:
         return stats
     width_cap = 1 << (int(max_batch).bit_length() - 1)
+    super_cap = (1 << (int(superproblem_max_cells).bit_length() - 1)
+                 if superproblem_max_cells >= 2 else 0)
     groups: "OrderedDict[BucketKey, list]" = OrderedDict()
     for solver, problem in entries:
         if problem is None or problem.G == 0:
@@ -1122,11 +1154,22 @@ def stage_fleet(
         groups.setdefault(solver._bucket_key(problem), []).append((solver, problem))
     cleared: set = set()
     for key, members in groups.items():
-        for base in range(0, len(members), width_cap):
-            chunk = members[base : base + width_cap]
+        # superproblem width: on a 2D mesh the batch axis is a device axis
+        # (rows split over ``fleet``), so the operator's superproblem budget
+        # caps it, not the host-stack fleet cap
+        group_mesh = members[0][0]._ensure_mesh()
+        group_2d = is_mesh2d(group_mesh)
+        cap = max(width_cap, super_cap) if group_2d and super_cap else width_cap
+        for base in range(0, len(members), cap):
+            chunk = members[base : base + cap]
             if len(chunk) < 2:
                 continue  # a lone cell dispatches in its own race
-            fleet_key = key._replace(B=bucket_fleet(len(chunk)))
+            B = bucket_fleet(len(chunk))
+            if group_2d:
+                # pad the batch up to the fleet axis so that the rows split
+                # (padding rows are inert: over-padding never changes answers)
+                B = max(B, group_mesh.shape.get(FLEET_AXIS, 1))
+            fleet_key = key._replace(B=B)
             owner = chunk[0][0]
             if owner.device_rtt() >= owner.latency_budget_s:
                 continue
@@ -1145,14 +1188,26 @@ def stage_fleet(
             stats["dispatches"] += 1
             stats["cells_batched"] += len(chunk)
             stats["buckets"].append(fleet_key.label())
+            if group_2d:
+                axes = mesh_axes_label(group_mesh)
+                stats["superproblems"] += 1
+                stats["mesh_axes"] = axes
+                metrics.MESH_DISPATCH.inc({"axes": axes})
     return stats
 
 
 def _stage_fleet_chunk(chunk, key: BucketKey, fleet_key: BucketKey, cleared: set) -> bool:
     """Stack one chunk along the batch axis, dispatch it, and attach each
-    problem's row. Returns whether the stack was built on the device."""
+    problem's row. Returns whether the stack was built on the device. On
+    the owner's mesh the host-stacked chunk is placed by ``shard_fleet``
+    (1D) or staged with the rule table's placement (2D, a superproblem),
+    and the dispatch is ``pack_solve_meshed``."""
+    from ..parallel import is_mesh2d, mesh_axes_label, mesh_sharding, shard_fleet
+    from ..parallel.mesh import device_put
+
     B = fleet_key.B
     owner = chunk[0][0]
+    mesh = owner._ensure_mesh()
     preps = []
     for solver, problem in chunk:
         prep = solver._prepare(problem, bucket=key)
@@ -1170,8 +1225,27 @@ def _stage_fleet_chunk(chunk, key: BucketKey, fleet_key: BucketKey, cleared: set
     resident = [solver._resident(problem) for solver, problem in chunk]
     pad_fields, *pad_members = fleet_padding(key)
     pad = {**pad_fields, **dict(zip(_MEMBER_LEAVES, pad_members))}
-    device_side = all(e is not None for e in resident)
-    if device_side:
+    device_side = mesh is None and all(e is not None for e in resident)
+    if mesh is not None:
+        rows = [{**prep[0], **dict(zip(_MEMBER_LEAVES, prep[1:6]))} for prep in preps]
+        rows += [pad] * (B - len(rows))
+        leaves = {f: np.stack([r[f] for r in rows]) for f in pad}
+        if not is_mesh2d(mesh):
+            placed = shard_fleet(mesh, B, PackInputs(*(leaves[f] for f in PackInputs._fields)),
+                                 *(leaves[f] for f in _MEMBER_LEAVES))
+            staged = dict(zip(PackInputs._fields, placed[0]))
+            staged.update(zip(_MEMBER_LEAVES, placed[1:]))
+        else:
+            # superproblem staging: the stacked leaves route through the
+            # owner's stager under a mesh-labelled tag, each full upload
+            # placed by the rule table with the batch axis on ``fleet``; a
+            # repeat round restages only churned rows, each on its shard
+            staged = owner._stager.stage(
+                ("super", mesh_axes_label(mesh)) + tuple(fleet_key), leaves,
+                put=lambda name, arr: device_put(
+                    arr, mesh_sharding(mesh, name, np.shape(arr), batch=True)),
+            )
+    elif device_side:
         # every row is already on the device: stack it there, with the pad
         # row staged once per fleet bucket, so no byte crosses the host link
         # twice
@@ -1196,10 +1270,12 @@ def _stage_fleet_chunk(chunk, key: BucketKey, fleet_key: BucketKey, cleared: set
     metrics.SOLVE_PHASE.observe(stage_s, {"phase": "stage", "mode": "sharded"})
     KERNEL_BOARD.first_dispatch(fleet_key.label())
     t_dispatch = time.perf_counter()
-    pending = _apply_dispatch_fault(
-        _Pending.enqueue(lambda: pack_solve_fleet(*args, key.S, key.Z), owner.device)
-    )
-    shared = _FleetBuffer(pending, fleet_key, t_dispatch, len(chunk))
+    if mesh is not None:
+        run = lambda: pack_solve_meshed(mesh, *args, key.S, key.Z)  # noqa: E731
+    else:
+        run = lambda: pack_solve_fleet(*args, key.S, key.Z)  # noqa: E731
+    pending = _apply_dispatch_fault(_Pending.enqueue(run, owner.device))
+    shared = _FleetBuffer(pending, fleet_key, t_dispatch, len(chunk), mesh)
     for row, ((_, problem), prep) in enumerate(zip(chunk, preps)):
         problem.__dict__["_fleet_dispatch"] = _FleetDispatch(
             shared, row, prep[1], prep[5], key.S, key.Z
@@ -1250,7 +1326,20 @@ class TorchSolver(Solver):
     Zp, R, K)``, so the next problem of that shape moves only its churned
     rows). ``prestage`` stages a problem ahead of its solve; the sharded
     round gives each cell its own solver so that every dirty cell stays
-    resident until ``stage_fleet``."""
+    resident until ``stage_fleet``.
+
+    ``mesh`` (``parallel.mesh.Mesh``) solves over a device mesh: on the 1D
+    portfolio mesh K rounds up to the mesh size and the members split over
+    the shards (placed by ``shard_portfolio``, outside the stager); on the
+    2D options x fleet mesh the option padding aligns to the options axis,
+    the bucket key carries the mesh dims (``MO``, ``MF``), and the problem is
+    staged per shard through the stager under ``("cell2d", axes, ...)``.
+    Without one, ``auto_mesh`` builds one at first use when this solver is
+    on a card and at least two cards are visible: a 2D mesh of
+    ``mesh_shape`` (options, fleet) when given and the cards suffice, else
+    the 1D mesh over every card; below two cards, none, as the reference
+    builds none below two devices. ``superproblem_max_cells`` caps a 2D
+    mesh's superproblem width (``solve_fleet``)."""
 
     #: problems below this many pods never race the device in latency mode
     #: (the host paths answer in single-digit ms); shared by the per-cell
@@ -1277,6 +1366,10 @@ class TorchSolver(Solver):
         quality_race: bool = False,
         dispatch_timeout_s: float = 2.0,
         device="cuda",
+        mesh=None,
+        auto_mesh: bool = True,
+        mesh_shape=None,
+        superproblem_max_cells: int = 64,
     ):
         device = torch.device(device)
         self._side = None
@@ -1315,6 +1408,54 @@ class TorchSolver(Solver):
         # is still re-probed once per interval
         self._race_retry_interval_s = 5.0
         self._race_retry_at = 0.0
+        self.mesh = mesh
+        self.auto_mesh = auto_mesh
+        self.mesh_shape = mesh_shape
+        self.superproblem_max_cells = superproblem_max_cells
+
+    def _ensure_mesh(self):
+        """The solver's mesh, built at first use (``auto_mesh``) when this
+        solver is on a card and two or more cards are visible; None below
+        two, so that one card keeps the meshless path."""
+        if self.mesh is None and self.auto_mesh:
+            from ..parallel.mesh import device_count, make_mesh, make_mesh2d
+
+            self.auto_mesh = False  # probe once
+            n = device_count() if self.device.type == "cuda" else 0
+            if self.mesh_shape is not None:
+                o, f = self.mesh_shape
+                if 1 < o * f <= n:
+                    self.mesh = make_mesh2d((o, f))
+            elif n > 1:
+                self.mesh = make_mesh()
+        return self.mesh
+
+    def _mesh_stamp(self, key: BucketKey) -> BucketKey:
+        """On the 2D meshed tier, the bucket key's mesh dims (MO, MF) and
+        shard-aligned option padding: a meshed dispatch lives in its own key
+        space, and O must divide the options axis."""
+        from ..parallel import FLEET_AXIS, OPTIONS_AXIS, is_mesh2d, shard_aligned_options
+
+        mesh = self._ensure_mesh()
+        if not is_mesh2d(mesh):
+            return key
+        sizes = mesh.shape
+        return key._replace(O=shard_aligned_options(key.O, mesh), MO=sizes.get(OPTIONS_AXIS, 1),
+                            MF=sizes.get(FLEET_AXIS, 1))
+
+    def _options_pad(self, o: int) -> int:
+        """The option axis's padding: the pow2 bucket, aligned to the 2D
+        mesh's options axis when there is one (``_mesh_stamp`` grows the key
+        alike)."""
+        from ..parallel import shard_aligned_options
+
+        return shard_aligned_options(bucket_options(o), self._ensure_mesh())
+
+    def _portfolio_k(self) -> int:
+        """K: the portfolio rounded up to the 1D mesh's size."""
+        from ..parallel import round_up_portfolio
+
+        return round_up_portfolio(self.portfolio, self._ensure_mesh())
 
     # -- the race -----------------------------------------------------------
     def device_rtt(self) -> float:
@@ -1511,9 +1652,12 @@ class TorchSolver(Solver):
         device calls through ``stage_fleet``, then run each request's
         ``solve_pods``, whose race polls its fleet row in place of a
         dispatch of its own. Answers are those of the serial ``solve_pods``
-        loop; only the device-call count and the wall clock change."""
+        loop; only the device-call count and the wall clock change. On a 2D
+        mesh the solver's superproblem cap widens the batch, so that the
+        whole fleet can go as one meshed dispatch."""
         staged = [self.encode_for_staging(**req) for req in requests]
-        stage_fleet([(self, p) for p in staged], max_batch=max_batch)
+        stage_fleet([(self, p) for p in staged], max_batch=max_batch,
+                    superproblem_max_cells=self.superproblem_max_cells)
         return [
             self.solve_pods(**req, pre_encoded=p)
             for req, p in zip(requests, staged)
@@ -1587,13 +1731,19 @@ class TorchSolver(Solver):
         """Pad and stage this problem's tensors now, without solving: the
         sharded round calls it right after each cell's encode, so that
         ``stage_fleet`` finds every dirty cell resident and stacks the chunk
-        on the device. A no-op for problems the race would not dispatch."""
+        on the device. A no-op for problems the race would not dispatch, and
+        on the 1D mesh (its explicit placements are made at dispatch); the 2D
+        mesh's problems stage per shard through the stager, as here."""
+        from ..parallel import is_mesh2d
+
+        mesh = self._ensure_mesh()
         if (
             problem.G == 0
             or (problem.O == 0 and problem.E == 0)
             or _tensor_path_unsupported(problem) is not None
             or self.latency_budget_s > 1.0
             or int(problem.count.sum()) < self.race_min_pods
+            or (mesh is not None and not is_mesh2d(mesh))
         ):
             return
         self._expire_race_memory(problem)
@@ -1621,16 +1771,21 @@ class TorchSolver(Solver):
         next patch or upload after the chain, so that a resident tensor the
         chain reads is never overwritten under it."""
         stream = None
+        mesh = self.mesh
         if side and self._side is not None:
             stream = self._side
             stream.wait_stream(torch.cuda.current_stream(self.device))
             # the allocator must not hand a dropped input's memory to the
             # current stream while the chain still reads it
             for t in (*tensors[0], *tensors[1:]):
-                t.record_stream(stream)
-        pending = _Pending.enqueue(
-            lambda: pack_solve_fused(*tensors, s_new, n_zones), self.device, stream
-        )
+                for x in (t.shards if mesh is not None else (t,)):
+                    if x.device.type == "cuda":
+                        x.record_stream(stream)
+        if mesh is not None:
+            run = lambda: pack_solve_meshed(mesh, *tensors, s_new, n_zones)  # noqa: E731
+        else:
+            run = lambda: pack_solve_fused(*tensors, s_new, n_zones)  # noqa: E731
+        pending = _Pending.enqueue(run, self.device, stream)
         if stream is not None:
             self._stager.fence(pending.done)
         return pending
@@ -1935,7 +2090,26 @@ class TorchSolver(Solver):
         Gp, R = fields["demand"].shape
         tag = ("cell", Gp, fields["price"].shape[0], fields["ex_valid"].shape[0],
                fields["rel_zone_bits"].shape[0], R, orders.shape[0])
-        staged = self._stager.stage(tag, leaves)
+        mesh = self._ensure_mesh()
+        from ..parallel import is_mesh2d, mesh_axes_label, mesh_sharding, shard_portfolio
+        from ..parallel.mesh import device_put
+
+        if mesh is not None and not is_mesh2d(mesh):
+            # the 1D mesh: members split over the shards, the problem
+            # replicated, placed outside the stager
+            placed = shard_portfolio(mesh, PackInputs(**fields), orders, alphas, looks, rsvs, swaps)
+            staged = dict(zip(PackInputs._fields, placed[0]))
+            staged.update(zip(_MEMBER_LEAVES, placed[1:]))
+        elif mesh is not None:
+            # the 2D mesh: per-shard staging, each full upload placed by the
+            # rule table, so that the resident leaves lie split over the mesh
+            # and a restage moves only churned rows, each on its shard
+            staged = self._stager.stage(
+                ("cell2d", mesh_axes_label(mesh)) + tag[1:], leaves,
+                put=lambda name, arr: device_put(arr, mesh_sharding(mesh, name, np.shape(arr))),
+            )
+        else:
+            staged = self._stager.stage(tag, leaves)
         # accrued across prestage and the solve's own staging; solve_pods
         # reports it as ``stage_s``
         stage_s = time.perf_counter() - t_stage
@@ -1957,11 +2131,11 @@ class TorchSolver(Solver):
         return cached[9] if cached is not None else self._estimate_slots(problem)
 
     def _bucket_key(self, problem: EncodedProblem, s_new: Optional[int] = None) -> BucketKey:
-        return bucket_key(
+        return self._mesh_stamp(bucket_key(
             problem.G, problem.O, problem.E,
             self._cached_s_new(problem) if s_new is None else s_new,
-            max(len(problem.zones), 1), len(problem.resource_axes), self.portfolio,
-        )
+            max(len(problem.zones), 1), len(problem.resource_axes), self._portfolio_k(),
+        ))
 
     # -- encoding to padded arrays --------------------------------------------
     def _prepare(self, problem: EncodedProblem, bucket: Optional[BucketKey] = None):
@@ -1977,12 +2151,13 @@ class TorchSolver(Solver):
         ``prestage`` and ``stage_fleet`` do not pad twice; the arrays are
         shared and must not be written. The slot budget shapes no array."""
         s_new = bucket.S if bucket else self._estimate_slots(problem)
+        k = self._portfolio_k()
         memo_key = (
             bucket.G if bucket else bucket_groups(problem.G),
-            bucket.O if bucket else bucket_options(problem.O),
+            bucket.O if bucket else self._options_pad(problem.O),
             bucket.E if bucket else bucket_existing(problem.E),
             bucket.Z if bucket else bucket_zones(max(len(problem.zones), 1)),
-            self.seed, self.portfolio,
+            self.seed, k,
         )
         memo = problem.__dict__.get("_prep_memo")
         if memo is not None and memo[0] == memo_key:
@@ -1990,7 +2165,7 @@ class TorchSolver(Solver):
         t_presolve = time.perf_counter()
         G, O, E, R = problem.G, problem.O, problem.E, len(problem.resource_axes)
         Gp = bucket.G if bucket else bucket_groups(G)
-        Op = bucket.O if bucket else bucket_options(O)
+        Op = bucket.O if bucket else self._options_pad(O)
         Ep = bucket.E if bucket else bucket_existing(E)
         n_zones = max(len(problem.zones), 1)
         # padded zone columns carry IBIG quotas and no option or slot maps to
@@ -2070,7 +2245,7 @@ class TorchSolver(Solver):
             layer = np.full((Gp,), np.iinfo(np.int32).max, np.int64)
             layer[:G] = problem.rel_layer  # padding groups sort last
         orders, alphas, looks, rsvs, swaps = make_orders(
-            sizes, count.astype(np.float64), self.portfolio, self.seed, layer=layer,
+            sizes, count.astype(np.float64), k, self.seed, layer=layer,
             has_reserve=demand_units is not demand,
         )
         out = (fields, orders, alphas, looks, rsvs, swaps)

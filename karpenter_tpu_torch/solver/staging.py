@@ -179,14 +179,21 @@ class DeviceStager:
             torch.cuda.current_stream(self.device).wait_event(self._fence)
             self._fence = None
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+    def _upload(self, arr: np.ndarray, device=None) -> torch.Tensor:
         # copy=True: on the CPU a tensor must not share the caller's memory
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device, copy=True)
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device or self.device, copy=True)
 
-    def stage(self, tag: tuple, leaves: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    def stage(self, tag: tuple, leaves: Mapping[str, np.ndarray], put=None) -> Dict[str, torch.Tensor]:
         """Device tensors for ``leaves``, reusing or patching the resident
         entry of ``tag`` where the bytes allow. ``tag`` must pin every static
         of the padded shape (bucket dims, K, fleet width).
+
+        ``put(name, array)`` places a full upload in place of the plain
+        copy to the stager's device: the meshed tier passes the rule table's
+        placement (``parallel.mesh.device_put``), and the leaf is then a
+        ``Placed`` with one tensor per shard. A hit serves it as it lies, and
+        a restage patches each shard's block on the shard that holds it
+        (``stage_patch``), only where that block's rows changed.
 
         The device-fault seam (``utils/faults.py``, site ``"staging"``) is
         the reference's: a scripted ``staging-corruption`` multiplies
@@ -208,9 +215,10 @@ class DeviceStager:
                 corrupted = np.asarray(leaves[victim]).copy()
                 corrupted *= 4.0
                 leaves[victim] = corrupted
+        upload = (lambda k, v: put(k, v)) if put is not None else (lambda k, v: self._upload(v))
         if not self.enabled:
             # fresh tensors every call: nothing resident is overwritten
-            return {k: self._upload(np.asarray(v)) for k, v in leaves.items()}
+            return {k: upload(k, np.asarray(v)) for k, v in leaves.items()}
         with self._lock:
             self._wait_fence()
             round_info: Dict[str, object] = {
@@ -244,7 +252,8 @@ class DeviceStager:
                         out[name] = entry.dev[name]
                         hits += 1
                         continue
-                    patched = self._patch(entry.dev[name], old_host, new)
+                    patched = (self._patch_placed(entry.dev[name], old_host, new)
+                               if put is not None else self._patch(entry.dev[name], old_host, new))
                     if patched is not None:
                         dev, rows = patched
                         out[name] = dev
@@ -256,7 +265,7 @@ class DeviceStager:
                         self.stats["restaged_rows"] += rows
                         bytes_moved += (new.nbytes // max(new.shape[0], 1)) * rows
                         continue
-                dev = self._upload(new)
+                dev = upload(name, new)
                 out[name] = dev
                 entry.dev[name] = dev
                 entry.host[name] = new.copy()
@@ -309,9 +318,35 @@ class DeviceStager:
         width = 1 << (rows - 1).bit_length() if rows > 1 else 1
         if width != rows:
             changed = np.concatenate([changed, np.full(width - rows, changed[0], changed.dtype)])
-        idx = self._upload(changed.astype(np.int64))
-        src = self._upload(new[changed])
+        idx = self._upload(changed.astype(np.int64), old_dev.device)
+        src = self._upload(new[changed], old_dev.device)
+        if old_dev.device.type == "cuda":
+            with torch.cuda.device(old_dev.device):
+                return stage_patch(old_dev, idx, src), rows
         return stage_patch(old_dev, idx, src), rows
+
+    def _patch_placed(self, placed, old_host: np.ndarray, new: np.ndarray):
+        """``_patch`` of a placed leaf: each shard whose block changed
+        restages its own block's churned rows where it lies. Returns (the
+        placed leaf, churned rows of the whole leaf), or None: the caller
+        places the leaf whole."""
+        from ..parallel.mesh import Placed
+
+        if new.ndim == 0 or new.shape[0] == 0:
+            return None
+        shards = []
+        for i, t in enumerate(placed.shards):
+            sl = placed.sharding.slices(new.shape, i)
+            if np.array_equal(old_host[sl], new[sl]):
+                shards.append(t)
+                continue
+            patched = self._patch(t, old_host[sl], new[sl])
+            if patched is None:
+                return None
+            shards.append(patched[0])
+        diff = old_host != new
+        rows = int((diff if new.ndim == 1 else diff.reshape(new.shape[0], -1).any(axis=1)).sum())
+        return Placed(placed.sharding, placed.shape, placed.dtype, shards), rows
 
     # -- bookkeeping --------------------------------------------------------
     def _evict(self) -> None:

@@ -26,6 +26,15 @@ its ``[B, L]`` buffer equals the B=1 buffer of problem b, and a
 ``fleet_padding`` row costs 0. A wrapper given unbatched tensors launches
 with B=1.
 
+``pack_solve_meshed`` is the same solve over the shards of a device mesh
+(``parallel/mesh.py``; the chain and its kernels' wrappers in
+``meshed.py``): the 1D portfolio mesh splits the members, the 2D options x
+fleet mesh the option columns and a superproblem's rows. Its design rule is
+what ``_pin`` and ``mesh_constraints`` guarantee in the JAX package: the
+option-axis values (``units``, ``units_rsv``, ``val_pair``, the lookahead
+prices, the step scores) stay split by option columns and are never
+gathered whole. ``BucketKey``'s ``MO``/``MF`` carry the mesh shape.
+
 Beside each kernel sits its plain PyTorch version (``*_ref``): the member
 axis is a batch dimension and the scan a Python loop over T; a batch runs
 row by row. A wrapper takes the plain version only for tensors on the CPU;
@@ -212,44 +221,33 @@ def _units(rem: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return torch.clamp(u, 0, float(_IBIG)).to(_I32)
 
 
-def shared_precompute_ref(inputs: PackInputs, s_new: int, n_zones: int) -> Shared:
-    G, R = inputs.demand.shape
-    E = inputs.ex_rem.shape[0]
-    dev = inputs.demand.device
-    d = inputs.demand
-    cnt = inputs.count
+def sized_units_ref(inputs: PackInputs, dd: torch.Tensor) -> torch.Tensor:
+    """[G, O] whole pods of per-pod demand ``dd`` a fresh node of each
+    option holds."""
+    safe = torch.where(
+        dd[:, None, :] > 0,
+        inputs.alloc[None, :, :] / torch.clamp(dd[:, None, :], min=1e-30),
+        _INF,
+    )
+    return torch.clamp(torch.floor(safe.amin(-1) + 1e-4), 0, float(_IBIG)).to(_I32)
 
-    def sized_units(dd):
-        safe = torch.where(
-            dd[:, None, :] > 0,
-            inputs.alloc[None, :, :] / torch.clamp(dd[:, None, :], min=1e-30),
-            _INF,
-        )
-        return torch.clamp(torch.floor(safe.amin(-1) + 1e-4), 0, float(_IBIG)).to(_I32)
 
+def finish_units_ref(inputs: PackInputs, un: torch.Tensor) -> torch.Tensor:
+    """Unit counts capped by node_cap, 0 where the option cannot take the
+    group, and all-or-nothing for colocated groups."""
     ok = inputs.compat & inputs.opt_valid[None, :]
+    un = torch.minimum(un, inputs.node_cap[:, None])
+    un = torch.where(ok, un, 0)
+    return torch.where(inputs.colocate[:, None], torch.where(un >= inputs.count[:, None], un, 0), un)
 
-    def finish(un):
-        un = torch.minimum(un, inputs.node_cap[:, None])
-        un = torch.where(ok, un, 0)
-        return torch.where(inputs.colocate[:, None], torch.where(un >= cnt[:, None], un, 0), un)
 
-    units_raw = sized_units(d)
-    units_rsv = sized_units(inputs.demand_units)
-    row_fits = ((units_rsv > 0) & ok).any(1, keepdim=True)
-    units_rsv = torch.where(~row_fits & (units_raw > 0), units_raw, units_rsv)
-    units = finish(units_raw)
-    units_rsv = finish(units_rsv)
-
-    units_f = units.float()
-    rate = torch.where(units > 0, inputs.price[None, :] / torch.clamp(units_f, min=1.0), _INF)
-    lam_raw = rate.amin(1)
-    lam = torch.where(lam_raw < _INF, lam_raw, 0.0)
-
-    zone_limited = (inputs.quota < _IBIG).any(1)
-    ex_ok = inputs.ex_compat & inputs.ex_valid[None, :]
-
-    resid = _fma(-units_f[:, :, None], d[:, None, :], inputs.alloc[None, :, :])  # [G, O, R]
+def val_pair_ref(inputs: PackInputs, units: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """[G, O, G'] residual value of a (g, o) node to group g': its whole
+    pods of g' times g''s cheapest per-pod rate."""
+    R = inputs.demand.shape[1]
+    d = inputs.demand
+    ok = inputs.compat & inputs.opt_valid[None, :]
+    resid = _fma(-units.float()[:, :, None], d[:, None, :], inputs.alloc[None, :, :])  # [G, O, R]
     u2 = None
     for r in range(R):
         dr = d[:, r]
@@ -262,7 +260,28 @@ def shared_precompute_ref(inputs: PackInputs, s_new: int, n_zones: int) -> Share
     u2 = torch.clamp(u2, 0, float(_IBIG))
     u2 = torch.minimum(u2, inputs.node_cap[None, None, :].float())
     val_pair = torch.where(ok.T[None, :, :] & (u2 > 0), u2 * lam[None, None, :], 0.0)
-    val_pair = val_pair.contiguous()  # the transposed mask can leave o fastest
+    return val_pair.contiguous()  # the transposed mask can leave o fastest
+
+
+def shared_precompute_ref(inputs: PackInputs, s_new: int, n_zones: int) -> Shared:
+    G, R = inputs.demand.shape
+    E = inputs.ex_rem.shape[0]
+    dev = inputs.demand.device
+    ok = inputs.compat & inputs.opt_valid[None, :]
+    units_raw = sized_units_ref(inputs, inputs.demand)
+    units_rsv = sized_units_ref(inputs, inputs.demand_units)
+    row_fits = ((units_rsv > 0) & ok).any(1, keepdim=True)
+    units_rsv = torch.where(~row_fits & (units_raw > 0), units_raw, units_rsv)
+    units = finish_units_ref(inputs, units_raw)
+    units_rsv = finish_units_ref(inputs, units_rsv)
+
+    rate = torch.where(units > 0, inputs.price[None, :] / torch.clamp(units.float(), min=1.0), _INF)
+    lam_raw = rate.amin(1)
+    lam = torch.where(lam_raw < _INF, lam_raw, 0.0)
+
+    zone_limited = (inputs.quota < _IBIG).any(1)
+    ex_ok = inputs.ex_compat & inputs.ex_valid[None, :]
+    val_pair = val_pair_ref(inputs, units, lam)
 
     exok_pad = torch.cat([ex_ok, torch.zeros((G, s_new), dtype=_BOOL, device=dev)], 1)
     is_new = torch.arange(E + s_new, device=dev) >= E
@@ -851,6 +870,25 @@ def pack_solve_fleet(
     return pack_solve_fused(inputs, orders, alphas, looks, rsvs, swaps, s_new, n_zones)
 
 
+def pack_solve_meshed(
+    mesh, inputs: PackInputs, orders, alphas, looks, rsvs, swaps, s_new: int, n_zones: int,
+) -> torch.Tensor:
+    """The two-phase solve over the shards of ``mesh``
+    (``parallel.mesh.Mesh``): ``inputs`` and the member arrays are placed
+    leaves (``parallel.mesh.Placed``, from ``shard_portfolio``,
+    ``shard_fleet``, ``shard_problem2d``, ``shard_superproblem`` or the
+    stager's mesh placement), of one problem or a ``[B, ...]`` stack. On the
+    1D mesh the members split over the shards (a fleet's rows split
+    instead); on the 2D mesh the option columns split over ``options`` and a
+    superproblem's rows over ``fleet``. Returns the ``[L]`` or ``[B, L]``
+    buffer of ``pack_solve_fused`` on the first shard's device, equal to the
+    un-meshed chain's bit for bit; the caller's current stream is ordered
+    after it. See ``meshed.py``."""
+    from .meshed import solve_meshed
+
+    return solve_meshed(mesh, inputs, orders, alphas, looks, rsvs, swaps, s_new, n_zones)
+
+
 def rtt_probe_ref(x: torch.Tensor) -> torch.Tensor:
     return x + 1
 
@@ -942,10 +980,18 @@ class BucketKey(NamedTuple):
     # fleet width: B > 1 keys a dispatch of B stacked problems of this shape;
     # B == 1 is the single-problem solve and keeps the plain label
     B: int = 1
+    # meshed-tier dims: the (options, fleet) mesh shape a dispatch is split
+    # over; (1, 1) is the un-meshed solve and keeps the plain label
+    MO: int = 1
+    MF: int = 1
 
     def label(self) -> str:
         base = f"g{self.G}o{self.O}e{self.E}s{self.S}z{self.Z}r{self.R}k{self.K}"
-        return f"{base}b{self.B}" if self.B > 1 else base
+        if self.B > 1:
+            base = f"{base}b{self.B}"
+        if self.MO > 1 or self.MF > 1:
+            base = f"{base}m{self.MO}x{self.MF}"
+        return base
 
 
 def bucket_key(g: int, o: int, e: int, s_new: int, z: int, r: int, k: int) -> BucketKey:

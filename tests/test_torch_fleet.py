@@ -264,7 +264,8 @@ def test_chunks_follow_max_batch():
     stats = stage_fleet([(solver, p) for p in problems], max_batch=4)
     assert ts.LAUNCHES == before  # CPU tensors take the plain versions
     assert stats == {"dispatches": 1, "cells_batched": 4, "eligible": 5,
-                     "buckets": ["g16o512e1s64z4r3k8b4"], "device_stacked": 0}
+                     "buckets": ["g16o512e1s64z4r3k8b4"], "device_stacked": 0,
+                     "superproblems": 0, "mesh_axes": ""}
     assert [("_fleet_dispatch" in p.__dict__) for p in problems] == [True] * 4 + [False]
     assert stage_fleet([(solver, problems[4])])["dispatches"] == 0
     assert [p.__dict__.get("_fleet_b") for p in problems] == [4] * 4 + [None]

@@ -9,8 +9,11 @@ several chunks. The kernels' launch entry points (``torch_solver._launch_*``,
 ``staging._launch_*``) then run on CPU tensors and must reproduce the plain
 PyTorch versions: every integer output exactly, lam and val_pair exactly,
 member costs to rtol 1e-6 (block sums add in another order than torch's),
-staged bytes exactly. This checks the kernels' logic only; that nvcc builds
-them and that they run on the card is chip_smoke.py's job.
+staged bytes exactly. The meshed tier's kernels run the same way over
+logical CPU shards (``solver/meshed.py``'s exchanges as copies between
+them): each against its plain version, and the meshed chains against the
+emulated un-meshed chain bit for bit. This checks the kernels' logic only;
+that nvcc builds them and that they run on the card is chip_smoke.py's job.
 """
 
 import ctypes
@@ -600,3 +603,154 @@ def test_emulated_rtt_probe_matches_plain_version(emulated):
         x[0], x[-1] = 2**31 - 1, -1
         got = ts._launch_rtt_probe(emulated, x, NULL_STREAM)
         assert torch.equal(got, ts.rtt_probe_ref(x)), n
+
+
+# ---------------------------------------------------------------------------
+# The meshed tier's kernels (solver/meshed.py) on logical CPU shards
+# ---------------------------------------------------------------------------
+
+from karpenter_tpu_torch import parallel  # noqa: E402
+from karpenter_tpu_torch.solver import meshed  # noqa: E402
+
+
+@pytest.fixture
+def emulated_chain(emulated, monkeypatch):
+    """Every wrapper of the chains launches the emulated kernels on CPU
+    tensors: the meshed tier's (``meshed._plain`` answers no) and the
+    un-meshed K1, K2 and K3 the chains call."""
+    monkeypatch.setattr(meshed, "_plain", lambda t: False)
+    monkeypatch.setattr(meshed, "_lib", lambda: emulated)
+    monkeypatch.setattr(ts, "_stream", lambda: NULL_STREAM)
+    monkeypatch.setattr(ts, "shared_precompute",
+                        lambda i, s, z: ts._launch_shared_precompute(emulated, i, s, NULL_STREAM))
+    monkeypatch.setattr(ts, "pack_member", lambda i, sh, o, a, l, r, s, z, swaps=None, seed_costs=None:
+                        ts._launch_pack_member(emulated, i, sh, o, a, l, r, s, swaps, seed_costs,
+                                               NULL_STREAM))
+    monkeypatch.setattr(ts, "pack_epilogue",
+                        lambda m1, m2: ts._launch_pack_epilogue(emulated, m1, m2, NULL_STREAM))
+
+    def fused(i, o, a, l, r, sw, s, z):
+        sh = ts.shared_precompute(i, s, z)
+        m1 = ts.pack_member(i, sh, o, a, l, r, s, z)
+        return ts.pack_epilogue(m1, ts.pack_member(i, sh, o, a, l, r, s, z, swaps=sw, seed_costs=m1.cost))
+
+    monkeypatch.setattr(ts, "pack_solve_fused", fused)
+    return fused
+
+
+MESH_CASES = [("topology", "2d", (2, 1)), ("existing", "2d", (2, 1)), ("crossgroup", "2d", (2, 2)),
+              ("ties", "1d", 2), ("exhaustion", "1d", 4), ("ties", "super", (2, 2))]
+
+
+@pytest.mark.parametrize("case,kind,shape", MESH_CASES, ids=[f"{c}-{k}-{s}" for c, k, s in MESH_CASES])
+def test_emulated_meshed_chain_equals_emulated_unmeshed(emulated_chain, case, kind, shape):
+    """The emulated kernels over logical shards (each shard's launches, the
+    exchanges as copies between them) answer what the emulated un-meshed
+    chain answers, bit for bit: both sum member costs with k2_scan's
+    partition of the emulated 64-thread blocks."""
+    (inputs, o, a, l, r, sw), S, nz = _inputs(case)
+    members = (o, a, l, r, sw)
+    if kind == "super":
+        # two rows: the fleet axis splits them, each row's columns split
+        stack = lambda x: torch.stack([x, x]).contiguous()  # noqa: E731
+        inputs, members = type(inputs)(*map(stack, inputs)), tuple(map(stack, members))
+    want = emulated_chain(inputs, *members, S, nz)
+    if kind == "1d":
+        mesh = parallel.make_mesh(shape, devices=["cpu"] * shape)
+        placed = parallel.shard_portfolio(mesh, inputs, *members)
+    else:
+        mesh = parallel.make_mesh2d(shape, devices=["cpu"] * (shape[0] * shape[1]))
+        placed = (parallel.shard_superproblem(mesh, 2, inputs, *members) if kind == "super"
+                  else parallel.shard_problem2d(mesh, inputs, *members))
+    got = ts.pack_solve_meshed(mesh, *placed, S, nz)
+    assert torch.equal(got, want)
+
+
+def _split(inputs, n):
+    """The option columns of one problem split over n shards, as
+    ``shard_problem2d`` places them, batched as B=1."""
+    mesh = parallel.make_mesh2d((n, 1), devices=["cpu"] * n)
+    placed = parallel.shard_problem2d(mesh, inputs)[0]
+    return [ts._unsqueeze(type(inputs)(*(p.shards[i] for p in placed))) for i in range(n)]
+
+
+@pytest.mark.parametrize("case", ["topology", "existing", "relations", "ties"])
+def test_emulated_shard_kernels_match_plain_versions(emulated, case, monkeypatch):
+    """K1's part and finish and K2's stages on each of two option shards,
+    against their plain versions run through the same exchanges: K1's
+    outputs and every integer of K2's exactly, member costs to rtol 1e-6
+    (block sums add in another order than torch's)."""
+    (inputs, o, a, l, r, sw), S, nz = _inputs(case)
+    shards = [meshed._Shard(parallel.make_mesh(2, devices=["cpu", "cpu"]), i) for i in range(2)]
+    ins = _split(inputs, 2)
+    members = [tuple(x.unsqueeze(0) for x in (o, a, l, r, sw))] * 2
+    plain_k1 = meshed.shard_precompute_all(shards, ins, S)
+    plain_m1 = meshed.shard_member_phase(shards, ins, plain_k1, members, S)
+    plain_m2 = meshed.shard_member_phase(shards, ins, plain_k1, members, S, [m.cost for m in plain_m1])
+    monkeypatch.setattr(meshed, "_plain", lambda t: False)
+    monkeypatch.setattr(meshed, "_lib", lambda: emulated)
+    monkeypatch.setattr(ts, "_stream", lambda: NULL_STREAM)
+    k1 = meshed.shard_precompute_all(shards, ins, S)
+    for got, want in zip(k1, plain_k1):
+        for f in ("units", "units_rsv", "rsv_group", "lam", "zone_limited", "val_pair", "exok_pad"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+    # the shards' K1 is the un-meshed K1's, split by columns
+    whole = ts.shared_precompute_ref(inputs, S, nz)
+    assert torch.equal(torch.cat([k.units[0] for k in k1], 1), whole.units)
+    assert torch.equal(torch.cat([k.val_pair[0] for k in k1], 1), whole.val_pair)
+    assert torch.equal(k1[0].lam[0], whole.lam)
+    m1 = meshed.shard_member_phase(shards, ins, k1, members, S)
+    for got, want in zip(m1, plain_m1):
+        _assert_members(ts._row(got, 0), ts._row(want, 0))
+    # phase 2 seeded from the plain phase 1, so that both scan alike
+    m2 = meshed.shard_member_phase(shards, ins, k1, members, S, [m.cost for m in plain_m1])
+    for got, want in zip(m2, plain_m2):
+        _assert_members(ts._row(got, 0), ts._row(want, 0))
+
+
+def test_emulated_member_argmin_on_nan_and_ties(emulated, monkeypatch):
+    """The 1D mesh's member argmin (offer, pick, final pick) against its
+    plain versions on costs holding NaN, +-inf and ties spread over four
+    shards: the seed and the winner are jnp.argmin's over the whole
+    portfolio."""
+    n, kl, G, T, NS, S, B = 4, 2, 5, 3, 9, 4, 2
+    K = n * kl
+    rng = np.random.default_rng(11)
+    orders = torch.from_numpy(rng.permuted(np.tile(np.arange(G, dtype=np.int32), (n, B, kl, 1)), axis=-1))
+    alphas = torch.from_numpy(rng.random((n, B, kl)).astype(np.float32))
+    looks = torch.from_numpy(rng.random((n, B, kl)) < 0.5)
+    rsvs = torch.from_numpy(rng.random((n, B, kl)) < 0.5)
+    swaps = torch.from_numpy(rng.permuted(np.tile(np.arange(G, dtype=np.int32), (B, kl, 1)), axis=-1))
+    for c1, c2 in COST_SETS:
+        c1 = torch.tensor([c1[:K]] * B, dtype=torch.float32).reshape(B, n, kl).transpose(0, 1).contiguous()
+        c2 = torch.tensor([c2[:K]] * B, dtype=torch.float32).reshape(B, n, kl).transpose(0, 1).contiguous()
+        outs = {}
+        for mode in ("plain", "emulated"):
+            if mode == "emulated":
+                monkeypatch.setattr(meshed, "_plain", lambda t: False)
+                monkeypatch.setattr(meshed, "_lib", lambda: emulated)
+                monkeypatch.setattr(ts, "_stream", lambda: NULL_STREAM)
+            offers = torch.zeros((n, B, 5 + G), dtype=torch.int32)
+            for s in range(n):
+                meshed.seed_offer(c1[s], s * kl, orders[s], alphas[s], looks[s], rsvs[s], offers[s])
+            picked = meshed.seed_pick(offers, swaps)
+            # each shard's K3 buffer over its members, then the final pick
+            m1s, m2s = _members(kl, T, NS, S, B, seed=7)
+            bufs = torch.stack([
+                ts.pack_epilogue_ref(ts._row(m1s._replace(cost=c1[s]), b), ts._row(m2s._replace(cost=c2[s]), b))
+                for s in range(n) for b in range(B)]).reshape(n, B, -1)
+            outs[mode] = (offers, picked, meshed.final_pick(bufs, picked[4], kl))
+        for got, want in zip(outs["emulated"][:2], outs["plain"][:2]):
+            for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+                assert torch.equal(g, w)
+        final = outs["emulated"][2]
+        assert torch.equal(final, outs["plain"][2])
+        flat1 = c1.transpose(0, 1).reshape(B, K)
+        flat2 = c2.transpose(0, 1).reshape(B, K)
+        for b in range(B):
+            j = int(jnp.argmin(jnp.asarray(flat1[b].numpy())))
+            assert int(outs["emulated"][1][4][b, 0]) == j == int(final[b, 1])
+            best = int(jnp.argmin(jnp.asarray(np.concatenate([flat1[b].numpy(), flat2[b].numpy()]))))
+            assert (int(final[b, 0]), int(final[b, 2])) == (int(best >= K), best % K)
+            costs = final[b, 4 : 4 + 2 * K].view(torch.float32)
+            assert torch.equal(costs.view(torch.int32), torch.cat([flat1[b], flat2[b]]).view(torch.int32))

@@ -497,15 +497,25 @@ def test_default_solver_is_the_card_unless_asked():
         op.close()
 
 
-@pytest.mark.parametrize("settings_kw, match", [
-    (dict(mesh_enabled=True), "item 10"),
-], ids=["mesh"])
-def test_unported_settings_raise(settings_kw, match):
-    m = pkg_mod(PORT)
-    provider = m.cloud.FakeCloudProvider(catalog=m.cloud.generate_catalog(n_types=5))
-    with pytest.raises(NotImplementedError, match=match):
-        m.operator.Operator.new(provider=provider, device="cpu",
-                                settings=m.settings.Settings(**settings_kw))
+@pytest.mark.parametrize("settings_kw", [dict(mesh_enabled=True)], ids=["mesh"])
+def test_unported_settings_raise(settings_kw, one_worker):
+    """``mesh_enabled`` is honoured as the reference honours it, not
+    refused: the operator resolves ``mesh_shape`` through
+    ``parse_mesh_shape``, which is None below two cards (this process sees
+    none), so its solver builds no mesh, and a step binds what the
+    reference's operator binds."""
+
+    def case_mesh_enabled(pkg):
+        t = Twin(pkg, **settings_kw)
+        t.add(make_pods(t.m, 12, cpu="500m"))
+        t.step()
+        assert not t.cluster.pending_pods() and t.settings.mesh_enabled
+        if pkg == PORT:
+            solver = t.op.provisioning.solver
+            assert solver.mesh_shape is None and solver._ensure_mesh() is None
+        return t
+
+    run_twins(case_mesh_enabled)
 
 
 def test_federation_settings_wire_the_arbiter_link():

@@ -3,8 +3,8 @@
 and ``TestProvisionerWeightPriority`` cases, at the same sizes, with
 ``TorchSolver(device="cpu")`` where the reference's controller takes its
 default ``TPUSolver``; then what the port refuses: a default solver without
-CUDA, settings that turn on what is not ported, a kernel error hidden by a
-fallback, and a launch template."""
+CUDA, a kernel error hidden by a fallback, and a launch template; and
+``mesh_enabled``, honoured since the multi-device tier was ported."""
 
 from __future__ import annotations
 
@@ -292,12 +292,32 @@ class TestNoFallback:
         {"cell_sharding_enabled": True, "mesh_enabled": True},
     ])
     def test_unported_settings_refuse_to_construct(self, kw):
-        settings = Settings()
-        for k, v in kw.items():
-            setattr(settings, k, v)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ProvisioningController(Cluster(), FakeCloudProvider(catalog=generate_catalog(n_types=5)),
-                                   solver=cpu_solver(), settings=settings)
+        """``mesh_enabled`` with cell sharding is not refused: the
+        controller constructs and binds, on a solver with no mesh (none is
+        built without a second card) and on one with an explicit mesh of
+        2x2 logical CPU shards, whose sharded round stages its cells as one
+        superproblem. Both bind every pod onto the same nodes."""
+        from karpenter_tpu_torch import configs, parallel
+
+        plans = {}
+        for arm in ("meshless", "mesh"):
+            cluster, provider, settings, _ = configs.config_controller_cells(
+                n_pods=2000, n_cells=4, n_types=20)
+            provider.create_batched = None
+            for k, v in kw.items():
+                setattr(settings, k, v)
+            mesh = parallel.make_mesh2d((2, 2), devices=["cpu"] * 4) if arm == "mesh" else None
+            solver = TorchSolver(device="cpu", mesh=mesh)
+            assert arm == "mesh" or solver._ensure_mesh() is None
+            ctl = ProvisioningController(cluster, provider, solver=solver, settings=settings)
+            res = ctl.reconcile()
+            assert not cluster.pending_pods() and not res.unschedulable
+            assert res.solve.stats["superproblems"] == (1.0 if arm == "mesh" else 0.0)
+            plans[arm] = sorted(
+                (n.meta.labels.get(wk.INSTANCE_TYPE), n.meta.labels.get(wk.ZONE),
+                 tuple(sorted(p.name for p in cluster.pods_on_node(n.name))))
+                for n in cluster.nodes.values())
+        assert plans["mesh"] == plans["meshless"]
 
     def test_federation_gate_routes_leased_units(self):
         """``federation_enabled`` constructs, and the gate routes each

@@ -252,6 +252,9 @@ COST_RTOL = 1e-6  # slice costs against the JAX package's
 MEMBER_COST_RTOL = 1e-5  # f32 member-cost sums, taken in another order than the plain version's
 NEAR_TIE_RTOL = 1e-6  # rule for comparing fused buffers, see fused_agree()
 SPIN_CYCLES = 100_000_000  # ~50 ms of GPU clock, longer than a window's host work
+#: the short spins that end every ``device_trace``, ~5 us each: the events
+#: a trace may lose at its end are theirs, not the traced calls'
+TAIL_SPINS, TAIL_SPIN_CYCLES = 16, 10_000
 
 
 def log(*args) -> None:
@@ -703,7 +706,9 @@ def chain_ops_check(ts, tag, args, S: int, nz: int, calls: int = 4) -> None:
     order they ran are CHAIN_ORDER once a call, with no PyTorch op, copy or
     memset between K1, K2, K2 and K3. The trace may miss the first call's
     first launches, so the events must be a tail of that sequence holding
-    at least ``calls - 1`` whole chains."""
+    at least ``calls - 1`` whole chains; the last call's last launches are
+    followed by ``device_trace``'s tail of spins, which takes any loss at
+    the trace's end."""
     names = [name for name, _ in device_trace(lambda: ts.pack_solve_fused(*args, S, nz), calls)]
     seq = []
     for name in names:
@@ -721,10 +726,13 @@ def chain_ops_check(ts, tag, args, S: int, nz: int, calls: int = 4) -> None:
 def device_trace(fn, calls: int = 10):
     """The device events of ``calls`` calls of ``fn`` (after one warm-up),
     from a ``torch.profiler`` trace, in the order they ran: ``[(name, ms)]``.
-    The calls queue behind a spin on the card. The trace may miss the
-    events of the first call's first launches (on the card it missed one
-    or two kernels of the first call in some windows): ``kernel_parts_ms``
-    and ``chain_ops_check`` allow for that."""
+    The calls queue behind a spin on the card, and ``TAIL_SPINS`` short
+    spins follow them. The trace may miss the events of the first call's
+    first launches (on the card it missed one or two kernels of the first
+    call in some windows): ``kernel_parts_ms`` and ``chain_ops_check``
+    allow for that. It may also miss the last events before the trace
+    stops (one run lost the last call's last two kernels): those are the
+    tail's spins, which are dropped with the leading one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -734,6 +742,8 @@ def device_trace(fn, calls: int = 10):
         torch.cuda._sleep(SPIN_CYCLES)
         for _ in range(calls):
             fn()
+        for _ in range(TAIL_SPINS):
+            torch.cuda._sleep(TAIL_SPIN_CYCLES)
         torch.cuda.synchronize()
     events = [ev for ev in prof.events()
               if str(ev.device_type).endswith("CUDA") and "spin_kernel" not in ev.name]
@@ -1800,6 +1810,33 @@ def event_ms(fn, reps: int = 3) -> tuple:
     return statistics.median(dev), statistics.median(host)
 
 
+def first_call_ms(fn) -> tuple:
+    """(device ms between events around one call, host ms of the call),
+    with no warm call before it: what a first dispatch of a shape pays."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+@contextlib.contextmanager
+def phase_mode(meshed, mode):
+    """The meshed K2 phases issued in ``mode`` (``meshed.PHASE_MODE``)."""
+    saved = meshed.PHASE_MODE
+    meshed.PHASE_MODE = mode
+    try:
+        yield
+    finally:
+        meshed.PHASE_MODE = saved
+
+
 @contextlib.contextmanager
 def plain_mesh_kernels(meshed):
     """The meshed tier's wrappers take their plain versions on the card's
@@ -1841,19 +1878,37 @@ def mesh_kernel_check(ts, configs) -> list:
     for kind, shape in MESH_KERNEL_MESHES:
         mesh = logical_mesh(kind, shape)
         placed = mesh_place(kind, mesh, tensors)
-        before = dict(meshed.LAUNCHES)
-        got = ts.pack_solve_meshed(mesh, *placed, S, nz)
-        torch.cuda.synchronize()
+
+        def chain():
+            return ts.pack_solve_meshed(mesh, *placed, S, nz)
+
+        def hold(got, how):
+            if not torch.equal(got, want):
+                at = torch.nonzero(got != want).flatten()[:8].tolist()
+                raise AssertionError(f"mesh {kind} {shape} ({how}): buffer differs from the "
+                                     f"un-meshed chain at {at}")
+
+        before, paths = dict(meshed.LAUNCHES), dict(meshed.PHASE_PATHS)
+        got = []
+        first = first_call_ms(lambda: got.append(chain()))
+        hold(got[0], "phase entry")
         moved = {k: meshed.LAUNCHES[k] - before[k] for k in before}
-        if not torch.equal(got, want):
-            at = torch.nonzero(got != want).flatten()[:8].tolist()
-            raise AssertionError(f"mesh {kind} {shape}: buffer differs from the un-meshed chain at {at}")
-        # the 2D chains take 70-250 ms each: one timed call after the warm one
-        dev, host = event_ms(lambda: ts.pack_solve_meshed(mesh, *placed, S, nz),
-                             reps=3 if kind == "1d" else 1)
+        dev, host = event_ms(chain, reps=5)
+        paths = {k: meshed.PHASE_PATHS[k] - paths[k] for k in paths}
         log(f"mesh {kind} {shape}: buffer equal to the un-meshed chain bit for bit; {dev:.4f} ms "
-            f"between events ({host:.4f} ms host; un-meshed {base_ms[0]:.4f} ms), launches a "
-            f"chain {moved}")
+            f"between events, the median of 5 calls after a warm one ({host:.4f} ms host; its "
+            f"first call {first[0]:.4f} ms, {first[1]:.4f} ms host; un-meshed {base_ms[0]:.4f} ms), "
+            f"launches a chain {moved}, K2 phases of the 7 calls by path {paths}")
+        if kind != "2d":
+            continue
+        # the same chain with every stage issued from Python (30-230 ms a
+        # chain): one timed call after the warm one
+        with phase_mode(meshed, "stages"):
+            hold(chain(), "per-stage issue")
+            sdev, shost = event_ms(chain, reps=1)
+        log(f"mesh {kind} {shape}: per-stage issue {sdev:.4f} ms between events ({shost:.4f} ms "
+            f"host), buffer bit for bit; the phase entry {sdev / dev:.2f}x faster, its first "
+            f"call {sdev / first[0]:.2f}x")
 
     errs = {}
     # K1 on two option shards against its plain version and the un-meshed K1
@@ -2016,18 +2071,26 @@ def mesh_timings(ts, meshed, tensors, S, nz, shards, ins, members, k1, errs) -> 
     mem = [members[0]]
     launches = 2 + len(meshed.STAGES) * G
 
+
     def k2_phase():
         return meshed.shard_member_phase(one, whole, shared, mem, S)
 
-    phase_ms, _ = event_ms(k2_phase, reps=3)
-    k2_parts = kernel_parts_ms(k2_phase, MESH_K2_PARTS, calls=3)
+    # the phase runs on the shard's stream, so its events and the trace's
+    # spin go there too; the idle share varies with the host (a median of 9)
+    with meshed._on(one[0]):
+        phase_ms, _ = event_ms(k2_phase, reps=9)
+        k2_parts = kernel_parts_ms(k2_phase, MESH_K2_PARTS, calls=3)
+        with phase_mode(meshed, "stages"):
+            stages_ms = event_ms(k2_phase, reps=3)[0]
     k2_device = sum(k2_parts.get(p, 0.0) for p in MESH_K2_PARTS)
     if k2_device <= 0.0:
         raise AssertionError(f"mesh timings: no device time of {MESH_K2_PARTS} in the trace: {k2_parts}")
     ms["shard_member"] = k2_device / launches
-    log(f"mesh shard_member on one shard: a {launches}-launch phase {phase_ms:.4f} ms between events, "
-        f"its kernels {k2_device:.4f} ms on the card (profiler, ms a phase: {k2_parts}); host issue "
-        f"{phase_ms - k2_device:.4f} ms of the phase ({100 * (1 - k2_device / phase_ms):.1f}%), "
+    log(f"mesh shard_member on one shard: a {launches}-launch phase {phase_ms:.4f} ms between events "
+        f"through the phase entry (the per-stage issue {stages_ms:.4f} ms), its kernels "
+        f"{k2_device:.4f} ms on the card (profiler, ms a phase: {k2_parts}); the card idle "
+        f"{phase_ms - k2_device:.4f} ms of the phase ({100 * (1 - k2_device / phase_ms):.1f}%; the "
+        f"per-stage issue's {100 * (1 - k2_device / stages_ms):.1f}%), "
         f"{(phase_ms - k2_device) / launches:.4f} ms a launch")
     with plain_mesh_kernels(meshed):
         pdev, _ = event_ms(lambda: meshed.shard_member_phase(one, whole, shared, mem, S), reps=1)
@@ -2323,11 +2386,15 @@ def mesh_phase(ts, configs) -> tuple:
     kernels = mesh_kernel_check(ts, configs)
     for k in meshed.LAUNCHES:
         meshed.LAUNCHES[k] = 0
+    paths = dict(meshed.PHASE_PATHS)
     mesh_superproblem(ts, configs)
     mesh_flat(ts, configs)
     mesh_controller(ts, configs)
     launches = dict(meshed.LAUNCHES)
-    log(f"mesh launches on the main path {launches}")
+    paths = {k: meshed.PHASE_PATHS[k] - paths[k] for k in paths}
+    log(f"mesh launches on the main path {launches}; its K2 phases by path {paths}")
+    if paths["stages"] or not paths["entry"]:
+        raise AssertionError(f"mesh: the main path's K2 phases did not all take the phase entry: {paths}")
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
         if entry["launches"] < 1:
@@ -2476,11 +2543,16 @@ def controller_round(ts, configs) -> dict:
     return errs
 
 
-#: what the seed round of ``controller_sharded`` launches: two fleet chains
-#: (B=16 and B=4, each K1, K2 twice, K3) on device-side stacks, and the
-#: first ``device_rtt`` probe (a warm call and three timed ones)
-SHARDED_SEED_LAUNCHES = {"shared_precompute": 2, "pack_member": 4, "pack_epilogue": 2,
-                         "stage_patch": 0, "fleet_stack": 2, "rtt_probe": 4}
+#: the sharded controller's fleet: the first 10 of ``config_controller_cells``'
+#: 20 cells of 25,000 pods (cut from 500,000 pods to keep the run inside its
+#: limit: the seed round took 222-270 s, 168-187 s of it the host's launches)
+SHARDED_PODS, SHARDED_CELLS = 250_000, 10
+#: what the seed round of ``controller_sharded`` launches: one fleet chain
+#: (the 10 cells in one chunk padded to B=16: K1, K2 twice, K3) on a
+#: device-side stack, and the first ``device_rtt`` probe (a warm call and
+#: three timed ones)
+SHARDED_SEED_LAUNCHES = {"shared_precompute": 1, "pack_member": 2, "pack_epilogue": 1,
+                         "stage_patch": 0, "fleet_stack": 1, "rtt_probe": 4}
 #: what a churn round of ``config_controller_cells`` gives (the JAX
 #: package's answer at 2,000 pods, ``tests/test_torch_sharded.py``): only
 #: the 4 churned cells hold pending pods; round 0's cells delta-encode, and
@@ -2666,13 +2738,15 @@ def sharded_round(ts, st, ctl, probe, solver_mod, name):
 def controller_sharded(ts, st, configs) -> dict:
     """Main path, sharded provisioning controller: ``ProvisioningController``
     with its default ``TorchSolver()`` over ``configs.config_controller_cells``
-    (500k pending pods in 20 cells of 25k, 60 types; 8 workers, fleet chunks
-    of up to 16): a seed round, then the churn rounds of
-    ``SHARDED_CHURN_MODES`` applied through the cluster. Every round is held by ``sharded_round``. The seed round must
-    solve 20 cells with none reused and no residue, each cell's problem
-    the ``config_cells`` problem (so its cost is at most the JAX package's
-    kernel-only ``cells_seed``), in two fleet dispatches of widths 4 and 16
-    that batch all 20 cells, launching what ``SHARDED_SEED_LAUNCHES`` says.
+    (``SHARDED_PODS`` pending pods in ``SHARDED_CELLS`` cells of 25k, 60
+    types; 8 workers, fleet chunks of up to 16): a seed round, then the
+    churn rounds of ``SHARDED_CHURN_MODES`` applied through the cluster.
+    Every round is held by ``sharded_round``. The seed round must solve
+    every cell with none reused and no residue, each cell's problem the
+    ``config_cells`` problem (so its cost is at most the JAX package's
+    kernel-only ``cells_seed``, the most of the 20 cells), in one fleet
+    dispatch of width 16 that batches them all, launching what
+    ``SHARDED_SEED_LAUNCHES`` says.
     A churn round must solve the 4 churned cells (none reused, no residue)
     in the modes ``SHARDED_CHURN_MODES`` names. Then the worker check:
     ``config_controller_cells(WORKER_CHECK_PODS, 8)``'s seed round on twin clusters at
@@ -2691,7 +2765,8 @@ def controller_sharded(ts, st, configs) -> dict:
     KERNEL_BOARD.reset()
     TorchSolver._device_rtt_s = None
     t0 = time.perf_counter()
-    cluster, provider, settings, churn_round = configs.config_controller_cells()
+    cluster, provider, settings, churn_round = configs.config_controller_cells(
+        n_pods=SHARDED_PODS, n_cells=SHARDED_CELLS)
     ctl = ProvisioningController(cluster, provider, settings=settings)
     log(f"sharded controller config: {len(cluster.pods)} pending pods in "
         f"{len(cluster.provisioners)} cells, {len(provider.catalog)} types, built in "
@@ -2711,15 +2786,15 @@ def controller_sharded(ts, st, configs) -> dict:
             if rnd == "seed":
                 log(f"{name}: peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
                     f"MiB over {len(ctl._cell_solvers)} solver clones")
-                want = dict(cells=20.0, cells_reused=0.0, residue_pods=0.0, fleet_dispatches=2.0,
-                            fleet_cells_batched=20.0)
-                if stats != want or facts["widths"] != [4, 16]:
+                want = dict(cells=float(SHARDED_CELLS), cells_reused=0.0, residue_pods=0.0,
+                            fleet_dispatches=1.0, fleet_cells_batched=float(SHARDED_CELLS))
+                if stats != want or facts["widths"] != [16]:
                     raise AssertionError(f"{name}: stats {stats}, fleet widths {facts['widths']}")
                 if facts["moved"] != SHARDED_SEED_LAUNCHES:
                     raise AssertionError(f"{name}: launches {facts['moved']}, not "
                                          f"{SHARDED_SEED_LAUNCHES}")
                 hold_pack_launches(name, facts["moved"])
-                cells, provs, catalog = configs.config_cells()
+                cells, provs, catalog = configs.config_cells(SHARDED_PODS, SHARDED_CELLS)
                 for c, prov in enumerate(provs):
                     want_digest = problem_digest(
                         encode(list(cells[c].values()), [(prov, catalog)])).hex()

@@ -52,8 +52,10 @@ _SIGNATURES = {
     "kts_k1_part": [_P] * 19 + [_I] * 7 + [_P],
     # 14 pointers, n B G O E R Z S, stream
     "kts_k1_finish": [_P] * 14 + [_I] * 8 + [_P],
-    # 45 pointers, B K G O E R Z S c0 n self stage t, stream
-    "kts_k2m": [_P] * 45 + [_I] * 13 + [_P],
+    # pointer array, dims array (meshed._k2m_args), stage t, stream
+    "kts_k2m": [_P, _P, _I, _I, _P],
+    # n, n pointer arrays, n dims arrays, devices, streams, &launches
+    "kts_k2m_phase": [_I, _P, _P, _P, _P, _P],
     # 6 pointers, B K G k0, stream
     "kts_seed_offer": [_P] * 6 + [_I] * 4 + [_P],
     # 7 pointers, n B K G, stream

@@ -49,6 +49,7 @@
 #include <stddef.h>
 
 #include <mutex>
+#include <new>
 
 namespace {
 
@@ -1623,8 +1624,10 @@ bool k2_plan(const K2Limits& lim, int G, int O, int R, int Z, int NS, int smem_l
 //
 // These replace what XLA partitions for the JAX package's meshed programs
 // (_get_jit(..., mesh=...), _pin and mesh_constraints, jax_solver.py:140-190,
-// 842-900). Shards exchange between launches, by device copies ordered by
-// events (meshed.py); no kernel waits on another shard inside a launch.
+// 842-900). Shards exchange between launches, ordered by events: K1's
+// partials by device copies (meshed.py), a K2 phase's regions in place or by
+// copies, issued by the phase entry from C (kts_k2m_phase); no kernel
+// waits on another shard inside a launch.
 //
 //   k1_mesh_combine  the K1 partials of every option shard (the rate minima,
 //                    a min; the reserve fits, an any) reduced into the first
@@ -1632,7 +1635,7 @@ bool k2_plan(const K2Limits& lim, int G, int O, int R, int Z, int NS, int smem_l
 //                    k1_val_pair then run unchanged over a shard's columns
 //   k2m_kernel       one stage of one step of K2 on an option shard, with
 //                    each member's slot state in global memory, replicated
-//                    on every shard (kStInit, kStFill .. kStApply, kStEnd)
+//                    on every shard (kStInit, kStFill .. kStTailPick, kStEnd)
 //   mesh_seed_offer, mesh_seed_pick, mesh_final_pick
 //                    the 1D mesh's cross-shard member argmin
 //
@@ -1674,6 +1677,12 @@ __global__ void __launch_bounds__(kMeshThreads) k1_mesh_combine(K1CombineArgs a)
   }
 }
 
+struct K2MLayout {  // word offsets of one member's state (k2m_layout)
+  size_t order, scal, zbits, want, cmin, rec, slots, sprice, scomp, sc, words;
+};
+
+constexpr int kK2MRegions = 4;  // exchange regions: one a stage of a step
+
 struct K2MArgs {
   const float* demand;          // [G, R]
   const float* demand_units;    // [G, R]
@@ -1709,33 +1718,37 @@ struct K2MArgs {
   const float* seed_costs;      // [K] phase-1 costs, or null for phase 1
   float* price_t;               // [K, G, O] lookahead prices (k2_prices, the shard's columns)
   unsigned char* state;         // [B][K][k2m_state_bytes] per-member state
-  int* xa;  // [n][B][K][2 Zb]      fill: lump and rate minima (f32 bits)
-  int* xb;  // [n][B][K][2][Zb][RW] pick: lump and rate records
-  int* xc;  // [n][B][K][Zb]        tail: tail minima
-  int* xd;  // [n][B][K][Zb][RW]    tail_pick: tail records
-  int* xe;  // [n][B][K][(S+31)/32] apply: the next group's slot bits
+  // The exchange regions, one a stage, each [n][B][K][k2m_region_words]
+  // ints: row j is shard j's, which this shard reads (its own, j = self, it
+  // writes). The shards of a phase may share one region (each reads the
+  // others' rows in place), or each hold its own copy of every row.
+  int* xa;  // fill: the shard's lump and rate minima (f32 bits), [2 Zb]
+  int* xb;  // pick: its lump and rate records, [2][Zb][RW]
+  int* xc;  // tail: its tail minima, [Zb]
+  int* xd;  // tail_pick: its tail records, [Zb][RW]
+  K2MLayout lay;                // the state's layout, set by the host: read from the parameters
   int* ys;                      // [K, G, E+S]
   float* cost;                  // [K]
   int* unplaced;                // [K]
   bool* exhausted;              // [K]
   int* new_opt;                 // [K, S]
   bool* new_active;             // [K, S]
-  int B, K, G, O, E, R, Z, S, c0, n, self, stage, t;
+  int B, K, G, O, E, R, Z, S, c0, n, self, t;
 };
 
-enum { kStInit = -1, kStFill = 0, kStPick = 1, kStTail = 2, kStTailPick = 3, kStApply = 4, kStEnd = 5 };
+enum { kStInit = -1, kStFill = 0, kStPick = 1, kStTail = 2, kStTailPick = 3, kStEnd = 4 };
 // state scalars
 enum { kScLook, kScRsv, kScAlpha, kScLeft, kScFree, kScUnplaced, kScExhausted, kSc = 8 };
 // an exchanged option record: value, global index, units, effective price,
-// price, zone, then the alloc row
+// price, zone, then the alloc row and the compat column (bit g of word g / 32:
+// whether group g may use the option)
 enum { kRcValue, kRcIdx, kRcUnits, kRcPe, kRcPrice, kRcZone, kRcAlloc };
 
-struct K2MLayout {  // word offsets of one member's state
-  size_t order, scal, zbits, want, cmin, rec, slots, sprice, sc, words;
-};
+__host__ __device__ __forceinline__ int k2m_compat_words(int G) { return (G + 31) / 32; }
+__host__ __device__ __forceinline__ int k2m_rec_words(int G, int R) { return kRcAlloc + R + k2m_compat_words(G); }
 
 __host__ __device__ __forceinline__ K2MLayout k2m_layout(int G, int O, int E, int R, int Z, int S) {
-  const size_t NS = (size_t)E + S, Zb = Z + 1, RW = kRcAlloc + R, W = kSlRem + R;
+  const size_t NS = (size_t)E + S, Zb = Z + 1, RW = k2m_rec_words(G, R), W = kSlRem + R;
   K2MLayout l;
   size_t w = 0;
   l.order = w; w += G;
@@ -1746,6 +1759,7 @@ __host__ __device__ __forceinline__ K2MLayout k2m_layout(int G, int O, int E, in
   l.rec = w; w += 3 * Zb * RW;      // the lump, rate and tail choices
   l.slots = w; w += NS * W;
   l.sprice = w; w += NS;            // an opened slot's option price
+  l.scomp = w; w += (size_t)S * k2m_compat_words(G);  // a fresh slot's option's compat column
   l.sc = w; w += 2 * (size_t)O;     // the shard's option scores
   l.words = w;
   return l;
@@ -1753,6 +1767,13 @@ __host__ __device__ __forceinline__ K2MLayout k2m_layout(int G, int O, int E, in
 
 __host__ __device__ __forceinline__ size_t k2m_state_bytes(int G, int O, int E, int R, int Z, int S) {
   return round16(4 * k2m_layout(G, O, E, R, Z, S).words);
+}
+
+// Ints a member's row holds in exchange region r (the stage that writes it).
+__host__ __device__ __forceinline__ size_t k2m_region_words(int r, int G, int R, int Z) {
+  const size_t Zb = Z + 1, RW = k2m_rec_words(G, R);
+  const size_t words[kK2MRegions] = {2 * Zb, 2 * Zb * RW, Zb, Zb * RW};
+  return words[r];
 }
 
 // K2MArgs of batch row b: inputs, prices and outputs advanced by row b (the
@@ -1859,9 +1880,21 @@ __device__ unsigned block_scan(unsigned v, unsigned* part, unsigned& total) {
 // (tid + 1) * NS / BT) as k2_scan's threads do. The computations on slots
 // are k2_scan's own functions (k2_init_slots .. k2_member_slots), on state
 // in global memory, replicated on every shard; the option rounds run over
-// the shard's columns and exchange minima and records. Bound: latency, a few block-wide rounds a launch, five launches
-// and five exchanges a step.
-__global__ void __launch_bounds__(kK2Threads) k2m_kernel(K2MArgs p) {
+// the shard's columns and exchange minima and records. A step is four
+// launches, each followed by an exchange: fill (the last step's segments
+// and opened slots from the gathered tail records, then this step's fit,
+// place and wants, and the shard's lump and rate minima), pick (the in-band
+// argmaxes), tail (the choices, the tail minima) and tail_pick (the tail
+// argmax); the end stage opens the last step's slots and sums the member.
+// A record carries its option's compat column (a bit a group), which a
+// slot opened on it keeps, so that every shard knows which open slots admit
+// the next group without an exchange of its own. Bound: latency, a few
+// block-wide rounds a launch. One instance a stage, so that each is
+// allocated registers for its own code; one block an SM is all the
+// (K, B) grid needs, so ptxas may give each thread the 64 registers 1,024
+// threads leave (left to itself it took 32 for some stages, and spilled).
+template <int kStage>
+__global__ void __launch_bounds__(kK2Threads, 1) k2m_kernel(K2MArgs p) {
   __shared__ Scratch sh;
   __shared__ unsigned s_part[32];
   __shared__ unsigned s_zpart[32 * kMaxZ];
@@ -1873,9 +1906,9 @@ __global__ void __launch_bounds__(kK2Threads) k2m_kernel(K2MArgs p) {
   const K2MArgs a = k2m_row(p, b);
   const int tid = threadIdx.x, BT = blockDim.x;
   const int G = a.G, O = a.O, E = a.E, R = a.R, Z = a.Z, S = a.S, Zb = Z + 1, NS = E + S;
-  const int RW = kRcAlloc + R, W = kSlRem + R, nseg = 2 * Zb;
-  const K2MLayout L = k2m_layout(G, O, E, R, Z, S);
-  int* st = reinterpret_cast<int*>(a.state + ((size_t)b * a.K + k) * k2m_state_bytes(G, O, E, R, Z, S));
+  const int CW = k2m_compat_words(G), RW = k2m_rec_words(G, R), W = kSlRem + R, nseg = 2 * Zb;
+  const K2MLayout& L = p.lay;
+  int* st = reinterpret_cast<int*>(a.state + ((size_t)b * a.K + k) * round16(4 * L.words));
   int* order = st + L.order;
   int* scal = st + L.scal;
   int* zbits = st + L.zbits;
@@ -1884,15 +1917,17 @@ __global__ void __launch_bounds__(kK2Threads) k2m_kernel(K2MArgs p) {
   int* rec = st + L.rec;  // [3][Zb][RW]: lump, rate, tail
   int* slots = st + L.slots;
   float* sprice = reinterpret_cast<float*>(st + L.sprice);
+  int* scomp = st + L.scomp;  // [S][CW]: a fresh slot's option's compat column
   float* sc = reinterpret_cast<float*>(st + L.sc);
   auto slot = [&](int s) { return slot_at(slots, W, s); };
   const int s0 = static_cast<int>((long long)tid * NS / BT);
   const int s1 = static_cast<int>((long long)(tid + 1) * NS / BT);
-  const size_t PA = 2 * (size_t)Zb, PB = 2 * (size_t)Zb * RW, PC = Zb, PD = (size_t)Zb * RW;
-  const size_t PE = (S + 31) / 32;
-  auto region = [&](int* x, int j, size_t per) { return x + (((size_t)j * a.B + b) * a.K + k) * per; };
+  // this member's part of row j of exchange region x, which stage r writes
+  auto region = [&](int* x, int r, int j) {
+    return x + (((size_t)j * a.B + b) * a.K + k) * k2m_region_words(r, G, R, Z);
+  };
 
-  if (a.stage == kStInit) {
+  if (kStage == kStInit) {
     // the scoring config: member k's own, or the phase-1 winner's in phase 2
     int src = k;
     if (a.seed_costs != nullptr) {
@@ -1917,70 +1952,18 @@ __global__ void __launch_bounds__(kK2Threads) k2m_kernel(K2MArgs p) {
     for (int z = tid; z < Z; z += BT) zbits[z] = a.rel_zone_bits[z];
     k2_init_slots(slots, W, s0, s1, E, R, a.ex_rem, a.ex_zone, a.ex_valid, a.rel_slot_bits);
     for (int s = s0; s < s1; ++s) sprice[s] = 0.0f;
-    // no fresh slot is open before step 0: every shard's bits are clear
-    for (int j = 0; j < a.n; ++j)
-      for (size_t w = tid; w < PE; w += BT) region(a.xe, j, PE)[w] = 0;
     return;
   }
 
-  if (a.stage == kStEnd) {
-    // the member result: k2_scan's partition and block sum of the prices
-    const float csum = k2_member_slots(slots, W, s0, s1, E, a.new_opt + (size_t)k * S,
-                                       a.new_active + (size_t)k * S,
-                                       [&](int s, int) { return sprice[s]; });
-    const float total = block_sum_f(csum, sh);
-    if (tid == 0) {
-      a.cost[k] = __fmaf_rn(static_cast<float>(scal[kScUnplaced]), kPenalty, total);
-      a.unplaced[k] = scal[kScUnplaced];
-      a.exhausted[k] = scal[kScExhausted] != 0;
-    }
-    return;
-  }
-
-  const int t = a.t;
-  const int g = order[t];
-  const int cnt = a.count[g];
-  const bool look = scal[kScLook] != 0, rsv = scal[kScRsv] != 0;
-  const bool prefer_big = __int_as_float(scal[kScAlpha]) >= 1.0f;
-  const int* urow = (rsv ? a.units_rsv : a.units) + (size_t)g * O;
-  const float* pe = look ? a.price_t + ((size_t)k * G + t) * O : a.price;
-  const int zf = a.rel_zone_forbid[g], zn = a.rel_zone_need[g];
-  const bool rel = (zf | zn) != 0;
-  const bool zl = a.zone_limited[g] || rel;
-  const int hn = a.rel_host_need[g];
-  auto in_bucket = [&](int bk, int o) { return bk == Z || a.opt_zone[o] == bk; };
-  // a shard's in-band argmax over its columns: value, global index
-  auto pick = [&](int bk, int j, float band, float& v, int& i) {
-    v = neg_inf();
-    i = kIntMax;
-    for (int o = tid; o < O; o += BT) {
-      const int u = urow[o];
-      const float pref = prefer_big ? static_cast<float>(u) : -static_cast<float>(u);
-      arg_better(v, i, in_bucket(bk, o) && sc[2 * o + j] <= band ? pref : -kInf, a.c0 + o);
-    }
-    block_argmax(v, i, sh);
-  };
-  auto put_record = [&](int* r, float v, int i) {
-    const int o = i - a.c0;
-    r[kRcValue] = __float_as_int(v);
-    r[kRcIdx] = i;
-    r[kRcUnits] = urow[o];
-    r[kRcPe] = __float_as_int(pe[o]);
-    r[kRcPrice] = __float_as_int(a.price[o]);
-    r[kRcZone] = a.opt_zone[o];
-    for (int q = 0; q < R; ++q) r[kRcAlloc + q] = __float_as_int(a.alloc[(size_t)o * R + q]);
-  };
   // the winning record over every shard's: largest value, lowest index
-  auto combine = [&](int* x, size_t per, size_t off, int* dst) {
-    int best = 0;
+  auto combine = [&](int* x, int stage, size_t off, int* dst) {
+    const int* q = region(x, stage, 0) + off;
     for (int j = 1; j < a.n; ++j) {
-      const int* r = region(x, j, per) + off;
-      const int* q = region(x, best, per) + off;
+      const int* r = region(x, stage, j) + off;
       const float v = __int_as_float(r[kRcValue]), bv = __int_as_float(q[kRcValue]);
-      if (v > bv || (v == bv && r[kRcIdx] < q[kRcIdx])) best = j;
+      if (v > bv || (v == bv && r[kRcIdx] < q[kRcIdx])) q = r;
     }
-    const int* r = region(x, best, per) + off;
-    for (int q = 0; q < RW; ++q) dst[q] = r[q];
+    for (int w = 0; w < RW; ++w) dst[w] = q[w];
   };
   auto tail_want = [&](int bk) {
     const int w = want[bk];
@@ -1988,167 +1971,15 @@ __global__ void __launch_bounds__(kK2Threads) k2m_kernel(K2MArgs p) {
     return w - (w / max(c_rate, 1)) * c_rate;
   };
 
-  if (a.stage == kStFill) {
-    int* yrow = a.ys + ((size_t)k * G + t) * NS;
-    if (cnt == 0) {
-      // a group with no pods places, wants and opens nothing
-      for (int s = s0; s < s1; ++s) yrow[s] = 0;
-      return;
-    }
-    const int cap = a.node_cap[g], hf = a.rel_host_forbid[g];
-    const bool coloc = a.colocate[g];
-    const float* d = a.demand + (size_t)g * R;
-    const float* dfit = rsv && a.rsv_group[g] ? a.demand_units + (size_t)g * R : d;
-    const int* qrow = a.quota + (size_t)g * Z;
-    auto quota_of = [&](int z) -> int {
-      if (!rel) return qrow[z];
-      const int zb = zbits[z];
-      return (zb & zf) == 0 && (zb & zn) == zn ? qrow[z] : 0;
-    };
-    if (tid < Z) s_placed_z[tid] = 0;
-    // fit open capacity: an open slot admits g when the shard that holds its
-    // option said so (the bits exchanged after the last step)
-    for (int s = s0; s < s1; ++s) {
-      bool comp;
-      if (s >= E) {
-        const int j = s - E;
-        unsigned bit = 0;
-        for (int x = 0; x < a.n; ++x) bit |= static_cast<unsigned>(region(a.xe, x, PE)[j >> 5]) >> (j & 31);
-        comp = (bit & 1u) != 0;
-      } else {
-        comp = a.exok_pad[(size_t)g * NS + s];
-      }
-      k2_slot_fit(slots, W, s, comp, hf, hn, rel, zf, zn, zbits, Z, dfit, R, cap);
-    }
-    if (zl) k2_zone_clip(slots, W, s0, s1, Z, s_zpart, quota_of);
-    unsigned lf, high, tot_f, n_free;
-    int lfree;
-    k2_fit_sums(slots, W, s0, s1, E, coloc, cnt, lf, high, lfree);
-    const unsigned before_f = block_scan(lf, s_part, tot_f);
-    block_scan(static_cast<unsigned>(lfree), s_part, n_free);
-    const unsigned placed_local = k2_fill(slots, W, s0, s1, before_f, cnt, d, R, zl, Z, s_placed_z);
-    const int placed = block_sum(static_cast<int>(placed_local), sh);
-    const int left = cnt - placed;
-    if (tid == 0) {
-      scal[kScLeft] = left;
-      scal[kScFree] = static_cast<int>(n_free);
-      // the wants, bucket by bucket (zone buckets, then the unrestricted one)
-      unsigned acc = 0;
-      for (int bk = 0; bk < Zb; ++bk) {
-        int w = 0;
-        if (hn != 0) {
-          w = 0;  // hostname-need groups cannot open fresh nodes
-        } else if (!zl) {
-          w = bk == Z ? left : 0;
-        } else if (bk < Z) {
-          const int wz = min(max(quota_of(bk) - s_placed_z[bk], 0), left);
-          w = max(min(wz, static_cast<int>(static_cast<unsigned>(left) - acc)), 0);
-          acc += static_cast<unsigned>(wz);
-        }
-        want[bk] = w;
-      }
-    }
-    __syncthreads();
-    // the shard's lump and rate minima of every bucket with a want
-    int* xa = region(a.xa, a.self, PA);
-    for (int bk = 0; bk < Zb; ++bk) {
-      const int w = want[bk];
-      float a0 = kInf, a1 = kInf;
-      if (w > 0) {
-        for (int o = tid; o < O; o += BT) {
-          const int u = urow[o];
-          const bool inb = in_bucket(bk, o);
-          const float v0 = lump_score(inb, w, u, pe[o]);
-          const float v1 = rate_score(inb, w, u, pe[o]);
-          if (inb) {
-            sc[2 * o] = v0;
-            sc[2 * o + 1] = v1;
-          }
-          a0 = fminf(a0, v0);
-          a1 = fminf(a1, v1);
-        }
-        a0 = block_min_f(a0, sh);
-        a1 = block_min_f(a1, sh);
-      }
-      if (tid == 0) {
-        xa[2 * bk] = __float_as_int(a0);
-        xa[2 * bk + 1] = __float_as_int(a1);
-      }
-    }
-    return;
-  }
-
-  if (cnt != 0 && a.stage == kStPick) {
-    // the global minima, then the shard's in-band argmaxes
-    int* xb = region(a.xb, a.self, PB);
-    for (int bk = 0; bk < Zb; ++bk) {
-      if (want[bk] <= 0) continue;
-      float m0 = kInf, m1 = kInf;
-      for (int j = 0; j < a.n; ++j) {
-        const int* x = region(a.xa, j, PA);
-        m0 = fminf(m0, __int_as_float(x[2 * bk]));
-        m1 = fminf(m1, __int_as_float(x[2 * bk + 1]));
-      }
-      if (tid == 0) {
-        cmin[3 * bk] = m0;
-        cmin[3 * bk + 1] = m1;
-      }
-      for (int j = 0; j < 2; ++j) {
-        float v;
-        int i;
-        pick(bk, j, (j == 0 ? m0 : m1) * kTieBand, v, i);
-        if (tid == 0) put_record(xb + ((size_t)j * Zb + bk) * RW, v, i);
-      }
-    }
-    return;
-  }
-
-  if (cnt != 0 && a.stage == kStTail) {
-    // the global lump and rate choices, then the shard's tail minima
-    for (int q = tid; q < 2 * Zb; q += BT) {
-      const int j = q / Zb, bk = q % Zb;
-      if (want[bk] > 0) combine(a.xb, PB, ((size_t)j * Zb + bk) * RW, rec + ((size_t)j * Zb + bk) * RW);
-    }
-    __syncthreads();
-    int* xc = region(a.xc, a.self, PC);
-    for (int bk = 0; bk < Zb; ++bk) {
-      const int w = want[bk] > 0 ? tail_want(bk) : 0;
-      float a0 = kInf;
-      if (w > 0) {
-        for (int o = tid; o < O; o += BT) {
-          const int u = urow[o];
-          const bool inb = in_bucket(bk, o);
-          const float v0 = lump_score(inb, w, u, pe[o]);
-          if (inb) sc[2 * o] = v0;
-          a0 = fminf(a0, v0);
-        }
-        a0 = block_min_f(a0, sh);
-      }
-      if (tid == 0) xc[bk] = __float_as_int(a0);
-    }
-    return;
-  }
-
-  if (cnt != 0 && a.stage == kStTailPick) {
-    int* xd = region(a.xd, a.self, PD);
-    for (int bk = 0; bk < Zb; ++bk) {
-      if (want[bk] <= 0 || tail_want(bk) <= 0) continue;
-      float m = kInf;
-      for (int j = 0; j < a.n; ++j) m = fminf(m, __int_as_float(region(a.xc, j, PC)[bk]));
-      if (tid == 0) cmin[3 * bk + 2] = m;
-      float v;
-      int i;
-      pick(bk, 0, m * kTieBand, v, i);
-      if (tid == 0) put_record(xd + (size_t)bk * RW, v, i);
-    }
-    return;
-  }
-
-  if (a.stage != kStApply) return;
-  if (cnt != 0) {
-    const float* d = a.demand + (size_t)g * R;
+  // Step tp's segments and opened slots, from the tail records every shard
+  // offered (the fill stage of step tp + 1 runs it first, the end stage for
+  // the last step); ends with a barrier.
+  auto apply = [&](int tp) {
+    const int gp = order[tp];
+    if (a.count[gp] == 0) return;
+    const float* d = a.demand + (size_t)gp * R;
     for (int bk = tid; bk < Zb; bk += BT)
-      if (want[bk] > 0 && tail_want(bk) > 0) combine(a.xd, PD, (size_t)bk * RW, rec + (2 * (size_t)Zb + bk) * RW);
+      if (want[bk] > 0 && tail_want(bk) > 0) combine(a.xd, kStTailPick, (size_t)bk * RW, rec + (2 * (size_t)Zb + bk) * RW);
     __syncthreads();
     const int left = scal[kScLeft], n_free = scal[kScFree];
     if (tid == 0) {
@@ -2188,34 +2019,226 @@ __global__ void __launch_bounds__(kK2Threads) k2m_kernel(K2MArgs p) {
     for (int s = s0; s < s1; ++s) lfree += (s >= E && !slot(s)[kSlAct]) ? 1u : 0u;
     const int r0 = static_cast<int>(block_scan(lfree, s_part, n_free_u));  // also orders thread 0's segments
     const int total_open = s_total_open;
-    k2_open_slots(slots, W, s0, s1, E, Z, r0, total_open, nseg, seg_start, seg_c, seg_want, a.rel_set[g],
-                  zbits, a.ys + ((size_t)k * G + t) * NS, [&](int s, int sid, int fill) {
+    k2_open_slots(slots, W, s0, s1, E, Z, r0, total_open, nseg, seg_start, seg_c, seg_want, a.rel_set[gp],
+                  zbits, a.ys + ((size_t)k * G + tp) * NS, [&](int s, int sid, int fill) {
                     const int* r = rec + ((size_t)seg_rec[sid] * Zb + sid % Zb) * RW;
                     k2_open_slot(slots, W, s, fill, d, R, reinterpret_cast<const float*>(r + kRcAlloc),
                                  r[kRcIdx], r[kRcZone]);
                     sprice[s] = __int_as_float(r[kRcPrice]);
+                    for (int q = 0; q < CW; ++q) scomp[(size_t)(s - E) * CW + q] = r[kRcAlloc + R + q];
                   });
     if (tid == 0) {
       const int l2 = left - s_opened;
       scal[kScUnplaced] += l2;
       if (l2 > 0 && total_open > n_free) scal[kScExhausted] = 1;
     }
+    __syncthreads();  // the opened slots and zone bits, for the next step's fit
+  };
+
+  if (kStage == kStEnd) {
+    apply(G - 1);
+    // the member result: k2_scan's partition and block sum of the prices
+    const float csum = k2_member_slots(slots, W, s0, s1, E, a.new_opt + (size_t)k * S,
+                                       a.new_active + (size_t)k * S,
+                                       [&](int s, int) { return sprice[s]; });
+    const float total = block_sum_f(csum, sh);
+    if (tid == 0) {
+      a.cost[k] = __fmaf_rn(static_cast<float>(scal[kScUnplaced]), kPenalty, total);
+      a.unplaced[k] = scal[kScUnplaced];
+      a.exhausted[k] = scal[kScExhausted] != 0;
+    }
+    return;
   }
-  __syncthreads();  // the opened slots, for the bits below
-  // which open slots hold an option of this shard that admits the next group
-  if (t + 1 < G) {
-    const int gn = order[t + 1];
-    int* xe = region(a.xe, a.self, PE);
-    for (size_t w = tid; w < PE; w += BT) {
-      unsigned bits = 0;
-      for (int q = 0; q < 32; ++q) {
-        const int j = static_cast<int>(w * 32) + q;
-        if (j >= S) break;
-        const int so = slot(E + j)[kSlOpt];
-        if (slot(E + j)[kSlAct] && so >= a.c0 && so < a.c0 + O && a.compat[(size_t)gn * O + (so - a.c0)])
-          bits |= 1u << q;
+
+  const int t = a.t;
+  if (kStage == kStFill && t > 0) apply(t - 1);
+  const int g = order[t];
+  const int cnt = a.count[g];
+  const bool look = scal[kScLook] != 0, rsv = scal[kScRsv] != 0;
+  const bool prefer_big = __int_as_float(scal[kScAlpha]) >= 1.0f;
+  const int* urow = (rsv ? a.units_rsv : a.units) + (size_t)g * O;
+  const float* pe = look ? a.price_t + ((size_t)k * G + t) * O : a.price;
+  const int zf = a.rel_zone_forbid[g], zn = a.rel_zone_need[g];
+  const bool rel = (zf | zn) != 0;
+  const bool zl = a.zone_limited[g] || rel;
+  const int hn = a.rel_host_need[g];
+  auto in_bucket = [&](int bk, int o) { return bk == Z || a.opt_zone[o] == bk; };
+  // a shard's in-band argmax over its columns: value, global index
+  auto pick = [&](int bk, int j, float band, float& v, int& i) {
+    v = neg_inf();
+    i = kIntMax;
+    for (int o = tid; o < O; o += BT) {
+      const int u = urow[o];
+      const float pref = prefer_big ? static_cast<float>(u) : -static_cast<float>(u);
+      arg_better(v, i, in_bucket(bk, o) && sc[2 * o + j] <= band ? pref : -kInf, a.c0 + o);
+    }
+    block_argmax(v, i, sh);
+  };
+  // the record of option i (this shard's): warp 0 writes it, a lane a
+  // group of each compat word
+  auto put_record = [&](int* r, float v, int i) {
+    const int o = i - a.c0;
+    const int lane = tid & 31;
+    if (tid == 0) {
+      r[kRcValue] = __float_as_int(v);
+      r[kRcIdx] = i;
+      r[kRcUnits] = urow[o];
+      r[kRcPe] = __float_as_int(pe[o]);
+      r[kRcPrice] = __float_as_int(a.price[o]);
+      r[kRcZone] = a.opt_zone[o];
+      for (int q = 0; q < R; ++q) r[kRcAlloc + q] = __float_as_int(a.alloc[(size_t)o * R + q]);
+    }
+    for (int q = 0; q < CW; ++q) {
+      const int gg = 32 * q + lane;
+      const unsigned bits = __reduce_or_sync(kFull, gg < G && a.compat[(size_t)gg * O + o] ? 1u << lane : 0u);
+      if (tid == 0) r[kRcAlloc + R + q] = static_cast<int>(bits);
+    }
+  };
+
+  if (kStage == kStFill) {
+    int* yrow = a.ys + ((size_t)k * G + t) * NS;
+    if (cnt == 0) {
+      // a group with no pods places, wants and opens nothing
+      for (int s = s0; s < s1; ++s) yrow[s] = 0;
+      return;
+    }
+    const int cap = a.node_cap[g], hf = a.rel_host_forbid[g];
+    const bool coloc = a.colocate[g];
+    const float* d = a.demand + (size_t)g * R;
+    const float* dfit = rsv && a.rsv_group[g] ? a.demand_units + (size_t)g * R : d;
+    const int* qrow = a.quota + (size_t)g * Z;
+    auto quota_of = [&](int z) -> int {
+      if (!rel) return qrow[z];
+      const int zb = zbits[z];
+      return (zb & zf) == 0 && (zb & zn) == zn ? qrow[z] : 0;
+    };
+    if (tid < Z) s_placed_z[tid] = 0;
+    // fit open capacity: an open fresh slot admits g when its option's
+    // compat column says so
+    for (int s = s0; s < s1; ++s) {
+      const bool comp = s >= E ? slot(s)[kSlAct] && ((scomp[(size_t)(s - E) * CW + (g >> 5)] >> (g & 31)) & 1) != 0
+                               : a.exok_pad[(size_t)g * NS + s];
+      k2_slot_fit(slots, W, s, comp, hf, hn, rel, zf, zn, zbits, Z, dfit, R, cap);
+    }
+    if (zl) k2_zone_clip(slots, W, s0, s1, Z, s_zpart, quota_of);
+    unsigned lf, high, tot_f, n_free;
+    int lfree;
+    k2_fit_sums(slots, W, s0, s1, E, coloc, cnt, lf, high, lfree);
+    const unsigned before_f = block_scan(lf, s_part, tot_f);
+    block_scan(static_cast<unsigned>(lfree), s_part, n_free);
+    const unsigned placed_local = k2_fill(slots, W, s0, s1, before_f, cnt, d, R, zl, Z, s_placed_z);
+    const int placed = block_sum(static_cast<int>(placed_local), sh);
+    const int left = cnt - placed;
+    if (tid == 0) {
+      scal[kScLeft] = left;
+      scal[kScFree] = static_cast<int>(n_free);
+      // the wants, bucket by bucket (zone buckets, then the unrestricted one)
+      unsigned acc = 0;
+      for (int bk = 0; bk < Zb; ++bk) {
+        int w = 0;
+        if (hn != 0) {
+          w = 0;  // hostname-need groups cannot open fresh nodes
+        } else if (!zl) {
+          w = bk == Z ? left : 0;
+        } else if (bk < Z) {
+          const int wz = min(max(quota_of(bk) - s_placed_z[bk], 0), left);
+          w = max(min(wz, static_cast<int>(static_cast<unsigned>(left) - acc)), 0);
+          acc += static_cast<unsigned>(wz);
+        }
+        want[bk] = w;
       }
-      xe[w] = static_cast<int>(bits);
+    }
+    __syncthreads();
+    // the shard's lump and rate minima of every bucket with a want
+    int* xa = region(a.xa, kStFill, a.self);
+    for (int bk = 0; bk < Zb; ++bk) {
+      const int w = want[bk];
+      float a0 = kInf, a1 = kInf;
+      if (w > 0) {
+        for (int o = tid; o < O; o += BT) {
+          const int u = urow[o];
+          const bool inb = in_bucket(bk, o);
+          const float v0 = lump_score(inb, w, u, pe[o]);
+          const float v1 = rate_score(inb, w, u, pe[o]);
+          if (inb) {
+            sc[2 * o] = v0;
+            sc[2 * o + 1] = v1;
+          }
+          a0 = fminf(a0, v0);
+          a1 = fminf(a1, v1);
+        }
+        a0 = block_min_f(a0, sh);
+        a1 = block_min_f(a1, sh);
+      }
+      if (tid == 0) {
+        xa[2 * bk] = __float_as_int(a0);
+        xa[2 * bk + 1] = __float_as_int(a1);
+      }
+    }
+    return;
+  }
+  if (cnt == 0) return;
+
+  if (kStage == kStPick) {
+    // the global minima, then the shard's in-band argmaxes
+    int* xb = region(a.xb, kStPick, a.self);
+    for (int bk = 0; bk < Zb; ++bk) {
+      if (want[bk] <= 0) continue;
+      float m0 = kInf, m1 = kInf;
+      for (int j = 0; j < a.n; ++j) {
+        const int* x = region(a.xa, kStFill, j);
+        m0 = fminf(m0, __int_as_float(x[2 * bk]));
+        m1 = fminf(m1, __int_as_float(x[2 * bk + 1]));
+      }
+      if (tid == 0) {
+        cmin[3 * bk] = m0;
+        cmin[3 * bk + 1] = m1;
+      }
+      for (int j = 0; j < 2; ++j) {
+        float v;
+        int i;
+        pick(bk, j, (j == 0 ? m0 : m1) * kTieBand, v, i);
+        if (tid < 32) put_record(xb + ((size_t)j * Zb + bk) * RW, v, i);
+      }
+    }
+  }
+
+  if (kStage == kStTail) {
+    // the global lump and rate choices, then the shard's tail minima
+    for (int q = tid; q < 2 * Zb; q += BT) {
+      const int j = q / Zb, bk = q % Zb;
+      if (want[bk] > 0) combine(a.xb, kStPick, ((size_t)j * Zb + bk) * RW, rec + ((size_t)j * Zb + bk) * RW);
+    }
+    __syncthreads();
+    int* xc = region(a.xc, kStTail, a.self);
+    for (int bk = 0; bk < Zb; ++bk) {
+      const int w = want[bk] > 0 ? tail_want(bk) : 0;
+      float a0 = kInf;
+      if (w > 0) {
+        for (int o = tid; o < O; o += BT) {
+          const int u = urow[o];
+          const bool inb = in_bucket(bk, o);
+          const float v0 = lump_score(inb, w, u, pe[o]);
+          if (inb) sc[2 * o] = v0;
+          a0 = fminf(a0, v0);
+        }
+        a0 = block_min_f(a0, sh);
+      }
+      if (tid == 0) xc[bk] = __float_as_int(a0);
+    }
+  }
+
+  if (kStage == kStTailPick) {
+    int* xd = region(a.xd, kStTailPick, a.self);
+    for (int bk = 0; bk < Zb; ++bk) {
+      if (want[bk] <= 0 || tail_want(bk) <= 0) continue;
+      float m = kInf;
+      for (int j = 0; j < a.n; ++j) m = fminf(m, __int_as_float(region(a.xc, kStTail, j)[bk]));
+      if (tid == 0) cmin[3 * bk + 2] = m;
+      float v;
+      int i;
+      pick(bk, 0, m * kTieBand, v, i);
+      if (tid < 32) put_record(xd + (size_t)bk * RW, v, i);
     }
   }
 }
@@ -2341,6 +2364,204 @@ __global__ void __launch_bounds__(kMeshThreads) mesh_final_pick(FinalArgs a) {
     }
     out[q] = v;
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// The meshed K2 phase entry's host side (kts_k2m_phase): a phase's launches
+// and exchanges issued from C
+// ---------------------------------------------------------------------------
+
+constexpr int kK2MPtrs = 44;  // kts_k2m's pointers, in K2MArgs' order
+constexpr int kK2MDims = 11;  // and its dims: B K G O E R Z S c0 n self
+
+// K2MArgs from kts_k2m's arrays; false when a width is over the kernel's
+// limits.
+bool k2m_from(const void* const* p, const int* d, K2MArgs* out) {
+  K2MArgs a{};
+  int i = 0;
+  auto next = [&]() { return const_cast<void*>(p[i++]); };
+  a.demand = static_cast<const float*>(next());
+  a.demand_units = static_cast<const float*>(next());
+  a.count = static_cast<const int*>(next());
+  a.node_cap = static_cast<const int*>(next());
+  a.colocate = static_cast<const bool*>(next());
+  a.compat = static_cast<const bool*>(next());
+  a.alloc = static_cast<const float*>(next());
+  a.price = static_cast<const float*>(next());
+  a.opt_zone = static_cast<const int*>(next());
+  a.ex_rem = static_cast<const float*>(next());
+  a.ex_zone = static_cast<const int*>(next());
+  a.ex_valid = static_cast<const bool*>(next());
+  a.rel_set = static_cast<const int*>(next());
+  a.rel_host_forbid = static_cast<const int*>(next());
+  a.rel_host_need = static_cast<const int*>(next());
+  a.rel_zone_forbid = static_cast<const int*>(next());
+  a.rel_zone_need = static_cast<const int*>(next());
+  a.rel_slot_bits = static_cast<const int*>(next());
+  a.rel_zone_bits = static_cast<const int*>(next());
+  a.units = static_cast<const int*>(next());
+  a.units_rsv = static_cast<const int*>(next());
+  a.rsv_group = static_cast<const bool*>(next());
+  a.quota = static_cast<const int*>(next());
+  a.zone_limited = static_cast<const bool*>(next());
+  a.val_pair = static_cast<const float*>(next());
+  a.exok_pad = static_cast<const bool*>(next());
+  a.orders = static_cast<const int*>(next());
+  a.alphas = static_cast<const float*>(next());
+  a.looks = static_cast<const bool*>(next());
+  a.rsvs = static_cast<const bool*>(next());
+  a.swaps = static_cast<const int*>(next());
+  a.seed_costs = static_cast<const float*>(next());
+  a.price_t = static_cast<float*>(next());
+  a.state = static_cast<unsigned char*>(next());
+  a.xa = static_cast<int*>(next());
+  a.xb = static_cast<int*>(next());
+  a.xc = static_cast<int*>(next());
+  a.xd = static_cast<int*>(next());
+  a.ys = static_cast<int*>(next());
+  a.cost = static_cast<float*>(next());
+  a.unplaced = static_cast<int*>(next());
+  a.exhausted = static_cast<bool*>(next());
+  a.new_opt = static_cast<int*>(next());
+  a.new_active = static_cast<bool*>(next());
+  a.B = d[0], a.K = d[1], a.G = d[2], a.O = d[3], a.E = d[4], a.R = d[5], a.Z = d[6], a.S = d[7];
+  a.c0 = d[8], a.n = d[9], a.self = d[10];
+  a.lay = k2m_layout(a.G, a.O, a.E, a.R, a.Z, a.S);
+  *out = a;
+  return a.R <= kMaxR && a.Z <= kMaxZ && a.n >= 1 && a.self >= 0 && a.self < a.n;
+}
+
+// Ints of one shard's row of region r: B rows of K members.
+size_t k2m_row_words(const K2MArgs& a, int r) { return (size_t)a.B * a.K * k2m_region_words(r, a.G, a.R, a.Z); }
+
+int* k2m_region(const K2MArgs& a, int r) {
+  int* const x[kK2MRegions] = {a.xa, a.xb, a.xc, a.xd};
+  return x[r];
+}
+
+// One kts_k2m launch: k2m_kernel's `stage` of step t (kStInit: k2_prices
+// first).
+cudaError_t k2m_launch(K2MArgs a, int stage, int t, cudaStream_t st) {
+  a.t = t;
+  if (stage == kStInit) {
+    K2Limits lim;
+    cudaError_t err = k2_limits(&lim);
+    if (err != cudaSuccess) return err;
+    if (k2_price_bytes(a.G) + lim.prices_static > lim.optin) return cudaErrorInvalidValue;
+    const K2Args pa{a.demand, a.demand_units, a.count, a.node_cap, a.colocate, a.compat, a.alloc,
+                    a.price, a.opt_zone, a.ex_rem, a.ex_zone, a.ex_valid, a.rel_set,
+                    a.rel_host_forbid, a.rel_host_need, a.rel_zone_forbid, a.rel_zone_need,
+                    a.rel_slot_bits, a.rel_zone_bits, a.units, a.units_rsv, a.rsv_group, a.quota,
+                    a.zone_limited, a.val_pair, a.exok_pad, a.orders, a.alphas, a.looks, a.rsvs,
+                    a.swaps, a.seed_costs, a.cost, a.unplaced, a.exhausted, a.new_opt,
+                    a.new_active, a.ys, a.price_t, nullptr, 0, a.K, a.G, a.O, a.E, a.R, a.Z, a.S};
+    const size_t tiles = ((size_t)a.G * a.O + kK2PriceThreads - 1) / kK2PriceThreads;
+    k2_prices<<<dim3(static_cast<unsigned>(tiles), a.K, a.B), kK2PriceThreads, k2_price_bytes(a.G), st>>>(pa);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  void (*const stages[])(K2MArgs) = {k2m_kernel<kStInit>, k2m_kernel<kStFill>, k2m_kernel<kStPick>,
+                                      k2m_kernel<kStTail>, k2m_kernel<kStTailPick>, k2m_kernel<kStEnd>};
+  void (*kernel)(K2MArgs) = stages[stage - kStInit];
+  kernel<<<dim3(a.K, a.B), kK2Threads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+struct K2MShard {
+  K2MArgs a;
+  int device;
+  cudaStream_t stream;  // the shard's own (the caller's)
+  cudaEvent_t event;    // the phase's own, for its exchanges
+};
+
+// Issue a phase on the shards' streams exactly as the per-stage path does
+// from Python: each shard's begin, the G steps of four stages with an
+// exchange after each stage, each shard's end, then every stream waits on
+// every other's end. An exchange records each shard's event and makes every
+// other shard's stream wait on it; where the shards hold copies of the
+// regions, it then copies the sender's row into each receiver's copy
+// (cudaMemcpyPeerAsync on the receiver's stream). `launches` counts the
+// k2m_launch calls the runtime accepted, in the units of kts_k2m.
+cudaError_t k2m_issue(K2MShard* sh, int n, bool shared, long long* launches) {
+  const int G = sh[0].a.G;
+  cudaError_t err = cudaSuccess;
+  auto ok = [&](cudaError_t e) { return (err = e) == cudaSuccess; };
+  int current = -1;  // the device made current last
+  auto on = [&](int device) {
+    if (device == current) return true;
+    current = device;
+    return ok(cudaSetDevice(device));
+  };
+  auto exchange = [&](int r) {  // r < 0: order only
+    if (n == 1) return true;
+    for (int i = 0; i < n; ++i)
+      if (!on(sh[i].device) || !ok(cudaEventRecord(sh[i].event, sh[i].stream))) return false;
+    for (int j = 0; j < n; ++j) {
+      K2MShard& rx = sh[j];
+      if (!on(rx.device)) return false;
+      for (int i = 0; i < n; ++i) {
+        if (i == j) continue;
+        if (!ok(cudaStreamWaitEvent(rx.stream, sh[i].event, 0))) return false;
+        if (r >= 0 && !shared) {
+          const size_t w = k2m_row_words(rx.a, r);
+          if (!ok(cudaMemcpyPeerAsync(k2m_region(rx.a, r) + i * w, rx.device, k2m_region(sh[i].a, r) + i * w,
+                                      sh[i].device, w * sizeof(int), rx.stream)))
+            return false;
+        }
+      }
+    }
+    return true;
+  };
+  auto launch = [&](int stage, int t) {
+    for (int i = 0; i < n; ++i) {
+      if (!on(sh[i].device) || !ok(k2m_launch(sh[i].a, stage, t, sh[i].stream))) return false;
+      ++*launches;
+    }
+    return true;
+  };
+  if (!launch(kStInit, 0)) return err;
+  for (int t = 0; t < G; ++t)
+    for (int stage = kStFill; stage <= kStTailPick; ++stage)
+      if (!launch(stage, t) || !exchange(stage)) return err;
+  if (!launch(kStEnd, 0) || !exchange(-1)) return err;
+  return cudaSuccess;
+}
+
+// One phase: peer access enabled where shards on distinct cards share their
+// regions (each reads the others' rows in place), an event a shard where
+// there are shards to exchange with, the issue. The events are destroyed on
+// return: the runtime frees each once the work before its last record is
+// done, and the waits already issued stand.
+cudaError_t k2m_phase(K2MShard* sh, int n, long long* launches) {
+  bool one_card = true, shared = true;
+  for (int i = 1; i < n; ++i) {
+    one_card = one_card && sh[i].device == sh[0].device;
+    for (int r = 0; r < kK2MRegions; ++r) shared = shared && k2m_region(sh[i].a, r) == k2m_region(sh[0].a, r);
+  }
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < n && shared && !one_card && err == cudaSuccess; ++i)
+    for (int j = 0; j < n && err == cudaSuccess; ++j) {
+      if (sh[i].device == sh[j].device) continue;
+      err = cudaSetDevice(sh[i].device);
+      if (err == cudaSuccess) err = cudaDeviceEnablePeerAccess(sh[j].device, 0);
+      if (err == cudaErrorPeerAccessAlreadyEnabled) {
+        cudaGetLastError();
+        err = cudaSuccess;
+      }
+    }
+  int made = 0;
+  while (err == cudaSuccess && n > 1 && made < n) {
+    err = cudaSetDevice(sh[made].device);
+    if (err == cudaSuccess) err = cudaEventCreateWithFlags(&sh[made].event, cudaEventDisableTiming);
+    if (err == cudaSuccess) ++made;
+  }
+  if (err == cudaSuccess) err = k2m_issue(sh, n, shared, launches);
+  for (int i = 0; i < made; ++i) {
+    cudaSetDevice(sh[i].device);
+    cudaEventDestroy(sh[i].event);
+  }
+  return err;
 }
 
 }  // namespace
@@ -2506,48 +2727,46 @@ long long kts_k2m_state_bytes(int G, int O, int E, int R, int Z, int S) {
 }
 
 // K2 on one option shard: stage -1 starts a phase (k2_prices over the
-// shard's columns, then the member state), 0-4 run stage `stage` of step t,
-// 5 ends it (the member results).
-int kts_k2m(
-    const float* demand, const float* demand_units, const int* count, const int* node_cap,
-    const bool* colocate, const bool* compat, const float* alloc, const float* price,
-    const int* opt_zone, const float* ex_rem, const int* ex_zone, const bool* ex_valid,
-    const int* rel_set, const int* rel_host_forbid, const int* rel_host_need,
-    const int* rel_zone_forbid, const int* rel_zone_need, const int* rel_slot_bits,
-    const int* rel_zone_bits, const int* units, const int* units_rsv, const bool* rsv_group,
-    const int* quota, const bool* zone_limited, const float* val_pair, const bool* exok_pad,
-    const int* orders, const float* alphas, const bool* looks, const bool* rsvs,
-    const int* swaps, const float* seed_costs, float* price_t, unsigned char* state, int* xa,
-    int* xb, int* xc, int* xd, int* xe, int* ys, float* cost, int* unplaced, bool* exhausted,
-    int* new_opt, bool* new_active, int B, int K, int G, int O, int E, int R, int Z, int S,
-    int c0, int n, int self, int stage, int t, void* stream) {
-  if (R > kMaxR || Z > kMaxZ || stage < kStInit || stage > kStEnd)
+// shard's columns, then the member state), 0-3 run stage `stage` of step t,
+// 4 ends it (the last step's slots, the member results). `ptrs`: the 44
+// pointers in K2MArgs' order; `dims`: B K G O E R Z S c0 n self.
+int kts_k2m(const void* const* ptrs, const int* dims, int stage, int t, void* stream) {
+  K2MArgs a;
+  if (!k2m_from(ptrs, dims, &a) || stage < kStInit || stage > kStEnd)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (stage == kStInit) {
-    K2Limits lim;
-    cudaError_t err = k2_limits(&lim);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (k2_price_bytes(G) + lim.prices_static > lim.optin) return static_cast<int>(cudaErrorInvalidValue);
-    K2Args pa{demand, demand_units, count, node_cap, colocate, compat, alloc, price, opt_zone,
-              ex_rem, ex_zone, ex_valid, rel_set, rel_host_forbid, rel_host_need,
-              rel_zone_forbid, rel_zone_need, rel_slot_bits, rel_zone_bits, units, units_rsv,
-              rsv_group, quota, zone_limited, val_pair, exok_pad, orders, alphas, looks, rsvs,
-              swaps, seed_costs, cost, unplaced, exhausted, new_opt, new_active, ys, price_t,
-              nullptr, 0, K, G, O, E, R, Z, S};
-    const size_t tiles = ((size_t)G * O + kK2PriceThreads - 1) / kK2PriceThreads;
-    k2_prices<<<dim3(static_cast<unsigned>(tiles), K, B), kK2PriceThreads, k2_price_bytes(G), st>>>(pa);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(k2m_launch(a, stage, t, static_cast<cudaStream_t>(stream)));
+}
+
+// The phase entry: one call issues a whole meshed K2 phase over n shards
+// (each shard's begin, the G steps of the four stages with an exchange after
+// each, each shard's end). `ptrs` and `dims`: n blocks of kts_k2m's arrays,
+// shard i's i-th; `devices[i]`, `streams[i]`: its card and stream.
+// `launches`: the kts_k2m launches it issued, also when it fails part way.
+// The caller's device is kept.
+int kts_k2m_phase(int n, const void* const* ptrs, const int* dims, const int* devices,
+                  void* const* streams, long long* launches) {
+  *launches = 0;
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  K2MShard* sh = new (std::nothrow) K2MShard[n]();
+  if (sh == nullptr) return static_cast<int>(cudaErrorMemoryAllocation);
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < n && err == cudaSuccess; ++i) {
+    K2MShard& s = sh[i];
+    if (!k2m_from(ptrs + (size_t)i * kK2MPtrs, dims + (size_t)i * kK2MDims, &s.a) || s.a.self != i ||
+        s.a.n != n || s.a.G != sh[0].a.G)
+      err = cudaErrorInvalidValue;
+    s.device = devices[i];
+    s.stream = static_cast<cudaStream_t>(streams[i]);
   }
-  K2MArgs a{demand, demand_units, count, node_cap, colocate, compat, alloc, price, opt_zone,
-            ex_rem, ex_zone, ex_valid, rel_set, rel_host_forbid, rel_host_need, rel_zone_forbid,
-            rel_zone_need, rel_slot_bits, rel_zone_bits, units, units_rsv, rsv_group, quota,
-            zone_limited, val_pair, exok_pad, orders, alphas, looks, rsvs, swaps, seed_costs,
-            price_t, state, xa, xb, xc, xd, xe, ys, cost, unplaced, exhausted, new_opt,
-            new_active, B, K, G, O, E, R, Z, S, c0, n, self, stage, t};
-  k2m_kernel<<<dim3(K, B), kK2Threads, 0, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  int caller = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&caller);
+  if (err == cudaSuccess) {
+    err = k2m_phase(sh, n, launches);
+    const cudaError_t back = cudaSetDevice(caller);
+    if (err == cudaSuccess) err = back;
+  }
+  delete[] sh;
+  return static_cast<int>(err);
 }
 
 // The 1D mesh's member argmin: this shard's offer (its best phase-1 member).

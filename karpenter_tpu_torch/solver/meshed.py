@@ -33,31 +33,53 @@ chain on its rows.
   exchanged and combined, and the value table is computed over the shard's
   columns with the global ``lam``.
 * K2 (``shard_member``): each member's slot state is replicated on every
-  shard, as XLA replicates it. A step is five launches, each followed by an
-  exchange: (A) fill open capacity and the per-bucket wants, then the
-  shard's lump and rate score minima; (B) the global minima, then each
-  shard's in-band argmax (value, global index, and the option's units,
-  effective price, price, zone and alloc row); (C) the global lump and rate
-  choices, the tail wants from the rate choice's units, and the shard's tail
-  minima; (D) the global tail minima and the shard's tail argmax; (E) the
-  tail choices, the segments and the opened slots, and, for the next step's
-  group, which open slots' options this shard holds and admit it
-  (``compat[g, .]`` of a slot's option, one bit a slot, OR-combined). The
+  shard, as XLA replicates it. A step is four launches, each followed by an
+  exchange: (A) the last step's tail choices, segments and opened slots,
+  then fill open capacity and the per-bucket wants, then the shard's lump
+  and rate score minima; (B) the global minima, then each shard's in-band
+  argmax (value, global index, and the option's units, effective price,
+  price, zone, alloc row and compat column); (C) the global lump and rate
+  choices, the tail wants from the rate choice's units, and the shard's
+  tail minima; (D) the global tail minima and the shard's tail argmax. The
+  end opens the last step's slots. A slot opened on an option keeps its
+  compat column (``compat[:, o]``, a bit a group), so that every shard
+  knows which open slots admit the next group without an exchange. The
   combine of an argmax takes the larger value, the lower global index on
-  ties: ``_argmin_tiebreak``'s rule.
+  ties: ``_argmin_tiebreak``'s rule; the tie rules need the minima before
+  the argmaxes and the rate choice before the tail, so no two of the four
+  exchanges merge.
 * K3 is the un-meshed ``pack_epilogue`` on the column's first shard.
+
+**The phase entry** (``_issue_phase``, ``kts_k2m_phase`` in
+``csrc/pack_solve.cu``): on the card one call issues a whole K2 phase:
+each shard's begin, the G steps of four stages with an exchange after
+each, each shard's end, then every shard's stream waits on every other's
+end. An exchange records each shard's event and makes every other shard's
+stream wait on it. The shards of one card (or of cards with peer access)
+share one copy of each region and read the others' rows in place; else
+each holds its own copy and the exchange copies the sender's row into it.
+In place needs no copy to be safe: shard s rewrites region r at stage r
+of step t + 1 only after waiting on every shard's stage before it (the
+tail_pick of step t, for the fill's region), and on each shard's stream
+that stage follows the one that read region r at step t (the next stage;
+the fill of step t + 1, for the tail_pick's region). The call issues
+this loop from C; ``PHASE_MODE = "stages"`` issues the same launches and
+exchanges from Python, for comparisons only. A phase's buffers are new
+each call.
 
 Design rule of the 2D chain, what ``_pin`` and ``mesh_constraints``
 guarantee in the JAX package: ``units``, ``units_rsv``, ``val_pair``, the
 lookahead prices and the per-step option scores stay split by option
 columns on their shards and are never gathered whole; what crosses shards
-per step is O(buckets) words a member and one bit a slot.
+per step is O(buckets) records a member, each of 6 + R + ceil(G / 32)
+words.
 
 Differences from the reference, deliberate: an option a shard opens a slot
-with travels in the exchange record (its units, prices, zone and alloc row),
-and each opened slot keeps its option's price, so that no shard needs a
-replica of another's option tables; an unbatched problem on a 2D mesh runs
-on the first fleet column's shards (the others hold replicas and idle), and
+with travels in the exchange record (its units, prices, zone, alloc row and
+compat column), and each opened slot keeps its option's price and compat
+column, so that no shard needs a replica of another's option tables; an
+unbatched problem on a 2D mesh runs on the first fleet column's shards
+(the others hold replicas and idle), and
 a batch that does not divide the fleet axis runs whole on that column, as a
 replicated placement would compute it. A meshed launch, build or exchange
 error raises.
@@ -70,6 +92,7 @@ takes for CPU tensors; ``LAUNCHES`` counts the new wrappers' kernel launches
 from __future__ import annotations
 
 import contextlib
+import ctypes
 from typing import List, NamedTuple, Sequence
 
 import torch
@@ -85,7 +108,7 @@ _IBIG = int(ts.IBIG)
 _INT_MAX = 0x7FFFFFFF
 
 #: stages of a meshed K2 step, in launch order
-STAGES = ("fill", "pick", "tail", "tail_pick", "apply")
+STAGES = ("fill", "pick", "tail", "tail_pick")
 
 #: kernel launches per wrapper of the meshed tier (the un-meshed kernels the
 #: chains also launch count in ``torch_solver.LAUNCHES``)
@@ -98,10 +121,11 @@ def _count(name: str) -> None:
         LAUNCHES[name] += 1
 
 
-def _rec_words(R: int) -> int:
+def _rec_words(R: int, G: int) -> int:
     """Words of an exchanged option record: value, global index, units,
-    effective price, price, zone, then the alloc row."""
-    return 6 + R
+    effective price, price, zone, then the alloc row and the compat column
+    (bit g of word g // 32: whether group g may use the option)."""
+    return 6 + R + _bit_words(G)
 
 
 def _bit_words(S: int) -> int:
@@ -136,9 +160,10 @@ def _on(shard: _Shard):
 
 def _all_gather(shards: Sequence[_Shard], regions: Sequence[torch.Tensor]) -> None:
     """Exchange: shard s has written ``regions[s][s]``; copy it to
-    ``regions[j][s]`` on every other shard j. Each copy runs on the
-    receiver's stream after an event on the sender's, so that it follows the
-    sender's write and precedes the receiver's next launch."""
+    ``regions[j][s]`` on every other shard j (nothing to copy where the two
+    shards share the region). Each copy runs on the receiver's stream after
+    an event on the sender's, so that it follows the sender's write and
+    precedes the receiver's next launch."""
     n = len(shards)
     if n == 1:
         return
@@ -149,14 +174,15 @@ def _all_gather(shards: Sequence[_Shard], regions: Sequence[torch.Tensor]) -> No
     for j, sj in enumerate(shards):
         if not cuda:
             for s in range(n):
-                if s != j:
+                if s != j and regions[j] is not regions[s]:
                     regions[j][s].copy_(regions[s][s])
             continue
         with _on(sj):
             for s, ss in enumerate(shards):
                 if s != j:
                     sj.stream.wait_event(ss.event)
-                    regions[j][s].copy_(regions[s][s], non_blocking=True)
+                    if regions[j] is not regions[s]:
+                        regions[j][s].copy_(regions[s][s], non_blocking=True)
 
 
 def _gather_to(root: _Shard, shards: Sequence[_Shard], srcs: Sequence[torch.Tensor],
@@ -255,33 +281,55 @@ class MemberShard:
     """One shard's part of one meshed K2 phase: its inputs and precompute
     (its option columns from ``c0``), the member arrays, the exchange
     regions (``regions[stage]``: ``[n, B, K, ...]`` int32, row ``self_`` its
-    own) and the replicated member state (a dict of tensors for the plain
-    version, a byte buffer for the kernels)."""
+    own, the others its copies of the other shards' rows) and the replicated
+    member state (a dict of tensors for the plain version, a byte buffer for
+    the kernels). ``bufs`` (``_member_buffers``) holds the regions, ``ys``
+    and the kernels' state; without it (the plain versions) the regions and
+    ``ys`` are new and the begin makes the state."""
 
     def __init__(self, inputs, shared, orders, alphas, looks, rsvs, swaps, seed_costs,
-                 s_new: int, c0: int, n: int, self_: int):
+                 s_new: int, c0: int, n: int, self_: int, bufs=None):
         self.inputs, self.shared = inputs, shared
         self.orders, self.alphas, self.looks, self.rsvs = orders, alphas, looks, rsvs
         self.swaps, self.seed_costs = swaps, seed_costs
         self.s_new, self.c0, self.n, self.self_ = s_new, c0, n, self_
-        B, K, G = orders.shape
-        R = inputs.demand.shape[-1]
-        Z = inputs.rel_zone_bits.shape[-1]
-        E = inputs.ex_rem.shape[-2]
-        self.dims = (B, K, G, inputs.price.shape[-1], E, R, Z)
-        dev = inputs.demand.device
-        Zb, RW = Z + 1, _rec_words(R)
+        self.dims = _member_dims(inputs, orders)
+        if bufs is None:
+            bufs = _member_buffers(self.dims, s_new, n, inputs.demand.device)
+        self.regions, self.ys, self.state = bufs["regions"], bufs["ys"], bufs.get("state")
 
-        def region(*shape):
-            return torch.zeros((n, B, K) + shape, dtype=_I32, device=dev)
 
-        self.regions = (
-            region(Zb, 2), region(2, Zb, RW), region(Zb), region(Zb, RW),
-            region(_bit_words(s_new)),
+def _member_dims(inputs, orders) -> tuple:
+    """B K G O E R Z of a shard's phase (O: its columns)."""
+    B, K, G = orders.shape
+    return (B, K, G, inputs.price.shape[-1], inputs.ex_rem.shape[-2], inputs.demand.shape[-1],
+            inputs.rel_zone_bits.shape[-1])
+
+
+def _member_buffers(dims, s_new: int, n: int, dev, state_bytes: int = 0, regions=None) -> dict:
+    """A shard's exchange regions (new, or ``regions``: the ones it shares)
+    and phase outputs (``ys``), and with ``state_bytes`` the kernels' member
+    state and results."""
+    B, K, G, O, E, R, Z = dims
+    Zb, RW, S = Z + 1, _rec_words(R, G), s_new
+    # one zeroed allocation for the new regions and ys
+    shapes = [] if regions else [(n, B, K, Zb, 2), (n, B, K, 2, Zb, RW), (n, B, K, Zb), (n, B, K, Zb, RW)]
+    shapes.append((B, K, G, E + S))
+    sizes = [torch.Size(sh).numel() for sh in shapes]
+    *made, ys = (x.view(sh) for x, sh in zip(torch.zeros(sum(sizes), dtype=_I32, device=dev).split(sizes),
+                                              shapes))
+    bufs = dict(regions=regions or tuple(made), ys=ys)
+    if state_bytes:
+        bufs["state"] = dict(
+            price_t=torch.empty((B, K, G, O), dtype=_F32, device=dev),
+            bytes=torch.empty((B, K, state_bytes), dtype=torch.uint8, device=dev),
+            cost=torch.empty((B, K), dtype=_F32, device=dev),
+            unplaced=torch.empty((B, K), dtype=_I32, device=dev),
+            exhausted=torch.empty((B, K), dtype=_BOOL, device=dev),
+            new_opt=torch.empty((B, K, S), dtype=_I32, device=dev),
+            new_active=torch.empty((B, K, S), dtype=_BOOL, device=dev),
         )
-        self.state = None
-        # phase outputs
-        self.ys = torch.zeros((B, K, G, E + s_new), dtype=_I32, device=dev)
+    return bufs
 
 
 def _unpack_bits(words: torch.Tensor, S: int) -> torch.Tensor:
@@ -352,10 +400,10 @@ def _k2m_begin_ref(ms: MemberShard) -> None:
         slot_bits=torch.cat([x.rel_slot_bits, zeros_i], 1)[bi].clone(),
         sprice=torch.zeros((M, NS), dtype=_F32, device=dev),
         zone_bits=x.rel_zone_bits[bi][:, :Z].clone(),
+        scomp=torch.zeros((M, S, _bit_words(G)), dtype=_I32, device=dev),
         unplaced=torch.zeros((M,), dtype=_I32, device=dev),
         exhausted=torch.zeros((M,), dtype=_BOOL, device=dev),
     )
-    ms.regions[4].zero_()
 
 
 def _member_view(ms: MemberShard, t: int):
@@ -393,7 +441,7 @@ def _local_pick(ms, score, gmin, u, pe, bi):
     global minima [M, Zb]."""
     st = ms.state
     x = ms.inputs
-    R = ms.dims[5]
+    G, R = ms.dims[2], ms.dims[5]
     units_f = u.float()
     cand = score <= gmin[..., None] * float(TIE_BAND)
     pref = torch.where(st["alpha"][:, None] >= 1.0, units_f, -units_f)
@@ -401,7 +449,7 @@ def _local_pick(ms, score, gmin, u, pe, bi):
     idx = torch.argmax(vals, -1)  # [M, Zb]
     v = torch.gather(vals, 2, idx[..., None])[..., 0]
     M, Zb = idx.shape
-    rec = torch.empty((M, Zb, _rec_words(R)), dtype=_I32, device=u.device)
+    rec = torch.empty((M, Zb, _rec_words(R, G)), dtype=_I32, device=u.device)
     rec[..., 0] = _i(v.contiguous())
     rec[..., 1] = (idx + ms.c0).to(_I32)
     rec[..., 2] = torch.gather(u, 1, idx)
@@ -409,12 +457,17 @@ def _local_pick(ms, score, gmin, u, pe, bi):
     rec[..., 4] = _i(torch.gather(x.price[bi], 1, idx).contiguous())
     rec[..., 5] = torch.gather(x.opt_zone[bi], 1, idx)
     alloc = x.alloc[bi]  # [M, O, R]
-    rec[..., 6:] = _i(torch.gather(alloc, 1, idx[..., None].expand(M, Zb, R)).contiguous())
+    rec[..., 6:6 + R] = _i(torch.gather(alloc, 1, idx[..., None].expand(M, Zb, R)).contiguous())
+    compat = x.compat[bi]  # [M, G, O]
+    col = torch.gather(compat, 2, idx[:, None, :].expand(M, G, Zb)).transpose(1, 2)  # [M, Zb, G]
+    rec[..., 6 + R:] = _pack_bits(col)
     return rec
 
 
 def _k2m_fill_ref(ms: MemberShard, t: int) -> None:
     B, K, G, O, E, R, Z = ms.dims
+    if t > 0:
+        _k2m_apply_ref(ms, t - 1)
     st = ms.state
     x, sh = ms.inputs, ms.shared
     S = ms.s_new
@@ -436,9 +489,9 @@ def _k2m_fill_ref(ms: MemberShard, t: int) -> None:
     q = torch.where(zone_rel_ok, sh.quota[bi, g], 0)
     zl = sh.zone_limited[bi, g][:, None] | (zf != 0) | (zn != 0)
     slot_rem, slot_zone, slot_bits = st["slot_rem"], st["slot_zone"], st["slot_bits"]
-    # open slots whose option some shard holds and which admit g
-    words = ms.regions[4].reshape(ms.n, M, -1)
-    comp_new = _unpack_bits(words, S).any(0)  # [M, S]
+    # open fresh slots whose option admits g (its compat column's bit g)
+    cols = _unpack_bits(st["scomp"], G)  # [M, S, G]
+    comp_new = st["slot_active"][:, E:] & torch.gather(cols, 2, g[:, None, None].expand(M, S, 1))[..., 0]
     comp = torch.cat([sh.exok_pad[bi, g][:, :E], comp_new], 1)
     zb_slot = torch.gather(zone_bits, 1, slot_zone.long())
     rel_ok = (((slot_bits & hf) == 0) & ((slot_bits & hn) == hn)
@@ -512,6 +565,8 @@ def _k2m_tail_pick_ref(ms: MemberShard, t: int) -> None:
 
 
 def _k2m_apply_ref(ms: MemberShard, t: int) -> None:
+    """Step t's tail choices, segments and opened slots (run by the fill of
+    step t + 1, and by the end for the last step)."""
     B, K, G, O, E, R, Z = ms.dims
     st = ms.state
     x = ms.inputs
@@ -555,12 +610,13 @@ def _k2m_apply_ref(ms: MemberShard, t: int) -> None:
     )
     opened = _isum(fill, 1)[:, None]
     d = st["d"]
-    alloc_i = _f(rec_i[..., 6:].contiguous())
+    alloc_i = _f(rec_i[..., 6:6 + R].contiguous())
     st["slot_rem"] = torch.where(take[:, :, None], _fma(fill.float()[:, :, None], -d[:, None, :], alloc_i),
                                  st["slot_rem"])
     st["slot_opt"] = torch.where(take, rec_i[..., 1], st["slot_opt"])
     st["slot_zone"] = torch.where(take, rec_i[..., 5], st["slot_zone"])
     st["sprice"] = torch.where(take, _f(rec_i[..., 4].contiguous()), st["sprice"])
+    st["scomp"] = torch.where(take[:, E:, None], rec_i[:, E:, 6 + R:], st["scomp"])
     st["slot_active"] = slot_active | take
     left = st["left"] - opened
     st["unplaced"] = st["unplaced"] + left[:, 0]
@@ -573,18 +629,11 @@ def _k2m_apply_ref(ms: MemberShard, t: int) -> None:
     zmask2 = st["slot_zone"][:, None, :] == zidx[None, :, None]
     zplaced2 = _isum(torch.where(zmask2, yt[:, None, :], 0), 2)
     st["zone_bits"] = torch.where(zplaced2 > 0, st["zone_bits"] | sm, st["zone_bits"])
-    # which open slots hold an option of this shard that admits the next group
-    if t + 1 < G:
-        gn = st["order"][:, t + 1]
-        opt = st["slot_opt"][:, E:]
-        own = st["slot_active"][:, E:] & (opt >= ms.c0) & (opt < ms.c0 + O)
-        local = (opt - ms.c0).clamp(0, O - 1).long()
-        ok = torch.gather(x.compat[bi, gn], 1, local)
-        ms.regions[4][ms.self_] = _pack_bits(own & ok).reshape(ms.regions[4].shape[1:])
 
 
 def _k2m_end_ref(ms: MemberShard) -> MemberOut:
     B, K, G, O, E, R, Z = ms.dims
+    _k2m_apply_ref(ms, G - 1)
     st = ms.state
     new_opt = st["slot_opt"][:, E:].contiguous()
     new_active = st["slot_active"][:, E:] & (new_opt >= 0)
@@ -595,7 +644,7 @@ def _k2m_end_ref(ms: MemberShard) -> MemberOut:
                      new_opt.view(B, K, S), new_active.view(B, K, S), ms.ys)
 
 
-_STAGE_REFS = (_k2m_fill_ref, _k2m_pick_ref, _k2m_tail_ref, _k2m_tail_pick_ref, _k2m_apply_ref)
+_STAGE_REFS = (_k2m_fill_ref, _k2m_pick_ref, _k2m_tail_ref, _k2m_tail_pick_ref)
 
 
 # ---------------------------------------------------------------------------
@@ -777,25 +826,32 @@ def _launch_shard_precompute_finish(lib, inputs: PackInputs, sp: ShardPart, part
 
 
 def _k2m_args(ms: MemberShard):
+    """``kts_k2m``'s arguments for a shard: its pointers, in ``K2MArgs``'
+    order with the regions' bases (0 for none), and B K G O E R Z S c0 n
+    self."""
     x, sh = ms.inputs, ms.shared
     B, K, G, O, E, R, Z = ms.dims
-    return [
-        ts._ptr(x.demand), ts._ptr(x.demand_units), ts._ptr(x.count), ts._ptr(x.node_cap),
-        ts._ptr(x.colocate), ts._ptr(x.compat), ts._ptr(x.alloc), ts._ptr(x.price),
-        ts._ptr(x.opt_zone), ts._ptr(x.ex_rem), ts._ptr(x.ex_zone), ts._ptr(x.ex_valid),
-        ts._ptr(x.rel_set), ts._ptr(x.rel_host_forbid), ts._ptr(x.rel_host_need),
-        ts._ptr(x.rel_zone_forbid), ts._ptr(x.rel_zone_need), ts._ptr(x.rel_slot_bits),
-        ts._ptr(x.rel_zone_bits),
-        ts._ptr(sh.units), ts._ptr(sh.units_rsv), ts._ptr(sh.rsv_group), ts._ptr(sh.quota),
-        ts._ptr(sh.zone_limited), ts._ptr(sh.val_pair), ts._ptr(sh.exok_pad),
-        ts._ptr(ms.orders), ts._ptr(ms.alphas), ts._ptr(ms.looks), ts._ptr(ms.rsvs),
-        ts._ptr(ms.swaps if ms.seed_costs is not None else None), ts._ptr(ms.seed_costs),
-        ts._ptr(ms.state["price_t"]), ts._ptr(ms.state["bytes"]),
-        *(ts._ptr(r) for r in ms.regions), ts._ptr(ms.ys),
-        ts._ptr(ms.state["cost"]), ts._ptr(ms.state["unplaced"]), ts._ptr(ms.state["exhausted"]),
-        ts._ptr(ms.state["new_opt"]), ts._ptr(ms.state["new_active"]),
-        B, K, G, O, E, R, Z, ms.s_new, ms.c0, ms.n, ms.self_,
+    ptrs = [
+        x.demand, x.demand_units, x.count, x.node_cap, x.colocate, x.compat, x.alloc, x.price,
+        x.opt_zone, x.ex_rem, x.ex_zone, x.ex_valid, x.rel_set, x.rel_host_forbid,
+        x.rel_host_need, x.rel_zone_forbid, x.rel_zone_need, x.rel_slot_bits, x.rel_zone_bits,
+        sh.units, sh.units_rsv, sh.rsv_group, sh.quota, sh.zone_limited, sh.val_pair, sh.exok_pad,
+        ms.orders, ms.alphas, ms.looks, ms.rsvs, ms.swaps if ms.seed_costs is not None else None,
+        ms.seed_costs, ms.state["price_t"], ms.state["bytes"], *ms.regions, ms.ys,
+        ms.state["cost"], ms.state["unplaced"], ms.state["exhausted"], ms.state["new_opt"],
+        ms.state["new_active"],
     ]
+    return ([0 if p is None else p.data_ptr() for p in ptrs],
+            [B, K, G, O, E, R, Z, ms.s_new, ms.c0, ms.n, ms.self_])
+
+
+def _c_arrays(ptrs, ints):
+    return (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints)
+
+
+def _state_bytes(lib, dims, s_new: int) -> int:
+    B, K, G, O, E, R, Z = dims
+    return int(lib.kts_k2m_state_bytes(G, O, E, R, Z, s_new))
 
 
 def shard_member_begin(ms: MemberShard) -> None:
@@ -823,30 +879,114 @@ def shard_member_end(ms: MemberShard) -> MemberOut:
     if _plain(ms.inputs.demand):
         return _k2m_end_ref(ms)
     _launch_shard_member(_lib(), ms, len(STAGES), 0, ts._stream())
+    return _member_out(ms)
+
+
+def _member_out(ms: MemberShard) -> MemberOut:
     st = ms.state
     return MemberOut(st["cost"], st["unplaced"], st["exhausted"], st["new_opt"], st["new_active"], ms.ys)
 
 
 def _launch_shard_member(lib, ms: MemberShard, stage: int, t: int, stream) -> None:
-    """stage -1 starts the phase (allocating the state), 0..4 run a step's
-    stage, len(STAGES) ends it."""
-    B, K, G, O, E, R, Z = ms.dims
-    dev = ms.inputs.demand.device
-    if stage == -1:
-        n = int(lib.kts_k2m_state_bytes(G, O, E, R, Z, ms.s_new))
-        S = ms.s_new
-        ms.state = dict(
-            price_t=torch.empty((B, K, G, O), dtype=_F32, device=dev),
-            bytes=torch.empty((B, K, n), dtype=torch.uint8, device=dev),
-            cost=torch.empty((B, K), dtype=_F32, device=dev),
-            unplaced=torch.empty((B, K), dtype=_I32, device=dev),
-            exhausted=torch.empty((B, K), dtype=_BOOL, device=dev),
-            new_opt=torch.empty((B, K, S), dtype=_I32, device=dev),
-            new_active=torch.empty((B, K, S), dtype=_BOOL, device=dev),
-        )
-    rc = lib.kts_k2m(*_k2m_args(ms), stage, t, stream)
+    """stage -1 starts the phase, 0..3 run a step's stage, len(STAGES) ends
+    it; the regions' other rows are this shard's copies (``_all_gather``)."""
+    rc = lib.kts_k2m(*_c_arrays(*_k2m_args(ms)), stage, t, stream)
     _count("shard_member")
     ts._raise_on(lib, rc, f"shard_member stage {stage}")
+
+
+# ---------------------------------------------------------------------------
+# The phase entry: one library call a phase (``kts_k2m_phase``)
+# ---------------------------------------------------------------------------
+
+#: How a phase on the card is issued: "entry", one call of the phase entry
+#: (the main path), or "stages", the per-stage issue from Python
+#: (``shard_member_step`` and ``_all_gather``), which only comparisons take
+PHASE_MODE = "entry"
+#: phases each way ran on the card
+PHASE_PATHS = {"entry": 0, "stages": 0}
+
+
+def phase_launches(n: int, G: int) -> int:
+    """What one phase adds to ``LAUNCHES["shard_member"]``: each shard's
+    begin and end, and ``STAGES`` a step."""
+    return n * (len(STAGES) * G + 2)
+
+
+def _phase_buffers(lib, shards, dims, s_new: int) -> list:
+    """Each shard's phase buffers on its card and stream: its own ys, state
+    and results, and the exchange regions, which the shards share where
+    ``_shared_regions`` says so (the first shard's)."""
+    n, regions, bufs = len(shards), None, []
+    shared = _shared_regions(shards)
+    for s, sh in enumerate(shards):
+        with _on(sh):
+            bufs.append(_member_buffers(dims[s], s_new, n, sh.device, _state_bytes(lib, dims[s], s_new),
+                                        regions))
+        if shared:
+            regions = bufs[0]["regions"]
+    return bufs
+
+
+def _shared_regions(shards) -> bool:
+    """Whether a phase's shards share one copy of the exchange regions,
+    each reading the others' rows in place: on one card, or on cards that
+    all have peer access to each other. Else each holds its own copy, and
+    the exchanges copy rows between them."""
+    cards = {_device_index(sh) for sh in shards}
+    return len(cards) == 1 or all(torch.cuda.can_device_access_peer(a, b)
+                                  for a in cards for b in cards if a != b)
+
+
+def _device_index(sh: _Shard) -> int:
+    """The shard's card (0 for a CPU shard)."""
+    if sh.device.type != "cuda":
+        return 0
+    return torch.cuda.current_device() if sh.device.index is None else sh.device.index
+
+
+def _issue_phase(lib, shards, mss) -> List[MemberOut]:
+    """The phase in one call of the phase entry, which counts the launches
+    it made into ``LAUNCHES["shard_member"]``."""
+    n = len(mss)
+    ptrs, dims = [], []
+    for ms in mss:
+        ts._check_inputs(ms.inputs, ms.dims[6])
+        p, d = _k2m_args(ms)
+        ptrs += p
+        dims += d
+    ptrs, dims = _c_arrays(ptrs, dims)
+    devices = (ctypes.c_int * n)(*(_device_index(sh) for sh in shards))
+    streams = (ctypes.c_void_p * n)(*(0 if sh.stream is None else sh.stream.cuda_stream for sh in shards))
+    launches = ctypes.c_longlong(0)
+    rc = lib.kts_k2m_phase(n, ptrs, dims, devices, streams, ctypes.byref(launches))
+    with ts._COUNT_LOCK:
+        LAUNCHES["shard_member"] += launches.value
+        PHASE_PATHS["entry"] += rc == 0
+    ts._raise_on(lib, rc, "shard_member phase")
+    return [_member_out(ms) for ms in mss]
+
+
+def _issue_stages(shards, mss) -> List[MemberOut]:
+    """The phase stage by stage from Python: each shard's begin, the G steps
+    of ``STAGES`` with an exchange (``_all_gather``) after each, each
+    shard's end. The plain versions' path, and on the card the per-stage
+    issue that the phase entry replaced."""
+    G = mss[0].dims[2]
+    for sh, ms in zip(shards, mss):
+        with _on(sh):
+            shard_member_begin(ms)
+    for t in range(G):
+        for stage in range(len(STAGES)):
+            for sh, ms in zip(shards, mss):
+                with _on(sh):
+                    shard_member_step(ms, stage, t)
+            _all_gather(shards, [ms.regions[stage] for ms in mss])
+    out = []
+    for sh, ms in zip(shards, mss):
+        with _on(sh):
+            out.append(shard_member_end(ms))
+    return out
 
 
 def seed_offer(cost, k0: int, orders, alphas, looks, rsvs, out: torch.Tensor) -> None:
@@ -962,30 +1102,33 @@ def shard_precompute_all(shards, inputs, s_new: int) -> List[Shared]:
 def shard_member_phase(shards, inputs, shared, members, s_new: int,
                        seed_costs=None) -> List[MemberOut]:
     """One phase of K2 over an option split: each shard's begin, the G steps
-    of five stages with an exchange after each, each shard's end.
-    ``seed_costs[s]`` (phase 2) holds the phase-1 costs on shard s."""
+    of four stages with an exchange after each, each shard's end.
+    ``seed_costs[s]`` (phase 2) holds the phase-1 costs on shard s. On CPU
+    tensors the plain versions run stage by stage; on the card one call of
+    the phase entry issues the whole phase (``_issue_phase``)."""
     n = len(shards)
-    G = members[0][0].shape[-1]
     O = inputs[0].price.shape[-1]
-    mss = []
-    for s, sh in enumerate(shards):
-        with _on(sh):
-            orders, alphas, looks, rsvs, swaps = members[s]
-            ms = MemberShard(inputs[s], shared[s], orders, alphas, looks, rsvs, swaps,
-                             None if seed_costs is None else seed_costs[s], s_new, s * O, n, s)
-            shard_member_begin(ms)
-            mss.append(ms)
-    for t in range(G):
-        for stage in range(len(STAGES)):
-            for s, sh in enumerate(shards):
-                with _on(sh):
-                    shard_member_step(mss[s], stage, t)
-            _all_gather(shards, [ms.regions[stage] for ms in mss])
-    out = []
-    for s, sh in enumerate(shards):
-        with _on(sh):
-            out.append(shard_member_end(mss[s]))
-    return out
+    plain = _plain(inputs[0].demand)
+    lib = None if plain else _lib()
+
+    def member(s, bufs=None):
+        orders, alphas, looks, rsvs, swaps = members[s]
+        return MemberShard(inputs[s], shared[s], orders, alphas, looks, rsvs, swaps,
+                           None if seed_costs is None else seed_costs[s], s_new, s * O, n, s, bufs)
+
+    if plain:
+        mss = []
+        for s, sh in enumerate(shards):
+            with _on(sh):
+                mss.append(member(s))
+        return _issue_stages(shards, mss)
+    dims = [_member_dims(inputs[s], members[s][0]) for s in range(n)]
+    mss = [member(s, b) for s, b in enumerate(_phase_buffers(lib, shards, dims, s_new))]
+    if PHASE_MODE == "stages":
+        with ts._COUNT_LOCK:
+            PHASE_PATHS["stages"] += 1
+        return _issue_stages(shards, mss)
+    return _issue_phase(lib, shards, mss)
 
 
 def _options_chain(shards, inputs, members, s_new: int, n_zones: int) -> torch.Tensor:

@@ -12,6 +12,10 @@
 // `emu_launch(kernel, grid, block, smem, stream, args);` before compiling. A
 // launch that asks for more dynamic shared memory than the kernel may have
 // is refused, as the card refuses it.
+//
+// Streams, events and devices: launches and copies run when they are
+// issued, so issue order is the only order there is, and every stream, event
+// and device call is a stand-in that succeeds.
 #pragma once
 #include <math.h>
 
@@ -30,7 +34,7 @@
 #define __host__
 #define __forceinline__ inline
 #define __shared__ static
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 
 struct emu_uint3 {
   unsigned x, y, z;
@@ -51,7 +55,13 @@ struct int4 {
 };
 
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101 };
+enum cudaError_t {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorMemoryAllocation = 2,
+  cudaErrorInvalidDevice = 101,
+  cudaErrorPeerAccessAlreadyEnabled = 704,
+};
 // the launch errors the runtime would report, kept until cudaGetLastError
 inline cudaError_t emu_last_error = cudaSuccess;
 inline cudaError_t cudaGetLastError() {
@@ -64,6 +74,28 @@ inline const char* cudaGetErrorString(cudaError_t err) {
 }
 inline cudaError_t cudaGetDevice(int* dev) {
   *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
+
+inline cudaError_t cudaDeviceEnablePeerAccess(int, unsigned) { return cudaSuccess; }
+
+constexpr unsigned cudaEventDisableTiming = 2;
+typedef struct EmuEvent* cudaEvent_t;
+struct EmuEvent {};
+inline cudaError_t cudaEventCreateWithFlags(cudaEvent_t* e, unsigned) {
+  *e = new EmuEvent;
+  return cudaSuccess;
+}
+inline cudaError_t cudaEventDestroy(cudaEvent_t e) {
+  delete e;
+  return cudaSuccess;
+}
+inline cudaError_t cudaEventRecord(cudaEvent_t, cudaStream_t = nullptr) { return cudaSuccess; }
+inline cudaError_t cudaStreamWaitEvent(cudaStream_t, cudaEvent_t, unsigned = 0) { return cudaSuccess; }
+
+inline cudaError_t cudaMemcpyPeerAsync(void* dst, int, const void* src, int, size_t bytes, cudaStream_t) {
+  std::memcpy(dst, src, bytes);
   return cudaSuccess;
 }
 

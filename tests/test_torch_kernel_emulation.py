@@ -754,3 +754,136 @@ def test_emulated_member_argmin_on_nan_and_ties(emulated, monkeypatch):
             assert (int(final[b, 0]), int(final[b, 2])) == (int(best >= K), best % K)
             costs = final[b, 4 : 4 + 2 * K].view(torch.float32)
             assert torch.equal(costs.view(torch.int32), torch.cat([flat1[b], flat2[b]]).view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The meshed K2 phase entry (``kts_k2m_phase``: one library call a phase)
+# ---------------------------------------------------------------------------
+
+#: (case, 2D mesh shape, where the shards sit: on one card (the regions
+#: shared, the senders' rows read in place), or each on a card of its own,
+#: with peer access (the regions shared) or without (each shard's own copy,
+#: the exchanges copies into the receivers' rows)); sixteen shards go past any
+#: fixed count of shards
+PHASE_CASES = [("topology", (2, 1), "one card"), ("existing", (4, 1), "one card"),
+               ("crossgroup", (2, 2), "copies"), ("relations", (2, 1), "peer"),
+               ("ties", (16, 1), "one card")]
+
+
+def _meshed(case, shape):
+    """A case's problem placed once on a 2D mesh of CPU shards, and its chain."""
+    (inputs, o, a, l, r, sw), S, nz = _inputs(case)
+    members = (o, a, l, r, sw)
+    mesh = parallel.make_mesh2d(shape, devices=["cpu"] * (shape[0] * shape[1]))
+    placed = parallel.shard_problem2d(mesh, inputs, *members)
+    return (inputs, members, S, nz), lambda: ts.pack_solve_meshed(mesh, *placed, S, nz)
+
+
+def _on_emulated_shards(emulated, monkeypatch):
+    monkeypatch.setattr(meshed, "_plain", lambda t: False)
+    monkeypatch.setattr(meshed, "_lib", lambda: emulated)
+    monkeypatch.setattr(ts, "_stream", lambda: NULL_STREAM)
+
+
+@pytest.mark.parametrize("case,shape,cards", PHASE_CASES,
+                         ids=[f"{c}-{s}-{w.replace(' ', '-')}" for c, s, w in PHASE_CASES])
+def test_emulated_phase_entry_equals_per_stage_issue(emulated_chain, monkeypatch, case, shape, cards):
+    """The phase entry issues each meshed K2 phase in one call (every
+    shard's launches, events and waits from C): with the shards on one card
+    (the senders' rows read in place), and each on a card of its own, with
+    peer access (the shared regions read in place) and without (each
+    shard's own copy, the exchanges copies into the receivers' rows). Every
+    meshed buffer equals the emulated un-meshed chain's bit for bit, as
+    does the per-stage issue's (``shard_member_step`` and ``_all_gather``
+    from Python) on two shards and across cards. The 1D meshes (which run no K2 phase of their own) and a
+    superproblem's phases take the phase entry in
+    ``test_emulated_meshed_chain_equals_emulated_unmeshed``."""
+    (inputs, members, S, nz), chain = _meshed(case, shape)
+    want = emulated_chain(inputs, *members, S, nz)
+    if cards != "one card":
+        monkeypatch.setattr(meshed, "_device_index", lambda sh: sh.index)
+        monkeypatch.setattr(meshed, "_shared_regions", lambda shards: cards == "peer")
+    # the per-stage issue beside the entry where it is cheap to emulate
+    for mode in ("stages", "entry") if shape[0] * shape[1] <= 2 or cards == "copies" else ("entry",):
+        monkeypatch.setattr(meshed, "PHASE_MODE", mode)
+        paths = dict(meshed.PHASE_PATHS)
+        assert torch.equal(chain(), want), mode
+        moved = {k: meshed.PHASE_PATHS[k] - paths[k] for k in paths}
+        # a phase 1 and a phase 2 a chain
+        assert moved == {k: 2 * (k == mode) for k in paths}, mode
+
+
+def test_emulated_phase_entry_seeded_by_nan_and_ties(emulated, monkeypatch):
+    """Phase 2 on two option shards seeded by phase-1 costs holding NaN,
+    +-inf and ties (``COST_SETS``): the phase entry answers what the
+    per-stage issue of the same kernels answers, bit for bit, and what the
+    plain versions answer (member costs to rtol 1e-6)."""
+    (inputs, o, a, l, r, sw), S, nz = _inputs("exhaustion")
+    n, K = 2, o.shape[0]
+    shards = [meshed._Shard(parallel.make_mesh(n, devices=["cpu"] * n), i) for i in range(n)]
+    ins = _split(inputs, n)
+    members = [tuple(x.unsqueeze(0) for x in (o, a, l, r, sw))] * n
+    k1 = meshed.shard_precompute_all(shards, ins, S)
+    _on_emulated_shards(emulated, monkeypatch)
+    for c1, _ in COST_SETS:
+        seed = [torch.tensor([c1[:K]], dtype=torch.float32)] * n
+        outs = {}
+        for mode in ("stages", "entry"):
+            monkeypatch.setattr(meshed, "PHASE_MODE", mode)
+            outs[mode] = meshed.shard_member_phase(shards, ins, k1, members, S, seed)
+        for g, w in zip(outs["entry"], outs["stages"]):
+            for f in MemberFields:
+                assert torch.equal(getattr(g, f), getattr(w, f)), (c1, f)
+        monkeypatch.setattr(meshed, "_plain", lambda t: True)
+        plain = meshed.shard_member_phase(shards, ins, k1, members, S, seed)
+        monkeypatch.setattr(meshed, "_plain", lambda t: False)
+        for g, w in zip(outs["entry"], plain):
+            _assert_members(ts._row(g, 0), ts._row(w, 0))
+
+
+def test_emulated_phase_entry_counts_its_launches(emulated, monkeypatch):
+    """A phase adds ``phase_launches(n, G)`` to ``LAUNCHES["shard_member"]``
+    whichever way it is issued: each shard's begin and end and
+    ``len(STAGES)`` launches a step, 4 G n + 2 n (five a step until the
+    apply stage was folded into the next fill). The phase entry counts its
+    launches where it makes them, in C."""
+    (inputs, o, a, l, r, sw), S, nz = _inputs("ties")
+    n, G = 2, o.shape[1]
+    assert meshed.STAGES == ("fill", "pick", "tail", "tail_pick")
+    assert meshed.phase_launches(n, G) == 4 * G * n + 2 * n
+    shards = [meshed._Shard(parallel.make_mesh(n, devices=["cpu"] * n), i) for i in range(n)]
+    ins = _split(inputs, n)
+    members = [tuple(x.unsqueeze(0) for x in (o, a, l, r, sw))] * n
+    _on_emulated_shards(emulated, monkeypatch)
+    k1 = meshed.shard_precompute_all(shards, ins, S)
+    for mode in ("entry", "stages"):
+        monkeypatch.setattr(meshed, "PHASE_MODE", mode)
+        before, paths = meshed.LAUNCHES["shard_member"], dict(meshed.PHASE_PATHS)
+        meshed.shard_member_phase(shards, ins, k1, members, S)
+        assert meshed.LAUNCHES["shard_member"] - before == meshed.phase_launches(n, G), mode
+        assert {k: meshed.PHASE_PATHS[k] - paths[k] for k in paths} == {
+            k: int(k == mode) for k in paths}, mode
+
+
+def test_emulated_phase_entry_raises_on_a_refused_phase(emulated, monkeypatch):
+    """A phase the entry refuses (here a shard whose arguments name another
+    shard) raises, launches nothing and counts nothing: no fallback to the
+    per-stage issue."""
+    (inputs, o, a, l, r, sw), S, nz = _inputs("ties")
+    n = 2
+    shards = [meshed._Shard(parallel.make_mesh(n, devices=["cpu"] * n), i) for i in range(n)]
+    ins = _split(inputs, n)
+    members = [tuple(x.unsqueeze(0) for x in (o, a, l, r, sw))] * n
+    _on_emulated_shards(emulated, monkeypatch)
+    k1 = meshed.shard_precompute_all(shards, ins, S)
+    args = meshed._k2m_args
+
+    def misplaced(ms):
+        ptrs, dims = args(ms)
+        return ptrs, dims[:-1] + [0]  # every shard says it is shard 0
+
+    monkeypatch.setattr(meshed, "_k2m_args", misplaced)
+    before, paths = dict(meshed.LAUNCHES), dict(meshed.PHASE_PATHS)
+    with pytest.raises(RuntimeError, match="shard_member phase"):
+        meshed.shard_member_phase(shards, ins, k1, members, S)
+    assert meshed.LAUNCHES == before and meshed.PHASE_PATHS == paths

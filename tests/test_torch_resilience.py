@@ -7,8 +7,10 @@ case records what it observes: the breaker's state after every call, the
 error each call raised (by class name), the calls that reached the wire,
 the breaker's transitions as ``karpenter_tpu_rpc_breaker_transitions_total``
 counts them, its state gauge, and how far ``breaker_open_count`` (the flight
-recorder's ``breaker-open`` trigger) moved. The two packages' records must
-be equal.
+recorder's ``breaker-open`` trigger) moved. Counters are process-wide and
+other tests raise the same labels, so a record holds how far each counter
+moved during the case, never its absolute value. The two packages' records
+must be equal.
 """
 
 from __future__ import annotations
@@ -38,6 +40,13 @@ class Recorder:
     def __init__(self, m, case):
         self.m, self.case, self.rows = m, case, []
         self.open0 = m.res.breaker_open_count()
+        # every series of the counters a case reports, as the case begins
+        self.counts0 = {c: dict(c._values) for c in (m.metrics.RPC_BREAKER_TRANSITIONS,
+                                                     m.metrics.RPC_RETRIES)}
+
+    def moved(self, counter, labels) -> float:
+        """How far ``counter``'s series ``labels`` moved since the case began."""
+        return counter.value(labels) - self.counts0[counter].get(self.m.metrics._key(labels), 0.0)
 
     def call(self, fn, *args, **kw):
         """Run ``fn``; record its answer or the class of what it raised."""
@@ -60,8 +69,9 @@ class Recorder:
     def done(self, *breakers):
         for b in breakers:
             for to in ("open", "half-open", "closed"):
-                self.rows.append(("transitions", b.endpoint, to, self.m.metrics.RPC_BREAKER_TRANSITIONS
-                                  .value({"service": b.service, "endpoint": b.endpoint, "to": to})))
+                self.rows.append(("transitions", b.endpoint, to, self.moved(
+                    self.m.metrics.RPC_BREAKER_TRANSITIONS,
+                    {"service": b.service, "endpoint": b.endpoint, "to": to})))
         self.rows.append(("opened", self.m.res.breaker_open_count() - self.open0))
         return self.rows
 
@@ -280,7 +290,7 @@ def case_resilient_call_without_a_breaker(m, rec):
 
     rec.call(m.res.resilient_call, fn, policy=no_sleep_policy(m), service="twin",
              endpoint="/no-breaker")
-    rec.note("retries", m.metrics.RPC_RETRIES.value({"service": "twin", "endpoint": "/no-breaker"}))
+    rec.note("retries", rec.moved(m.metrics.RPC_RETRIES, {"service": "twin", "endpoint": "/no-breaker"}))
 
 
 CASES = [

@@ -5,7 +5,9 @@ CUDA card and nvcc, and imports nothing of JAX. ``python3 chip_smoke.py
 --compare DIR`` instead times this checkout's K1 and K3 against those of
 the checkout at DIR (built from its own sources), in one process, at each
 config and on the fleet bucket at B=1, 4, 8 and 16, in turns DIR, this,
-this, DIR, with the chain and each of its kernels (``compare``). Phases:
+this, DIR, with the chain and each of its kernels (``compare``);
+``--compare DIR --staging`` times the staging kernels so instead, on the
+card and on the host (``compare_staging``). Phases:
 
 1. device: CUDA must be present; prints the card's name and power limit;
 2. build: compiles ``karpenter_tpu_torch/solver/csrc/*.cu`` with nvcc for
@@ -45,12 +47,14 @@ this, DIR, with the chain and each of its kernels (``compare``). Phases:
    versions, every row of the batched chain equal to that problem's B=1
    buffer, the pad rows costing 0; the eight rows twice over at B=16, K1 and
    K3 bit for bit on every row and the chain's device events;
-   ``fleet_stack`` against ``torch.stack`` and a ``stage_patch`` restage
-   against ``index_copy_``; K1's breakdown (its two kernels from a
+   ``fleet_stack`` against ``torch.stack``, and one churned cell's
+   ``stage_patch`` restage, leaf by leaf and as one batch (one copy, one
+   launch), against ``index_copy_``; K1's breakdown (its two kernels from a
    profiler trace) at 50k_full, 10k_topology and on the fleet bucket at B=1
    and 16; then timings of
    the chain at B=1, 4, 8 and 16, of ``fleet_stack`` for a B=16 chunk and of
-   one churned cell's ``stage_patch`` restage;
+   that restage both ways (the per-leaf sequence it replaced), each on the
+   card and on the host;
 9. fleet race (main path): the sharded round on 20 per-cell
    ``TorchSolver``s over the 500k-pod fleet: a seed round (two dispatches,
    B=16 and B=4), two churn rounds (``stage_patch`` restages, device-side
@@ -279,9 +283,18 @@ def child_env(**extra) -> dict:
     return env
 
 
+#: phases that launch stage_patch outside a stage() call (kernel checks)
+DIRECT_STAGE_PATCH = ("fleet_check",)
+
+
 def phase(name, fn, *args):
-    """Run one main-path phase, log its wall on its own line and the perf
-    sentinel's trips in it (the operators' sentinel is on by default)."""
+    """Run one main-path phase, log its wall on its own line, the perf
+    sentinel's trips in it (the operators' sentinel is on by default) and
+    its ``stage_patch`` launches in this process beside its restaging
+    ``stage()`` calls and their copies, which must be equal: a restage is
+    one copy and one launch for each device it patches."""
+    global COUNTS_ZEROED
+    from karpenter_tpu_torch.solver import torch_solver as ts
     from karpenter_tpu_torch.utils import metrics, profiling
 
     def trips():
@@ -289,12 +302,19 @@ def phase(name, fn, *args):
             return sum(metrics.PERF_REGRESSION._values.values())
 
     before = trips()
+    COUNTS_ZEROED, staged0 = False, phase_counts(ts)
     t0 = time.perf_counter()
     out = fn(*args)
     PHASE_WALLS[name] = round(time.perf_counter() - t0, 2)
+    staged = {k: v - (0 if COUNTS_ZEROED else staged0[k]) for k, v in phase_counts(ts).items()}
     log(f"phase {name}: wall {PHASE_WALLS[name]} s; perf sentinel "
         f"{'on' if profiling.SENTINEL.enabled else 'off'} at its end, "
-        f"{trips() - before:g} trips in this process")
+        f"{trips() - before:g} trips in this process; stage_patch {staged['launches']} launches, "
+        f"{staged['calls']} restaging calls, {staged['copies']} copies; "
+        f"{staged['fleet chains']} chains with B > 1")
+    if name not in DIRECT_STAGE_PATCH and not staged["launches"] == staged["calls"] == staged["copies"]:
+        raise AssertionError(f"phase {name}: stage_patch launches, restaging calls and copies "
+                             f"differ: {staged}")
     return out
 
 
@@ -328,6 +348,23 @@ def time_ms(fn, per: int = 10, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / per)
     return statistics.median(times)
+
+
+def host_ms(fn, calls: int = 200) -> float:
+    """Host time of one call of ``fn``: the median of ``calls`` calls, each
+    on the host clock, with no synchronise between them (the card runs
+    their work behind them), after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
 
 
 def nbytes(*tensors) -> int:
@@ -924,9 +961,29 @@ def probe_check(ts) -> dict:
 
 
 def zero_counts(ts) -> None:
-    for counts in (ts.LAUNCHES, ts.BATCHED):
+    from karpenter_tpu_torch.solver import staging as st
+
+    global COUNTS_ZEROED
+    for counts in (ts.LAUNCHES, ts.BATCHED, st.RESTAGES):
         for k in counts:
             counts[k] = 0
+    COUNTS_ZEROED = True
+
+
+#: set by ``zero_counts``: ``phase`` then reads the counts from 0
+COUNTS_ZEROED = False
+
+
+def phase_counts(ts) -> dict:
+    """The counts ``phase`` logs: ``stage_patch`` launches and what the
+    stagers count beside them, the ``stage()`` calls that patched on the
+    card (one for each device) and the host-to-device copies of their
+    patches; and the chains launched with B > 1 (K3 ends each chain
+    once)."""
+    from karpenter_tpu_torch.solver import staging as st
+
+    return {"launches": ts.LAUNCHES["stage_patch"], **st.RESTAGES,
+            "fleet chains": ts.BATCHED["pack_epilogue"]}
 
 
 def hold_race(name, problem, result, validate) -> None:
@@ -1051,8 +1108,9 @@ def hazard_check(ts, configs, cells, provs, catalog) -> None:
         raise AssertionError(f"the churned copy did not restage in place: {info}")
     verdict = fused_agree(got, want_a, K)
     log(f"hazard: restaged {info['rows']} while a side-stream dispatch of the original waited "
-        f"behind a spin; the restage returned to the host after {restage_s:.4f} s (it waits for "
-        f"the chain); the dispatch's buffer vs the plain chain on the original inputs: {verdict}")
+        f"behind a spin; the restage returned to the host after {restage_s:.4f} s (its copy "
+        f"and launch queue on the card behind the chain's event); the dispatch's buffer vs the "
+        f"plain chain on the original inputs: {verdict}")
 
 
 MEMBERS = ("orders", "alphas", "looks", "rsvs", "swaps")
@@ -1105,6 +1163,28 @@ def fleet_rows(ts, configs, cells, provs, catalog):
     pad_fields, *pad_members = ts.fleet_padding(key)
     pad = ts.pack_inputs_from_numpy(dict(pad_fields, **dict(zip(MEMBERS, pad_members))), "cuda")
     return solver, problems, key, real, pad
+
+
+def cell_patches(solver, problems):
+    """One churned cell's restage: the seed cell's resident leaves on the
+    card (``(name, tensor, churned rows, their new bytes)``) and the rows
+    that churn round 0 changed, for every leaf that restages; and the new
+    leaves."""
+    import numpy as np
+    import torch
+
+    seed, churned = (solver._prepare(problems[k]) for k in ("seed", "r0"))
+    old = dict(seed[0], **dict(zip(MEMBERS, seed[1:6])))
+    new = dict(churned[0], **dict(zip(MEMBERS, churned[1:6])))
+    patches = []
+    for name in old:
+        n = changed_rows(old[name], new[name])
+        if 0 < n <= max(1, old[name].shape[0] // 2):
+            diff = (old[name] != new[name]).reshape(old[name].shape[0], -1).any(axis=1)
+            idx = np.flatnonzero(diff).astype(np.int64)
+            patches.append((name, torch.from_numpy(old[name]).cuda(), idx,
+                            np.ascontiguousarray(new[name][idx])))
+    return patches, new
 
 
 def fleet_check(ts, st, configs, cells, provs, catalog) -> dict:
@@ -1170,41 +1250,47 @@ def fleet_check(ts, st, configs, cells, provs, catalog) -> dict:
         if not torch.equal(got[name], want[name]):
             raise AssertionError(f"fleet_stack {name} differs from torch.stack")
 
-    # one churned cell's restage: the seed cell's resident leaves take the
-    # rows that churn round 0 changed
-    seed, churned = (solver._prepare(problems[k]) for k in ("seed", "r0"))
-    old = dict(seed[0], **dict(zip(MEMBERS, seed[1:6])))
-    new = dict(churned[0], **dict(zip(MEMBERS, churned[1:6])))
-    patches = []
-    for name in old:
-        n = changed_rows(old[name], new[name])
-        if 0 < n <= max(1, old[name].shape[0] // 2):
-            diff = (old[name] != new[name]).reshape(old[name].shape[0], -1).any(axis=1)
-            idx = np.flatnonzero(diff)
-            width = 1 << (len(idx) - 1).bit_length()
-            idx = np.concatenate([idx, np.full(width - len(idx), idx[0])]).astype(np.int64)
-            dst = torch.from_numpy(old[name]).cuda()
-            patches.append((name, dst, torch.from_numpy(idx).cuda(), torch.from_numpy(new[name][idx]).cuda()))
-    if not patches:
-        raise AssertionError("churn round 0 changed no leaf of the cell")
+    # one churned cell's restage: each leaf through the one-leaf entry and
+    # all of them through one batched restage (one copy, one launch)
+    patches, new = cell_patches(solver, problems)
+    if len(patches) < 2:
+        raise AssertionError(f"churn round 0 changed {len(patches)} leaves of the cell, not several")
     for name, dst, idx, src in patches:
-        got = st.stage_patch(dst.clone(), idx, src)
-        if not (torch.equal(got, st.stage_patch_ref(dst.clone(), idx, src))
+        idx_d, src_d = torch.from_numpy(idx).cuda(), torch.from_numpy(src).cuda()
+        got = st.stage_patch(dst.clone(), idx_d, src_d)
+        if not (torch.equal(got, st.stage_patch_ref(dst.clone(), idx_d, src_d))
                 and torch.equal(got.cpu(), torch.from_numpy(new[name]))):
             raise AssertionError(f"stage_patch {name} differs from index_copy_")
+    batch = [(dst.clone(), idx, src) for _, dst, idx, src in patches]
+    before = phase_counts(ts)
+    if st.stage_patches(batch) != 1 or ts.LAUNCHES["stage_patch"] - before["launches"] != 1:
+        raise AssertionError("the batched restage was not one launch")
+    if st.RESTAGES["copies"] - before["copies"] != 1:
+        raise AssertionError("the batched restage was not one copy")
+    for (name, *_), (got, _, _) in zip(patches, batch):
+        if not torch.equal(got.cpu(), torch.from_numpy(new[name])):
+            raise AssertionError(f"the batched stage_patch left {name} unlike index_copy_")
     log(f"fleet check: batched K1 bit-equal (B=8 and B=16), K2 max_abs_err={k2_err}, K3 equal "
         f"(B=8 and B=16), every row equal to its B=1 chain, pad rows cost 0; fleet_stack equal over "
         f"{len(rows)} rows x {len(rows[0])} leaves; stage_patch equal on "
-        f"{[(p[0], int(p[2].shape[0])) for p in patches]}")
+        f"{[(p[0], int(p[2].shape[0])) for p in patches]}, one leaf a launch and all in one")
     return dict(real=real, key=key, rows=rows, patches=patches,
                 errs={"shared_precompute": 0.0, "pack_member": k2_err, "pack_epilogue": 0.0,
                       "fleet_stack": 0.0, "stage_patch": 0.0})
 
 
-def fleet_timings(ts, st, fc: dict) -> list:
+def fleet_timings(ts, st, fc: dict, floor_ms: float) -> list:
     """The batched chain at B=1, 4, 8 and 16 (real rows, repeated for B > 5),
     fleet_stack for one B=16 chunk, and one churned cell's stage_patch
-    restage, each beside its bound and its plain version."""
+    restage, each beside its bound, the launch floor (``floor_ms``,
+    ``rtt_probe``'s kernel time) and its plain version; the restage also
+    as the per-leaf sequence it replaced, each way on the card and on the
+    host."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.solver._build import load_kernels
+
     real, key = fc["real"], fc["key"]
     S, nz = key.S, key.Z
     chain, bounds = {}, {}
@@ -1229,23 +1315,60 @@ def fleet_timings(ts, st, fc: dict) -> list:
     stack_bytes = 2 * sum(nbytes(*r.values()) for r in rows16)
     stack_ms = time_ms(lambda: st.fleet_stack(rows16))
     stack_plain = time_ms(lambda: st.fleet_stack_ref(rows16), per=1)
-    patches = fc["patches"]
-    n = len(patches)
+    stack_host = host_ms(lambda: st.fleet_stack(rows16))
+    log(f"timing: fleet_stack B=16 ({len(rows16) * len(rows16[0])} rows, {stack_bytes} bytes moved) "
+        f"{stack_ms:.4f} ms on the card, {stack_host:.4f} ms of host a call; plain torch.stack "
+        f"x{len(rows16[0])} {stack_plain:.4f} ms; launch floor (rtt_probe) {floor_ms:.6f} ms")
 
-    def patch_all(fn):
-        for _, dst, idx, src in patches:
+    # one churned cell's restage, both ways in turns: the per-leaf sequence
+    # (two pageable uploads and a launch of the one-leaf entry a leaf) and
+    # the batched restage (one packed copy, one launch)
+    patches = fc["patches"]
+    dev = patches[0][1].device
+    batch = [(dst, idx, src) for _, dst, idx, src in patches]
+
+    def per_leaf():
+        for dst, idx, src in batch:
+            st.stage_patch(dst, torch.from_numpy(idx).to(dev, copy=True),
+                           torch.from_numpy(src).to(dev, copy=True))
+
+    ways = {"per-leaf": per_leaf, "batched": lambda: st.stage_patches(batch)}
+    restage = {}
+    for way in ("per-leaf", "batched", "batched", "per-leaf"):
+        restage.setdefault(way, []).append((time_ms(ways[way]), host_ms(ways[way])))
+    restage = {way: tuple(statistics.mean(t[i] for t in turns) for i in (0, 1))
+               for way, turns in restage.items()}
+    # the kernel alone: one launch over the packed buffer already on the card
+    offs, total = st.patch_layout(batch)
+    packed = np.zeros(total, np.uint8)
+    st.pack_patches(batch, offs, packed)
+    buf = torch.from_numpy(packed).to(dev)
+    table = np.array([[dst.data_ptr(), buf.data_ptr() + io, buf.data_ptr() + so, idx.shape[0],
+                       st._row_bytes(dst)] for (dst, idx, _), (io, so) in zip(batch, offs)], np.int64)
+    lib = load_kernels()
+    patch_ms = time_ms(lambda: st._run_stage_patch(lib, table, ts._stream()))
+    on_card = [(dst, torch.from_numpy(idx).to(dev), torch.from_numpy(src).to(dev))
+               for dst, idx, src in batch]
+
+    def leaf_by_leaf(fn):
+        for dst, idx, src in on_card:
             fn(dst, idx, src)
 
-    patch_ms = time_ms(lambda: patch_all(st.stage_patch)) / n
-    patch_plain = time_ms(lambda: patch_all(st.stage_patch_ref), per=1) / n
-    patch_bytes = sum(2 * nbytes(src) + nbytes(idx) for _, _, idx, src in patches) / n
-    log(f"timing: fleet_stack B=16 ({len(rows16) * len(rows16[0])} rows) {stack_ms:.4f} ms, "
-        f"plain torch.stack x{len(rows16[0])} {stack_plain:.4f} ms; stage_patch "
-        f"{patch_ms:.4f} ms per launch over one churned cell's {n} launches, "
-        f"index_copy_ {patch_plain:.4f} ms")
+    one_leaf = time_ms(lambda: leaf_by_leaf(st.stage_patch)) / len(batch)
+    patch_plain = time_ms(lambda: leaf_by_leaf(st.stage_patch_ref), per=1)
+    patch_bytes = sum(idx.nbytes + 2 * src.nbytes for _, idx, src in batch)
+    log(f"timing: restage of one churned cell ({len(batch)} leaves, "
+        f"{[(p[0], int(p[2].shape[0])) for p in patches]}, {patch_bytes} bytes moved): per-leaf "
+        f"sequence {restage['per-leaf'][0]:.4f} ms on the card, {restage['per-leaf'][1]:.4f} ms "
+        f"of host a call; batched {restage['batched'][0]:.4f} ms on the card, "
+        f"{restage['batched'][1]:.4f} ms of host (mean of two turns each, in turns per-leaf, "
+        f"batched, batched, per-leaf); the batched kernel alone {patch_ms:.4f} ms, the one-leaf "
+        f"entry {one_leaf:.4f} ms a launch, index_copy_ x{len(batch)} {patch_plain:.4f} ms; "
+        f"launch floor (rtt_probe) {floor_ms:.6f} ms")
     out = []
+    # library_ms: no one PyTorch call patches or stacks several tensors
     for name, ms, plain, lib, work in (
-        ("stage_patch", patch_ms, patch_plain, patch_plain, patch_bytes),
+        ("stage_patch", patch_ms, patch_plain, None, patch_bytes),
         ("fleet_stack", stack_ms, stack_plain, None, stack_bytes),
     ):
         b = bound(work, 0)
@@ -2910,9 +3033,9 @@ class ConsolidationProbe:
         def held_inputs(solver, problem):
             staged = solver._stager.last_round
             entry = device_inputs(solver, problem)
-            info = solver._stager.last_round
+            info, patched = solver._stager.last_round, solver._stager.last_patch
             if info is not staged and info["restage"]:
-                probe.hold_restage(solver, problem, entry, info)
+                probe.hold_restage(solver, problem, entry, info, patched)
             return entry
 
         def timed(key, fn):
@@ -2940,10 +3063,12 @@ class ConsolidationProbe:
         clones = self.deprov._worker_solvers or ()
         return solver is self.deprov.quality_solver or any(solver is q for _, q in clones)
 
-    def hold_restage(self, solver, problem, entry, info) -> None:
+    def hold_restage(self, solver, problem, entry, info, patched) -> None:
         """The resident leaves a restage left, against the arrays
         ``_prepare`` gives for the problem (what a full upload copies):
-        the same dtype, shape and bytes, every leaf."""
+        the same dtype, shape and bytes, every leaf. ``patched`` is the
+        stager's ``last_patch``: the restage is a call for each device it
+        patched."""
         import numpy as np
 
         fields, orders, alphas, looks, rsvs, swaps, _, _ = solver._prepare(problem)
@@ -2959,12 +3084,13 @@ class ConsolidationProbe:
                                  f"upload of {int(problem.count.sum())} pods")
         with self.lock:
             self.restages += 1
+            self.calls += patched["devices"]
             self.patched += info["restage"]
             self.restaged_rows += sum(info["rows"].values())
 
     def reset(self) -> None:
         self.solves, self.kernels, self.misses = [], [], []
-        self.restages = self.patched = self.restaged_rows = 0
+        self.restages = self.calls = self.patched = self.restaged_rows = 0
         self.spent = {"multi": 0.0, "single": 0.0}
 
     def close(self) -> None:
@@ -2984,9 +3110,10 @@ def hold_pass(ts, name, probe, launched) -> dict:
     """What every deprovisioning pass must show: no solve with a fallback,
     a refused kernel plan or a missed deadline, no breaker evidence, every
     quality sim answered by a kernel plan that validated after launching K1
-    once and K2 twice at least, and every ``stage_patch`` launch of the pass
-    (``launched``) a restage that ``hold_restage`` held. Returns the pass's
-    sim facts."""
+    once and K2 twice at least, and the pass's ``stage_patch`` launches
+    (``launched``) one for each restaging call that ``hold_restage`` held,
+    with every restaged leaf held byte for byte. Returns the pass's sim
+    facts."""
     from karpenter_tpu_torch.solver.solver import KERNEL_BOARD
 
     for row in probe.solves:
@@ -2999,9 +3126,9 @@ def hold_pass(ts, name, probe, launched) -> dict:
                              f"{probe.misses} pods")
     if KERNEL_BOARD.failures:
         raise AssertionError(f"{name}: breaker evidence {KERNEL_BOARD.failures}")
-    if launched["stage_patch"] != probe.patched:
+    if launched["stage_patch"] != probe.calls:
         raise AssertionError(f"{name}: {launched['stage_patch']} stage_patch launches, "
-                             f"{probe.patched} held")
+                             f"{probe.calls} restaging calls held ({probe.patched} leaves)")
     quality = [row for row in probe.solves if row["quality"]]
     if len(probe.kernels) != len(quality):
         raise AssertionError(f"{name}: {len(quality)} quality sims, {len(probe.kernels)} kernel solves")
@@ -3084,7 +3211,7 @@ def consolidation_passes(ts, name, env, probe, max_passes, until=None, first=Non
                           f"{[r.option.instance_type.name for r in action.replacements]}, "
                           f"savings {action.savings!r}" if action is not None else "none")
             + f", nodes {nodes_before} -> {len(cluster.nodes)}, $/h {price_before!r} -> {price!r}, "
-            f"launches {moved}, restages held {probe.restages} ({probe.patched} leaves, "
+            f"launches {moved}, restages held {probe.restages} ({probe.calls} calls, {probe.patched} leaves, "
             f"{probe.restaged_rows} rows), garbage collection {gc_s[0]:.4f} s, "
             f"{capture_note(captured, wall)}, one pods_on_node "
             f"scan {scan_ms:.3f} ms, {threading.active_count()} threads; card {card_line()}")
@@ -4757,21 +4884,25 @@ SOAK_SETTLED_S = 2.0
 #: what the soak's operator processes run in place of ``python -m
 #: karpenter_tpu_torch``: the same entry point, with a thread that writes,
 #: every half second and at exit, the process's kernel launch counts
-#: (``torch_solver.LAUNCHES``), the device faults its ``DeviceFaultPlan``
+#: (``torch_solver.LAUNCHES``, empty until the entry point has imported the
+#: solver after its connectivity check), the device faults its ``DeviceFaultPlan``
 #: fired (``log``/``timeline``: site and kind, with the plan's clock), and
 #: what it booked on ``karpenter_tpu_kernel_faults_total``, to a file of its
 #: own, so that they can be read after the run
 SOAK_OPERATOR = """
 import json, os, sys, threading, time, runpy, atexit
-from karpenter_tpu_torch.solver import torch_solver as ts
 from karpenter_tpu_torch.utils import faults, metrics
 path = os.path.join(os.environ["CHIP_SMOKE_LAUNCH_DIR"], f"launches-{os.getpid()}.json")
 lock = threading.Lock()
 def dump(final=False):
+    ts = sys.modules.get("karpenter_tpu_torch.solver.torch_solver")
+    staging = sys.modules.get("karpenter_tpu_torch.solver.staging")
     plan = faults._DEVICE_PLAN
     with metrics.KERNEL_FAULTS._lock:
         booked = {dict(k).get("kind"): v for k, v in metrics.KERNEL_FAULTS._values.items()}
-    row = {"launches": dict(ts.LAUNCHES), "booked": booked, "final": final,
+    row = {"launches": dict(getattr(ts, "LAUNCHES", {})),
+           "restages": dict(getattr(staging, "RESTAGES", {})), "booked": booked,
+           "final": final,
            "fired": [[t, site, f.kind] for t, site, f in list(plan.timeline)] if plan else [],
            "elapsed": plan.elapsed() if plan else 0.0,
            "pending": plan.pending() if plan else 0}
@@ -4819,37 +4950,31 @@ def counted_operators(launch_dir: Path):
 def operator_series(seen: dict):
     """While the monitor samples the operator's ``/metrics``, also keep the
     kernel fault counts (the largest a process showed, by its start time)
-    and the kernel breaker series it serves."""
-    import urllib.request
-
+    and the kernel breaker series it serves, read from the rows of the
+    monitor's own scrape (a second scrape would cost the operator another
+    exposition a sample)."""
     from karpenter_tpu_torch.soak import monitor
 
-    sample = monitor.InvariantMonitor.sample_operator
+    parse = monitor.parse_metrics
 
-    def sampled(self, metrics_url):
-        ok = sample(self, metrics_url)
-        if ok:
-            try:
-                with urllib.request.urlopen(metrics_url, timeout=2.0) as resp:
-                    rows = monitor.parse_metrics(resp.read().decode())
-            except Exception:
-                return ok
-            start = next((v for n, _, v in rows
-                          if n == "karpenter_tpu_process_start_time_seconds"), None)
-            for name, labels, value in rows:
-                if name == "karpenter_tpu_kernel_faults_total":
-                    key = (start, labels.get("kind"))
-                    seen["faults"][key] = max(seen["faults"].get(key, 0.0), value)
-                elif (name == "karpenter_tpu_rpc_breaker_state"
-                      and labels.get("service") == "kernel"):
-                    seen["breakers"].add((labels.get("endpoint"), labels.get("state"), value))
-        return ok
+    def teed(text):
+        rows = parse(text)
+        start = next((v for n, _, v in rows
+                      if n == "karpenter_tpu_process_start_time_seconds"), None)
+        for name, labels, value in rows:
+            if name == "karpenter_tpu_kernel_faults_total":
+                key = (start, labels.get("kind"))
+                seen["faults"][key] = max(seen["faults"].get(key, 0.0), value)
+            elif (name == "karpenter_tpu_rpc_breaker_state"
+                  and labels.get("service") == "kernel"):
+                seen["breakers"].add((labels.get("endpoint"), labels.get("state"), value))
+        return rows
 
-    monitor.InvariantMonitor.sample_operator = sampled
+    monitor.parse_metrics = teed
     try:
         yield
     finally:
-        monitor.InvariantMonitor.sample_operator = sample
+        monitor.parse_metrics = parse
 
 
 def soak_bursts(script) -> str:
@@ -4939,12 +5064,26 @@ def soak_phase(ts) -> dict:
     wall = time.perf_counter() - t0
     here = moved_since(ts, before)
     launches = dict(here)
+    # the operator processes' stage_patch launches, restaging calls and
+    # copies (this process's are held by ``phase``), held where a process
+    # wrote its counts at its exit: a process killed by the churn leaves a
+    # sample taken at any moment, maybe between a copy and its launch
+    restaged = {"launches": 0, "calls": 0, "copies": 0}
     rows = []
     for path in sorted((SOAK_DIR / "launches").glob("launches-*.json")):
         row = json.loads(path.read_text())
         rows.append((path.stem.split("-")[-1], row))
         for k, v in row["launches"].items():
             launches[k] = launches.get(k, 0) + v
+        if row["final"]:
+            restaged["launches"] += row["launches"].get("stage_patch", 0)
+            for k, v in row["restages"].items():
+                restaged[k] += v
+    log(f"soak: stage_patch in the operator processes that exited {restaged['launches']} launches, "
+        f"{restaged['calls']} restaging calls, {restaged['copies']} copies")
+    if not restaged["launches"] == restaged["calls"] == restaged["copies"]:
+        raise AssertionError(f"soak: stage_patch launches, restaging calls and copies differ in "
+                             f"the operator processes: {restaged}")
     fired, booked, short = soak_faults(rows)
     replay = report.get("replay") or {}
     all_matched = (replay.get("found") is not None and not replay.get("mismatched")
@@ -4958,7 +5097,8 @@ def soak_phase(ts) -> dict:
         f"{report['pod_ready_p99_s']} s over {report['pod_ready_samples']} pods, loop lag max "
         f"{report['loop_lag_max_s']} s, RSS slope {report['mem_slope_bytes_per_s']} B/s over "
         f"{report['mem_segments']} segments, {report['operator_incarnations']} incarnations, "
-        f"restarts {report['restarts']}, dominant stage {report['dominant_stage']}")
+        f"restarts {report['restarts']}, boots {report['operator_boot_s']} s, dominant stage "
+        f"{report['dominant_stage']}, stage totals {report['stage_totals_s']} s")
     log(f"soak: events {report['events_by_kind']}, op failures {report['op_failures']}, "
         f"launch audit {report['launch_audit']}, perf {report['perf']}")
     log(f"soak: device faults fired {fired}, booked {booked} (the operators' /metrics showed "
@@ -4968,7 +5108,11 @@ def soak_phase(ts) -> dict:
         f"{sorted(seen['breakers'], key=str)[:6]}; launches {launches} ({len(rows)} operator "
         f"processes; replays here {here})")
     if report["violations"]:
-        raise AssertionError(f"soak: violations {report['violations']}")
+        raise AssertionError(
+            f"soak: violations {report['violations']}; restarts {report['restarts']}, boots "
+            f"{report['operator_boot_s']} s, loop lag max {report['loop_lag_max_s']} s, pod-ready "
+            f"p50 {report['pod_ready_p50_s']} s, stage totals {report['stage_totals_s']} s "
+            f"over {report['stage_counts']}")
     if not all_matched:
         raise AssertionError(f"soak: replay {replay}")
     if report["duplicate_tokens"] or report["orphan_instances"]:
@@ -5345,6 +5489,97 @@ def compare(ts, other: Path) -> None:
         log(f"  {name}: " + "; ".join(f"{k} {mean['this'][k]:.4f} / {mean['other'][k]:.4f}" for k in keys))
 
 
+def compare_staging(ts, other: Path) -> None:
+    """This tree's staging kernels against those of the checkout at
+    ``other``, in one process on one card, in turns other, this, this,
+    other: ``fleet_stack`` of one B=16 chunk of the 500k-pod fleet, and one
+    churned cell's restage as each tree's stager makes it (``other``'s
+    wrapper for each leaf, its index set padded to a power of two, after
+    two pageable uploads; this tree's ``stage_patches``). Each turn times
+    the card behind a spin and the host per call; both trees must give the
+    same bytes. The other tree's ``staging.py`` runs against this tree's
+    modules, with its own kernel library."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch import configs
+    from karpenter_tpu_torch.solver import _build
+    from karpenter_tpu_torch.solver import staging as st
+
+    _, other_lib = load_tree(other, "other")
+    spec = importlib.util.spec_from_file_location(
+        "karpenter_tpu_torch.solver._other_staging",
+        other / "karpenter_tpu_torch" / "solver" / "staging.py")
+    other_st = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other_st)
+    lib = _build.load_kernels()
+    cells, provs, catalog = configs.config_cells()
+    solver, problems, key, real, _ = fleet_rows(ts, configs, cells, provs, catalog)
+    rows16 = [leaf_rows(real[i % len(real)]) for i in range(16)]
+    patches, new = cell_patches(solver, problems)
+    batch = [(dst, idx, src) for _, dst, idx, src in patches]
+    dev = batch[0][0].device
+
+    def other_restage():
+        for dst, idx, src in batch:
+            width = 1 << (len(idx) - 1).bit_length()
+            padded = np.concatenate([idx, np.full(width - len(idx), idx[0], np.int64)])
+            other_st._launch_stage_patch(
+                other_lib, dst, torch.from_numpy(padded).to(dev, copy=True),
+                torch.from_numpy(np.ascontiguousarray(src[np.searchsorted(idx, padded)])).to(dev, copy=True),
+                ts._stream())
+
+    sides = {
+        "other": {"fleet_stack": lambda: other_st._launch_fleet_stack(other_lib, rows16, ts._stream()),
+                  "restage": other_restage},
+        "this": {"fleet_stack": lambda: st._launch_fleet_stack(lib, rows16, ts._stream()),
+                 "restage": lambda: st._launch_stage_patches(lib, batch, ts._stream())},
+    }
+    stacks = {side: fns["fleet_stack"]() for side, fns in sides.items()}
+    for name, want in st.fleet_stack_ref(rows16).items():
+        if not all(torch.equal(stacks[side][name], want) for side in sides):
+            raise AssertionError(f"compare: fleet_stack {name} differs from torch.stack")
+    resident = [dst.clone() for dst, _, _ in batch]
+    for side, fns in sides.items():
+        for (dst, _, _), was in zip(batch, resident):
+            dst.copy_(was)
+        fns["restage"]()
+        for name, dst, _, _ in patches:
+            if not torch.equal(dst.cpu(), torch.from_numpy(new[name])):
+                raise AssertionError(f"compare: {side}'s restage left {name} unlike the new leaf")
+    results = {}
+    for turn, side in enumerate(("other", "this", "this", "other")):
+        t = {}
+        for what, fn in sides[side].items():
+            t[f"{what} card"] = time_ms(fn)
+            t[f"{what} host"] = host_ms(fn)
+        results.setdefault(side, []).append(t)
+        log(f"compare staging turn {turn} {side}: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+    # where this tree's restage spends its host time, step by step
+    offs, total = st.patch_layout(batch)
+    packed = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    st.pack_patches(batch, st.patch_layout(batch)[0], packed.numpy())
+    buf = packed.to(dev)
+    table = np.array([[dst.data_ptr(), buf.data_ptr() + io, buf.data_ptr() + so, idx.shape[0],
+                       st._row_bytes(dst)] for (dst, idx, _), (io, so) in zip(batch, offs)], np.int64)
+    steps = {
+        "layout and pack": lambda: st.pack_patches(batch, st.patch_layout(batch)[0], packed.numpy()),
+        "pinned buffer": lambda: torch.empty(total, dtype=torch.uint8, pin_memory=True),
+        "copy to the card": lambda: packed.to(dev, non_blocking=True),
+        "launch": lambda: st._run_stage_patch(lib, table, ts._stream()),
+    }
+    log("compare staging: this tree's restage, host ms a step: " + ", ".join(
+        f"{k} {host_ms(fn):.4f}" for k, fn in steps.items()))
+    keys = results["this"][0].keys()
+    mean = {side: {k: statistics.mean(t[k] for t in turns) for k in keys}
+            for side, turns in results.items()}
+    log(f"compare staging, ms (mean of two turns; this / other; fleet_stack B=16 "
+        f"{len(rows16[0])} leaves, restage of {[(p[0], len(p[2])) for p in patches]}): "
+        + "; ".join(f"{k} {mean['this'][k]:.4f} / {mean['other'][k]:.4f}" for k in keys))
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "karpenter_tpu_torch" / "solver" / "csrc" / "pack_solve.cu").is_file():
@@ -5362,7 +5597,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--compare"]:
         from karpenter_tpu_torch.solver import torch_solver as ts
 
-        compare(ts, Path(sys.argv[2]).resolve())
+        if "--staging" in sys.argv[3:]:
+            compare_staging(ts, Path(sys.argv[2]).resolve())
+        else:
+            compare(ts, Path(sys.argv[2]).resolve())
         log(card)
         return 0
 
@@ -5446,7 +5684,7 @@ def main() -> int:
     del problems
     for entry in kernels:
         entry["max_abs_err"] = max(entry["max_abs_err"], fc["errs"].get(entry["name"], 0.0))
-    kernels += fleet_timings(ts, st, fc)
+    kernels += fleet_timings(ts, st, fc, next(k["ms"] for k in kernels if k["name"] == "rtt_probe"))
     del fc
     fleet, k2_err, fleet_encode_s = phase("fleet_slice", fleet_slice, ts, configs, cells, provs,
                                           catalog)

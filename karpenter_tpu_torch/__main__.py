@@ -73,7 +73,6 @@ def main(argv=None) -> int:
 
     from .api.settings import Settings
     from .context import OperatorContext
-    from .operator import Operator
     from .utils.logging import configure, get_logger, kv
 
     configure(level=args.log_level, fmt=args.log_format)
@@ -106,6 +105,12 @@ def main(argv=None) -> int:
             ice_ttl_s=settings.insufficient_capacity_ttl,
         )
     ctx = OperatorContext.discover(provider=provider, settings=settings)
+    # the solver's modules (torch, the card) load only after the cloud
+    # connectivity check: the check runs within a second of the spawn, not
+    # after seconds of imports, so a respawned operator does not meet the
+    # transient faults its cloud queued while it was down
+    from .operator import Operator
+
     cluster = None
     if args.cluster_endpoint:
         from .state import HTTPCluster

@@ -42,7 +42,7 @@ from ..api.objects import Machine, MachineStatus, ObjectMeta, Provisioner
 from ..utils import tracing
 from ..utils.cache import UnavailableOfferings
 from ..utils.faults import FaultPlan
-from ..utils.logging import context_fields
+from ..utils.logging import context_fields, get_logger
 from ..utils.resilience import (
     BreakerSet,
     CircuitOpenError,
@@ -62,6 +62,8 @@ from .interface import (
 )
 from .catalog import make_instance_type
 from .types import InstanceType, Offering
+
+_log = get_logger("httpcloud")
 
 # ---------------------------------------------------------------------------
 # Wire codec: raw instance-type descriptions (the DescribeInstanceTypes shape)
@@ -753,7 +755,21 @@ class HTTPCloudProvider(WindowedBatchers, CloudProvider):
             cached = self._catalog_cache
             if cached is not None and time.monotonic() - cached[0] < self.catalog_ttl_s:
                 return cached[1]
-        data = self._call("/v1/instance-types")
+        try:
+            data = self._call("/v1/instance-types")
+        except CloudProviderError as e:
+            # the port's: a refresh that fails keeps serving the last catalog
+            # fetched (upstream's instance-type controller keeps its last good
+            # refresh) and is tried again a TTL later; only a provider that
+            # never fetched one raises, so the boot's connectivity check still
+            # fails fast. The endpoint's retries and breaker see every failure
+            if cached is None:
+                raise
+            _log.warning("instance-type refresh failed, serving the last catalog for another "
+                         "%.1f s: %s", self.catalog_ttl_s, e)
+            with self._lock:
+                self._catalog_cache = (time.monotonic(), cached[1])
+            return cached[1]
         catalog = [
             instance_type_from_description(d, prices=d.get("prices"))
             for d in data.get("types", [])

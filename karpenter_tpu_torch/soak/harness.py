@@ -229,6 +229,10 @@ class SoakHarness:
         # the soak fails when an operator kept exiting at boot
         self._boot_watch: Optional[threading.Thread] = None
         self.boot_failure: Optional[str] = None
+        # each boot's seconds from its spawn until it served /metrics (the
+        # port's; in the report as ``operator_boot_s``)
+        self._spawned_at = 0.0
+        self.boot_s: List[float] = []
         self._workers: List[threading.Thread] = []
 
     # -- accounting ----------------------------------------------------------
@@ -324,6 +328,7 @@ class SoakHarness:
         env.update(self.cfg.extra_env)
         log_path = os.path.join(self.dump_dir, f"operator-{self._incarnation}.log")
         self._incarnation += 1
+        self._spawned_at = time.monotonic()
         # files, not pipes: an unread pipe blocks the child and loses every
         # diagnostic on failure (the leader-HA test learned this the hard way)
         log = open(log_path, "w")
@@ -351,6 +356,7 @@ class SoakHarness:
         proc = self.operator
         while time.monotonic() < deadline:
             if self.monitor.sample_operator(url.replace("/healthz", "/metrics")):
+                self.boot_s.append(round(time.monotonic() - self._spawned_at, 2))
                 return True
             if proc is not None and proc.poll() is not None:
                 return False
@@ -697,6 +703,7 @@ class SoakHarness:
         report["wall_s"] = round(time.monotonic() - t_start, 2)
         report["events_by_kind"] = dict(sorted(self.events_by_kind.items()))
         report["op_failures"] = self.op_failures
+        report["operator_boot_s"] = list(self.boot_s)
         report["rate_hz"] = round(self.rate_hz, 1)
         report["rate_target_hz"] = self.cfg.rate_target_hz
         report["script"] = self.script.summary()

@@ -41,10 +41,10 @@ _SIGNATURES = {
     "kts_pack_member": [_P] * 40 + [_I] * 9 + [_P],
     # 13 pointers, B K T NS S, stream
     "kts_pack_epilogue": [_P] * 13 + [_I] * 5 + [_P],
-    # dst, src, idx, n, row_bytes, stream
-    "kts_stage_patch": [_P] * 3 + [_L] * 2 + [_P],
-    # table, n, max_bytes, stream
-    "kts_fleet_stack": [_P, _I, _L, _P],
+    # patches [n, 5], n, stream, &launches
+    "kts_stage_patch": [_P, _I, _P, _P],
+    # leaves [n, 2], sources [n, B], n, B, stream, &launches
+    "kts_fleet_stack": [_P, _P, _I, _I, _P, _P],
     # x, y, n, stream
     "kts_rtt_probe": [_P, _P, _L, _P],
     # the meshed tier (solver/meshed.py)

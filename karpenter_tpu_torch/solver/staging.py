@@ -7,8 +7,10 @@ on the device and, for each new round of leaves (numpy arrays):
 * **hit**: a leaf byte-identical to the retained host copy is served from
   residency, nothing moves;
 * **restage**: a leaf whose churn is confined to at most half of its axis-0
-  rows gets only those rows: one host-to-device copy of the churned rows,
-  then ``stage_patch`` scatters them into the resident tensor in place;
+  rows gets only those rows, scattered into the resident tensor in place.
+  All restaged leaves of one call go together (``stage_patches``): for each
+  device, one host-to-device copy of every leaf's churned rows and indices
+  and one launch of the ``stage_patch`` kernel;
 * **full**: any other leaf is one host-to-device copy; a shape, dtype or
   leaf-set change of a tag drops its residency first (an invalidate).
 
@@ -29,6 +31,7 @@ count in ``torch_solver.LAUNCHES``.
 
 from __future__ import annotations
 
+import ctypes
 import threading
 from collections import OrderedDict
 from typing import Dict, Mapping, Optional, Sequence, Tuple
@@ -44,6 +47,24 @@ from . import torch_solver as ts
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+#: stage() calls that patched on a card, one for each device they patched,
+#: and the host-to-device copies their patches made: with
+#: ``LAUNCHES["stage_patch"]``, what shows that a restage is one copy and one
+#: launch for each device
+RESTAGES: Dict[str, int] = {"calls": 0, "copies": 0}
+_RESTAGE_LOCK = threading.Lock()
+_ALIGN = 16  # byte alignment of every segment of a packed patch buffer
+
+
+def _restaged(key: str) -> None:
+    with _RESTAGE_LOCK:
+        RESTAGES[key] += 1
+
+
+def _row_bytes(t: torch.Tensor) -> int:
+    return (t.numel() // max(t.shape[0], 1)) * t.element_size()
+
+
 def stage_patch_ref(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """``dst[idx[j]] = src[j]`` along axis 0, in place."""
     return dst.index_copy_(0, idx, src)
@@ -51,10 +72,11 @@ def stage_patch_ref(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> 
 
 def stage_patch(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """Scatter the rows ``src`` into ``dst`` at the axis-0 rows ``idx``
-    (int64), in place. Repeated indices must carry equal rows. The kernel on
-    CUDA tensors, ``index_copy_`` on CPU tensors. The kernel does not check
-    ``idx``: every index must lie in ``[0, len(dst))``, which the caller
-    checks on the host (``DeviceStager._patch`` does)."""
+    (int64), in place: one leaf's patch, a batch of one through the kernel
+    that ``stage_patches`` launches. Repeated indices must carry equal rows.
+    The kernel on CUDA tensors, ``index_copy_`` on CPU tensors. The kernel
+    does not check ``idx``: every index must lie in ``[0, len(dst))``, which
+    the caller checks on the host (``DeviceStager`` does)."""
     if dst.device.type == "cpu":
         return stage_patch_ref(dst, idx, src)
     dev = dst.device
@@ -67,16 +89,99 @@ def stage_patch(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torc
         return dst
     from ._build import load_kernels
 
-    return _launch_stage_patch(load_kernels(), dst, idx, src, ts._stream())
+    with torch.cuda.device(dev):
+        return _launch_stage_patch(load_kernels(), dst, idx, src, ts._stream(dev))
 
 
 def _launch_stage_patch(lib, dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor, stream):
-    row_bytes = dst[0].numel() * dst.element_size()
-    rc = lib.kts_stage_patch(ts._ptr(dst), ts._ptr(src), ts._ptr(idx), idx.shape[0], row_bytes,
-                             stream)
-    ts._count("stage_patch")
-    ts._raise_on(lib, rc, "stage_patch")
+    table = np.array([[dst.data_ptr(), idx.data_ptr(), src.data_ptr(), idx.shape[0],
+                       _row_bytes(dst)]], np.int64)
+    _run_stage_patch(lib, table, stream)
     return dst
+
+
+def _run_stage_patch(lib, table: np.ndarray, stream) -> int:
+    launches = ctypes.c_int(0)
+    rc = lib.kts_stage_patch(table.ctypes.data, table.shape[0], stream, ctypes.byref(launches))
+    ts._count("stage_patch", n=launches.value)
+    ts._raise_on(lib, rc, "stage_patch")
+    return launches.value
+
+
+def patch_layout(patches) -> Tuple[np.ndarray, int]:
+    """Where each patch ``(dst, idx, src)`` lies in the packed buffer: its
+    indices' and its rows' byte offsets (``[n, 2]``), each a multiple of 16,
+    and the buffer's size."""
+    offs = np.empty((len(patches), 2), np.int64)
+    at = 0
+    for i, (_, idx, src) in enumerate(patches):
+        offs[i, 0] = at
+        at += -(-idx.nbytes // _ALIGN) * _ALIGN
+        offs[i, 1] = at
+        at += -(-src.nbytes // _ALIGN) * _ALIGN
+    return offs, at
+
+
+def pack_patches(patches, offs: np.ndarray, buf: np.ndarray) -> None:
+    """Write every patch's indices (int64) and rows (their dtype's bytes, in
+    index order) into ``buf`` (uint8) at ``patch_layout``'s offsets."""
+    for (_, idx, src), (io, so) in zip(patches, offs):
+        buf[io:io + idx.nbytes] = idx.view(np.uint8)
+        buf[so:so + src.nbytes] = src.reshape(-1).view(np.uint8)
+
+
+def stage_patches(patches: Sequence[Tuple[torch.Tensor, np.ndarray, np.ndarray]]) -> int:
+    """Scatter every patch ``(dst, idx, src)`` of one device, in place: the
+    host rows ``src`` (``dst``'s dtype and row shape, contiguous) into the
+    resident tensor ``dst`` at the axis-0 rows ``idx`` (int64, host). On
+    CUDA tensors: every patch's indices and rows packed into one pinned host
+    buffer, one copy of it to the card on the current stream and one launch
+    of the kernel (a second only past a table's 128 entries); ``index_copy_``
+    on CPU tensors. Returns the launches made. The kernel trusts the
+    indices: the caller checks them (``DeviceStager`` does)."""
+    if not patches:
+        return 0
+    dev = patches[0][0].device
+    for dst, idx, src in patches:
+        if dst.device != dev or not dst.is_contiguous() or dst.dim() == 0:
+            raise ValueError(f"stage_patches: every dst must be contiguous on {dev}")
+        if idx.dtype != np.int64 or idx.ndim != 1 or src.shape != idx.shape + tuple(dst.shape[1:]):
+            raise ValueError(f"stage_patches: idx {idx.dtype}{idx.shape} and src {src.shape} do "
+                             f"not fit rows of {tuple(dst.shape)}")
+        if src.dtype.itemsize != dst.element_size() or not src.flags.c_contiguous:
+            raise ValueError(f"stage_patches: src {src.dtype} is not contiguous {dst.dtype}")
+    if dev.type == "cpu":
+        for dst, idx, src in patches:
+            stage_patch_ref(dst, torch.from_numpy(idx), torch.from_numpy(src))
+        return 0
+    from ._build import load_kernels
+
+    with torch.cuda.device(dev):
+        return _launch_stage_patches(load_kernels(), patches, ts._stream(dev))
+
+
+def _launch_stage_patches(lib, patches, stream) -> int:
+    dev = patches[0][0].device
+    offs, total = patch_layout(patches)
+    # A block of the caching host allocator. The non_blocking copy below
+    # records an event on the stream for it (copy_kernel_cuda calls the
+    # allocator's record_event), and free() puts the block back on the free
+    # list only once that event has completed (CachingHostAllocator.h), so
+    # no later call gets this memory while the copy may still read it.
+    host = torch.empty(total, dtype=torch.uint8, pin_memory=dev.type == "cuda")
+    pack_patches(patches, offs, host.numpy())
+    # on the current stream, after the stager's fence; the device buffer goes
+    # back to the stream-ordered allocator behind the launch that reads it.
+    # On the CPU (the emulated kernel) the buffer is the host one.
+    buf = host.to(dev, non_blocking=True)
+    if dev.type == "cuda":
+        _restaged("copies")
+    base = buf.data_ptr()
+    table = np.empty((len(patches), 5), np.int64)
+    for i, (dst, idx, _) in enumerate(patches):
+        table[i] = (dst.data_ptr(), base + offs[i, 0], base + offs[i, 1], idx.shape[0],
+                    _row_bytes(dst))
+    return _run_stage_patch(lib, table, stream)
 
 
 def fleet_stack_ref(rows: Sequence[Mapping[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
@@ -86,38 +191,45 @@ def fleet_stack_ref(rows: Sequence[Mapping[str, torch.Tensor]]) -> Dict[str, tor
 def fleet_stack(rows: Sequence[Mapping[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
     """Stack B problems' leaves (a mapping of leaf name to tensor per row;
     rows may repeat, as pad rows do) into ``[B, ...]`` tensors: one kernel
-    launch for every leaf and row on CUDA tensors, ``torch.stack`` on CPU
+    launch for every leaf and row on CUDA tensors (more only past a table's
+    room, which no fleet chunk of 16 rows reaches), ``torch.stack`` on CPU
     tensors."""
     dev = next(iter(rows[0].values())).device
     if dev.type == "cpu":
         return fleet_stack_ref(rows)
     from ._build import load_kernels
 
-    return _launch_fleet_stack(load_kernels(), rows, ts._stream())
+    with torch.cuda.device(dev):
+        return _launch_fleet_stack(load_kernels(), rows, ts._stream(dev))
 
 
 def _launch_fleet_stack(lib, rows: Sequence[Mapping[str, torch.Tensor]], stream):
-    dev = next(iter(rows[0].values())).device
-    out, table = {}, []
-    for name, t0 in rows[0].items():
-        for b, r in enumerate(rows):
+    first = rows[0]
+    names = list(first)
+    dev = next(iter(first.values())).device
+    # the launch's table: each leaf's output and row bytes, and each (leaf,
+    # row)'s source address, read once from each distinct row (pad rows
+    # repeat one); it goes to the card as the kernel's parameter
+    sources = {}
+    for b, r in enumerate(rows):
+        if id(r) in sources:
+            continue
+        for name, t0 in first.items():
             x = r[name]
             if x.shape != t0.shape or x.dtype != t0.dtype or x.device != dev or not x.is_contiguous():
                 ts._check(f"{name}[{b}]", x, t0.dtype, tuple(t0.shape), dev)
-        out[name] = torch.empty((len(rows),) + tuple(t0.shape), dtype=t0.dtype, device=dev)
-        nbytes = t0.numel() * t0.element_size()
-        if nbytes:
-            base = out[name].data_ptr()
-            table.extend((r[name].data_ptr(), base + b * nbytes, nbytes) for b, r in enumerate(rows))
-    if not table:
-        return out
-    # the (source, destination, bytes) table goes to the device on the
-    # launch's stream, from pinned memory, without waiting for the card
-    table_d = torch.tensor(table, dtype=torch.int64)
-    if dev.type == "cuda":
-        table_d = table_d.pin_memory().to(dev, non_blocking=True)
-    rc = lib.kts_fleet_stack(ts._ptr(table_d), len(table), max(e[2] for e in table), stream)
-    ts._count("fleet_stack")
+        sources[id(r)] = np.fromiter((r[name].data_ptr() for name in names), np.int64, len(names))
+    out = {name: torch.empty((len(rows),) + tuple(t.shape), dtype=t.dtype, device=dev)
+           for name, t in first.items()}
+    leaves = np.empty((len(names), 2), np.int64)
+    leaves[:, 0] = np.fromiter((t.data_ptr() for t in out.values()), np.int64, len(names))
+    leaves[:, 1] = np.fromiter((t.numel() * t.element_size() for t in first.values()), np.int64,
+                               len(names))
+    srcs = np.ascontiguousarray(np.stack([sources[id(r)] for r in rows], axis=1))
+    launches = ctypes.c_int(0)
+    rc = lib.kts_fleet_stack(leaves.ctypes.data, srcs.ctypes.data, len(names), len(rows), stream,
+                             ctypes.byref(launches))
+    ts._count("fleet_stack", n=launches.value)
     ts._raise_on(lib, rc, "fleet_stack")
     return out
 
@@ -125,6 +237,13 @@ def _launch_fleet_stack(lib, rows: Sequence[Mapping[str, torch.Tensor]], stream)
 # ---------------------------------------------------------------------------
 # The stager
 # ---------------------------------------------------------------------------
+
+def _changed_rows(old: np.ndarray, new: np.ndarray) -> np.ndarray:
+    """The axis-0 rows where ``new`` differs from ``old``, ascending. NaN !=
+    NaN, so a row holding NaN always restages: never a stale reuse."""
+    diff = old != new
+    return np.flatnonzero(diff if new.ndim == 1 else diff.reshape(new.shape[0], -1).any(axis=1))
+
 
 class _Entry:
     __slots__ = ("host", "dev", "nbytes")
@@ -162,6 +281,9 @@ class DeviceStager:
         # the last stage() call's outcome: leaf counts per event, churned
         # rows per restaged leaf, and its bytes
         self.last_round: Dict[str, object] = {}
+        # the last stage() call's patches: devices patched, patches (a
+        # placed leaf's shard blocks each one) and stage_patch launches
+        self.last_patch: Dict[str, int] = {"devices": 0, "entries": 0, "launches": 0}
         self._fence: Optional[torch.cuda.Event] = None
 
     def fence(self, event: "torch.cuda.Event") -> None:
@@ -179,9 +301,9 @@ class DeviceStager:
             torch.cuda.current_stream(self.device).wait_event(self._fence)
             self._fence = None
 
-    def _upload(self, arr: np.ndarray, device=None) -> torch.Tensor:
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
         # copy=True: on the CPU a tensor must not share the caller's memory
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(device or self.device, copy=True)
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device, copy=True)
 
     def stage(self, tag: tuple, leaves: Mapping[str, np.ndarray], put=None) -> Dict[str, torch.Tensor]:
         """Device tensors for ``leaves``, reusing or patching the resident
@@ -192,8 +314,9 @@ class DeviceStager:
         copy to the stager's device: the meshed tier passes the rule table's
         placement (``parallel.mesh.device_put``), and the leaf is then a
         ``Placed`` with one tensor per shard. A hit serves it as it lies, and
-        a restage patches each shard's block on the shard that holds it
-        (``stage_patch``), only where that block's rows changed.
+        a restage patches each shard's block on the shard that holds it,
+        only where that block's rows changed. Every patch of the call goes
+        in one ``stage_patches`` for each device it lies on.
 
         The device-fault seam (``utils/faults.py``, site ``"staging"``) is
         the reference's: a scripted ``staging-corruption`` multiplies
@@ -243,6 +366,9 @@ class DeviceStager:
             out: Dict[str, torch.Tensor] = {}
             hits = restages = 0
             bytes_total = bytes_moved = 0
+            # every restaged leaf's patches (shard blocks of a placed leaf
+            # too), launched together once every leaf's outcome is known
+            patches, restaged = [], {}
             for name, new in leaves.items():
                 new = np.asarray(new)
                 bytes_total += new.nbytes
@@ -252,17 +378,15 @@ class DeviceStager:
                         out[name] = entry.dev[name]
                         hits += 1
                         continue
-                    patched = (self._patch_placed(entry.dev[name], old_host, new)
-                               if put is not None else self._patch(entry.dev[name], old_host, new))
-                    if patched is not None:
-                        dev, rows = patched
-                        out[name] = dev
-                        entry.dev[name] = dev
-                        # a private host copy: the caller's array may change
-                        entry.host[name] = new.copy()
+                    plan = (self._plan_placed if put is not None else self._plan)(
+                        entry.dev[name], old_host, new)
+                    if plan is not None:
+                        rows, leaf_patches = plan
+                        patches += leaf_patches
+                        out[name] = entry.dev[name]
+                        restaged[name] = new
                         restages += 1
                         round_info["rows"][name] = rows
-                        self.stats["restaged_rows"] += rows
                         bytes_moved += (new.nbytes // max(new.shape[0], 1)) * rows
                         continue
                 dev = upload(name, new)
@@ -272,6 +396,11 @@ class DeviceStager:
                 round_info["full"] += 1
                 self.stats["staged_leaves"] += 1
                 bytes_moved += new.nbytes
+            self.last_patch = self._launch_patches(patches)
+            for name, new in restaged.items():
+                # a private host copy: the caller's array may change
+                entry.host[name] = new.copy()
+                self.stats["restaged_rows"] += round_info["rows"][name]
             entry.nbytes = sum(a.nbytes for a in entry.host.values())
             self._entries.pop(tag, None)
             self._entries[tag] = entry  # most recent at the end
@@ -291,62 +420,67 @@ class DeviceStager:
             metrics.DEVICE_STAGING.inc({"event": "restage"}, restages)
         return out
 
-    def _patch(self, old_dev: torch.Tensor, old_host: np.ndarray, new: np.ndarray
-               ) -> Optional[Tuple[torch.Tensor, int]]:
-        """Scatter the churned axis-0 rows into the resident tensor when they
-        are a minority. Returns (tensor, churned row count), or None: the
-        caller uploads the leaf whole."""
+    def _launch_patches(self, patches) -> Dict[str, int]:
+        """``stage_patches`` for each device the patches lie on; counts each
+        device patched on a card as one restaging call (``RESTAGES``).
+        Returns the call's ``last_patch``."""
+        by_device: Dict[torch.device, list] = {}
+        for p in patches:
+            by_device.setdefault(p[0].device, []).append(p)
+        launches = 0
+        for dev, group in by_device.items():
+            launches += stage_patches(group)
+            if dev.type == "cuda":
+                _restaged("calls")
+        return {"devices": len(by_device), "entries": len(patches), "launches": launches}
+
+    def _churned(self, old_host: np.ndarray, new: np.ndarray) -> Optional[np.ndarray]:
+        """The churned axis-0 rows of a leaf (ascending) when they are a
+        minority; None: the leaf goes up whole."""
         if new.ndim == 0 or new.shape[0] == 0:
             return None
-        diff = old_host != new
-        # NaN != NaN, so a row holding NaN always restages: never a stale reuse
-        changed = (
-            np.flatnonzero(diff)
-            if new.ndim == 1
-            else np.flatnonzero(diff.reshape(new.shape[0], -1).any(axis=1))
-        )
+        changed = _changed_rows(old_host, new)
         if changed.size == 0 or changed.size > max(1, int(new.shape[0] * self.RESTAGE_FRAC)):
             return None
-        rows = int(changed.size)
+        return changed
+
+    @staticmethod
+    def _patch_of(dst: torch.Tensor, changed: np.ndarray, new: np.ndarray):
+        """The patch ``(dst, indices, rows)`` writing ``new``'s rows
+        ``changed`` into ``dst``. The reference pads the index set to a power
+        of two to bound XLA's compiled variants; the kernel compiles nothing
+        per shape, so the churned rows go as they are."""
         # the kernel trusts its indices, so they are checked here, where they
-        # are still on the host (flatnonzero: ascending, none negative)
-        if changed[-1] >= old_dev.shape[0]:
+        # are still on the host (ascending, none negative)
+        if changed[-1] >= dst.shape[0]:
             raise ValueError(f"stage_patch: row {int(changed[-1])} is outside the resident "
-                             f"leaf of {old_dev.shape[0]} rows")
-        # the index set is padded to a power of two with repeats of its first
-        # row, as the reference pads it; repeats write equal bytes
-        width = 1 << (rows - 1).bit_length() if rows > 1 else 1
-        if width != rows:
-            changed = np.concatenate([changed, np.full(width - rows, changed[0], changed.dtype)])
-        idx = self._upload(changed.astype(np.int64), old_dev.device)
-        src = self._upload(new[changed], old_dev.device)
-        if old_dev.device.type == "cuda":
-            with torch.cuda.device(old_dev.device):
-                return stage_patch(old_dev, idx, src), rows
-        return stage_patch(old_dev, idx, src), rows
+                             f"leaf of {dst.shape[0]} rows")
+        return dst, changed.astype(np.int64), np.ascontiguousarray(new[changed])
 
-    def _patch_placed(self, placed, old_host: np.ndarray, new: np.ndarray):
-        """``_patch`` of a placed leaf: each shard whose block changed
-        restages its own block's churned rows where it lies. Returns (the
-        placed leaf, churned rows of the whole leaf), or None: the caller
-        places the leaf whole."""
-        from ..parallel.mesh import Placed
-
-        if new.ndim == 0 or new.shape[0] == 0:
+    def _plan(self, old_dev: torch.Tensor, old_host: np.ndarray, new: np.ndarray):
+        """The restage of a resident leaf: (churned row count, its patch),
+        or None: the caller uploads the leaf whole."""
+        changed = self._churned(old_host, new)
+        if changed is None:
             return None
-        shards = []
+        return int(changed.size), [self._patch_of(old_dev, changed, new)]
+
+    def _plan_placed(self, placed, old_host: np.ndarray, new: np.ndarray):
+        """``_plan`` of a placed leaf. Whether it restages is the whole
+        leaf's call, as in the reference; then each shard whose block
+        changed restages its own block's churned rows where it lies.
+        Returns (churned rows of the whole leaf, the shards' patches), or
+        None: the caller places the leaf whole."""
+        changed = self._churned(old_host, new)
+        if changed is None:
+            return None
+        patches = []
         for i, t in enumerate(placed.shards):
             sl = placed.sharding.slices(new.shape, i)
-            if np.array_equal(old_host[sl], new[sl]):
-                shards.append(t)
-                continue
-            patched = self._patch(t, old_host[sl], new[sl])
-            if patched is None:
-                return None
-            shards.append(patched[0])
-        diff = old_host != new
-        rows = int((diff if new.ndim == 1 else diff.reshape(new.shape[0], -1).any(axis=1)).sum())
-        return Placed(placed.sharding, placed.shape, placed.dtype, shards), rows
+            block = _changed_rows(old_host[sl], new[sl])
+            if block.size:
+                patches.append(self._patch_of(t, block, new[sl]))
+        return int(changed.size), patches
 
     # -- bookkeeping --------------------------------------------------------
     def _evict(self) -> None:

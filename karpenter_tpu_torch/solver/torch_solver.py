@@ -615,17 +615,19 @@ def _raise_on(lib, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _stream(device: Optional[torch.device] = None) -> ctypes.c_void_p:
+    """The current stream of ``device`` (of the current device when None;
+    a device with its index skips the lookup of the current one)."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _count(name: str, B: int = 1) -> None:
-    """Count one launch of wrapper ``name`` at batch width ``B``; every
+def _count(name: str, B: int = 1, n: int = 1) -> None:
+    """Count ``n`` launches of wrapper ``name`` at batch width ``B``; every
     wrapper counts here, where it launches its kernel, and nowhere else."""
     with _COUNT_LOCK:
-        LAUNCHES[name] += 1
+        LAUNCHES[name] += n
         if B > 1:
-            BATCHED[name] += 1
+            BATCHED[name] += n
 
 
 def _unsqueeze(nt):

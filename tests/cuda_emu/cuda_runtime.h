@@ -35,6 +35,9 @@
 #define __forceinline__ inline
 #define __shared__ static
 #define __launch_bounds__(...)
+// a kernel parameter read in place from the parameter space; here every
+// parameter is the launch's own copy, which the kernel only reads
+#define __grid_constant__
 
 struct emu_uint3 {
   unsigned x, y, z;
@@ -52,6 +55,9 @@ struct float4 {
 };
 struct int4 {
   int x, y, z, w;
+};
+struct uint4 {
+  unsigned x, y, z, w;
 };
 
 typedef void* cudaStream_t;

@@ -13,6 +13,8 @@ against the JAX package's.
   on the port: retries, the breaker, idempotent ``run_instances`` (and the
   503 of a launch still in flight), the service's own fault plan, and a
   provisioning round that survives transient 5xx.
+* The port's own: a catalog refresh that fails serves the last catalog
+  (the reference's raises).
 
 Every service listens on port 0.
 """
@@ -368,6 +370,31 @@ class TestHTTPTransports:
         plan = m.faults.FaultPlan().script("/v1/images", [m.faults.Fault(kind="error", status=0)] * 2)
         provider._transport = m.faults.ScriptedTransport(plan, provider._http_transport)
         assert provider.liveness_probe()
+
+    def test_failed_catalog_refresh_serves_the_last_catalog(self, port_cloud):
+        """A refresh that exhausts its retries keeps serving the catalog the
+        provider last fetched and is tried again a TTL later; a provider
+        that never fetched one raises, as the boot's connectivity check
+        wants."""
+        m, svc, provider = port_cloud
+        first = provider._catalog()
+        provider.catalog_ttl_s = 0.2
+        time.sleep(0.25)
+        plan = m.faults.FaultPlan().fail("/v1/instance-types", 4, status=503)
+        transport = m.faults.ScriptedTransport(plan, provider._http_transport)
+        provider._transport = transport
+        assert provider._catalog() is first and plan.pending() == 0
+        assert transport.calls.count("/v1/instance-types") == 4
+        assert provider.get_instance_types(None)  # not tried again before the TTL
+        assert transport.calls.count("/v1/instance-types") == 4
+        time.sleep(0.25)
+        assert provider._catalog() is not first
+        assert transport.calls.count("/v1/instance-types") == 5
+        fresh = m.httpcloud.HTTPCloudProvider(svc.endpoint, retry_policy=no_sleep_policy(m))
+        fresh._transport = m.faults.ScriptedTransport(
+            m.faults.FaultPlan().fail("/v1/instance-types", 4, status=503), fresh._http_transport)
+        with pytest.raises(m.iface.CloudProviderError):
+            fresh._catalog()
 
     def test_cloud_terminal_4xx_does_not_retry(self, port_cloud):
         m, _, provider = port_cloud

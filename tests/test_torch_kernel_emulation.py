@@ -593,6 +593,85 @@ def test_emulated_staging_kernels_match_plain_versions(emulated):
         assert torch.equal(got[name], want[name]), name
 
 
+def _patch_leaves(rng):
+    """Resident leaves of 1-D and N-D shapes, of bool, int8, int16, int32
+    and float32, with rows of 1, 4, 5, 12, 14, 16 and 512 bytes, one of them
+    a view one byte off its allocation, so that every width of copy (16-byte
+    vectors, words, bytes) and every unaligned edge runs."""
+    shapes = (((16, 512), np.bool_), ((16,), np.int32), ((512, 3), np.float32),
+              ((8, 3), np.float32), ((9, 5), np.int8), ((6, 7), np.int16), ((10, 4), np.float32),
+              ((11,), np.int8))
+    leaves = [torch.from_numpy((rng.random(shape) * 100).astype(dtype)) for shape, dtype in shapes]
+    # contiguous, its first byte at an odd address
+    leaves.append(torch.from_numpy(rng.integers(0, 99, 65).astype(np.int8))[1:].view(8, 8))
+    return leaves
+
+
+def _patch_of(rng, dst):
+    n = dst.shape[0]
+    idx = np.sort(rng.choice(n, size=int(rng.integers(1, n // 2 + 1)), replace=False)).astype(np.int64)
+    src = np.ascontiguousarray((rng.random((len(idx),) + tuple(dst.shape[1:])) * 100)
+                               .astype(dst.numpy().dtype))
+    return idx, src
+
+
+def test_emulated_batched_stage_patch_matches_index_copy(emulated):
+    """One launch patches every leaf of a call from one packed buffer, as
+    ``index_copy_`` would leaf by leaf; past a table's 128 entries, a second
+    launch takes the rest."""
+    rng = np.random.default_rng(11)
+    leaves = _patch_leaves(rng)
+    for copies, launches in ((1, 1), (15, 2)):
+        dsts = [leaf.clone() for leaf in leaves for _ in range(copies)]
+        patches = [(dst, *_patch_of(rng, dst)) for dst in dsts]
+        want = [staging.stage_patch_ref(dst.clone(), torch.from_numpy(idx), torch.from_numpy(src))
+                for dst, idx, src in patches]
+        before = ts.LAUNCHES["stage_patch"]
+        assert staging._launch_stage_patches(emulated, patches, NULL_STREAM) == launches
+        assert ts.LAUNCHES["stage_patch"] - before == launches
+        for (dst, _, _), w in zip(patches, want):
+            assert torch.equal(dst, w), (tuple(dst.shape), dst.dtype)
+
+
+@pytest.mark.parametrize("B", [4, 16])
+def test_emulated_fleet_stack_matches_torch_stack(emulated, B):
+    """B rows of a leaf set with 1-D and N-D leaves, rows of 15 bytes and of
+    none, pad rows repeating one row: one launch, equal to ``torch.stack``."""
+    rng = np.random.default_rng(B)
+    real = [{"a": torch.from_numpy(rng.random((16, 3)).astype(np.float32)),
+             "b": torch.from_numpy(rng.random(7) < 0.5),
+             "c": torch.from_numpy(rng.integers(0, 99, (5, 512)).astype(np.int32)),
+             "d": torch.from_numpy(rng.integers(0, 99, (3, 5)).astype(np.int8)),
+             "e": torch.zeros((0, 4), dtype=torch.float32)}
+            for _ in range(min(B, 5))]
+    rows = [real[i] for i in range(len(real))] + [real[-1]] * (B - len(real))
+    before = ts.LAUNCHES["fleet_stack"]
+    got = staging._launch_fleet_stack(emulated, rows, NULL_STREAM)
+    assert ts.LAUNCHES["fleet_stack"] - before == 1
+    want = staging.fleet_stack_ref(rows)
+    assert set(got) == set(want)
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+
+
+def test_emulated_fleet_stack_splits_a_large_table(emulated):
+    """A table past one launch's room (64 leaf segments, 3,800 row sources)
+    is split over launches: 70 leaves, then 4,000 rows of one leaf, both
+    equal to ``torch.stack``."""
+    rng = np.random.default_rng(7)
+    many = [{f"l{k}": torch.from_numpy(rng.integers(0, 99, 1 + k % 5).astype(np.int16))
+             for k in range(70)} for _ in range(4)]
+    distinct = [{"x": torch.from_numpy(rng.integers(0, 99, 1).astype(np.int32))} for _ in range(3)]
+    tall = [distinct[b % 3] for b in range(4000)]
+    for rows, launches in ((many, 2), (tall, 2)):
+        before = ts.LAUNCHES["fleet_stack"]
+        got = staging._launch_fleet_stack(emulated, rows, NULL_STREAM)
+        assert ts.LAUNCHES["fleet_stack"] - before == launches
+        want = staging.fleet_stack_ref(rows)
+        for name in want:
+            assert torch.equal(got[name], want[name]), name
+
+
 def test_emulated_rtt_probe_matches_plain_version(emulated):
     """``x + 1`` with int32 wrap-around, on the probe's own ``int32[8]``
     (one block, most threads idle) and on 300 values (ten blocks of 32, the

@@ -22,6 +22,7 @@ import torch
 import bench
 from karpenter_tpu.solver import TPUSolver
 from karpenter_tpu.solver import encode as ref_encode
+from karpenter_tpu.solver.jax_solver import AOT_CACHE
 from karpenter_tpu_torch import configs
 from karpenter_tpu_torch.solver import TorchSolver, encode, stage_fleet, validate
 from karpenter_tpu_torch.solver import solver as solver_mod
@@ -64,6 +65,26 @@ def chains(monkeypatch):
     return calls
 
 
+#: the device round trip both races' admissions read: the CPU's, unloaded
+#: (the measured one is ~1e-5 s), far inside the 0.1 s budget
+PINNED_RTT_S = 1e-4
+
+
+@pytest.fixture
+def pinned_admission(monkeypatch):
+    """Both races admit a dispatch on a measured latency: the port on its
+    process round trip (``TorchSolver.device_rtt``), the reference on its
+    bucket's dispatch latency, an average of the kernel solves timed
+    before (``AOT_CACHE.predicted_dispatch_s``), or else its round trip.
+    On a loaded worker one slow sample (a reference kernel solve past the
+    0.1 s budget) turns the dispatch away, and the race answers from the
+    host alone. Both inputs are pinned to an unloaded CPU's round trip, so
+    that every run admits the dispatch as an unloaded one does."""
+    monkeypatch.setattr(TorchSolver, "_device_rtt_s", PINNED_RTT_S)
+    monkeypatch.setattr(TPUSolver, "_device_rtt_s", PINNED_RTT_S)
+    monkeypatch.setattr(AOT_CACHE, "predicted_dispatch_s", lambda *args, **kw: None)
+
+
 @pytest.mark.parametrize("name,winner", [
     ("full_2k", 2.0), ("topology_1k", 1.0), ("crossgroup_1k", 1.0), ("existing_nodes", 1.0),
 ])
@@ -102,13 +123,14 @@ def _competitors(solver, problem, kernel_cost):
 
 
 @pytest.mark.parametrize("name", ["full_2k", "topology_1k", "existing_nodes"])
-def test_latency_race_takes_the_cheaper_competitor(name, chains):
+def test_latency_race_takes_the_cheaper_competitor(name, chains, pinned_admission):
     """Latency mode (budget 0.1 s): the kernel is dispatched before the host
     path, and the answer is the cheaper of the two competitors. The kernel
     competitor's cost is the kernel-only solve of a fresh copy (no slot
     budget regrow is needed on these problems). The reference's bucket is
     compiled first so that it dispatches too; a reference dispatch that
-    misses its deadline leaves the race to its host answer."""
+    misses its deadline leaves the race to its host answer. The latencies
+    that admit the dispatch are pinned (``pinned_admission``)."""
     ref, port = _case(name)
     ref_copy, port_copy = _case(name)
     kernel = TorchSolver(device="cpu")._solve_kernel(port_copy)

@@ -413,3 +413,27 @@ def test_soak_respawns_an_operator_killed_by_503s_at_boot(tmp_path):
     assert report["violations"] == [] and report["ok"]
     assert "503" in (tmp_path / "operator-1.log").read_text()
     assert report["operator_incarnations"] == 2
+
+
+def test_soak_provisions_through_a_catalog_outage_after_boot(tmp_path):
+    """End to end on the CPU: ten 503s queue on ``/v1/instance-types``
+    after the operator booted. Its next catalog refresh, a TTL after the
+    boot's, exhausts its retries, the endpoint's breaker opens, and each
+    half-open probe draws one more of the queued faults. The operator goes
+    on provisioning with the catalog it last fetched, so the pods created
+    after the refresh failed bind before the settle deadline, and the soak
+    ends with no violation (a round that failed on the refresh backed the
+    provisioner off for a minute and more)."""
+    harness = soak_mod(PORT, "harness")
+    script = soak_mod(PORT, "churn").ChurnScript()
+    script.at(0.2).deploy_up("app-a", 12)
+    script.at(1.0).rpc_fault_burst("/v1/instance-types", n=10, status=503)
+    script.at(12.0).deploy_up("app-b", 8)
+    script.at(14.0).deploy_down("app-a", 12)
+    report = harness.run_soak(harness.SoakConfig(
+        duration_s=15.0, rate_hz=60.0, script=script, device="cpu", settle_timeout_s=20.0,
+        dump_dir=str(tmp_path)))
+    assert report["violations"] == [] and report["ok"], report["violations"]
+    assert report["pending_end"] == 0 and report["pod_ready_samples"] >= 20
+    assert report["restarts"]["operator_boot_exit"] == 0
+    assert "instance-type refresh failed" in (tmp_path / "operator-0.log").read_text()

@@ -10,16 +10,19 @@ equal the leaves, and the restaged rows must equal an independent host diff.
 Everything here is exact.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from karpenter_tpu import parallel as ref_parallel
 from karpenter_tpu.api import ObjectMeta, Pod, Provisioner, Resources
 from karpenter_tpu.cloudprovider import generate_catalog
 from karpenter_tpu.solver import EncodeSession, TPUSolver
 from karpenter_tpu.solver.jax_solver import PackInputs
 from karpenter_tpu.solver.staging import DeviceStager as RefStager
-from karpenter_tpu_torch.solver import DeviceStager
+from karpenter_tpu_torch import parallel
+from karpenter_tpu_torch.solver import DeviceStager, staging
 from karpenter_tpu_torch.solver import torch_solver as ts
 
 
@@ -112,6 +115,102 @@ def test_delta_rounds_match_reference_stager(rounds):
     assert port.hit_rate() == ref.hit_rate() > 0.5
     assert port.resident_bytes() == ref.resident_bytes()
     assert ts.LAUNCHES == before  # CPU tensors take the plain versions
+
+
+#: leaves whose rows a perturbed round bumps: 1-D and N-D, bool, int32 and
+#: float32, rows of 1, 4, 12, 16, 64 and 512 bytes
+BUMPED = ("demand", "quota", "colocate", "compat", "alloc", "price", "opt_valid", "ex_compat",
+          "orders", "alphas", "count", "rel_set")
+
+
+def _perturbed_rounds(rounds, seed=5):
+    """The delta rounds, each followed by one that changes a few rows of
+    several leaves at once, at most half of each leaf's rows, so that
+    several leaves of one call restage (and restage back the round after)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for leaves in rounds:
+        out.append(leaves)
+        bumped = dict(leaves)
+        for name in rng.choice(BUMPED, size=int(rng.integers(3, 7)), replace=False):
+            a = leaves[name].copy()
+            rows = rng.choice(a.shape[0], size=int(rng.integers(1, a.shape[0] // 2 + 1)), replace=False)
+            a[rows] = ~a[rows] if a.dtype == np.bool_ else a[rows] + 1
+            bumped[name] = a
+        out.append(bumped)
+    return out
+
+
+def _mesh_puts(shape):
+    """Placements of every leaf by the rule table, on logical CPU shards for
+    the port and on the JAX package's CPU devices for the reference."""
+    n = shape[0] * shape[1]
+    mesh, ref_mesh = parallel.make_mesh2d(shape, devices=["cpu"] * n), ref_parallel.make_mesh2d(shape)
+    return (lambda k, v: parallel.device_put(v, parallel.mesh_sharding(mesh, k, v.shape)),
+            lambda k, v: jax.device_put(v, ref_parallel.mesh_sharding(ref_mesh, k, v.shape)))
+
+
+@pytest.mark.parametrize("mesh_shape", [None, (2, 2)], ids=["flat", "mesh2x2"])
+def test_multi_leaf_restages_match_reference_stager(rounds, mesh_shape):
+    """Rounds in which several leaves of one call restage, flat and placed
+    on a 2x2 mesh of logical CPU shards: the port's ``last_round``,
+    ``stats`` and staged bytes equal the reference's, and every call's
+    patches go as one batch for its one device: a patch for each restaged
+    leaf, or for each shard block of it that changed."""
+    ref, port = RefStager(), DeviceStager(device="cpu")
+    put, ref_put = _mesh_puts(mesh_shape) if mesh_shape else (None, None)
+    most = 0
+    for leaves in _perturbed_rounds(rounds):
+        ref_out = ref.stage(_tag(leaves), leaves, put=ref_put)
+        out = port.stage(_tag(leaves), leaves, put=put)
+        assert port.last_round == ref.last_round
+        restaged = port.last_round["restage"]
+        most = max(most, restaged)
+        for name, leaf in leaves.items():
+            got = out[name].full() if mesh_shape else out[name]
+            assert torch.equal(got, torch.from_numpy(np.ascontiguousarray(leaf))), name
+            np.testing.assert_array_equal(np.asarray(ref_out[name]), got.numpy())
+        patch = port.last_patch
+        assert patch["devices"] == (1 if restaged else 0) and patch["launches"] == 0
+        if mesh_shape:
+            assert patch["entries"] >= restaged
+        else:
+            assert patch["entries"] == restaged
+    assert most >= 4
+    assert port.stats == ref.stats and port.stats["restages"] > 0
+    assert port.resident_bytes() == ref.resident_bytes()
+
+
+def test_packed_patch_layout_is_exact():
+    """Every patch's indices and rows lie in the packed buffer at 16-byte
+    aligned offsets, without overlap, byte for byte: 1-D and N-D leaves of
+    int8, bool, int32 and float32, rows of 1, 3, 4, 5, 12 and 20 bytes."""
+    rng = np.random.default_rng(2)
+    shapes = (((9,), np.int8), ((7, 3), np.int8), ((12, 5), np.bool_), ((5,), np.int32),
+              ((6, 3), np.float32), ((8, 5), np.float32), ((4, 1), np.bool_), ((3,), np.float32))
+    patches = []
+    for shape, dtype in shapes:
+        dst = torch.from_numpy((rng.random(shape) * 50).astype(dtype))
+        idx = np.sort(rng.choice(shape[0], size=int(rng.integers(1, shape[0] + 1)), replace=False))
+        src = np.ascontiguousarray((rng.random((len(idx),) + shape[1:]) * 50).astype(dtype))
+        patches.append((dst, idx.astype(np.int64), src))
+    offs, total = staging.patch_layout(patches)
+    buf = np.full(total, 0xA5, np.uint8)
+    staging.pack_patches(patches, offs, buf)
+    spans = []
+    for (_, idx, src), (io, so) in zip(patches, offs):
+        assert io % 16 == 0 and so % 16 == 0
+        assert buf[io:io + idx.nbytes].view(np.int64).tolist() == idx.tolist()
+        assert buf[so:so + src.nbytes].tobytes() == src.tobytes()
+        spans += [(io, io + idx.nbytes), (so, so + src.nbytes)]
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:])) and spans[-1][1] <= total < spans[-1][1] + 16
+    # the plain version of the batch: index_copy_ leaf by leaf
+    want = [staging.stage_patch_ref(d.clone(), torch.from_numpy(i), torch.from_numpy(r))
+            for d, i, r in patches]
+    assert staging.stage_patches(patches) == 0
+    for (dst, _, _), w in zip(patches, want):
+        assert torch.equal(dst, w)
 
 
 def test_clean_repeat_moves_nothing(rounds):

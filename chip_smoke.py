@@ -7,7 +7,9 @@ the checkout at DIR (built from its own sources), in one process, at each
 config and on the fleet bucket at B=1, 4, 8 and 16, in turns DIR, this,
 this, DIR, with the chain and each of its kernels (``compare``);
 ``--compare DIR --staging`` times the staging kernels so instead, on the
-card and on the host (``compare_staging``). Phases:
+card and on the host (``compare_staging``), and ``--compare DIR --mesh``
+the meshed tier's K1 finish and member argmin, the un-meshed K1 and the
+meshed chains (``compare_mesh``). Phases:
 
 1. device: CUDA must be present; prints the card's name and power limit;
 2. build: compiles ``karpenter_tpu_torch/solver/csrc/*.cu`` with nvcc for
@@ -122,10 +124,10 @@ card and on the host (``compare_staging``). Phases:
     against their plain versions (``check``), with K2's memory plan logged;
 13. sharded provisioning controller (main path): ``ProvisioningController``
     with its default ``TorchSolver()`` and ``cell_sharding_enabled`` over
-    ``configs.config_controller_cells`` (500k pending pods in 20 cells, 60
-    types, 8 workers): a seed round, whose 20 cells must each be the
-    ``config_cells`` problem, batched in two fleet dispatches (b16, b4)
-    with the launches ``SHARDED_SEED_LAUNCHES`` names, then churn rounds
+    ``configs.config_controller_cells`` (the first ``SHARDED_CELLS`` of its
+    20 cells of 25k pending pods, 60 types, 8 workers): a seed round, whose
+    cells must each be the ``config_cells`` problem, batched in one fleet
+    dispatch with the launches ``SHARDED_SEED_LAUNCHES`` names, then churn rounds
     in the modes ``SHARDED_CHURN_MODES`` names; every round binds every
     pending pod within allocatable, with no plan rejected, each cell's
     problem equal to a full encode of its session's pods, each fleet row
@@ -239,6 +241,7 @@ import contextlib
 import importlib
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -2012,16 +2015,20 @@ def mesh_kernel_check(ts, configs) -> list:
                                      f"un-meshed chain at {at}")
 
         before, paths = dict(meshed.LAUNCHES), dict(meshed.PHASE_PATHS)
+        copies0 = dict(meshed.COPIES)
         got = []
         first = first_call_ms(lambda: got.append(chain()))
         hold(got[0], "phase entry")
         moved = {k: meshed.LAUNCHES[k] - before[k] for k in before}
+        copied = {k: meshed.COPIES[k] - copies0[k] for k in copies0}
+        hold_mesh_counts(kind, shape, moved, copied)
         dev, host = event_ms(chain, reps=5)
         paths = {k: meshed.PHASE_PATHS[k] - paths[k] for k in paths}
         log(f"mesh {kind} {shape}: buffer equal to the un-meshed chain bit for bit; {dev:.4f} ms "
             f"between events, the median of 5 calls after a warm one ({host:.4f} ms host; its "
             f"first call {first[0]:.4f} ms, {first[1]:.4f} ms host; un-meshed {base_ms[0]:.4f} ms), "
-            f"launches a chain {moved}, K2 phases of the 7 calls by path {paths}")
+            f"launches a chain {moved}, exchange copies {copied}, K2 phases of the 7 calls by path "
+            f"{paths}")
         if kind != "2d":
             continue
         # the same chain with every stage issued from Python (30-230 ms a
@@ -2074,10 +2081,126 @@ def mesh_kernel_check(ts, configs) -> list:
     return mesh_timings(ts, meshed, tensors, S, nz, shards, ins, members, k1, errs)
 
 
+def hold_mesh_counts(kind, shape, moved, copied) -> None:
+    """One chain on logical shards of the card: a 1D chain of n shards
+    makes n + 1 member argmin launches (a seed a shard, one final pick), an
+    option split of n shards one K1 part and one finish a shard; the shards
+    share the card, so no exchange copies a buffer for either."""
+    n = shape if kind == "1d" else shape[0]
+    want = ({"member_argmin": n + 1} if kind == "1d"
+            else {"shard_precompute_part": n, "shard_precompute_finish": n})
+    if any(moved[k] != v for k, v in want.items()) or any(copied.values()):
+        raise AssertionError(f"mesh {kind} {shape}: launches {moved} (want {want}), copies {copied} "
+                             f"(want none)")
+
+
+#: kernels a meshed chain's trace is split into (the longer names first: a
+#: parent tree's argmin kernels share a prefix), then copies and fills
+CHAIN_TRACE_PARTS = ("k1_units", "k1_val_pair_shards", "k1_val_pair", "k1_mesh_combine", "k2_prices",
+                     "k2_scan", "k3_pack_epilogue", "mesh_seed_offer", "mesh_seed_pick", "mesh_seed",
+                     "mesh_final_pick", "Memcpy", "Memset")
+
+
+def chain_trace_split(fn, calls: int = 3) -> dict:
+    """A ``torch.profiler`` trace of ``calls`` calls of a chain, each alone
+    after a synchronize, with no spin in front (the card waits on the host's
+    issue as in a real call), split a call: each part's device ms (kernels
+    by name, copies, fills; summed over concurrent streams), ``busy`` (the
+    union of the device intervals), ``window`` (the first device event's
+    start to the last's end) and ``idle`` (window less busy), means over
+    the calls. A one-cycle spin before each call marks where it starts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            torch.cuda._sleep(1)
+            fn()
+            torch.cuda.synchronize()
+        for _ in range(TAIL_SPINS):
+            torch.cuda._sleep(TAIL_SPIN_CYCLES)
+        torch.cuda.synchronize()
+    events = sorted((ev for ev in prof.events() if str(ev.device_type).endswith("CUDA")),
+                    key=lambda ev: ev.time_range.start)
+    windows, cur = [], None
+    for ev in events:
+        if "spin_kernel" in ev.name:
+            cur = None
+            continue
+        if cur is None:
+            cur = []
+            windows.append(cur)
+        cur.append((ev.name, ev.time_range.start, ev.time_range.end))
+    windows = [w for w in windows if w][-calls:]
+    out = {}
+    for w in windows:
+        for name, t0, t1 in w:
+            part = next((p for p in CHAIN_TRACE_PARTS if p in name), "other")
+            out[part] = out.get(part, 0.0) + (t1 - t0) / 1e3
+        busy, end = 0.0, None
+        for _, t0, t1 in sorted(w, key=lambda e: e[1]):
+            if end is None or t0 > end:
+                busy += t1 - t0
+                end = t1
+            elif t1 > end:
+                busy += t1 - end
+                end = t1
+        window = max(t1 for _, _, t1 in w) - min(t0 for _, t0, _ in w)
+        out["busy"] = out.get("busy", 0.0) + busy / 1e3
+        out["window"] = out.get("window", 0.0) + window / 1e3
+        out["events"] = out.get("events", 0) + len(w)
+    n = max(1, len(windows))
+    out = {k: round(v / n, 4) for k, v in out.items()}
+    if out:
+        out["idle"] = round(out["window"] - out["busy"], 4)
+    return out
+
+
+def k2_concurrency(ts, tensors, S, nz) -> dict:
+    """What the 1D 4-shard chain's phase 1 costs the card without its
+    exchanges: K2's phase 1 at 50k_full between events, all K members in
+    one launch, K/4 in one launch, and four launches of K/4 members each on
+    a stream of its own, issued together with nothing between them; then
+    a trace of the four split as ``chain_trace_split`` splits a chain."""
+    import torch
+
+    inputs, o, a, l, r, _ = tensors
+    sk = ts.shared_precompute(inputs, S, nz)
+    kl = o.shape[0] // 4
+
+    def part(s):
+        cut = slice(s * kl, (s + 1) * kl)
+        return ts.pack_member(inputs, sk, o[cut], a[cut], l[cut], r[cut], S, nz)
+
+    streams = [torch.cuda.Stream() for _ in range(4)]
+
+    def four():
+        caller = torch.cuda.current_stream()
+        for st in streams:
+            st.wait_stream(caller)
+        for s, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                part(s)
+        for st in streams:
+            caller.wait_stream(st)
+
+    out = {"all K, one launch": event_ms(lambda: ts.pack_member(inputs, sk, o, a, l, r, S, nz))[0],
+           "K/4, one launch": event_ms(lambda: part(0))[0],
+           "4 x K/4 on 4 streams": event_ms(four)[0]}
+    log(f"K2 phase 1 concurrency at 50k_full, ms between events: {out}; the four's trace, ms: "
+        f"{chain_trace_split(four)}; CUDA_DEVICE_MAX_CONNECTIONS="
+        f"{os.environ.get('CUDA_DEVICE_MAX_CONNECTIONS')}")
+    return out
+
+
 def member_argmin_nan_check(meshed) -> float:
-    """The member argmin's three kernels against their plain versions over 4
-    shards of 2 members on ``nan_costs``: offers, seeds, phase-2 members and
-    final buffers bit for bit, the seed and the winner jnp.argmin's."""
+    """The member argmin's two kernels (each shard's seed, the root's final
+    pick) against their plain versions over 4 logical shards of 2 members
+    on ``nan_costs``, each kernel reading the other shards' buffers in
+    place and from copies: seeds, phase-2 members and final buffers bit for
+    bit, the seed and the winner jnp.argmin's."""
     import numpy as np
     import torch
 
@@ -2092,8 +2215,10 @@ def member_argmin_nan_check(meshed) -> float:
     alphas = torch.from_numpy(rng.random((n, B, kl)).astype(np.float32)).to(dev)
     looks = torch.from_numpy(rng.random((n, B, kl)) < 0.5).to(dev)
     rsvs = torch.from_numpy(rng.random((n, B, kl)) < 0.5).to(dev)
-    swaps = torch.from_numpy(rng.permuted(np.tile(np.arange(G, dtype=np.int32), (B, kl, 1)),
+    swaps = torch.from_numpy(rng.permuted(np.tile(np.arange(G, dtype=np.int32), (n, B, kl, 1)),
                                           axis=-1)).to(dev)
+    mesh = logical_mesh("1d", n)
+    shards = [meshed._Shard(mesh, i) for i in range(n)]
     for c1, c2 in nan_costs(K):
         c1 = torch.tensor([c1] * B, dtype=torch.float32).reshape(B, n, kl).transpose(0, 1).contiguous().to(dev)
         c2 = torch.tensor([c2] * B, dtype=torch.float32).reshape(B, n, kl).transpose(0, 1).contiguous().to(dev)
@@ -2109,18 +2234,28 @@ def member_argmin_nan_check(meshed) -> float:
                 local = torch.cat([c1[s, b], c2[s, b]]).cpu()
                 j = int(torch.argmin(local))
                 bufs[s, b, 0], bufs[s, b, 2] = int(j >= kl), j % kl
+        phase1 = [(c1[s], orders[s], alphas[s], looks[s], rsvs[s]) for s in range(n)]
         outs = []
-        for plain in (False, True):
+        for plain, shared in ((False, True), (False, False), (True, True)):
             ctx = plain_mesh_kernels(meshed) if plain else contextlib.nullcontext()
             with ctx:
-                offers = torch.zeros((n, B, 5 + G), dtype=torch.int32, device=dev)
-                for s in range(n):
-                    meshed.seed_offer(c1[s], s * kl, orders[s], alphas[s], looks[s], rsvs[s], offers[s])
-                picked = meshed.seed_pick(offers, swaps)
-                outs.append((offers, *picked, meshed.final_pick(bufs, picked[4], kl)))
-        for g, w in zip(*outs):
-            if not torch.equal(g, w):
-                raise AssertionError("member argmin: a kernel differs from its plain version")
+                meshed._record(shards)
+                seeds = []
+                for s, sh in enumerate(shards):
+                    seen = meshed._read_from(sh, shards, phase1, shared, "member_argmin")
+                    with meshed._on(sh):
+                        seeds.append(meshed.mesh_seed(*zip(*seen), swaps[s]))
+                meshed._record(shards)
+                seen = meshed._read_from(shards[0], shards, [(bufs[s],) for s in range(n)], shared,
+                                         "member_argmin")
+                with meshed._on(shards[0]):
+                    final = meshed.final_pick([b for b, in seen], seeds[0][4], kl)
+                torch.cuda.synchronize()
+                outs.append([x for seed in seeds for x in seed] + [final])
+        for got in outs[:2]:
+            for g, w in zip(got, outs[2]):
+                if not torch.equal(g, w):
+                    raise AssertionError("member argmin: a kernel differs from its plain version")
         flat1 = c1.transpose(0, 1).reshape(B, K).cpu()
         flat2 = c2.transpose(0, 1).reshape(B, K).cpu()
         final = outs[0][-1].cpu()
@@ -2135,18 +2270,38 @@ def member_argmin_nan_check(meshed) -> float:
 MESH_K2_PARTS = ("k2_prices", "k2m_kernel")
 
 
-def member_argmin_bytes(n: int, kl: int, G: int, Ll: int) -> int:
-    """Bytes the member argmin's three kernels must move for one row, each
-    read once and each write once: the offer (a shard's kl costs, the best
-    member's order row, alpha, look and rsv; the offer out), the pick (every
-    offer's cost and index, the winner's alpha, look, rsv and order row, the
+def argmin_calls(meshed, o, a, l, r, sw, n, S, E) -> dict:
+    """One call of each member argmin kernel at 50k_full's shapes on the
+    1D mesh's n shards (kl = K / n members each, random phase-1 costs, K3
+    buffers of zeros): the seed on shard 0 reading every shard's phase-1
+    members, the final pick reading every shard's K3 buffer."""
+    import torch
+
+    K, G = o.shape
+    kl, dev = K // n, MESH_DEVICE
+    member = lambda t, s: t[s * kl:(s + 1) * kl].unsqueeze(0).contiguous()  # noqa: E731
+    costs = [torch.rand((1, kl), device=dev) for _ in range(n)]
+    orders, alphas, looks, rsvs = ([member(t, s) for s in range(n)] for t in (o, a, l, r))
+    swaps = member(sw, 0)
+    bufs = [torch.zeros((1, 4 + 4 * kl + 2 * S + G * (E + S)), dtype=torch.int32, device=dev)
+            for _ in range(n)]
+    b1 = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    return {
+        "seed": lambda: meshed.mesh_seed(costs, orders, alphas, looks, rsvs, swaps),
+        "final": lambda: meshed.final_pick(bufs, b1, kl),
+    }
+
+
+def member_argmin_bytes(n: int, kl: int, G: int, Ll: int) -> tuple:
+    """Bytes the member argmin's two kernels must move for one row, each
+    input read once and each output written once: the seed on one shard
+    (the n kl costs, the winner's order row, alpha, look and rsv, the
     shard's swaps; its phase-2 orders, alphas, looks, rsvs and seed out) and
     the final pick (every shard's head and 4 kl costs and flags, the seed,
     the winner's rows; the portfolio's buffer out)."""
-    offer = 4 * kl + 4 * G + 6 + 4 * (5 + G)
-    pick = 8 * n + 4 * (3 + G) + 4 * kl * G + 4 * kl * G + 6 * kl + 4
+    seed = 4 * n * kl + 4 * G + 6 + 4 * kl * G + 4 * kl * G + 6 * kl + 4
     final = 4 * n * (4 + 4 * kl) + 4 * (Ll - 4 - 4 * kl) + 4 + 4 * (Ll + 4 * kl * (n - 1))
-    return offer + pick + final
+    return seed, final
 
 
 def mesh_timings(ts, meshed, tensors, S, nz, shards, ins, members, k1, errs) -> list:
@@ -2175,9 +2330,9 @@ def mesh_timings(ts, meshed, tensors, S, nz, shards, ins, members, k1, errs) -> 
     ms["shard_precompute_part"] = time_ms(lambda: meshed.shard_precompute_part(ins[0], S, part))
     plain_ms["shard_precompute_part"] = time_ms(
         lambda: meshed.shard_precompute_part_ref(ins[0], S, part_plain), per=1)
-    ms["shard_precompute_finish"] = time_ms(lambda: meshed.shard_precompute_finish(ins[0], sp, parts))
+    ms["shard_precompute_finish"] = time_ms(lambda: meshed.shard_precompute_finish(ins[0], sp, list(parts)))
     plain_ms["shard_precompute_finish"] = time_ms(
-        lambda: meshed.shard_precompute_finish_ref(ins[0], sp_plain, parts_plain), per=1)
+        lambda: meshed.shard_precompute_finish_ref(ins[0], sp_plain, list(parts_plain)), per=1)
     x, sk = ins[0], k1[0]
     part_in = nbytes(x.demand, x.demand_units, x.count, x.node_cap, x.quota, x.colocate, x.compat,
                      x.alloc, x.price, x.opt_valid, x.ex_compat, x.ex_valid)
@@ -2227,31 +2382,22 @@ def mesh_timings(ts, meshed, tensors, S, nz, shards, ins, members, k1, errs) -> 
     k2_out = nbytes(m.cost, m.unplaced, m.exhausted, m.new_opt, m.new_active, m.ys)
     b2 = bound(k2_in + k2_out, k2_op_count(inputs, l, S))
     bounds["shard_member"] = (b2[0] / launches, b2[1])
-    # the member argmin: its three kernels once each, at the 1D mesh's 4 shards
-    kl, n = K // 4, 4
-    cost = torch.rand((1, kl), device=dev)
-    offers = torch.zeros((n, 1, 5 + G), dtype=torch.int32, device=dev)
-    ol = o[:kl].unsqueeze(0).contiguous()
-    al, ll, rl, swl = (t[:kl].unsqueeze(0).contiguous() for t in (a, l, r, sw))
-    bufs = torch.zeros((n, 1, 4 + 4 * kl + 2 * S + G * (E + S)), dtype=torch.int32, device=dev)
-    b1 = torch.zeros((1, 1), dtype=torch.int32, device=dev)
-    calls = {
-        "offer": lambda: meshed.seed_offer(cost, 0, ol, al, ll, rl, offers[0]),
-        "pick": lambda: meshed.seed_pick(offers, swl),
-        "final": lambda: meshed.final_pick(bufs, b1, kl),
-    }
+    # the member argmin: its two kernels once each, at the 1D mesh's 4
+    # shards, each reading the 4 shards' buffers through its table
+    calls = argmin_calls(meshed, o, a, l, r, sw, 4, S, E)
     parts_ms = {k: time_ms(f) for k, f in calls.items()}
     with plain_mesh_kernels(meshed):
         plain_parts = {k: time_ms(f, per=1) for k, f in calls.items()}
-    ms["member_argmin"] = sum(parts_ms.values()) / 3
-    plain_ms["member_argmin"] = sum(plain_parts.values()) / 3
-    arg_bytes = member_argmin_bytes(n, kl, G, bufs.shape[-1])
-    bounds["member_argmin"] = (bound(arg_bytes, 0)[0] / 3, "bytes")
+    ms["member_argmin"] = sum(parts_ms.values()) / len(calls)
+    plain_ms["member_argmin"] = sum(plain_parts.values()) / len(calls)
+    arg_bytes = member_argmin_bytes(4, K // 4, G, 4 + 4 * (K // 4) + 2 * S + G * (E + S))
+    bounds["member_argmin"] = (bound(sum(arg_bytes), 0)[0] / len(calls), "bytes")
     log(f"mesh timings: " + "; ".join(
         f"{k} kernel {ms[k]:.6f} ms, plain {plain_ms[k]:.6f} ms, bound {bounds[k][0]:.3e} ms "
         f"({bounds[k][1]})" for k in MESH_WRAPPERS)
-        + f"; member argmin kernels {parts_ms} (plain {plain_parts}), {arg_bytes} bytes a row; "
-        f"shard_member's kernel ms a launch of a {launches}-launch phase (plain: between events)")
+        + f"; member argmin kernels {parts_ms} (plain {plain_parts}), {arg_bytes} bytes a row "
+        f"(seed, final); shard_member's kernel ms a launch of a {launches}-launch phase (plain: "
+        f"between events)")
     replaces = "karpenter_tpu/solver/jax_solver.py:842"
     return [
         {"name": k, "route": "cuda", "source": "karpenter_tpu_torch/solver/csrc/pack_solve.cu",
@@ -2281,7 +2427,7 @@ def plan_key(result):
 
 def mesh_superproblem(ts, configs) -> dict:
     """(b) ``configs.config_mesh_superproblem()`` at full size: a seed round
-    of every cell and churn rounds 0-1, each cell with its own
+    of every cell and churn round 0, each cell with its own
     ``EncodeSession``, through ``stage_fleet`` on per-cell solvers holding
     one 2x2 logical mesh (superproblem mode) and, on copies of the same
     problems, on meshless per-cell solvers (the fleet path). Every row bit
@@ -2509,13 +2655,17 @@ def mesh_phase(ts, configs) -> tuple:
     kernels = mesh_kernel_check(ts, configs)
     for k in meshed.LAUNCHES:
         meshed.LAUNCHES[k] = 0
-    paths = dict(meshed.PHASE_PATHS)
+    paths, copies0 = dict(meshed.PHASE_PATHS), dict(meshed.COPIES)
     mesh_superproblem(ts, configs)
     mesh_flat(ts, configs)
     mesh_controller(ts, configs)
     launches = dict(meshed.LAUNCHES)
     paths = {k: meshed.PHASE_PATHS[k] - paths[k] for k in paths}
-    log(f"mesh launches on the main path {launches}; its K2 phases by path {paths}")
+    copies = {k: meshed.COPIES[k] - copies0[k] for k in copies0}
+    log(f"mesh launches on the main path {launches}; exchange copies {copies}; its K2 phases by "
+        f"path {paths}")
+    if any(copies.values()):
+        raise AssertionError(f"mesh: the main path's shards share the card, yet copied {copies}")
     if paths["stages"] or not paths["entry"]:
         raise AssertionError(f"mesh: the main path's K2 phases did not all take the phase entry: {paths}")
     for entry in kernels:
@@ -2666,12 +2816,14 @@ def controller_round(ts, configs) -> dict:
     return errs
 
 
-#: the sharded controller's fleet: the first 10 of ``config_controller_cells``'
+#: the sharded controller's fleet: the first 6 of ``config_controller_cells``'
 #: 20 cells of 25,000 pods (cut from 500,000 pods to keep the run inside its
-#: limit: the seed round took 222-270 s, 168-187 s of it the host's launches)
-SHARDED_PODS, SHARDED_CELLS = 250_000, 10
+#: limit: at 20 cells the seed round took 222-270 s, 168-187 s of it the
+#: host's launches; at 10 cells 131 s on a slow host, whose run was at
+#: 1,115 s of its 1,200 before its last two phases, against 84 s at 6)
+SHARDED_PODS, SHARDED_CELLS = 150_000, 6
 #: what the seed round of ``controller_sharded`` launches: one fleet chain
-#: (the 10 cells in one chunk padded to B=16: K1, K2 twice, K3) on a
+#: (the 6 cells in one chunk padded to B=8: K1, K2 twice, K3) on a
 #: device-side stack, and the first ``device_rtt`` probe (a warm call and
 #: three timed ones)
 SHARDED_SEED_LAUNCHES = {"shared_precompute": 1, "pack_member": 2, "pack_epilogue": 1,
@@ -2868,7 +3020,8 @@ def controller_sharded(ts, st, configs) -> dict:
     every cell with none reused and no residue, each cell's problem the
     ``config_cells`` problem (so its cost is at most the JAX package's
     kernel-only ``cells_seed``, the most of the 20 cells), in one fleet
-    dispatch of width 16 that batches them all, launching what
+    dispatch, its width ``SHARDED_CELLS`` padded to a power of two, that
+    batches them all, launching what
     ``SHARDED_SEED_LAUNCHES`` says.
     A churn round must solve the 4 churned cells (none reused, no residue)
     in the modes ``SHARDED_CHURN_MODES`` names. Then the worker check:
@@ -2911,7 +3064,7 @@ def controller_sharded(ts, st, configs) -> dict:
                     f"MiB over {len(ctl._cell_solvers)} solver clones")
                 want = dict(cells=float(SHARDED_CELLS), cells_reused=0.0, residue_pods=0.0,
                             fleet_dispatches=1.0, fleet_cells_batched=float(SHARDED_CELLS))
-                if stats != want or facts["widths"] != [16]:
+                if stats != want or facts["widths"] != [1 << (SHARDED_CELLS - 1).bit_length()]:
                     raise AssertionError(f"{name}: stats {stats}, fleet widths {facts['widths']}")
                 if facts["moved"] != SHARDED_SEED_LAUNCHES:
                     raise AssertionError(f"{name}: launches {facts['moved']}, not "
@@ -5580,6 +5733,140 @@ def compare_staging(ts, other: Path) -> None:
         + "; ".join(f"{k} {mean['this'][k]:.4f} / {mean['other'][k]:.4f}" for k in keys))
 
 
+def load_meshed(other: Path, lib):
+    """The checkout at ``other``'s ``solver/meshed.py``, run against this
+    tree's modules, its wrappers launching the kernels of ``lib`` (that
+    checkout's library); the un-meshed K1, K2 and K3 its chains call are
+    this tree's."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "karpenter_tpu_torch.solver._other_meshed", other / "karpenter_tpu_torch" / "solver" / "meshed.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod._lib = lambda: lib
+    return mod
+
+
+def k1_ptxas(root: Path) -> dict:
+    """The registers, stack and spill bytes that ptxas reported for each
+    ``k1_val_pair`` kernel in the newest ``build/kernels/*/ptxas.log`` of
+    the checkout at ``root``: {mangled name: "N registers, S stack, W/R
+    spill"}."""
+    logs = sorted((root / "build" / "kernels").glob("*/ptxas.log"), key=lambda q: q.stat().st_mtime)
+    if not logs:
+        return {}
+    out, name = {}, None
+    for line in logs[-1].read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
+        if m:
+            name = m.group(1)
+        if name is None or "k1_val_pair" not in name:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name] = f"{m.group(1)} stack, {m.group(2)}/{m.group(3)} spill"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name] = f"{m.group(1)} registers, " + out.get(name, "")
+    return out
+
+
+def compare_mesh(ts, other: Path) -> None:
+    """This tree's meshed K1 finish and member argmin against those of the
+    checkout at ``other``, in one process on one card, at 50k_full (S at
+    its solve's slot budget), in turns other, this, this, other: each
+    kernel behind a spin and the host time of its call (the finish on the
+    first of 2 option shards; the argmin's kernels on the 1D mesh's 4
+    shards), the un-meshed K1 behind a spin, and the 1D 2/4 and 2D 2x1/4x1
+    chains between events (the median of 5 calls after a warm one). Every
+    chain of both trees must equal the un-meshed chain, and both trees' K1
+    must give the same bytes. Then a profiler trace of each tree's 1D
+    4-shard chain split into kernels, copies and idle, K2's phase 1 as four
+    concurrent launches (``k2_concurrency``), and each tree's ptxas report
+    of its ``k1_val_pair`` instances (``k1_ptxas``)."""
+    import torch
+
+    from karpenter_tpu_torch import configs
+    from karpenter_tpu_torch.solver import TorchSolver, _build, encode, meshed
+
+    other_ts, other_lib = load_tree(other, "other")
+    lib = _build.load_kernels()
+    mods = {"other": load_meshed(other, other_lib), "this": meshed}
+    member_argmin_nan_check(meshed)
+    solver = TorchSolver()
+    problem = encode(*configs.config_50k_full())
+    _, orders, _, _, _, swaps, s_new, nz = solver._prepare(problem)
+    tensors = device_problem(ts, solver, problem)
+    _, S, _ = solver._run_fused(tensors, orders, swaps, s_new, nz)
+    inputs, o, a, l, r, sw = tensors
+    G, O, E, R, Z = ts._dims(inputs)
+    want = ts.pack_solve_fused(*tensors, S, nz)
+    k1s = {"other": lambda: other_ts._launch_shared_precompute(other_lib, inputs, S, ts._stream()),
+           "this": lambda: ts._launch_shared_precompute(lib, inputs, S, ts._stream())}
+    got = {side: k1() for side, k1 in k1s.items()}
+    for f in ("units", "units_rsv", "rsv_group", "lam", "zone_limited", "val_pair", "exok_pad", "is_new"):
+        if not torch.equal(getattr(got["this"], f), getattr(got["other"], f)):
+            raise AssertionError(f"compare mesh: the two trees' un-meshed K1 differ in {f}")
+    chains = {}
+    for kind, shape in MESH_KERNEL_MESHES:
+        mesh = logical_mesh(kind, shape)
+        placed = mesh_place(kind, mesh, tensors)
+        chains[f"{kind} {shape}"] = (mesh, placed)
+        for side, mod in mods.items():
+            if not torch.equal(mod.solve_meshed(mesh, *placed, S, nz), want):
+                raise AssertionError(f"compare mesh {kind} {shape}: {side}'s chain differs from the "
+                                     f"un-meshed chain")
+    # the finish on the first of 2 option shards, each tree's own way
+    mesh2 = logical_mesh("2d", (2, 1))
+    placed2 = mesh_place("2d", mesh2, (inputs,))[0]
+    ins = [ts._unsqueeze(type(inputs)(*(p.shards[i] for p in placed2))) for i in range(2)]
+    nt = meshed.k1_tiles(ins[0].price.shape[-1], MESH_DEVICE)
+    stacked = torch.empty((2, 2, 1, G, nt), dtype=torch.int32, device=MESH_DEVICE)
+    sp = [meshed.shard_precompute_part(x, S, stacked[i]) for i, x in enumerate(ins)][0]
+    # the argmin's kernels on the 1D mesh's 4 shards: this tree's two, the
+    # other's three (offer, pick, final) on the same members
+    calls = argmin_calls(meshed, o, a, l, r, sw, 4, S, E)
+    kl = o.shape[0] // 4
+    member = lambda t, s: t[s * kl:(s + 1) * kl].unsqueeze(0).contiguous()  # noqa: E731
+    cost, offers = torch.rand((1, kl), device=MESH_DEVICE), torch.zeros((4, 1, 5 + G), dtype=torch.int32,
+                                                                       device=MESH_DEVICE)
+    ol, al, ll, rl, swl = (member(t, 0) for t in (o, a, l, r, sw))
+    gathered = torch.zeros((4, 1, 4 + 4 * kl + 2 * S + G * (E + S)), dtype=torch.int32, device=MESH_DEVICE)
+    b1 = torch.zeros((1, 1), dtype=torch.int32, device=MESH_DEVICE)
+    om = mods["other"]
+    kernels = {
+        "other": {"finish": lambda: om.shard_precompute_finish(ins[0], sp, stacked),
+                  "offer": lambda: om.seed_offer(cost, 0, ol, al, ll, rl, offers[0]),
+                  "pick": lambda: om.seed_pick(offers, swl),
+                  "final": lambda: om.final_pick(gathered, b1, kl)},
+        "this": {"finish": lambda: meshed.shard_precompute_finish(ins[0], sp, list(stacked)), **calls},
+    }
+    results = {}
+    for turn, side in enumerate(("other", "this", "this", "other")):
+        t = {"k1 card": time_ms(k1s[side])}
+        for what, fn in kernels[side].items():
+            t[f"{what} card"] = time_ms(fn)
+            t[f"{what} host"] = host_ms(fn)
+        for name, (mesh, placed) in chains.items():
+            t[f"{name} chain"] = event_ms(lambda: mods[side].solve_meshed(mesh, *placed, S, nz), reps=5)[0]
+        results.setdefault(side, []).append(t)
+        log(f"compare mesh turn {turn} {side}: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+    log("compare mesh, ms (mean of two turns; this / other): " + "; ".join(
+        f"{k} {statistics.mean(t[k] for t in results['this']):.4f} / "
+        f"{statistics.mean(t[k] for t in results['other']):.4f}"
+        for k in results["this"][0] if k in results["other"][0]))
+    t0 = time.perf_counter()
+    for side in ("other", "this"):
+        mesh, placed = chains["1d 4"]
+        log(f"compare mesh {side}: 1d 4 trace, ms a chain: "
+            f"{chain_trace_split(lambda: mods[side].solve_meshed(mesh, *placed, S, nz))}")
+    k2_concurrency(ts, tensors, S, nz)
+    log(f"compare mesh: the two traces and k2_concurrency took {time.perf_counter() - t0:.2f} s")
+    for side, root in (("other", other), ("this", Path(__file__).resolve().parent)):
+        log(f"compare mesh {side}: k1_val_pair's registers and spills: {k1_ptxas(root)}")
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "karpenter_tpu_torch" / "solver" / "csrc" / "pack_solve.cu").is_file():
@@ -5599,6 +5886,8 @@ def main() -> int:
 
         if "--staging" in sys.argv[3:]:
             compare_staging(ts, Path(sys.argv[2]).resolve())
+        elif "--mesh" in sys.argv[3:]:
+            compare_mesh(ts, Path(sys.argv[2]).resolve())
         else:
             compare(ts, Path(sys.argv[2]).resolve())
         log(card)
@@ -5625,8 +5914,8 @@ def main() -> int:
         f"({'compiled' if _build.BUILD_SECONDS else 'cached'}) -> {lib}")
     ptxas = lib.with_name("ptxas.log")
     log(ptxas.read_text().strip() if ptxas.exists() else "")
-    log(f"instructions (cuobjdump -sass): "
-        f"{sass_counts(lib, K1_PARTS + K2_PARTS + ('k3_pack_epilogue',)) or 'no cuobjdump'}")
+    sass_parts = ("k1_val_pair_shards",) + K1_PARTS + K2_PARTS + ("k3_pack_epilogue",)
+    log(f"instructions (cuobjdump -sass): {sass_counts(lib, sass_parts) or 'no cuobjdump'}")
     _build.load_kernels()
     from karpenter_tpu_torch import native
 

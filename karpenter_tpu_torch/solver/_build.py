@@ -50,17 +50,15 @@ _SIGNATURES = {
     # the meshed tier (solver/meshed.py)
     # 19 pointers, B G O E R Z S, stream
     "kts_k1_part": [_P] * 19 + [_I] * 7 + [_P],
-    # 14 pointers, n B G O E R Z S, stream
-    "kts_k1_finish": [_P] * 14 + [_I] * 8 + [_P],
+    # 12 pointers, the partials' pointer array, n B G O E R Z S, stream
+    "kts_k1_finish": [_P] * 13 + [_I] * 8 + [_P],
     # pointer array, dims array (meshed._k2m_args), stage t, stream
     "kts_k2m": [_P, _P, _I, _I, _P],
     # n, n pointer arrays, n dims arrays, devices, streams, &launches
     "kts_k2m_phase": [_I, _P, _P, _P, _P, _P],
-    # 6 pointers, B K G k0, stream
-    "kts_seed_offer": [_P] * 6 + [_I] * 4 + [_P],
-    # 7 pointers, n B K G, stream
-    "kts_seed_pick": [_P] * 7 + [_I] * 4 + [_P],
-    # 3 pointers, n B Ll kl, stream
+    # the members' pointer array (5 a shard), 6 pointers, n B kl G, stream
+    "kts_mesh_seed": [_P] * 7 + [_I] * 4 + [_P],
+    # the K3 buffers' pointer array, 2 pointers, n B Ll kl, stream
     "kts_final_pick": [_P] * 3 + [_I] * 4 + [_P],
 }
 

@@ -214,8 +214,8 @@ struct K1Args {
   float* val_pair;            // [G, O, G]
   bool* exok_pad;             // [G, E+S]
   bool* is_new;               // [E+S]
-  float* part_min;            // scratch [G, k1_tiles(O)]: each k1_units block's rate minimum
-  int* part_fit;              // scratch [G, k1_tiles(O)]: and whether an option fits the reserve
+  float* part_min;            // [G, k1_tiles(O)] out: each k1_units block's rate minimum
+  int* part_fit;              // [G, k1_tiles(O)] out: and whether an option fits the reserve
   int G, O, E, R, Z, S;
   int pair_rows;              // groups g a k1_val_pair block takes (k1_pair_rows)
 };
@@ -224,6 +224,23 @@ struct K1Args {
 // options, at most kK1MaxTiles of them, so that one warp's lanes reduce a
 // group's partials.
 constexpr int kK1MaxTiles = 32;
+
+// Shards a meshed launch's table names at most (solver/meshed.py).
+constexpr int kMeshMaxShards = 64;
+
+// The buffers of k1_units' partials that K1's finish on an option shard
+// reduces (k1_val_pair_shards, meshed.py), one a shard, each read in place:
+// [2][B][G][k1_tiles(O)] words, the rate minima as f32 bits, then the
+// reserve fits.
+struct K1Parts {
+  const int* p[kMeshMaxShards];
+  int n;
+};
+
+struct K1PairArgs {
+  K1Args k1;
+  K1Parts parts;
+};
 __host__ __device__ __forceinline__ int k1_span(int O) {
   const int blocks = (O + kK1Threads - 1) / kK1Threads;
   return kK1Threads * ((blocks + kK1MaxTiles - 1) / kK1MaxTiles);
@@ -437,8 +454,19 @@ int k1_pair_rows(int B, int G, int O) {
 // element (PERF.md, K1 findings). Every quotient stays a correctly rounded
 // division; an element whose option g' cannot use, or whose lam is +0, is
 // 0 whatever the quotients give, and skips them.
-template <int kR>  // as k1_units'
-__global__ void __launch_bounds__(kK1Threads) k1_val_pair(K1Args p) {
+//
+// Two kernels share this body. k1_val_pair (K1) reads a group's tiles of
+// partials from K1's own scratch, a lane a tile. k1_val_pair_shards (K1's
+// finish on an option shard, meshed.py) reads every shard's buffer through
+// its K1Parts table, a lane a tile too: the first shard's with the round's
+// other loads, the others' in a loop after them, through pointers uniform
+// across the block. fminf and OR are exact and order-free, so this is K1's
+// reduction. A lane a (shard, tile) pair instead kept a per-lane pointer
+// live and took 116 registers against K1's 80 (PERF.md, row 5), and the
+// table folded into K1's own kernel cost it 2.6 us of its 29, so K1 keeps
+// the code it had.
+template <int kR, bool kTable>  // kR as k1_units'; kTable: the partials through `parts`
+__device__ __forceinline__ void k1_val_pair_body(const K1Args& p, const K1Parts& parts) {
   __shared__ float s_resid[kK1PairRows * kK1PairTile * kMaxR];  // [row][o][r]
   __shared__ float s_d[kK1PairChunk * kMaxR];
   __shared__ float s_cap[kK1PairChunk], s_lam[kK1PairChunk];
@@ -449,6 +477,9 @@ __global__ void __launch_bounds__(kK1Threads) k1_val_pair(K1Args p) {
   const int tid = threadIdx.x, BT = blockDim.x, lane = tid & 31, wid = tid >> 5;
   const int o0 = blockIdx.x * kK1PairTile, n = min(kK1PairTile, O - o0), nt1 = k1_tiles(O);
   const int g0 = blockIdx.y * a.pair_rows, rows = min(a.pair_rows, G - g0);
+  // with the table: each buffer holds the B rows' minima, then (`half`
+  // further) their fits; this row's start at row0
+  const size_t half = (size_t)gridDim.z * G * nt1, row0 = (size_t)blockIdx.z * G * nt1;
   // this thread's (g, o) of units_rsv
   const int gr_f = tid / kK1PairTile, ol_f = tid % kK1PairTile;
   const int g_f = g0 + gr_f, o_f = o0 + ol_f;
@@ -469,8 +500,13 @@ __global__ void __launch_bounds__(kK1Threads) k1_val_pair(K1Args p) {
 #pragma unroll
   for (int k = 0; k < kFit; ++k) {
     const int gr = wid + k * kK1Warps;
-    fv[k] = gr < rows && lane < nt1 ? static_cast<unsigned>(ldg(a.part_fit + (size_t)(g0 + gr) * nt1 + lane))
-                                    : 0u;
+    if constexpr (kTable)
+      fv[k] = gr < rows && lane < nt1
+                  ? static_cast<unsigned>(ldg(parts.p[0] + row0 + half + (size_t)(g0 + gr) * nt1 + lane))
+                  : 0u;
+    else
+      fv[k] = gr < rows && lane < nt1 ? static_cast<unsigned>(ldg(a.part_fit + (size_t)(g0 + gr) * nt1 + lane))
+                                      : 0u;
   }
   const int span = n * R;  // residual words of a row
   float ru[kResid], rd[kResid], ra[kResid];
@@ -499,7 +535,11 @@ __global__ void __launch_bounds__(kK1Threads) k1_val_pair(K1Args p) {
 #pragma unroll
     for (int k = 0; k < kK1LamPer; ++k) {
       const int j = wid + k * kK1Warps;
-      pm[k] = j < gc && lane < nt1 ? ldg(a.part_min + (size_t)(c0 + j) * nt1 + lane) : kInf;
+      if constexpr (kTable)
+        pm[k] = j < gc && lane < nt1 ? __int_as_float(ldg(parts.p[0] + row0 + (size_t)(c0 + j) * nt1 + lane))
+                                     : kInf;
+      else
+        pm[k] = j < gc && lane < nt1 ? ldg(a.part_min + (size_t)(c0 + j) * nt1 + lane) : kInf;
     }
     bool okv[kK1OkPer];
 #pragma unroll
@@ -514,6 +554,20 @@ __global__ void __launch_bounds__(kK1Threads) k1_val_pair(K1Args p) {
       dv[k] = i < gc * R ? ldg(a.demand + (size_t)c0 * R + i) : 0.0f;
     }
     const float capv = tid < gc ? static_cast<float>(ldg(a.node_cap + c0 + tid)) : 0.0f;
+    // the table's other shards' partials, each lane its tile of each
+    for (int q = 1; kTable && q < parts.n && lane < nt1; ++q) {
+      const int* pq = parts.p[q] + row0 + lane;
+#pragma unroll
+      for (int k = 0; k < kK1LamPer; ++k) {
+        const int j = wid + k * kK1Warps;
+        if (j < gc) pm[k] = fminf(pm[k], __int_as_float(ldg(pq + (size_t)(c0 + j) * nt1)));
+      }
+#pragma unroll
+      for (int k = 0; k < kFit; ++k) {
+        const int gr = wid + k * kK1Warps;
+        if (c0 == 0 && gr < rows) fv[k] |= static_cast<unsigned>(ldg(pq + half + (size_t)(g0 + gr) * nt1));
+      }
+    }
     // the stores
     if (c0 == 0) {
 #pragma unroll
@@ -596,6 +650,16 @@ __global__ void __launch_bounds__(kK1Threads) k1_val_pair(K1Args p) {
     }
     __syncthreads();  // the next chunk restages
   }
+}
+
+template <int kR>  // as k1_units'
+__global__ void __launch_bounds__(kK1Threads) k1_val_pair(K1Args p) {
+  k1_val_pair_body<kR, false>(p, K1Parts{});
+}
+
+template <int kR>  // as k1_units'
+__global__ void __launch_bounds__(kK1Threads) k1_val_pair_shards(const __grid_constant__ K1PairArgs pa) {
+  k1_val_pair_body<kR, true>(pa.k1, pa.parts);
 }
 
 // ---------------------------------------------------------------------------
@@ -1624,19 +1688,27 @@ bool k2_plan(const K2Limits& lim, int G, int O, int R, int Z, int NS, int smem_l
 //
 // These replace what XLA partitions for the JAX package's meshed programs
 // (_get_jit(..., mesh=...), _pin and mesh_constraints, jax_solver.py:140-190,
-// 842-900). Shards exchange between launches, ordered by events: K1's
-// partials by device copies (meshed.py), a K2 phase's regions in place or by
-// copies, issued by the phase entry from C (kts_k2m_phase); no kernel
-// waits on another shard inside a launch.
+// 842-900). Shards exchange between launches, ordered by events: a shard
+// reads the other shards' buffers in place where they share memory (one
+// card, or cards with peer access to each other), else copies of them made
+// first (meshed.py); a K2 phase's regions alike, issued by the phase entry
+// from C (kts_k2m_phase). No kernel waits on another shard inside a launch.
+// A kernel that reads several shards' buffers takes their device pointers
+// as a table in its parameters (__grid_constant__, read from the constant
+// bank in place), so that one launch a shard does the cross-shard step and
+// no table or buffer crosses by a copy of its own.
 //
-//   k1_mesh_combine  the K1 partials of every option shard (the rate minima,
-//                    a min; the reserve fits, an any) reduced into the first
-//                    column of the layout k1_val_pair reads; k1_units and
-//                    k1_val_pair then run unchanged over a shard's columns
+//   k1_val_pair_shards
+//                    K1's finish on an option shard: the K1 partials of
+//                    every shard (the rate minima, a min; the reserve fits,
+//                    an any) read through its K1Parts table and reduced as
+//                    K1 reduces its own, then the value table over the
+//                    shard's columns (k1_val_pair's body); k1_units runs
+//                    unchanged
 //   k2m_kernel       one stage of one step of K2 on an option shard, with
 //                    each member's slot state in global memory, replicated
 //                    on every shard (kStInit, kStFill .. kStTailPick, kStEnd)
-//   mesh_seed_offer, mesh_seed_pick, mesh_final_pick
+//   mesh_seed, mesh_final_pick
 //                    the 1D mesh's cross-shard member argmin
 //
 // Every cross-shard value is a min, an OR, or an argmax or argmin with a
@@ -1644,38 +1716,8 @@ bool k2_plan(const K2Limits& lim, int G, int O, int R, int Z, int NS, int smem_l
 // bit for bit; the member cost is summed by k2m_kernel's end stage with
 // k2_scan's thread partition and block reduction, in the same order.
 
-constexpr int kMeshThreads = 256;       // k1_mesh_combine, mesh_seed_pick, mesh_final_pick
+constexpr int kMeshThreads = 256;       // mesh_seed, mesh_final_pick
 constexpr int kMeshTile = 4 * kMeshThreads;  // mesh_final_pick: ints of the buffer a block writes
-constexpr long long kMeshMaxBlocks = 4096;
-
-struct K1CombineArgs {
-  const int* parts;  // [n][2][per]: rate minima (f32 bits), then reserve fits
-  int* out;          // [2][per]: the reductions in tile column 0, neutral elsewhere
-  int n, nt;
-  long long per;     // B * G * nt
-};
-
-__global__ void __launch_bounds__(kMeshThreads) k1_mesh_combine(K1CombineArgs a) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < a.per; i += step) {
-    if (i % a.nt != 0) {
-      a.out[i] = __float_as_int(kInf);
-      a.out[a.per + i] = 0;
-      continue;
-    }
-    float m = kInf;
-    int f = 0;
-    for (int j = 0; j < a.n; ++j) {
-      const int* p = a.parts + (size_t)j * 2 * a.per;
-      for (int c = 0; c < a.nt; ++c) {
-        m = fminf(m, __int_as_float(p[i + c]));
-        f |= p[a.per + i + c];
-      }
-    }
-    a.out[i] = __float_as_int(m);
-    a.out[a.per + i] = f != 0 ? 1 : 0;
-  }
-}
 
 struct K2MLayout {  // word offsets of one member's state (k2m_layout)
   size_t order, scal, zbits, want, cmin, rec, slots, sprice, scomp, sc, words;
@@ -2243,96 +2285,71 @@ __global__ void __launch_bounds__(kK2Threads, 1) k2m_kernel(K2MArgs p) {
   }
 }
 
-struct SeedArgs {
-  const float* cost;   // [B, K] this shard's phase-1 costs
-  const int* orders;   // [B, K, G]
-  const float* alphas; // [B, K]
-  const bool* looks;   // [B, K]
-  const bool* rsvs;    // [B, K]
-  int* out;            // [B, 5 + G] the offer
-  int B, K, G, k0;
+struct SeedShard {       // one shard's phase-1 members, read in place
+  const float* cost;     // [B, kl] its phase-1 costs
+  const int* orders;     // [B, kl, G]
+  const float* alphas;   // [B, kl]
+  const bool* looks;     // [B, kl]
+  const bool* rsvs;      // [B, kl]
 };
 
-// The member argmin's offer (1D mesh): per row, one warp picks this shard's
-// best phase-1 member (the first NaN, else the first minimum) and writes
-// its cost bits, global index, alpha bits, look, rsv and order row.
-__global__ void mesh_seed_offer(SeedArgs a) {
-  const int b = blockIdx.x;
-  const float* c = a.cost + (size_t)b * a.K;
-  const int j = warp_argmin([&](int q) { return c[q]; }, a.K);
-  int* out = a.out + (size_t)b * (5 + a.G);
-  const size_t m = (size_t)b * a.K + j;
-  if (threadIdx.x == 0) {
-    out[0] = __float_as_int(c[j]);
-    out[1] = a.k0 + j;
-    out[2] = __float_as_int(a.alphas[m]);
-    out[3] = a.looks[m] ? 1 : 0;
-    out[4] = a.rsvs[m] ? 1 : 0;
-  }
-  for (int t = threadIdx.x; t < a.G; t += blockDim.x) out[5 + t] = a.orders[m * a.G + t];
-}
-
-struct PickArgs {
-  const int* offers;  // [n][B][5 + G]
-  const int* swaps;   // [B, K, G] this shard's members
-  int* orders2;       // [B, K, G]
-  float* alphas2;     // [B, K]
-  bool* looks2;       // [B, K]
-  bool* rsvs2;        // [B, K]
-  int* b1;            // [B]
-  int n, B, K, G;
+struct SeedTable {
+  SeedShard s[kMeshMaxShards];  // shard i's members are the global members i kl .. (i + 1) kl - 1
+  const int* swaps;      // [B, kl, G] this shard's phase-2 members
+  int* orders2;          // [B, kl, G]
+  float* alphas2;        // [B, kl]
+  bool* looks2;          // [B, kl]
+  bool* rsvs2;           // [B, kl]
+  int* b1;               // [B] the seed's global index
+  int n, B, kl, G;
 };
 
-// The offer a row picks: the first NaN, else the lowest cost, the lowest
-// global index on ties (jnp.argmin over the whole portfolio).
-__device__ __forceinline__ const int* mesh_best_offer(const PickArgs& a, int b) {
-  const size_t per = 5 + (size_t)a.G;
-  int best = 0;
-  for (int s = 1; s < a.n; ++s) {
-    const int* r = a.offers + ((size_t)s * a.B + b) * per;
-    const int* q = a.offers + ((size_t)best * a.B + b) * per;
-    if (argmin_before(__int_as_float(r[0]), r[1], __int_as_float(q[0]), q[1])) best = s;
-  }
-  return a.offers + ((size_t)best * a.B + b) * per;
-}
-
-// The member argmin's pick (1D mesh): the seed over every shard's offer,
-// and this shard's phase-2 members, orders2[k] = seed order[swaps[k]] under
-// the seed's alpha, look and rsv. Grid (B).
-__global__ void __launch_bounds__(kMeshThreads) mesh_seed_pick(PickArgs a) {
-  const int b = blockIdx.x;
-  const int* r = mesh_best_offer(a, b);
-  const int* order = r + 5;
-  const size_t KG = (size_t)a.K * a.G;
+// The member argmin's seed (1D mesh), one launch a shard after phase 1 of
+// K2: per row, the seed over all n kl members of the portfolio (the first
+// NaN, else the lowest cost, the lowest global index on ties: jnp.argmin),
+// then this shard's phase-2 members, orders2[k] = seed order[swaps[k]]
+// under the seed's alpha, look and rsv, the winner's order row read in
+// place from the shard that holds it. Grid (B); every warp finds the seed
+// (the same one, with no barrier: n kl is a few dozen costs). Bound: the
+// launch; its bytes are the n kl costs, one order row, the swaps and the
+// phase-2 members.
+__global__ void __launch_bounds__(kMeshThreads) mesh_seed(const __grid_constant__ SeedTable t) {
+  const int b = blockIdx.x, kl = t.kl;
+  const int j = warp_argmin([&](int q) { return t.s[q / kl].cost[(size_t)b * kl + q % kl]; }, t.n * kl);
+  const SeedShard& w = t.s[j / kl];
+  const size_t m = (size_t)b * kl + j % kl, KG = (size_t)kl * t.G;
+  const int* order = w.orders + m * t.G;
   for (size_t i = threadIdx.x; i < KG; i += blockDim.x)
-    a.orders2[b * KG + i] = order[a.swaps[b * KG + i]];
-  for (int q = threadIdx.x; q < a.K; q += blockDim.x) {
-    a.alphas2[(size_t)b * a.K + q] = __int_as_float(r[2]);
-    a.looks2[(size_t)b * a.K + q] = r[3] != 0;
-    a.rsvs2[(size_t)b * a.K + q] = r[4] != 0;
+    t.orders2[b * KG + i] = order[t.swaps[b * KG + i]];
+  for (int q = threadIdx.x; q < kl; q += blockDim.x) {
+    t.alphas2[(size_t)b * kl + q] = w.alphas[m];
+    t.looks2[(size_t)b * kl + q] = w.looks[m];
+    t.rsvs2[(size_t)b * kl + q] = w.rsvs[m];
   }
-  if (threadIdx.x == 0) a.b1[b] = r[1];
+  if (threadIdx.x == 0) t.b1[b] = j;
 }
 
-struct FinalArgs {
-  const int* bufs;  // [n][B][Ll] each shard's K3 buffer over its kl members
-  const int* b1;    // [B] the global phase-1 seed
-  int* out;         // [B][L] the whole portfolio's buffer
+struct FinalTable {
+  const int* bufs[kMeshMaxShards];  // each shard's K3 buffer [B][Ll] over its kl members, read in place
+  const int* b1;                    // [B] the global phase-1 seed
+  int* out;                         // [B][L] the whole portfolio's buffer
   int n, B, Ll, kl;
 };
 
-// The member argmin over the 2K costs (1D mesh, on the root): every block
-// finds the row's winner among the shards' K3 winners (the first NaN, else
-// the lowest cost, the lowest global index on ties) and writes its
-// kMeshTile ints of the row: the head, the costs and flags in global member
-// order, the winner's rows. Grid (tiles, B).
-__global__ void __launch_bounds__(kMeshThreads) mesh_final_pick(FinalArgs a) {
-  const int b = blockIdx.y, kl = a.kl, K = a.n * kl;
-  const size_t Ll = a.Ll, L = Ll + 4 * (size_t)kl * (a.n - 1);
-  auto buf = [&](int s) { return a.bufs + ((size_t)s * a.B + b) * Ll; };
+// The member argmin over the 2K costs (1D mesh, on the root), one launch a
+// chain: every block finds the row's winner among the shards' K3 winners
+// (the first NaN, else the lowest cost, the lowest global index on ties)
+// and writes its kMeshTile ints of the row: the head, the costs and flags
+// in global member order, the winner's rows, each read in place from the
+// shard that holds it. Grid (tiles, B). Bound: the launch; its bytes are
+// the row it writes and reads once.
+__global__ void __launch_bounds__(kMeshThreads) mesh_final_pick(const __grid_constant__ FinalTable t) {
+  const int b = blockIdx.y, kl = t.kl, K = t.n * kl;
+  const size_t Ll = t.Ll, L = Ll + 4 * (size_t)kl * (t.n - 1);
+  auto buf = [&](int s) { return t.bufs[s] + (size_t)b * Ll; };
   int best = 0, bg = 0;
   float bv = 0.0f;
-  for (int s = 0; s < a.n; ++s) {
+  for (int s = 0; s < t.n; ++s) {
     const int* q = buf(s);
     const int ph = q[0], bk = q[2];
     const float v = __int_as_float(q[4 + ph * kl + bk]);
@@ -2344,14 +2361,14 @@ __global__ void __launch_bounds__(kMeshThreads) mesh_final_pick(FinalArgs a) {
     }
   }
   const int* w = buf(best);
-  int* out = a.out + (size_t)b * L;
+  int* out = t.out + (size_t)b * L;
   const size_t p0 = (size_t)blockIdx.x * kMeshTile, p1 = p0 + kMeshTile < L ? p0 + kMeshTile : L;
   for (size_t q = p0 + threadIdx.x; q < p1; q += blockDim.x) {
     int v;
     if (q == 0) {
       v = w[0];
     } else if (q == 1) {
-      v = a.b1[b];
+      v = t.b1[b];
     } else if (q == 2) {
       v = best * kl + w[2];
     } else if (q == 3) {
@@ -2366,6 +2383,8 @@ __global__ void __launch_bounds__(kMeshThreads) mesh_final_pick(FinalArgs a) {
   }
 }
 
+static_assert(sizeof(SeedTable) <= 4096 && sizeof(FinalTable) <= 4096 && sizeof(K1PairArgs) <= 4096,
+              "a meshed launch's table is a few KB of parameters");
 
 // ---------------------------------------------------------------------------
 // The meshed K2 phase entry's host side (kts_k2m_phase): a phase's launches
@@ -2694,30 +2713,27 @@ int kts_k1_part(
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1's finish on one option shard: the n shards' partials (`parts`,
-// [n][2][B][G][tiles]) combined into `scratch` ([2][B][G][tiles]), then
-// k1_val_pair over the shard's O columns.
+// K1's finish on one option shard: k1_val_pair_shards over the shard's O
+// columns, the n shards' partials (`parts`: n device pointers, each
+// [2][B][G][tiles] words) read in place through its table; k1_pair_rows'
+// groups g a block (at 50k_full's 4,096, 2,048 and 1,024 columns the card
+// ran the rule's choice fastest, PERF.md, row 5).
 int kts_k1_finish(
     const float* demand, const float* demand_units, const int* count, const int* node_cap,
     const bool* colocate, const bool* compat, const float* alloc, const bool* opt_valid,
-    const int* units, int* units_rsv, float* lam, float* val_pair, const int* parts,
-    int* scratch, int n, int B, int G, int O, int E, int R, int Z, int S, void* stream) {
-  const int nt = k1_tiles(O);
-  const long long per = (long long)B * G * nt;
-  K1CombineArgs c{parts, scratch, n, nt, per};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long blocks = (per + kMeshThreads - 1) / kMeshThreads;
-  k1_mesh_combine<<<static_cast<unsigned>(blocks < kMeshMaxBlocks ? blocks : kMeshMaxBlocks), kMeshThreads, 0, st>>>(c);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+    const int* units, int* units_rsv, float* lam, float* val_pair, const void* const* parts,
+    int n, int B, int G, int O, int E, int R, int Z, int S, void* stream) {
+  if (n < 1 || n > kMeshMaxShards) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = k1_pair_rows(B, G, O);
   K1Args a{demand, demand_units, count, node_cap, nullptr, colocate, compat, alloc, nullptr,
            opt_valid, nullptr, nullptr, const_cast<int*>(units), units_rsv, nullptr, lam, nullptr,
-           val_pair, nullptr, nullptr, reinterpret_cast<float*>(scratch), scratch + per, G, O, E, R, Z,
-           S, rows};
-  void (*pair_k)(K1Args) = R == 3 ? k1_val_pair<3> : k1_val_pair<0>;
+           val_pair, nullptr, nullptr, nullptr, nullptr, G, O, E, R, Z, S, rows};
+  K1PairArgs pa{a, {}};
+  for (int i = 0; i < n; ++i) pa.parts.p[i] = static_cast<const int*>(parts[i]);
+  pa.parts.n = n;
+  void (*pair_k)(K1PairArgs) = R == 3 ? k1_val_pair_shards<3> : k1_val_pair_shards<0>;
   const dim3 grid((O + kK1PairTile - 1) / kK1PairTile, (G + rows - 1) / rows, B);
-  pair_k<<<grid, kK1Threads, 0, st>>>(a);
+  pair_k<<<grid, kK1Threads, 0, static_cast<cudaStream_t>(stream)>>>(pa);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2769,30 +2785,43 @@ int kts_k2m_phase(int n, const void* const* ptrs, const int* dims, const int* de
   return static_cast<int>(err);
 }
 
-// The 1D mesh's member argmin: this shard's offer (its best phase-1 member).
-int kts_seed_offer(const float* cost, const int* orders, const float* alphas, const bool* looks,
-                   const bool* rsvs, int* out, int B, int K, int G, int k0, void* stream) {
-  SeedArgs a{cost, orders, alphas, looks, rsvs, out, B, K, G, k0};
-  mesh_seed_offer<<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(a);
+// The 1D mesh's member argmin on one shard: the seed over the n shards'
+// phase-1 members (`members`: n blocks of 5 device pointers, cost, orders,
+// alphas, looks, rsvs, each [B, kl, ...]) and this shard's phase-2 members.
+int kts_mesh_seed(const void* const* members, const int* swaps, int* orders2, float* alphas2,
+                  bool* looks2, bool* rsvs2, int* b1, int n, int B, int kl, int G, void* stream) {
+  if (n < 1 || n > kMeshMaxShards) return static_cast<int>(cudaErrorInvalidValue);
+  SeedTable t{};
+  for (int i = 0; i < n; ++i) {
+    const void* const* m = members + 5 * static_cast<size_t>(i);
+    t.s[i] = SeedShard{static_cast<const float*>(m[0]), static_cast<const int*>(m[1]),
+                       static_cast<const float*>(m[2]), static_cast<const bool*>(m[3]),
+                       static_cast<const bool*>(m[4])};
+  }
+  t.swaps = swaps;
+  t.orders2 = orders2;
+  t.alphas2 = alphas2;
+  t.looks2 = looks2;
+  t.rsvs2 = rsvs2;
+  t.b1 = b1;
+  t.n = n, t.B = B, t.kl = kl, t.G = G;
+  mesh_seed<<<B, kMeshThreads, 0, static_cast<cudaStream_t>(stream)>>>(t);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The seed over the n shards' offers and this shard's phase-2 members.
-int kts_seed_pick(const int* offers, const int* swaps, int* orders2, float* alphas2, bool* looks2,
-                  bool* rsvs2, int* b1, int n, int B, int K, int G, void* stream) {
-  PickArgs a{offers, swaps, orders2, alphas2, looks2, rsvs2, b1, n, B, K, G};
-  mesh_seed_pick<<<B, kMeshThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The winner over the 2K costs from the n shards' K3 buffers ([n][B][Ll],
-// kl members each) into out ([B][Ll + 4 kl (n - 1)]).
-int kts_final_pick(const int* bufs, const int* b1, int* out, int n, int B, int Ll, int kl,
+// The winner over the 2K costs from the n shards' K3 buffers (`bufs`: n
+// device pointers, each [B][Ll] over kl members) into out ([B][Ll + 4 kl (n - 1)]).
+int kts_final_pick(const void* const* bufs, const int* b1, int* out, int n, int B, int Ll, int kl,
                    void* stream) {
-  FinalArgs a{bufs, b1, out, n, B, Ll, kl};
+  if (n < 1 || n > kMeshMaxShards) return static_cast<int>(cudaErrorInvalidValue);
+  FinalTable t{};
+  for (int i = 0; i < n; ++i) t.bufs[i] = static_cast<const int*>(bufs[i]);
+  t.b1 = b1;
+  t.out = out;
+  t.n = n, t.B = B, t.Ll = Ll, t.kl = kl;
   const size_t L = (size_t)Ll + 4 * (size_t)kl * (n - 1);
   const dim3 grid(static_cast<unsigned>((L + kMeshTile - 1) / kMeshTile), B);
-  mesh_final_pick<<<grid, kMeshThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  mesh_final_pick<<<grid, kMeshThreads, 0, static_cast<cudaStream_t>(stream)>>>(t);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,21 +5,28 @@ placements).
 
 A mesh's shards may be distinct cards or logical shards of one card (the
 same device named several times); each shard runs its kernels on its own
-stream, and shards exchange by device copies ordered by events, never
-through the host. Every cross-shard step is a min, an ``any``, or an
-argmax/argmin with a fixed tie rule, so a meshed chain answers bit for bit
-what the un-meshed chain answers (``torch_solver.pack_solve_fused``).
+stream, and shards exchange ordered by events, never through the host.
+Where the shards share memory (one card, or cards that all have peer
+access to each other: ``_shared_regions``), a shard's kernel reads the
+other shards' buffers in place through a table of device pointers in its
+parameters, once its stream has waited on each sender's event; else the
+buffers it reads are copied to it first (``_read_from``) and the same
+kernel reads the copies through the same table. Every cross-shard step is
+a min, an ``any``, or an argmax/argmin with a fixed tie rule, so a meshed
+chain answers bit for bit what the un-meshed chain answers
+(``torch_solver.pack_solve_fused``).
 
 **1D portfolio mesh** (``P(portfolio)`` member arrays). Each shard holds
 the whole problem and K/n members: K1 on every shard, phase 1 of K2 on its
-members, then the cross-shard member argmin (``member_argmin``): each shard
-offers its best phase-1 member (cost, global index, order row, alpha, look,
-rsv), the offers are exchanged, and every shard picks the seed by
+members, then the cross-shard member argmin (``member_argmin``): each
+shard's ``mesh_seed`` picks the seed over every shard's phase-1 costs by
 ``jnp.argmin``'s rule (the first NaN, else the lowest cost, lowest index on
-ties) and builds its phase-2 members from it. K2's phase 2 and K3 run on
-each shard's members; the root gathers the K3 buffers and picks the winner
-over the 2K costs by the same rule. A fleet dispatch's batch rows split over
-the shards instead (``fleet_shardings``), each shard running the un-meshed
+ties) and builds its phase-2 members from the winner's order row, alpha,
+look and rsv, read where the winner lies. K2's phase 2 and K3 run on each
+shard's members; the root's ``final_pick`` reads the shards' K3 buffers and
+picks the winner over the 2K costs by the same rule: n + 1 launches a chain
+and, on one card, no copy. A fleet dispatch's batch rows split over the
+shards instead (``fleet_shardings``), each shard running the un-meshed
 chain on its rows.
 
 **2D options x fleet mesh** (rule-table placements). Batch rows split over
@@ -29,9 +36,9 @@ chain on its rows.
 
 * K1 (``shard_precompute_part`` then ``shard_precompute_finish``): each
   shard computes its columns' unit counts and a partial ``lam`` (the
-  cheapest rate, a min) and ``row_fits`` (an ``any``); the partials are
-  exchanged and combined, and the value table is computed over the shard's
-  columns with the global ``lam``.
+  cheapest rate, a min) and ``row_fits`` (an ``any``); each shard's finish,
+  one launch, reduces every shard's partials (read in place on one card)
+  and computes the value table over its columns with the global ``lam``.
 * K2 (``shard_member``): each member's slot state is replicated on every
   shard, as XLA replicates it. A step is four launches, each followed by an
   exchange: (A) the last step's tail choices, segments and opened slots,
@@ -114,6 +121,9 @@ STAGES = ("fill", "pick", "tail", "tail_pick")
 #: chains also launch count in ``torch_solver.LAUNCHES``)
 LAUNCHES = {"shard_precompute_part": 0, "shard_precompute_finish": 0, "shard_member": 0,
             "member_argmin": 0}
+#: buffers copied to a shard for a wrapper's kernel to read (``_read_from``):
+#: none where the shards share memory
+COPIES = {"shard_precompute_finish": 0, "member_argmin": 0}
 
 
 def _count(name: str) -> None:
@@ -185,16 +195,53 @@ def _all_gather(shards: Sequence[_Shard], regions: Sequence[torch.Tensor]) -> No
                         regions[j][s].copy_(regions[s][s], non_blocking=True)
 
 
+def _record(shards: Sequence[_Shard]) -> None:
+    """Each shard's event after the work enqueued on its stream so far."""
+    if shards[0].stream is not None:
+        for s in shards:
+            s.event.record(s.stream)
+
+
+def _read_from(rx: _Shard, shards: Sequence[_Shard], bufs: Sequence[tuple], shared: bool,
+               what: str) -> List[tuple]:
+    """What receiver ``rx``'s next launch reads of every shard's buffers
+    (``bufs[s]``, a tuple of shard s's tensors), after ``_record``: rx's
+    stream waits on every other shard's event, then each other shard's
+    tensors are read in place where the shards share memory, else copied to
+    rx on its stream (counted in ``COPIES[what]``). Either way rx's stream
+    reads them, so each is recorded on that stream: the allocator hands its
+    memory out again only after that read, however soon its owner frees it."""
+    out = []
+    for sh, ts_ in zip(shards, bufs):
+        if sh is rx:
+            out.append(ts_)
+            continue
+        if rx.stream is not None:
+            rx.stream.wait_event(sh.event)
+            for t in ts_:
+                t.record_stream(rx.stream)
+        if shared:
+            out.append(ts_)
+            continue
+        with _on(rx):
+            out.append(tuple(t.to(rx.device, copy=True, non_blocking=True) for t in ts_))
+        with ts._COUNT_LOCK:
+            COPIES[what] += len(ts_)
+    return out
+
+
 def _gather_to(root: _Shard, shards: Sequence[_Shard], srcs: Sequence[torch.Tensor],
                dst: torch.Tensor) -> None:
     """``dst[i] = srcs[i]`` on the root's stream, each copy after an event
-    on its sender's stream."""
+    on its sender's stream (the source recorded on the root's stream, which
+    reads it)."""
     cuda = root.stream is not None
     for i, (s, src) in enumerate(zip(shards, srcs)):
         if cuda:
             if s is not root:
                 s.event.record(s.stream)
                 root.stream.wait_event(s.event)
+                src.record_stream(root.stream)
             with _on(root):
                 dst[i].copy_(src, non_blocking=True)
         else:
@@ -250,14 +297,16 @@ def shard_precompute_part_ref(inputs: PackInputs, s_new: int, part: torch.Tensor
     return _stack(outs)
 
 
-def shard_precompute_finish_ref(inputs: PackInputs, sp: ShardPart, parts: torch.Tensor) -> Shared:
-    """Combine every shard's partials (``parts``, ``[n, 2, B, G, tiles]``:
+def shard_precompute_finish_ref(inputs: PackInputs, sp: ShardPart, parts: Sequence[torch.Tensor]) -> Shared:
+    """Combine every shard's partials (``parts[s]``, ``[2, B, G, tiles]``:
     the min of the rates, the any of the fits), finish the reserve-sized
     counts and compute the value table over this shard's columns with the
     global ``lam``."""
     B = inputs.demand.shape[0]
-    lam_raw = parts[:, 0].view(_F32).amin(-1).amin(0)  # [B, G]
-    row_fits = (parts[:, 1] != 0).any(-1).any(0)  # [B, G]
+    dev = inputs.demand.device
+    stacked = torch.stack([p.to(dev) for p in parts])
+    lam_raw = stacked[:, 0].view(_F32).amin(-1).amin(0)  # [B, G]
+    row_fits = (stacked[:, 1] != 0).any(-1).any(0)  # [B, G]
     outs = []
     for b in range(B):
         x = _row(inputs, b)
@@ -660,55 +709,31 @@ def _argmin_before(v2: float, i2: int, v: float, i: int) -> bool:
     return i2 < i if nan2 else (v2 < v or (v2 == v and i2 < i))
 
 
-def seed_offer_ref(cost: torch.Tensor, k0: int, orders, alphas, looks, rsvs, out: torch.Tensor) -> None:
-    """This shard's phase-1 offer per row into ``out`` ([B, 5 + G] int32):
-    its best member's cost bits, global index, alpha bits, look, rsv and
-    order row."""
-    for b in range(cost.shape[0]):
-        j = int(torch.argmin(cost[b]))
-        out[b, 0] = _i(cost[b, j : j + 1].contiguous())[0]
-        out[b, 1] = k0 + j
-        out[b, 2] = _i(alphas[b, j : j + 1].contiguous())[0]
-        out[b, 3] = int(looks[b, j])
-        out[b, 4] = int(rsvs[b, j])
-        out[b, 5:] = orders[b, j]
+def mesh_seed_ref(costs, orders, alphas, looks, rsvs, swaps: torch.Tensor):
+    """The seed over every shard's phase-1 members (``costs[s]``,
+    ``orders[s]``, ... : shard s's ``[B, kl, ...]``, its members the global
+    members s kl .. (s + 1) kl - 1) by ``torch.argmin`` over the whole
+    portfolio (the first NaN, else the first minimum), and this shard's
+    phase-2 members: ``orders2[k] = seed_order[swaps[k]]`` under the seed's
+    alpha, look and rsv. Returns ``(orders2, alphas2, looks2, rsvs2, b1)``."""
+    dev = swaps.device
+    cat = lambda xs: torch.cat([x.to(dev) for x in xs], 1)  # noqa: E731
+    cost, order, alpha, look, rsv = map(cat, (costs, orders, alphas, looks, rsvs))
+    B, kl, G = swaps.shape
+    j = torch.argmin(cost, 1)  # [B]
+    rows = torch.arange(B, device=dev)
+    seed = order[rows, j]  # [B, G]
+    expand = lambda x: x[rows, j][:, None].expand(B, kl).contiguous()  # noqa: E731
+    return (torch.gather(seed[:, None, :].expand(B, kl, G), 2, swaps.long()),
+            expand(alpha), expand(look), expand(rsv), j.to(_I32)[:, None])
 
 
-def _pick_offer(offers: torch.Tensor, b: int) -> int:
-    best = 0
-    for s in range(1, offers.shape[0]):
-        v2 = float(_f(offers[s, b, 0:1].contiguous())[0])
-        v = float(_f(offers[best, b, 0:1].contiguous())[0])
-        if _argmin_before(v2, int(offers[s, b, 1]), v, int(offers[best, b, 1])):
-            best = s
-    return best
-
-
-def seed_pick_ref(offers: torch.Tensor, swaps: torch.Tensor):
-    """The seed over every shard's offer (``offers``, ``[n, B, 5 + G]``),
-    and this shard's phase-2 members: ``orders2[k] = seed_order[swaps[k]]``
-    under the seed's alpha, look and rsv. Returns ``(orders2, alphas2,
-    looks2, rsvs2, b1)``."""
-    B, K, G = swaps.shape
-    outs = []
-    for b in range(B):
-        rec = offers[_pick_offer(offers, b), b]
-        order = rec[5:]
-        outs.append((
-            order[swaps[b].long()],
-            _f(rec[2:3].contiguous()).expand(K).contiguous(),
-            (rec[3] != 0).expand(K).contiguous(),
-            (rec[4] != 0).expand(K).contiguous(),
-            rec[1].reshape(1),
-        ))
-    return tuple(torch.stack(xs) for xs in zip(*outs))
-
-
-def final_pick_ref(bufs: torch.Tensor, b1: torch.Tensor, kl: int) -> torch.Tensor:
+def final_pick_ref(bufs: Sequence[torch.Tensor], b1: torch.Tensor, kl: int) -> torch.Tensor:
     """The fused buffer of the whole portfolio from every shard's K3 buffer
-    (``bufs``, ``[n, B, L_local]`` over ``kl`` members each): the winner over
+    (``bufs[s]``, ``[B, L_local]`` over ``kl`` members each): the winner over
     the 2K costs by jnp.argmin's rule, the global seed ``b1``, the costs and
     flags in global member order, and the winner's rows."""
+    bufs = torch.stack([x.to(b1.device) for x in bufs])
     n, B, Ll = bufs.shape
     K = n * kl
     tail = Ll - 4 - 4 * kl
@@ -795,12 +820,27 @@ def _launch_shard_precompute_part(lib, inputs: PackInputs, s_new: int, part, str
     return sp
 
 
-def shard_precompute_finish(inputs: PackInputs, sp: ShardPart, parts: torch.Tensor) -> Shared:
-    """K1's finish on one option shard: the partials of every shard
-    combined (``k1_mesh_combine``), then ``k1_val_pair`` over the columns."""
+def shard_precompute_finish(inputs: PackInputs, sp: ShardPart, parts: Sequence[torch.Tensor]) -> Shared:
+    """K1's finish on one option shard, one launch: ``k1_val_pair`` over
+    the columns, reducing every shard's partials (``parts[s]``, read in
+    place through its table)."""
     if _plain(inputs.demand):
         return shard_precompute_finish_ref(inputs, sp, parts)
     return _launch_shard_precompute_finish(_lib(), inputs, sp, parts, ts._stream())
+
+
+def _table(tensors) -> ctypes.Array:
+    """Device pointers of ``tensors`` as a C array (a kernel's table)."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _check_table(what: str, tensors, dtype, shape: tuple) -> None:
+    """The buffers a table names: each contiguous, of ``dtype`` and ``shape``."""
+    for t in tensors:
+        if t.dtype is not dtype or t.shape != shape or not t.is_contiguous():
+            raise ValueError(f"{what}: a buffer of {t.dtype} {tuple(t.shape)}"
+                             f"{'' if t.is_contiguous() else ', not contiguous'}; expected {dtype} "
+                             f"{shape}, contiguous")
 
 
 def _launch_shard_precompute_finish(lib, inputs: PackInputs, sp: ShardPart, parts, stream) -> Shared:
@@ -808,16 +848,15 @@ def _launch_shard_precompute_finish(lib, inputs: PackInputs, sp: ShardPart, part
     G, O, E, R, Z = ts._dims(inputs)
     NS = sp.exok_pad.shape[-1]
     dev = inputs.demand.device
+    _check_table("shard_precompute_finish", parts, _I32, (2, B, G, int(lib.kts_k1_tiles(O))))
     lam = torch.empty((B, G), dtype=_F32, device=dev)
     val_pair = torch.empty((B, G, O, G), dtype=_F32, device=dev)
-    scratch = torch.empty(parts.shape[1:], dtype=_I32, device=dev)
     rc = lib.kts_k1_finish(
         ts._ptr(inputs.demand), ts._ptr(inputs.demand_units), ts._ptr(inputs.count),
         ts._ptr(inputs.node_cap), ts._ptr(inputs.colocate), ts._ptr(inputs.compat),
         ts._ptr(inputs.alloc), ts._ptr(inputs.opt_valid),
         ts._ptr(sp.units), ts._ptr(sp.units_rsv), ts._ptr(lam), ts._ptr(val_pair),
-        ts._ptr(parts), ts._ptr(scratch), parts.shape[0],
-        B, G, O, E, R, Z, NS - E, stream,
+        _table(parts), len(parts), B, G, O, E, R, Z, NS - E, stream,
     )
     _count("shard_precompute_finish")
     ts._raise_on(lib, rc, "shard_precompute_finish")
@@ -929,10 +968,12 @@ def _phase_buffers(lib, shards, dims, s_new: int) -> list:
 
 
 def _shared_regions(shards) -> bool:
-    """Whether a phase's shards share one copy of the exchange regions,
-    each reading the others' rows in place: on one card, or on cards that
-    all have peer access to each other. Else each holds its own copy, and
-    the exchanges copy rows between them."""
+    """Whether the shards share memory: on one card, or on cards that all
+    have peer access to each other. A K2 phase's shards then share one copy
+    of the exchange regions, and K1's finish and the member argmin read the
+    other shards' buffers in place; else each shard holds its own copy of
+    the regions, the exchanges copy rows between them, and ``_read_from``
+    copies what a kernel reads."""
     cards = {_device_index(sh) for sh in shards}
     return len(cards) == 1 or all(torch.cuda.can_device_access_peer(a, b)
                                   for a in cards for b in cards if a != b)
@@ -989,50 +1030,45 @@ def _issue_stages(shards, mss) -> List[MemberOut]:
     return out
 
 
-def seed_offer(cost, k0: int, orders, alphas, looks, rsvs, out: torch.Tensor) -> None:
-    """The member argmin's first half on one shard: its best phase-1 member
-    as an offer."""
-    if _plain(cost):
-        seed_offer_ref(cost, k0, orders, alphas, looks, rsvs, out)
-        return
+def mesh_seed(costs, orders, alphas, looks, rsvs, swaps: torch.Tensor):
+    """The member argmin's seed on one shard, one launch: the seed over
+    every shard's phase-1 members (``costs[s]``, ``orders[s]``, ... read in
+    place through its table) and this shard's phase-2 member arrays."""
+    if _plain(swaps):
+        return mesh_seed_ref(costs, orders, alphas, looks, rsvs, swaps)
     lib = _lib()
-    B, K = cost.shape
-    rc = lib.kts_seed_offer(ts._ptr(cost), ts._ptr(orders), ts._ptr(alphas), ts._ptr(looks),
-                            ts._ptr(rsvs), ts._ptr(out), B, K, orders.shape[-1], k0, ts._stream())
-    _count("member_argmin")
-    ts._raise_on(lib, rc, "member_argmin (offer)")
-
-
-def seed_pick(offers: torch.Tensor, swaps: torch.Tensor):
-    """The member argmin's second half on one shard: the seed over every
-    offer and this shard's phase-2 member arrays."""
-    if _plain(offers):
-        return seed_pick_ref(offers, swaps)
-    lib = _lib()
-    B, K, G = swaps.shape
-    dev = offers.device
-    orders2 = torch.empty((B, K, G), dtype=_I32, device=dev)
-    alphas2 = torch.empty((B, K), dtype=_F32, device=dev)
-    looks2 = torch.empty((B, K), dtype=_BOOL, device=dev)
-    rsvs2 = torch.empty((B, K), dtype=_BOOL, device=dev)
+    B, kl, G = swaps.shape
+    n = len(costs)
+    for what, xs, dtype, shape in (("cost", costs, _F32, (B, kl)), ("orders", orders, _I32, (B, kl, G)),
+                                   ("alphas", alphas, _F32, (B, kl)), ("looks", looks, _BOOL, (B, kl)),
+                                   ("rsvs", rsvs, _BOOL, (B, kl)), ("swaps", (swaps,), _I32, (B, kl, G))):
+        _check_table(f"member_argmin (seed) {what}", xs, dtype, shape)
+    dev = swaps.device
+    orders2 = torch.empty((B, kl, G), dtype=_I32, device=dev)
+    alphas2 = torch.empty((B, kl), dtype=_F32, device=dev)
+    looks2 = torch.empty((B, kl), dtype=_BOOL, device=dev)
+    rsvs2 = torch.empty((B, kl), dtype=_BOOL, device=dev)
     b1 = torch.empty((B, 1), dtype=_I32, device=dev)
-    rc = lib.kts_seed_pick(ts._ptr(offers), ts._ptr(swaps), ts._ptr(orders2), ts._ptr(alphas2),
-                           ts._ptr(looks2), ts._ptr(rsvs2), ts._ptr(b1), offers.shape[0], B, K, G,
-                           ts._stream())
+    members = _table([t for s in range(n) for t in (costs[s], orders[s], alphas[s], looks[s], rsvs[s])])
+    rc = lib.kts_mesh_seed(members, ts._ptr(swaps), ts._ptr(orders2), ts._ptr(alphas2), ts._ptr(looks2),
+                           ts._ptr(rsvs2), ts._ptr(b1), n, B, kl, G, ts._stream())
     _count("member_argmin")
-    ts._raise_on(lib, rc, "member_argmin (pick)")
+    ts._raise_on(lib, rc, "member_argmin (seed)")
     return orders2, alphas2, looks2, rsvs2, b1
 
 
-def final_pick(bufs: torch.Tensor, b1: torch.Tensor, kl: int) -> torch.Tensor:
-    """The member argmin over the 2K costs on the root: the whole
-    portfolio's fused buffer from every shard's K3 buffer."""
-    if _plain(bufs):
+def final_pick(bufs: Sequence[torch.Tensor], b1: torch.Tensor, kl: int) -> torch.Tensor:
+    """The member argmin over the 2K costs on the root, one launch: the
+    whole portfolio's fused buffer from every shard's K3 buffer
+    (``bufs[s]``, read in place through its table)."""
+    if _plain(b1):
         return final_pick_ref(bufs, b1, kl)
     lib = _lib()
-    n, B, Ll = bufs.shape
-    out = torch.empty((B, Ll + 4 * kl * (n - 1)), dtype=_I32, device=bufs.device)
-    rc = lib.kts_final_pick(ts._ptr(bufs), ts._ptr(b1), ts._ptr(out), n, B, Ll, kl, ts._stream())
+    n = len(bufs)
+    B, Ll = bufs[0].shape
+    _check_table("member_argmin (final)", bufs, _I32, (B, Ll))
+    out = torch.empty((B, Ll + 4 * kl * (n - 1)), dtype=_I32, device=b1.device)
+    rc = lib.kts_final_pick(_table(bufs), ts._ptr(b1), ts._ptr(out), n, B, Ll, kl, ts._stream())
     _count("member_argmin")
     ts._raise_on(lib, rc, "member_argmin (final)")
     return out
@@ -1052,50 +1088,53 @@ def _batched(x: PackInputs) -> PackInputs:
 
 def _portfolio_chain(shards, inputs, members, s_new: int, n_zones: int) -> torch.Tensor:
     """The 1D mesh over members: ``inputs[s]`` whole on shard s,
-    ``members[s]`` its K/n members (``[B, K/n, ...]``)."""
+    ``members[s]`` its K/n members (``[B, K/n, ...]``). The member argmin
+    reads the shards' phase-1 members and K3 buffers where they lie
+    (``_read_from``, which records each on the stream that reads it)."""
     n = len(shards)
-    B, kl, G = members[0][0].shape
-    shared, m1, offers = [None] * n, [None] * n, []
+    kl = members[0][0].shape[1]
+    shared_mem = _shared_regions(shards)
+    shared, m1 = [None] * n, [None] * n
     for s, sh in enumerate(shards):
         with _on(sh):
-            offers.append(torch.empty((n, B, 5 + G), dtype=_I32, device=sh.device))
             orders, alphas, looks, rsvs, _ = members[s]
             shared[s] = ts.shared_precompute(inputs[s], s_new, n_zones)
             m1[s] = ts.pack_member(inputs[s], shared[s], orders, alphas, looks, rsvs, s_new, n_zones)
-            seed_offer(m1[s].cost, s * kl, orders, alphas, looks, rsvs, offers[s][s])
-    _all_gather(shards, offers)
+    _record(shards)
+    phase1 = [(m1[s].cost,) + tuple(members[s][:4]) for s in range(n)]
     bufs, b1 = [], None
     for s, sh in enumerate(shards):
+        seen = _read_from(sh, shards, phase1, shared_mem, "member_argmin")
         with _on(sh):
-            o2, a2, l2, r2, b1_s = seed_pick(offers[s], members[s][4])
+            o2, a2, l2, r2, b1_s = mesh_seed(*zip(*seen), members[s][4])
             m2 = ts.pack_member(inputs[s], shared[s], o2, a2, l2, r2, s_new, n_zones)
             bufs.append(ts.pack_epilogue(m1[s], m2))
             b1 = b1_s if s == 0 else b1
+    _record(shards)
     root = shards[0]
+    seen = _read_from(root, shards, [(b,) for b in bufs], shared_mem, "member_argmin")
     with _on(root):
-        gathered = torch.empty((n,) + tuple(bufs[0].shape), dtype=_I32, device=root.device)
-    _gather_to(root, shards, bufs, gathered)
-    with _on(root):
-        return final_pick(gathered, b1, kl)
+        return final_pick([b for b, in seen], b1, kl)
 
 
 def shard_precompute_all(shards, inputs, s_new: int) -> List[Shared]:
-    """K1 over an option split: each shard's part, the exchange of the
-    partials, each shard's finish."""
-    n = len(shards)
+    """K1 over an option split: each shard's part, then each shard's
+    finish, which reads every shard's partials where they lie
+    (``_read_from``)."""
     B, G = inputs[0].demand.shape[:2]
     O = inputs[0].price.shape[-1]
     parts, sps = [], []
     for s, sh in enumerate(shards):
         with _on(sh):
-            nt = k1_tiles(O, sh.device)
-            parts.append(torch.zeros((n, 2, B, G, nt), dtype=_I32, device=sh.device))
-            sps.append(shard_precompute_part(inputs[s], s_new, parts[s][s]))
-    _all_gather(shards, parts)
+            parts.append(torch.empty((2, B, G, k1_tiles(O, sh.device)), dtype=_I32, device=sh.device))
+            sps.append(shard_precompute_part(inputs[s], s_new, parts[s]))
+    _record(shards)
+    shared_mem = _shared_regions(shards)
     shared = []
     for s, sh in enumerate(shards):
+        seen = _read_from(sh, shards, [(p,) for p in parts], shared_mem, "shard_precompute_finish")
         with _on(sh):
-            shared.append(shard_precompute_finish(inputs[s], sps[s], parts[s]))
+            shared.append(shard_precompute_finish(inputs[s], sps[s], [p for p, in seen]))
     return shared
 
 

@@ -787,11 +787,17 @@ def test_emulated_shard_kernels_match_plain_versions(emulated, case, monkeypatch
         _assert_members(ts._row(got, 0), ts._row(want, 0))
 
 
+def _cpu_shards(n):
+    return [meshed._Shard(parallel.make_mesh(n, devices=["cpu"] * n), i) for i in range(n)]
+
+
 def test_emulated_member_argmin_on_nan_and_ties(emulated, monkeypatch):
-    """The 1D mesh's member argmin (offer, pick, final pick) against its
-    plain versions on costs holding NaN, +-inf and ties spread over four
-    shards: the seed and the winner are jnp.argmin's over the whole
-    portfolio."""
+    """The 1D mesh's member argmin (each shard's seed, the root's final
+    pick) against its plain versions on costs holding NaN, +-inf and ties
+    spread over four shards, each kernel reading the other shards' buffers
+    in place and, with ``_shared_regions`` answering no, copies of them
+    (counted in ``meshed.COPIES``): the seed and the winner are
+    jnp.argmin's over the whole portfolio."""
     n, kl, G, T, NS, S, B = 4, 2, 5, 3, 9, 4, 2
     K = n * kl
     rng = np.random.default_rng(11)
@@ -799,40 +805,108 @@ def test_emulated_member_argmin_on_nan_and_ties(emulated, monkeypatch):
     alphas = torch.from_numpy(rng.random((n, B, kl)).astype(np.float32))
     looks = torch.from_numpy(rng.random((n, B, kl)) < 0.5)
     rsvs = torch.from_numpy(rng.random((n, B, kl)) < 0.5)
-    swaps = torch.from_numpy(rng.permuted(np.tile(np.arange(G, dtype=np.int32), (B, kl, 1)), axis=-1))
+    swaps = torch.from_numpy(rng.permuted(np.tile(np.arange(G, dtype=np.int32), (n, B, kl, 1)), axis=-1))
+    shards = _cpu_shards(n)
+    m1s, m2s = _members(kl, T, NS, S, B, seed=7)
     for c1, c2 in COST_SETS:
         c1 = torch.tensor([c1[:K]] * B, dtype=torch.float32).reshape(B, n, kl).transpose(0, 1).contiguous()
         c2 = torch.tensor([c2[:K]] * B, dtype=torch.float32).reshape(B, n, kl).transpose(0, 1).contiguous()
+        # each shard's K3 buffer over its members
+        bufs = [torch.stack([ts.pack_epilogue_ref(ts._row(m1s._replace(cost=c1[s]), b),
+                                                  ts._row(m2s._replace(cost=c2[s]), b))
+                             for b in range(B)]) for s in range(n)]
+        phase1 = [(c1[s], orders[s], alphas[s], looks[s], rsvs[s]) for s in range(n)]
         outs = {}
-        for mode in ("plain", "emulated"):
-            if mode == "emulated":
-                monkeypatch.setattr(meshed, "_plain", lambda t: False)
-                monkeypatch.setattr(meshed, "_lib", lambda: emulated)
-                monkeypatch.setattr(ts, "_stream", lambda: NULL_STREAM)
-            offers = torch.zeros((n, B, 5 + G), dtype=torch.int32)
-            for s in range(n):
-                meshed.seed_offer(c1[s], s * kl, orders[s], alphas[s], looks[s], rsvs[s], offers[s])
-            picked = meshed.seed_pick(offers, swaps)
-            # each shard's K3 buffer over its members, then the final pick
-            m1s, m2s = _members(kl, T, NS, S, B, seed=7)
-            bufs = torch.stack([
-                ts.pack_epilogue_ref(ts._row(m1s._replace(cost=c1[s]), b), ts._row(m2s._replace(cost=c2[s]), b))
-                for s in range(n) for b in range(B)]).reshape(n, B, -1)
-            outs[mode] = (offers, picked, meshed.final_pick(bufs, picked[4], kl))
-        for got, want in zip(outs["emulated"][:2], outs["plain"][:2]):
-            for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
-                assert torch.equal(g, w)
-        final = outs["emulated"][2]
-        assert torch.equal(final, outs["plain"][2])
+        for mode in ("plain", "in place", "copies"):
+            monkeypatch.setattr(meshed, "_plain", lambda t: mode == "plain")
+            monkeypatch.setattr(meshed, "_lib", lambda: emulated)
+            monkeypatch.setattr(ts, "_stream", lambda: NULL_STREAM)
+            shared = mode != "copies"
+            copies = dict(meshed.COPIES)
+            seeds = [meshed.mesh_seed(*zip(*meshed._read_from(sh, shards, phase1, shared, "member_argmin")),
+                                      swaps[s]) for s, sh in enumerate(shards)]
+            seen = meshed._read_from(shards[0], shards, [(b,) for b in bufs], shared, "member_argmin")
+            outs[mode] = (seeds, meshed.final_pick([b for b, in seen], seeds[0][4], kl))
+            assert meshed.COPIES["member_argmin"] - copies["member_argmin"] == (
+                0 if shared else 5 * n * (n - 1) + (n - 1)), mode
+        for mode in ("in place", "copies"):
+            for got, want in zip(outs[mode][0], outs["plain"][0]):
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), mode
+            assert torch.equal(outs[mode][1], outs["plain"][1]), mode
+        final = outs["in place"][1]
         flat1 = c1.transpose(0, 1).reshape(B, K)
         flat2 = c2.transpose(0, 1).reshape(B, K)
         for b in range(B):
             j = int(jnp.argmin(jnp.asarray(flat1[b].numpy())))
-            assert int(outs["emulated"][1][4][b, 0]) == j == int(final[b, 1])
+            assert all(int(seed[4][b, 0]) == j for seed in outs["in place"][0]) and j == int(final[b, 1])
+            for s, seed in enumerate(outs["in place"][0]):
+                assert torch.equal(seed[0][b], orders[j // kl, b, j % kl][swaps[s, b].long()])
             best = int(jnp.argmin(jnp.asarray(np.concatenate([flat1[b].numpy(), flat2[b].numpy()]))))
             assert (int(final[b, 0]), int(final[b, 2])) == (int(best >= K), best % K)
             costs = final[b, 4 : 4 + 2 * K].view(torch.float32)
             assert torch.equal(costs.view(torch.int32), torch.cat([flat1[b], flat2[b]]).view(torch.int32))
+
+
+@pytest.mark.parametrize("case,n", [("topology", 2), ("relations", 4)])
+def test_emulated_k1_finish_reads_the_partials_in_place_or_copied(emulated, monkeypatch, case, n):
+    """K1 over n option shards, each shard's finish one launch reading every
+    shard's partials through its table: in place, and with
+    ``_shared_regions`` answering no, from copies (counted in
+    ``meshed.COPIES``). Both equal the plain versions' and the un-meshed
+    K1's, split by columns, bit for bit."""
+    (inputs, o, a, l, r, sw), S, nz = _inputs(case)
+    shards = _cpu_shards(n)
+    ins = _split(inputs, n)
+    plain = meshed.shard_precompute_all(shards, ins, S)
+    whole = ts.shared_precompute_ref(inputs, S, nz)
+    _on_emulated_shards(emulated, monkeypatch)
+    for shared in (True, False):
+        monkeypatch.setattr(meshed, "_shared_regions", lambda shards: shared)
+        copies = meshed.COPIES["shard_precompute_finish"]
+        launches = dict(meshed.LAUNCHES)
+        k1 = meshed.shard_precompute_all(shards, ins, S)
+        assert meshed.COPIES["shard_precompute_finish"] - copies == (0 if shared else n * (n - 1))
+        assert {k: meshed.LAUNCHES[k] - launches[k] for k in launches} == {
+            "shard_precompute_part": n, "shard_precompute_finish": n, "shard_member": 0, "member_argmin": 0}
+        for got, want in zip(k1, plain):
+            for f in ("units", "units_rsv", "rsv_group", "lam", "zone_limited", "val_pair", "exok_pad"):
+                assert torch.equal(getattr(got, f), getattr(want, f)), (shared, f)
+        assert torch.equal(torch.cat([k.val_pair[0] for k in k1], 1), whole.val_pair)
+        assert torch.equal(torch.cat([k.units_rsv[0] for k in k1], 1), whole.units_rsv)
+        assert all(torch.equal(k.lam[0], whole.lam) for k in k1)
+
+
+def test_emulated_k1_finish_reduces_the_partials_of_forty_shards(emulated):
+    """The finish's table of 40 buffers, more than a warp has lanes: each
+    lane loops over the shards for its tile, and the reduction (a min, an
+    any) equals the un-meshed K1's over one buffer bit for bit. The real
+    partials are dealt over the 40 buffers, the rest of each buffer neutral
+    (+inf, no fit); a table past the kernel's 64 shards is refused."""
+    (inputs, o, a, l, r, sw), S, nz = _inputs("existing")
+    x = ts._unsqueeze(inputs)
+    B, G, O = 1, x.demand.shape[1], x.price.shape[-1]
+    nt = int(emulated.kts_k1_tiles(O))
+    part = torch.empty((2, B, G, nt), dtype=torch.int32)
+    sp = meshed._launch_shard_precompute_part(emulated, x, S, part, NULL_STREAM)
+    one = meshed._launch_shard_precompute_finish(emulated, x, sp, [part], NULL_STREAM)
+    rng = np.random.default_rng(3)
+    owner = torch.from_numpy(rng.integers(0, 40, size=(B, G, nt)))
+    parts = []
+    for i in range(40):
+        p = torch.empty_like(part)
+        p[0] = torch.where(owner == i, part[0], torch.tensor(1e30, dtype=torch.float32).view(torch.int32))
+        p[1] = torch.where(owner == i, part[1], 0)
+        parts.append(p)
+    many = meshed._launch_shard_precompute_finish(emulated, x, sp, parts, NULL_STREAM)
+    for f in ("lam", "units_rsv", "val_pair"):
+        assert torch.equal(getattr(many, f), getattr(one, f)), f
+    whole = ts.shared_precompute_ref(inputs, S, nz)
+    assert torch.equal(one.val_pair[0], whole.val_pair) and torch.equal(one.lam[0], whole.lam)
+    with pytest.raises(RuntimeError, match="shard_precompute_finish"):
+        ts._raise_on(emulated, emulated.kts_k1_finish(*([None] * 12), meshed._table(parts * 2), 80,
+                                                      B, G, O, 0, 3, 4, S, NULL_STREAM),
+                     "shard_precompute_finish")
 
 
 # ---------------------------------------------------------------------------

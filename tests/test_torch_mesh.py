@@ -253,8 +253,9 @@ def test_meshed_fleet_equals_unmeshed_bit_for_bit(kind, shape):
 
 
 def test_member_argmin_takes_the_first_nan_then_the_lowest_index():
-    """The 1D mesh's member argmin picks as ``torch.argmin`` over the whole
-    portfolio: the first NaN, else the first minimum, across shards."""
+    """The 1D mesh's member argmin (``mesh_seed`` over every shard's
+    phase-1 members) picks as ``torch.argmin`` over the whole portfolio: the
+    first NaN, else the first minimum, across shards."""
     G, kl, n = 5, 2, 4
     rng = np.random.default_rng(5)
     orders = torch.from_numpy(rng.permuted(np.tile(np.arange(G, dtype=np.int32), (n, 1, kl, 1)), axis=-1))
@@ -266,14 +267,14 @@ def test_member_argmin_takes_the_first_nan_then_the_lowest_index():
     for costs in ([3.0, 1.0, 1.0, 2.0, 1.0, 5.0, 1.0, 9.0], [3.0, 1.0, nan, 2.0, nan, 5.0, 0.0, 9.0],
                   [1.0] * 8, [9.0, 9.0, 9.0, 9.0, 9.0, 9.0, 9.0, 0.5]):
         c = torch.tensor(costs, dtype=torch.float32).reshape(n, 1, kl)
-        offers = torch.zeros((n, 1, 5 + G), dtype=torch.int32)
-        for s in range(n):
-            meshed.seed_offer(c[s], s * kl, orders[s], alphas[s], looks[s], rsvs[s], offers[s])
-        o2, a2, l2, r2, b1 = meshed.seed_pick(offers, swaps)
+        o2, a2, l2, r2, b1 = meshed.mesh_seed(list(c), list(orders), list(alphas), list(looks),
+                                              list(rsvs), swaps)
         j = int(torch.argmin(c.reshape(-1)))
-        assert int(b1[0, 0]) == j
+        assert int(b1[0, 0]) == j == int(jnp.argmin(jnp.asarray(c.reshape(-1).numpy())))
         assert torch.equal(o2[0, 0], orders[j // kl, 0, j % kl])
         assert float(a2[0, 0]) == float(alphas[j // kl, 0, j % kl])
+        assert bool(l2[0, 1]) == bool(looks[j // kl, 0, j % kl])
+        assert bool(r2[0, 1]) == bool(rsvs[j // kl, 0, j % kl])
 
 
 # ---------------------------------------------------------------------------

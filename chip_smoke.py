@@ -28,18 +28,23 @@ meshed chains (``compare_mesh``). Phases:
    and 10k_topology (phase 1, phase 1 without lookahead, phase 2, member by
    member, and each of its two kernels from a profiler trace); then
    CUDA-event timings at the 50k_full shapes (one warm-up, median of five);
-4. kernel-only solves: ``TorchSolver()._solve_kernel`` on 50k_full,
-   10k_topology and 10k_crossgroup must validate and cost what the JAX
-   package's kernel computes (the pinned costs);
-5. ``rtt_probe`` against ``x + 1`` on the card, its time beside
+4. ``rtt_probe`` against ``x + 1`` on the card, its time beside
    ``torch.add``'s, and ``device_rtt``;
-6. flat race (main path): ``TorchSolver().solve`` in latency mode (budget
+5. flat race (main path): ``TorchSolver().solve`` in latency mode (budget
    0.1 s) on the same three configs, a first solve and a repeat on the same
    problem object, launch counts taken around the phase and each solve. The
    first solve must dispatch the kernel on the side stream and have it
    answer before the deadline; the repeat must launch no kernel; every plan
    must validate and cost at most the kernel-only answer; no solve may show
-   a fallback, a refused kernel plan, breaker evidence or a missed deadline;
+   a fallback, a refused kernel plan, breaker evidence or a missed deadline.
+   Then the race's admission on 50k_full's bucket (``admission_check``):
+   measured in ms by synchronous solves it is admitted with the round trip
+   pinned past the budget; one hung synchronous pass turns it away; the
+   breaker's eviction lets its half-open probe race again;
+6. kernel-only solves: ``TorchSolver()._solve_kernel`` on 50k_full,
+   10k_topology and 10k_crossgroup must validate and cost what the JAX
+   package's kernel computes (the pinned costs); after the flat race, so
+   that its first dispatches are admitted on the round trip;
 7. hazard: a side-stream dispatch held behind a spin while the same stager
    restages a churned copy of its problem in place; its buffer must be the
    plain chain's on the original inputs;
@@ -67,7 +72,9 @@ meshed chains (``compare_mesh``). Phases:
    plain version on the inputs it was given, at its own B and S, and every
    device-side stack against ``torch.stack``. Every plan must validate and
    cost at most the kernel-only answer, and every row that left pods
-   unplaced must have lost its race;
+   unplaced must have lost its race. Then a b2 fleet whose polls give up
+   (an injected hang) must back its fleet bucket off in the next
+   ``stage_fleet`` while its cells race alone (``fleet_admission_check``);
 10. reconcile, 50k pods (main path): ``TorchSolver().solve_pods`` with an
     ``EncodeSession`` on ``configs.config_delta_reconcile``: a seed round
     (full encode), eight churn rounds fed as watch events (each must
@@ -162,7 +169,8 @@ meshed chains (``compare_mesh``). Phases:
     template-drift passes after an image rotation, each replacing one node
     on the new image; then ``python -m karpenter_tpu_torch`` in a
     subprocess on the card, which must answer its probes, serve /metrics
-    and exit 0 on SIGTERM with its lease released (``operator_phase``);
+    and exit 0 on SIGTERM with its lease released (``operator_phase``). The
+    seed step's chain is stamped and traced (``ChainIssue``);
 16. the operator's HTTP tier (main path, ``http_tier_phase``): (a) one
     operator over the wire in process: a ``ClusterAPIServer`` whose store
     is ``configs.config_http_tier()``'s (10,000 pending pods, the ``al2-tpl``
@@ -291,7 +299,8 @@ DIRECT_STAGE_PATCH = ("fleet_check",)
 
 
 def phase(name, fn, *args):
-    """Run one main-path phase, log its wall on its own line, the perf
+    """Run one main-path phase, log the race's admission table after it
+    (``admission_line``), its wall on its own line, the perf
     sentinel's trips in it (the operators' sentinel is on by default) and
     its ``stage_patch`` launches in this process beside its restaging
     ``stage()`` calls and their copies, which must be equal: a restage is
@@ -306,9 +315,11 @@ def phase(name, fn, *args):
 
     before = trips()
     COUNTS_ZEROED, staged0 = False, phase_counts(ts)
+    refused0 = {label: row[0] for label, row in ts.AOT_CACHE.refusals.items()}
     t0 = time.perf_counter()
     out = fn(*args)
     PHASE_WALLS[name] = round(time.perf_counter() - t0, 2)
+    log(admission_line(name, refused0))
     staged = {k: v - (0 if COUNTS_ZEROED else staged0[k]) for k, v in phase_counts(ts).items()}
     log(f"phase {name}: wall {PHASE_WALLS[name]} s; perf sentinel "
         f"{'on' if profiling.SENTINEL.enabled else 'off'} at its end, "
@@ -319,6 +330,25 @@ def phase(name, fn, *args):
         raise AssertionError(f"phase {name}: stage_patch launches, restaging calls and copies "
                              f"differ: {staged}")
     return out
+
+
+def admission_line(name, refused0) -> str:
+    """The race's admission table at the end of a phase (``AOT_CACHE``: each
+    bucket's dispatch-latency EWMA, samples and last sample), and the
+    dispatches admission turned away in the phase, by bucket, each with
+    the prediction and the last sample that set it."""
+    from karpenter_tpu_torch.solver import torch_solver as ts
+
+    def ms(x):
+        return "none" if x is None else f"{x * 1e3:.4f}"
+
+    rows = "; ".join(f"{label} {ms(ewma)} ms/{n} (last {ms(last)})"
+                     for label, ewma, n, last in ts.AOT_CACHE.table())
+    turned = {label: f"{row[0] - refused0.get(label, 0)} on {ms(row[1])} ms (last sample "
+                     f"{ms(row[2])} ms)"
+              for label, row in ts.AOT_CACHE.refusals.items() if row[0] > refused0.get(label, 0)}
+    return (f"phase {name}: admission table (bucket EWMA ms/samples) [{rows or 'empty'}]; "
+            f"dispatches turned away {turned or 'none'}")
 
 
 def card_line() -> str:
@@ -1064,7 +1094,142 @@ def race_phase(ts, problems, configs) -> dict:
             spun = time_ms(lambda: solver._launch_chain((inputs, *members), s_new, nz), per=3)
         log(f"race {name}: side-stream chain again, device ms {times}; behind a spin "
             f"{spun:.4f} ms at S={s_new}")
+    admission_check(ts, solver, problems["50k_full"][0])
     return launches
+
+
+#: (b) of ``admission_check``: a synchronous pass hung this long answers
+#: below its fetch deadline, ``ADMISSION_TIMEOUT_S``
+ADMISSION_HANG_S = 0.4
+ADMISSION_TIMEOUT_S = 0.5
+#: K1, K2 twice and K3: one chain
+CHAIN_LAUNCHES = {"shared_precompute": 1, "pack_member": 2, "pack_epilogue": 1}
+
+
+def chain_launches(moved) -> dict:
+    return {k: moved.get(k, 0) for k in PACK_KERNELS}
+
+
+def forget_race(problem) -> None:
+    """Drop the race's memory of ``problem``, so that its next solve races."""
+    for k in ("_race_kernel_lost", "_race_kernel_result", "_race_miss_count",
+              "_race_memory_at", "_fleet_skip"):
+        problem.__dict__.pop(k, None)
+
+
+def table_row(key):
+    """``(EWMA, samples, last sample)`` of the bucket's entry, or None."""
+    from karpenter_tpu_torch.solver.torch_solver import AOT_CACHE
+
+    return next((row[1:] for row in AOT_CACHE.table() if row[0] == key.label()), None)
+
+
+def admission_check(ts, solver, problem) -> None:
+    """The race's admission on the card, on the flat race's solver and its
+    50k_full problem (a bucket that only the flat race and ``kernel_only``
+    dispatch unmeshed):
+
+    (a) three real synchronous solves (``_solve_kernel`` of fresh quality
+        ``TorchSolver``s, each starting at the slot estimate, so that its
+        first pass is on the race's bucket) measure the bucket in ms; with
+        the round trip pinned past the budget, the next latency race is
+        admitted and launches K1, K2, K2 and K3;
+    (b) a synchronous solve under an injected ``dispatch-hang`` of
+        ``ADMISSION_HANG_S``, below its ``ADMISSION_TIMEOUT_S`` fetch
+        deadline, answers and lifts the EWMA past the budget: the next race
+        launches nothing, answers from the host and is booked as turned
+        away;
+    (c) the breaker opening on the label (an injected device OOM at a
+        synchronous dispatch, threshold 1) evicts the entry, and once the
+        recovery has passed the next race, the half-open probe, falls back
+        to the round trip and launches K1, K2, K2 and K3 again.
+
+    The breaker board and the round trip are restored at the end; the
+    bucket's entry holds only what (c)'s probe learned."""
+    import torch
+
+    from karpenter_tpu_torch.solver import TorchSolver, validate
+    from karpenter_tpu_torch.solver.solver import KERNEL_BOARD
+    from karpenter_tpu_torch.solver.torch_solver import AOT_CACHE
+    from karpenter_tpu_torch.utils import faults
+
+    key = solver._bucket_key(problem)
+    label, budget = key.label(), solver.latency_budget_s
+    rtt = TorchSolver._device_rtt_s
+    now = [0.0]
+    t_check = time.perf_counter()
+
+    def race(tag):
+        forget_race(problem)
+        before = dict(ts.LAUNCHES)
+        t0 = time.perf_counter()
+        result = solver.solve(problem)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        moved = {k: v - before[k] for k, v in ts.LAUNCHES.items() if v != before[k]}
+        if validate(problem, result):
+            raise AssertionError(f"admission {tag}: the race's plan fails validation")
+        log(f"admission {tag}: race on {label}: backend {result.stats['backend']}, launches "
+            f"{moved}, solve {wall:.4f} s; table {table_row(key)}")
+        return result, moved
+
+    def synchronous(tag, plan=None):
+        quality = TorchSolver(latency_budget_s=5.0, dispatch_timeout_s=ADMISSION_TIMEOUT_S)
+        faults.install_device_faults(plan)
+        try:
+            t0 = time.perf_counter()
+            out = quality._solve_kernel(problem)
+            torch.cuda.synchronize()
+        finally:
+            faults.install_device_faults(None)
+        answer = "no answer" if out is None else f"backend {out.stats.get('backend')}"
+        log(f"admission {tag}: synchronous solve {time.perf_counter() - t0:.4f} s, {answer}; "
+            f"table {table_row(key)}")
+        return out
+
+    try:
+        # (a)
+        for i in range(3):
+            out = synchronous(f"(a) {i}")
+            if out is None or out.stats.get("backend") != 1.0:
+                raise AssertionError("admission (a): a synchronous solve gave no kernel answer")
+        ewma, n, _ = table_row(key)
+        if n < 3 or not ewma < budget:
+            raise AssertionError(f"admission (a): {label} learned {n} samples, EWMA {ewma!r}")
+        TorchSolver._device_rtt_s = float("inf")
+        _, moved = race("(a)")
+        if chain_launches(moved) != CHAIN_LAUNCHES:
+            raise AssertionError(f"admission (a): the admitted race launched {moved}")
+        # (b)
+        hang = faults.DeviceFaultPlan().dispatch_hang(seconds=ADMISSION_HANG_S)
+        if synchronous("(b) hung", hang) is None or not hang.log:
+            raise AssertionError("admission (b): the hung synchronous solve did not answer")
+        ewma, _, last = table_row(key)
+        if not ewma >= budget:
+            raise AssertionError(f"admission (b): EWMA {ewma!r} after a {last!r} s sample")
+        refused = AOT_CACHE.refusals.get(label, [0])[0]
+        result, moved = race("(b)")
+        if moved or result.stats["backend"] == 1.0 or AOT_CACHE.refusals[label][0] != refused + 1:
+            raise AssertionError(f"admission (b): the refused race launched {moved}, backend "
+                                 f"{result.stats['backend']}")
+        # (c)
+        KERNEL_BOARD.configure(failure_threshold=1, recovery_timeout_s=1.0, clock=lambda: now[0])
+        oom = faults.DeviceFaultPlan().device_oom()
+        if synchronous("(c) out of memory", oom) is not None or not oom.log:
+            raise AssertionError("admission (c): the injected device OOM did not fire")
+        if KERNEL_BOARD.state(label) != "open" or table_row(key) is not None:
+            raise AssertionError(f"admission (c): breaker {KERNEL_BOARD.state(label)}, entry "
+                                 f"{table_row(key)}")
+        now[0] += 2.0  # past the recovery: the next dispatch is the half-open probe
+        TorchSolver._device_rtt_s = rtt
+        _, moved = race("(c)")
+        if chain_launches(moved) != CHAIN_LAUNCHES:
+            raise AssertionError(f"admission (c): the probe launched {moved}")
+    finally:
+        TorchSolver._device_rtt_s = rtt
+        KERNEL_BOARD.configure(failure_threshold=3, recovery_timeout_s=30.0, clock=time.monotonic)
+        faults.install_device_faults(None)
+    log(f"admission (a)-(c): {time.perf_counter() - t_check:.4f} s")
 
 
 def hazard_check(ts, configs, cells, provs, catalog) -> None:
@@ -1571,7 +1736,75 @@ def fleet_slice(ts, configs, cells, provs, catalog) -> dict:
     log(f"fleet slice: {len(solved)} plans valid, costs "
         f"{sorted({round(res.cost, 9) for *_, res in solved})}, each at most its kernel-only "
         f"cost")
+    fleet_admission_check(ts, cells, provs, catalog)
     return launches, k2_err, encode_s
+
+
+#: (d) of the admission checks: the fleet seam's hang, past every deadline
+ADMISSION_FLEET_HANG_S = 1.0
+
+
+def fleet_admission_check(ts, cells, provs, catalog) -> None:
+    """(d) A fleet whose polls gave up backs its fleet bucket off. Two cells
+    of the fleet, on fresh per-cell solvers, are staged as one b2 dispatch
+    (a width no other phase dispatches) whose buffer the fleet seam's
+    injected hang holds past every deadline: each cell's race misses and
+    answers from the host, and the fleet records one pessimistic sample.
+    The next ``stage_fleet`` of the same cells (fresh problem objects)
+    batches nothing and books the refusal, and each cell's race launches a
+    B=1 chain of its own. The fleet bucket's entry is evicted at the end,
+    and the cells' B=1 bucket's too when this check made it."""
+    import torch
+
+    from karpenter_tpu_torch.solver import TorchSolver, encode, stage_fleet, validate
+    from karpenter_tpu_torch.solver.torch_solver import AOT_CACHE
+    from karpenter_tpu_torch.utils import faults
+
+    t_check = time.perf_counter()
+    pair = (0, 1)
+    solvers = [TorchSolver() for _ in pair]
+    entries = [(s, encode_cell(encode, cells, provs, catalog, c)) for s, c in zip(solvers, pair)]
+    one = solvers[0]._bucket_key(entries[0][1])
+    had_one = table_row(one) is not None
+    hang = faults.DeviceFaultPlan().dispatch_hang(seconds=ADMISSION_FLEET_HANG_S)
+    faults.install_device_faults(hang)
+    try:
+        stats = stage_fleet(entries)
+    finally:
+        faults.install_device_faults(None)
+    if stats["dispatches"] != 1 or not hang.log:
+        raise AssertionError(f"admission (d): the hung fleet was not dispatched: {stats}")
+    fleet_label = stats["buckets"][0]
+    for s, p in entries:
+        result = s.solve(p)
+        if validate(p, result) or result.stats["backend"] == 1.0 or "_race_miss_count" not in p.__dict__:
+            raise AssertionError(f"admission (d): a hung fleet's cell answered {result.stats}")
+    row = next((r for r in AOT_CACHE.table() if r[0] == fleet_label), None)
+    if row is None or row[2] != 1 or not row[1] >= solvers[0].latency_budget_s:
+        raise AssertionError(f"admission (d): {fleet_label} learned {row}")
+    log(f"admission (d): the hung {fleet_label} fleet missed in both cells; table {row[1:]}")
+    entries = [(s, encode_cell(encode, cells, provs, catalog, c)) for s, c in zip(solvers, pair)]
+    refused = AOT_CACHE.refusals.get(fleet_label, [0])[0]
+    stats = stage_fleet(entries)
+    if stats["dispatches"] or stats["eligible"] != len(pair) or \
+            AOT_CACHE.refusals[fleet_label][0] != refused + 1:
+        raise AssertionError(f"admission (d): the fleet bucket was not backed off: {stats}")
+    before, batched = dict(ts.LAUNCHES), dict(ts.BATCHED)
+    for s, p in entries:
+        result = s.solve(p)
+        if validate(p, result):
+            raise AssertionError("admission (d): a cell's plan fails validation")
+    torch.cuda.synchronize()
+    moved = chain_launches({k: ts.LAUNCHES[k] - before[k] for k in before})
+    if moved != {k: v * len(pair) for k, v in CHAIN_LAUNCHES.items()} or ts.BATCHED != batched:
+        raise AssertionError(f"admission (d): the cells launched {moved}, batched "
+                             f"{ {k: ts.BATCHED[k] - batched[k] for k in batched} }")
+    log(f"admission (d): next stage_fleet {stats['dispatches']} dispatches of "
+        f"{stats['eligible']} eligible cells; the cells launched {moved} with B=1; "
+        f"{time.perf_counter() - t_check:.4f} s")
+    AOT_CACHE.evict_bucket(fleet_label)
+    if not had_one:
+        AOT_CACHE.evict_bucket(one.label())
 
 
 @contextlib.contextmanager
@@ -3672,7 +3905,14 @@ def step_line(name, row, problems) -> str:
             verdict = "not raced" + (" (under race_min_pods)"
                                      if p.count.sum() < TorchSolver.race_min_pods else "")
         device = s.stats.get("dispatch_device_ms")
-        return verdict + (f", chain device {device} ms" if device is not None else "")
+        if device is not None:
+            # the dispatch's host sample: observed (the poll saw the
+            # transition) or censored (ready at the first look)
+            ready = s.stats.get("dispatch_s")
+            verdict += (f", chain device {device} ms, host path {s.stats.get('race_host_s', 0.0):.4f}"
+                        f" s, poll {s.stats.get('race_poll_s', 0.0):.6f} s, dispatch->ready "
+                        + ("censored" if ready is None else f"{ready:.6f} s observed"))
+        return verdict
 
     solves = [f"{int(p.count.sum())} pods at E={p.E}, backend {s.stats['backend']}, {race(p, s)}"
               for p, s in problems]
@@ -3683,6 +3923,147 @@ def step_line(name, row, problems) -> str:
             f"({row['action'].reason if row.get('action') else 'no action'}), cost ledger "
             f"{row.get('ledger_s', 0.0):.4f} s, {capture_note(row['capture_s'], row['wall'])}, "
             f"launches {row['launches']}")
+
+
+class ChainIssue:
+    """Where one step's kernel chains spent their time on the host and on
+    the card. While open it stamps the host clock at every entry and exit
+    of ``_Pending.enqueue``, the solver's ``pack_solve_fused`` and the
+    three wrappers it calls (K1, K2 twice, K3), records the garbage
+    collector's passes (``gc.callbacks``) and what the caching allocator
+    did around each enqueue (``torch.cuda.memory_stats``: device
+    allocations, retries after freeing its cache), and traces the card with
+    ``torch.profiler`` (device activity only). ``lines()`` says, for each
+    chain, its host issue between stamps, the collector's passes inside it,
+    the allocator's moves, the threads alive, and the chain's kernels on
+    the card: their own time and the span from the first one's start to
+    the last one's end."""
+
+    ALLOCATOR = ("num_device_alloc", "num_device_free", "num_alloc_retries",
+                 "num_sync_all_streams")
+
+    WRAPPED = ("shared_precompute", "pack_member", "pack_epilogue")
+
+    def __init__(self, ts):
+        import gc
+
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from karpenter_tpu_torch.solver import solver as solver_mod
+
+        self.ts, self.solver_mod, self.gc = ts, solver_mod, gc
+        self.stamps, self.passes, self.threads, self.allocator = [], [], [], []
+        self._saved = []
+        # device activity only (the host side is stamped); the CPU's
+        # activity where no card is present, so that a rehearsal runs
+        self._prof = profile(activities=[ProfilerActivity.CUDA if torch.cuda.is_available()
+                                         else ProfilerActivity.CPU])
+        self._torch = torch
+        self._gc_t = None
+
+    def _stamp(self, what):
+        self.stamps.append((what, time.perf_counter()))
+
+    def _wrap(self, owner, name, tag):
+        fn = getattr(owner, name)
+        self._saved.append((owner, name, owner.__dict__[name]))
+        stamp = self._stamp
+
+        def wrapped(*a, **kw):
+            stamp(f"{tag} in")
+            try:
+                return fn(*a, **kw)
+            finally:
+                stamp(f"{tag} out")
+
+        setattr(owner, name, wrapped)
+
+    def _on_gc(self, phase, info):
+        if phase == "start":
+            self._gc_t = time.perf_counter()
+        elif self._gc_t is not None:
+            self.passes.append((info["generation"], self._gc_t, time.perf_counter()))
+
+    def __enter__(self):
+        enqueue = self.solver_mod._Pending.enqueue
+        self._saved.append((self.solver_mod._Pending, "enqueue",
+                            self.solver_mod._Pending.__dict__["enqueue"]))
+
+        def allocator():
+            if not self._torch.cuda.is_available():
+                return {}
+            stats = self._torch.cuda.memory_stats()
+            return {k: stats.get(k, 0) for k in self.ALLOCATOR}
+
+        def enq(cls, run, device, stream=None):
+            before = allocator()
+            self._stamp("enqueue in")
+            self.threads.append(sorted(t.name for t in threading.enumerate()))
+            try:
+                return enqueue(run, device, stream)
+            finally:
+                self._stamp("enqueue out")
+                after = allocator()
+                self.allocator.append({k: after[k] - before[k] for k in after})
+
+        self.solver_mod._Pending.enqueue = classmethod(enq)
+        self._wrap(self.solver_mod, "pack_solve_fused", "chain")
+        for name in self.WRAPPED:
+            self._wrap(self.ts, name, name)
+        self.gc.callbacks.append(self._on_gc)
+        self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._torch.cuda.synchronize()
+        self._prof.__exit__(*exc)
+        self.gc.callbacks.remove(self._on_gc)
+        for owner, name, value in reversed(self._saved):
+            setattr(owner, name, value)
+        return False
+
+    def chains(self):
+        """Each chain's stamps, from its ``enqueue in`` to its ``enqueue out``."""
+        out, cur = [], None
+        for what, t in self.stamps:
+            if what == "enqueue in":
+                cur = [(what, t)]
+            elif cur is not None:
+                cur.append((what, t))
+                if what == "enqueue out":
+                    out.append(cur)
+                    cur = None
+        return out
+
+    def kernels(self):
+        """The chains' kernels on the card, in order: ``[(name, start_us, end_us)]``."""
+        parts = ("k1_units", "k1_val_pair", "k2_prices", "k2_scan", "pack_epilogue")
+        evs = [(ev.name, ev.time_range.start, ev.time_range.end) for ev in self._prof.events()
+               if str(ev.device_type).endswith("CUDA") and any(p in ev.name for p in parts)]
+        return sorted(evs, key=lambda e: e[1])
+
+    def lines(self) -> list:
+        out = []
+        chains = self.chains()
+        kernels = self.kernels()
+        per = len(kernels) // max(len(chains), 1)
+        for i, chain in enumerate(chains):
+            t0, t1 = chain[0][1], chain[-1][1]
+            steps = ", ".join(f"{what} +{(t - t0) * 1e3:.3f}" for what, t in chain)
+            inside = [(g, (b - a) * 1e3) for g, a, b in self.passes if a < t1 and b > t0]
+            ks = kernels[i * per:(i + 1) * per] if per else []
+            own = sum((e - s) for _, s, e in ks) / 1e3
+            span = (ks[-1][2] - ks[0][1]) / 1e3 if ks else None
+            gaps = [round((ks[j + 1][1] - ks[j][2]) / 1e3, 4) for j in range(len(ks) - 1)]
+            out.append(
+                f"chain {i}: host issue {(t1 - t0) * 1e3:.3f} ms ({steps} ms); garbage "
+                f"collector passes inside (generation, ms) {inside}; allocator "
+                f"{self.allocator[i]}; {len(self.threads[i])} "
+                f"threads {self.threads[i]}; on the card {len(ks)} kernels, own "
+                f"{own:.4f} ms, first start to last end "
+                f"{'none traced' if span is None else f'{span:.4f} ms'}, gaps (ms) {gaps}")
+        return out
 
 
 def operator_phase(ts, configs) -> dict:
@@ -3751,8 +4132,11 @@ def operator_phase(ts, configs) -> dict:
     launches = {k: 0 for k in ts.LAUNCHES}
     errs = {}
     try:
-        # (a) the seed round
-        row = probe.step(ts)
+        # (a) the seed round, its chain's issue stamped and traced
+        with ChainIssue(ts) as issue:
+            row = probe.step(ts)
+        for line in issue.lines():
+            log(f"operator seed {line}")
         launches = {k: launches[k] + row["launches"][k] for k in launches}
         problems = hold_operator_step("operator seed", op, row)
         if len(problems) != 1 or len(row["result"].bound) != len(cluster.pods):
@@ -5947,12 +6331,13 @@ def main() -> int:
     k2_breakdown(ts, problems, solver)
     kernels = timings(ts, checked.pop("50k_full"), errs)
     del checked
-    kernel_only(ts, problems, configs)
     kernels.append(probe_check(ts))
     PHASE_WALLS["kernel_checks"] = round(time.perf_counter() - t_checks, 2)
     log(f"phase kernel_checks: wall {PHASE_WALLS['kernel_checks']} s")
-    # fresh problem objects for the race: the kernel-only solves above leave
-    # nothing on them that the race reads, but a first solve should be one
+    # fresh problem objects for the race, a first solve each; the
+    # kernel-only solves come after it, so that the race's first dispatch
+    # of each bucket is admitted on the round trip, as a new process's is
+    checked = dict(problems)
     for name, make in (
         ("50k_full", configs.config_50k_full),
         ("10k_topology", configs.config_10k_topology),
@@ -5961,6 +6346,8 @@ def main() -> int:
         problems[name] = (encode(*make()), problems[name][1])
     flat = phase("flat_race", race_phase, ts, problems, configs)
     log(f"flat race launches {flat}")
+    phase("kernel_only", kernel_only, ts, checked, configs)
+    del checked
     problems = {name: problems[name] for name in ("50k_full", "10k_topology")}  # K1's breakdown
 
     t0 = time.perf_counter()

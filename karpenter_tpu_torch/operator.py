@@ -17,16 +17,15 @@ deliberate differences or under the Queue 1 item that brings what is missing:
   the caller's ``device``); it raises without CUDA and never falls back to
   the CPU. Its stager takes ``device_staging_enabled`` and
   ``device_staging_capacity_mb``.
-* No AOT cache and no pre-compile: the reference's ``AOT_CACHE.configure``
-  and its ``drain-background-compiles`` shutdown step have no counterpart,
-  since the port compiles nothing per shape (its kernel library is loaded
-  in ``TorchSolver.__init__``). The ``aot_*`` settings are accepted,
-  validated and unread.
-* The multi-device tier (item 10) raises in the provisioning
-  controller's constructor, as in earlier slices. Federation is wired as
-  the reference wires it: a ``FederationClient`` when
-  ``federation_enabled``, the late-bound ``/debug/federation`` and the
-  ``federation-summary`` heartbeat.
+* No pre-compile: the port compiles nothing per shape (its kernel library
+  is loaded in ``TorchSolver.__init__``), so the reference's
+  ``drain-background-compiles`` shutdown step has no counterpart. Its AOT
+  cache's live half, the per-bucket dispatch latency that the race admits
+  on (``solver.torch_solver.AOT_CACHE``), takes ``aot_cache_capacity``;
+  the other ``aot_*`` settings are accepted, validated and unread.
+* Federation is wired as the reference wires it: a ``FederationClient``
+  when ``federation_enabled``, the late-bound ``/debug/federation`` and
+  the ``federation-summary`` heartbeat.
 """
 
 from __future__ import annotations
@@ -167,12 +166,16 @@ class Operator:
             provider, "enable_slice_topology"
         ):
             provider.enable_slice_topology()
-        # No AOT cache: the reference configures its AOT executable cache
-        # here; the port compiles nothing per shape (the kernel library is
-        # loaded in TorchSolver.__init__), so the aot_* settings are read by
-        # nothing. The 2D meshed tier: the configured mesh shape resolved
-        # against the cards this host has (None below two, so that one card
-        # keeps the meshless path)
+        # the dispatch-latency table the race admits on: its capacity from
+        # settings (process-wide, as the reference's AOT cache is); the port
+        # compiles nothing per shape, so the other aot_* settings are read by
+        # nothing
+        from .solver.torch_solver import AOT_CACHE
+
+        AOT_CACHE.configure(capacity=settings.aot_cache_capacity)
+        # the 2D meshed tier: the configured mesh shape resolved against the
+        # cards this host has (None below two, so that one card keeps the
+        # meshless path)
         mesh_shape = None
         if settings.mesh_enabled:
             from .parallel import parse_mesh_shape

@@ -21,8 +21,12 @@ scripted dispatch hang, device OOM, NaN or garbage result, staging
 corruption or compile failure becomes breaker evidence of a named kind and
 a host answer, never a binding. Only the injected ``InjectedDeviceError``
 is caught. The port compiles nothing per shape, so the compile seam is
-consulted at a bucket label's first dispatch in the process and at the
-first after its breaker opened (``KernelBreakerBoard.first_dispatch``).
+consulted where the reference compiles: at a bucket's first dispatch, when
+``AOT_CACHE`` has no entry for it (``KernelBreakerBoard.first_dispatch``).
+
+The race admits a dispatch as the reference does, on the bucket's measured
+dispatch latency (``AOT_CACHE``, the live half of the reference's
+``AOTCache``), or on the device round trip while the bucket has none.
 
 ``stage_fleet`` is the sharded round's fleet dispatch: the dirty cells'
 problems, each with the solver that will solve it, are grouped by bucket
@@ -76,6 +80,7 @@ from .result import NameSlice, NewNodeSpec, SolveResult
 from .staging import DeviceStager, fleet_stack
 from .topo import topo_improve
 from .torch_solver import (
+    AOT_CACHE,
     BucketKey,
     PackInputs,
     bucket_existing,
@@ -721,9 +726,10 @@ class KernelBreakerBoard:
     success. An open bucket does not dispatch until ``recovery_timeout_s``
     has passed; the next dispatch is then the half-open probe. The port
     builds one kernel library per source hash, not one executable per
-    bucket, so there is no executable to evict: quarantine blocks the
-    label, and forgets that it was built (``first_dispatch``), as the
-    reference's eviction forces its half-open probe through a compile.
+    bucket: quarantine blocks the label and evicts its entries from
+    ``AOT_CACHE`` (``evict_bucket``), so that the probe's dispatch consults
+    the compile seam again, as the reference's goes through a compile, and
+    admission forgets the bucket's measured latency.
     ``failures`` counts the evidence by kind, as
     ``karpenter_tpu_kernel_faults_total{kind}`` does; the health gauge
     (``karpenter_tpu_kernel_backend_health``) is the fraction of consulted
@@ -736,10 +742,6 @@ class KernelBreakerBoard:
 
     def __init__(self, failure_threshold: int = 3, recovery_timeout_s: float = 30.0):
         self._lock = threading.Lock()
-        # labels dispatched at least once since the process started or
-        # since their breaker last opened: where the reference's executable
-        # is resident. Kept across configure, as the reference's AOT cache is.
-        self._built: set = set()
         self._make(failure_threshold, recovery_timeout_s, time.monotonic)
 
     def _make(self, failure_threshold, recovery_timeout_s, clock) -> None:
@@ -768,29 +770,28 @@ class KernelBreakerBoard:
     def reset(self) -> None:
         self.configure()
 
-    def first_dispatch(self, label: str) -> None:
+    def first_dispatch(self, key: BucketKey, mesh=None) -> None:
         """The compile seam (``utils/faults.py``, site ``"compile"``). The
         port compiles nothing per shape, so the seam is consulted where the
-        reference compiles: the first dispatch of ``label`` in the process,
-        and the first after its breaker opened. A scripted
-        ``compile-error`` raises ``InjectedDeviceError`` there, and the
-        label stays unbuilt, so the next dispatch consults the seam again
-        (the reference's failed compile leaves no executable either)."""
-        with self._lock:
-            if label in self._built:
-                return
+        reference compiles: at a dispatch of a bucket that has no entry in
+        ``AOT_CACHE`` (its first in the process, the first after its
+        breaker opened, or after the table's LRU dropped it), which then
+        makes the entry. A scripted ``compile-error`` raises
+        ``InjectedDeviceError`` there, and no entry is made, so the next
+        dispatch consults the seam again (the reference's failed compile
+        leaves no executable either)."""
+        if AOT_CACHE.resident(key, mesh):
+            return
         if faults.device_fault("compile") is not None:
             raise faults.InjectedDeviceError(
-                f"injected compile failure for bucket {label}"
+                f"injected compile failure for bucket {key.label()}"
             )
-        with self._lock:
-            self._built.add(label)
+        AOT_CACHE.build(key, mesh)
 
     def forget_builds(self) -> None:
-        """Every label counts as unbuilt again (tests: the reference's
-        counterpart is a cold AOT cache)."""
-        with self._lock:
-            self._built.clear()
+        """Every bucket counts as never dispatched again: ``AOT_CACHE`` is
+        emptied (tests: the reference's counterpart is a cold AOT cache)."""
+        AOT_CACHE.clear()
 
     def allows(self, label: str) -> bool:
         """True when the bucket may dispatch: breaker closed, or half-open
@@ -815,8 +816,8 @@ class KernelBreakerBoard:
 
     def fail(self, label: str, kind: str) -> None:
         """Device-path failure evidence of one ``kind``; the transition to
-        open forgets that the label was built (the reference's quarantine
-        eviction)."""
+        open evicts the label's entries from ``AOT_CACHE`` (the reference's
+        quarantine eviction)."""
         metrics.KERNEL_FAULTS.inc({"kind": kind})
         with self._lock:
             self.failures[kind] = self.failures.get(kind, 0) + 1
@@ -824,8 +825,7 @@ class KernelBreakerBoard:
         before = breaker.state
         breaker.record_failure()
         if breaker.state == "open" and before != "open":
-            with self._lock:
-                self._built.discard(label)
+            AOT_CACHE.evict_bucket(label)
         self._publish()
 
     def health(self) -> float:
@@ -1017,10 +1017,13 @@ class _FleetBuffer:
     that reads it copies it to the host once, under the lock; every later
     cell reads that copy. ``abandoned`` is set when a cell's poll gave up at
     its deadline: siblings then take it only if it is ready, and never wait
-    on it. ``copies`` counts the host copies (one a dispatch)."""
+    on it. ``copies`` counts the host copies (one a dispatch). A fleet feeds
+    the fleet bucket's dispatch latency (``AOT_CACHE``, keyed on the B-wide
+    bucket, so that it never moves the B=1 bucket's) at most once: the
+    first observed transition, or the first poll that gave up."""
 
     __slots__ = ("pending", "key", "mesh", "t_dispatch", "width", "abandoned", "copies", "_lock",
-                 "_host")
+                 "_host", "_ewma_done")
 
     def __init__(self, pending, key: BucketKey, t_dispatch: float, width: int, mesh=None):
         self.pending = pending
@@ -1032,12 +1035,31 @@ class _FleetBuffer:
         self.copies = 0
         self._lock = threading.Lock()
         self._host: Optional[np.ndarray] = None
+        self._ewma_done = False
 
     def is_ready(self) -> bool:
         with self._lock:
             if self._host is not None:
                 return True
         return self.pending.is_ready()
+
+    def note_ready(self, observed_at: float) -> None:
+        """The dispatch-to-ready latency of the first poll that observed the
+        transition (a buffer ready at the first look times nothing), unless
+        this fleet has fed its sample already."""
+        with self._lock:
+            if self._ewma_done:
+                return
+            self._ewma_done = True
+        AOT_CACHE.note_dispatch(self.key, observed_at - self.t_dispatch, mesh=self.mesh)
+
+    def note_miss(self, observed_at: float) -> None:
+        """A poll gave up before the buffer was ready: the time since the
+        dispatch is a pessimistic sample (a floor on the true latency), fed
+        as ``note_ready`` feeds, so that the next round's ``stage_fleet``
+        backs this fleet bucket off on its own evidence while its cells
+        still race one by one."""
+        self.note_ready(observed_at)
 
     def materialize(self) -> np.ndarray:
         with self._lock:
@@ -1094,9 +1116,10 @@ def stage_fleet(
     shapes only the greedy oracle takes, quality-mode solvers, problems whose
     race memory says the kernel lost or already answered, problems whose
     last fleet row went unread (``_fleet_skip``), and solvers whose race
-    breaker is open. So are chunks whose owner's device round trip
-    (``device_rtt``) exceeds its latency budget, and quarantined fleet
-    buckets.
+    breaker is open. So are chunks whose predicted dispatch latency is not
+    inside the owner's budget (the reference's ladder: the fleet bucket's
+    measured latency, else the B=1 bucket's, else ``device_rtt``), and
+    quarantined fleet buckets.
 
     A chunk whose every problem is resident on its solver's device (after
     ``prestage``) is stacked on the device by ``fleet_stack`` from the
@@ -1171,7 +1194,16 @@ def stage_fleet(
                 B = max(B, group_mesh.shape.get(FLEET_AXIS, 1))
             fleet_key = key._replace(B=B)
             owner = chunk[0][0]
-            if owner.device_rtt() >= owner.latency_budget_s:
+            # admission on measured latency: the fleet bucket's own, else
+            # the B=1 bucket's, else the process's device round trip
+            mesh = owner._ensure_mesh()
+            pred = AOT_CACHE.predicted_dispatch_s(fleet_key, mesh=mesh)
+            if pred is None:
+                pred = AOT_CACHE.predicted_dispatch_s(key, mesh=mesh)
+            if pred is None:
+                pred = owner.device_rtt()
+            if pred >= owner.latency_budget_s:
+                AOT_CACHE.note_refusal(fleet_key, pred, mesh=mesh)
                 continue
             if not KERNEL_BOARD.allows(fleet_key.label()):
                 continue  # quarantined fleet bucket: the cells race one by one
@@ -1268,7 +1300,7 @@ def _stage_fleet_chunk(chunk, key: BucketKey, fleet_key: BucketKey, cleared: set
     stage_s = time.perf_counter() - t_stage
     profiling.note_phase("stage", "sharded", stage_s)
     metrics.SOLVE_PHASE.observe(stage_s, {"phase": "stage", "mode": "sharded"})
-    KERNEL_BOARD.first_dispatch(fleet_key.label())
+    KERNEL_BOARD.first_dispatch(fleet_key, mesh)
     t_dispatch = time.perf_counter()
     if mesh is not None:
         run = lambda: pack_solve_meshed(mesh, *args, key.S, key.Z)  # noqa: E731
@@ -1554,7 +1586,7 @@ class TorchSolver(Solver):
                 # the kernel for this problem is already in flight as one row
                 # of a fleet dispatch: poll that
                 dispatched = fleet_slot
-            elif self._race_dispatch_affordable(problem):
+            elif self._race_dispatch_affordable(problem, refusal=True):
                 # enqueue the kernel BEFORE the host path runs: the card
                 # computes while the host path does, and the poll below pays
                 # only the leftover wait
@@ -1722,10 +1754,21 @@ class TorchSolver(Solver):
         result.stats["solve_s"] = time.perf_counter() - t0
         return result
 
-    def _race_dispatch_affordable(self, problem: EncodedProblem) -> bool:
-        """Race admission: can a dispatch answer inside the budget? Judged
-        by the process's measured device round trip."""
-        return self.device_rtt() < self.latency_budget_s
+    def _race_dispatch_affordable(self, problem: EncodedProblem, refusal: bool = False) -> bool:
+        """Race admission: can this bucket's dispatch answer inside the
+        budget? Judged by its measured dispatch latency (``AOT_CACHE``) once
+        it has one, else by the process's device round trip. ``refusal``
+        books a dispatch turned away (the race's own call, not
+        ``prestage``'s)."""
+        key, mesh = self._bucket_key(problem), self._ensure_mesh()
+        pred = AOT_CACHE.predicted_dispatch_s(key, mesh=mesh)
+        if pred is None:
+            pred = self.device_rtt()
+        if pred < self.latency_budget_s:
+            return True
+        if refusal:
+            AOT_CACHE.note_refusal(key, pred, mesh=mesh)
+        return False
 
     def prestage(self, problem: EncodedProblem) -> None:
         """Pad and stage this problem's tensors now, without solving: the
@@ -1808,7 +1851,7 @@ class TorchSolver(Solver):
             return None
         t_dispatch = time.perf_counter()
         try:
-            KERNEL_BOARD.first_dispatch(key.label())
+            KERNEL_BOARD.first_dispatch(key, self._ensure_mesh())
             pending = _apply_dispatch_fault(self._launch_chain(
                 (inputs, orders_d, alphas_d, looks_d, rsvs_d, swaps_d), s_new, n_zones,
                 side=True,
@@ -1856,11 +1899,11 @@ class TorchSolver(Solver):
         problem.__dict__.pop("_race_miss_count", None)
         raw = pending.materialize()
         if ready_at:
-            # an observed transition: the sentinel's per-bucket feed (a
-            # buffer ready at the first look times nothing)
-            profiling.note_bucket_dispatch(
-                dispatched.key.label(), ready_at - dispatched.t_dispatch
-            )
+            # an observed transition times the dispatch for the bucket's
+            # admission and the sentinel (a buffer ready at the first look
+            # times nothing)
+            AOT_CACHE.note_dispatch(dispatched.key, ready_at - dispatched.t_dispatch,
+                                    mesh=self._ensure_mesh())
             problem.__dict__["_dispatch_s"] = ready_at - dispatched.t_dispatch
         if pending.events is not None:
             problem.__dict__["_dispatch_device_ms"] = pending.device_ms()
@@ -1889,8 +1932,10 @@ class TorchSolver(Solver):
                 time.sleep(0.0005)
         if ready_at is None:
             shared.abandoned = True
-            # a fleet miss is bucket evidence, not device evidence: the
-            # per-cell race breaker is left alone
+            # a fleet miss is bucket evidence, not device evidence: its
+            # pessimistic sample backs the fleet bucket's admission off, and
+            # the per-cell race breaker is left alone
+            shared.note_miss(time.perf_counter())
             misses = problem.__dict__.get("_race_miss_count", 0) + 1
             problem.__dict__["_race_miss_count"] = misses
             if misses >= 2:
@@ -1901,7 +1946,7 @@ class TorchSolver(Solver):
         raw = shared.materialize()[slot.row]
         key = shared.key
         if ready_at:
-            profiling.note_bucket_dispatch(key.label(), ready_at - shared.t_dispatch)
+            shared.note_ready(ready_at)
             problem.__dict__["_dispatch_s"] = ready_at - shared.t_dispatch
         if shared.pending.events is not None:
             problem.__dict__["_dispatch_device_ms"] = shared.device_ms()
@@ -2020,27 +2065,29 @@ class TorchSolver(Solver):
         members ran out of slots; with ``problem``, its resident entry
         follows the budget, a pass whose bucket is quarantined ends the
         solve (None), and each pass consults the compile seam and feeds the
-        sentinel its dispatch time. The dispatch and result fault seams
-        apply to every pass. Returns the unpacked result, the slot budget it
-        was solved at and the number of fused passes it took."""
+        bucket's dispatch latency (``AOT_CACHE``, and the sentinel through
+        it). The dispatch and result fault seams apply to every pass.
+        Returns the unpacked result, the slot budget it was solved at and
+        the number of fused passes it took."""
         inputs = tensors[0]
         k, Gp, Ep = orders.shape[0], inputs.count.shape[0], inputs.ex_valid.shape[0]
         passes = 0
+        mesh = self._ensure_mesh()
         while True:
-            label = None if problem is None else self._bucket_key(problem, s_new).label()
-            if label is not None:
-                if not KERNEL_BOARD.allows(label):
+            key = None if problem is None else self._bucket_key(problem, s_new)
+            if key is not None:
+                if not KERNEL_BOARD.allows(key.label()):
                     return None
-                KERNEL_BOARD.first_dispatch(label)
+                KERNEL_BOARD.first_dispatch(key, mesh)
             passes += 1
             t_dispatch = time.perf_counter()
             buf = _fetch_bounded(
                 _apply_dispatch_fault(self._launch_chain(tensors, s_new, n_zones)),
                 self.dispatch_timeout_s,
             )
-            if label is not None:
+            if key is not None:
                 dispatch_s = time.perf_counter() - t_dispatch
-                profiling.note_bucket_dispatch(label, dispatch_s)
+                AOT_CACHE.note_dispatch(key, dispatch_s, mesh=mesh)
                 problem.__dict__["_dispatch_s"] = dispatch_s
             unpacked = _apply_result_fault(
                 unpack_solve_fused(buf, k, s_new, Gp, Ep, orders, swaps))

@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from collections import OrderedDict
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -1001,6 +1002,171 @@ def bucket_key(g: int, o: int, e: int, s_new: int, z: int, r: int, k: int) -> Bu
         G=bucket_groups(g), O=bucket_options(o), E=bucket_existing(e),
         S=s_new, Z=bucket_zones(z), R=r, K=k,
     )
+
+
+class _AOTEntry:
+    """One resident bucket: the EWMA of its measured dispatch latency, the
+    samples it has learned and the last of them."""
+
+    __slots__ = ("dispatch_ewma", "samples", "last_s")
+
+    def __init__(self):
+        self.dispatch_ewma: Optional[float] = None
+        self.samples = 0
+        self.last_s: Optional[float] = None
+
+
+class AOTCache:
+    """The live half of the JAX package's ``AOTCache``: per bucket, the
+    EWMA of the measured time from a dispatch to its result being ready on
+    the host, which the race's admission reads in place of the process's
+    device round trip (``TorchSolver._race_dispatch_affordable``,
+    ``stage_fleet``).
+
+    The reference's entry also holds the bucket's compiled executable. The
+    port compiles nothing per shape (one kernel library serves every
+    bucket), so this table holds only the dispatch-latency half: an entry
+    is made at a bucket's first dispatch (``KernelBreakerBoard.
+    first_dispatch``, where the reference compiles), learns ``0.7 * old +
+    0.3 * new`` from every sample after the first, which it takes as is,
+    and goes when its label's breaker opens (``evict_bucket``) or when the
+    least recently dispatched of more than ``capacity`` entries is dropped.
+    Keys are the reference's: the bucket key (with the 2D mesh's stamp),
+    ``donate`` (always False: the port donates no buffer) and the mesh's
+    axes and shape. ``refusals`` counts, by bucket label, the dispatches
+    that admission turned away, with the prediction and the last sample
+    that set it. Process-wide, as the reference's is: every solver and
+    clone shares ``AOT_CACHE``."""
+
+    def __init__(self, capacity: int = 32):
+        self.capacity = capacity
+        self._lock = threading.RLock()
+        self._entries: "OrderedDict[tuple, _AOTEntry]" = OrderedDict()
+        self.stats: Dict[str, int] = {"hits": 0, "misses": 0, "evictions": 0}
+        self.refusals: Dict[str, list] = {}
+
+    def configure(self, capacity: Optional[int] = None) -> None:
+        with self._lock:
+            if capacity is not None:
+                self.capacity = max(int(capacity), 1)
+                self._evict_over_capacity()
+
+    @staticmethod
+    def _ckey(key: BucketKey, donate: bool = False, mesh=None) -> tuple:
+        if mesh is None:
+            return (key, bool(donate), 0)
+        return (key, bool(donate), (tuple(mesh.axis_names), tuple(mesh.devices.shape)))
+
+    def resident(self, key: BucketKey, mesh=None) -> bool:
+        """Whether the bucket has an entry; a dispatch's lookup (a hit moves
+        it to the end of the LRU order)."""
+        ck = self._ckey(key, False, mesh)
+        with self._lock:
+            if ck not in self._entries:
+                self.stats["misses"] += 1
+                return False
+            self._entries.move_to_end(ck)
+            self.stats["hits"] += 1
+            return True
+
+    def build(self, key: BucketKey, mesh=None) -> None:
+        """Make the bucket's entry (no sample yet); the reference compiles
+        here."""
+        ck = self._ckey(key, False, mesh)
+        with self._lock:
+            if ck not in self._entries:
+                self._entries[ck] = _AOTEntry()
+            self._entries.move_to_end(ck)
+            self._evict_over_capacity()
+
+    def _evict_over_capacity(self) -> None:
+        while len(self._entries) > self.capacity:
+            self._entries.popitem(last=False)
+            self.stats["evictions"] += 1
+            self._count("evict")
+
+    def evict_bucket(self, label: str) -> int:
+        """Drop every variant (mesh) of the bucket with this label: its
+        breaker opened. Returns how many entries went."""
+        with self._lock:
+            victims = [ck for ck in self._entries if ck[0].label() == label]
+            for ck in victims:
+                del self._entries[ck]
+            self.stats["evictions"] += len(victims)
+        for _ in victims:
+            self._count("evict")
+        return len(victims)
+
+    @staticmethod
+    def _count(event: str) -> None:
+        from ..utils import metrics
+
+        metrics.AOT_CACHE_EVENTS.inc({"event": event})
+
+    def note_dispatch(self, key: BucketKey, seconds: float, donate: bool = False,
+                      mesh=None) -> None:
+        """One measured dispatch of the bucket: the perf sentinel's
+        per-bucket feed always, the EWMA once the bucket has an entry."""
+        from ..utils import profiling
+
+        profiling.note_bucket_dispatch(key.label(), seconds)
+        ck = self._ckey(key, donate, mesh)
+        with self._lock:
+            entry = self._entries.get(ck)
+            if entry is None:
+                return
+            if entry.dispatch_ewma is None:
+                entry.dispatch_ewma = seconds
+            else:
+                entry.dispatch_ewma = 0.7 * entry.dispatch_ewma + 0.3 * seconds
+            entry.samples += 1
+            entry.last_s = seconds
+
+    def predicted_dispatch_s(self, key: BucketKey, donate: bool = False,
+                             mesh=None) -> Optional[float]:
+        """The bucket's dispatch-latency EWMA, or None when it has no entry
+        or no sample yet (the caller falls back to the round trip)."""
+        ck = self._ckey(key, donate, mesh)
+        with self._lock:
+            entry = self._entries.get(ck)
+            return None if entry is None else entry.dispatch_ewma
+
+    def note_refusal(self, key: BucketKey, predicted_s: float, mesh=None) -> None:
+        """Admission turned a dispatch of the bucket away on ``predicted_s``."""
+        ck = self._ckey(key, False, mesh)
+        with self._lock:
+            entry = self._entries.get(ck)
+            row = self.refusals.setdefault(key.label(), [0, None, None])
+            row[0] += 1
+            row[1] = predicted_s
+            row[2] = None if entry is None else entry.last_s
+
+    def table(self) -> List[tuple]:
+        """``(label, ewma, samples, last sample)`` of every entry, oldest
+        first."""
+        with self._lock:
+            return [(ck[0].label(), e.dispatch_ewma, e.samples, e.last_s)
+                    for ck, e in self._entries.items()]
+
+    def stats_dict(self) -> Dict[str, object]:
+        with self._lock:
+            return {
+                **self.stats,
+                "resident": len(self._entries),
+                "capacity": self.capacity,
+                "buckets": [ck[0].label() for ck in self._entries],
+                "refusals": {label: row[0] for label, row in self.refusals.items()},
+            }
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self.refusals.clear()
+            self.stats.update(hits=0, misses=0, evictions=0)
+
+
+#: process-wide: every solver and clone shares one table
+AOT_CACHE = AOTCache()
 
 
 def make_orders(

@@ -817,7 +817,8 @@ def note_phase(phase: str, mode: str, seconds: float) -> None:
 
 def note_bucket_dispatch(label: str, seconds: float) -> None:
     """Tap at every point where the solver learns a dispatch's host-clock
-    time (the port has no AOT cache) — the per-bucket attribution feed."""
+    time (``AOT_CACHE.note_dispatch`` makes every call) — the per-bucket
+    attribution feed."""
     s = SENTINEL
     if not s.enabled:
         return

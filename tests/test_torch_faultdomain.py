@@ -551,3 +551,16 @@ def test_timed_fault_fires_and_books_as_the_reference(kind):
     else:
         assert got["fired"] == [kind] and got["pending"] == 0
         assert got["booked"] == {BOOKED[kind]: 1.0}
+
+
+@pytest.fixture(autouse=True)
+def _fresh_admission_table():
+    """Each case starts with the port's dispatch-latency table empty, as a
+    new process does: the table is process-wide, as the reference's is, and
+    a synchronous pass on the CPU times the plain chain (seconds), which
+    would turn a later case's race away."""
+    from karpenter_tpu_torch.solver.torch_solver import AOT_CACHE as table
+
+    table.clear()
+    yield
+    table.clear()

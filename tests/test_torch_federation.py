@@ -975,3 +975,16 @@ class TestOperatorWiring:
         assert any(a["outcome"] == "degraded-local"
                    for s in trace[PORT] for a in s["verdict"]["assignments"])
         assert trace[PORT][-1]["pending"] == 0
+
+
+@pytest.fixture(autouse=True)
+def _fresh_admission_table():
+    """Each case starts with the port's dispatch-latency table empty, as a
+    new process does: the table is process-wide, as the reference's is, and
+    a synchronous pass on the CPU times the plain chain (seconds), which
+    would turn a later case's race away."""
+    from karpenter_tpu_torch.solver.torch_solver import AOT_CACHE as table
+
+    table.clear()
+    yield
+    table.clear()

@@ -161,12 +161,16 @@ def test_pack_solve_fleet_matches_reference_row_by_row():
     assert len({bytes(buf[b]) for b in range(3)}) == 3  # the rows are distinct problems
 
 
-def test_stage_fleet_device_and_host_stacks_match_serial_and_reference():
+def test_stage_fleet_device_and_host_stacks_match_serial_and_reference(monkeypatch):
     """The controller's flow (per-cell solvers, prestage, stage_fleet,
     solve) over a seed round and a churn round, against the bench's fleet
     arm (one shared solver, host-stacked) and each cell's fleet-free
     chain; each cell's race takes the row only if it placed every pod and
-    beat the host answer."""
+    beat the host answer. Admission reads the round trip alone: the seed
+    round's kernel-only solves time the plain chain on the CPU (seconds),
+    which would turn the churn round's prestage and fleet away
+    (``test_torch_admission.py`` holds the admission)."""
+    monkeypatch.setattr(ts.AOT_CACHE, "predicted_dispatch_s", lambda *args, **kw: None)
     n = 4
     cells, provs, catalog = _cells(n)
     clones = [TorchSolver(device="cpu") for _ in range(n)]
@@ -272,3 +276,16 @@ def test_chunks_follow_max_batch():
     assert [p.__dict__.get("_budget_share") for p in problems] == [0.25] * 4 + [None]
     for p in problems:
         assert validate(p, solver.solve(p)) == []
+
+
+@pytest.fixture(autouse=True)
+def _fresh_admission_table():
+    """Each case starts with the port's dispatch-latency table empty, as a
+    new process does: the table is process-wide, as the reference's is, and
+    a synchronous pass on the CPU times the plain chain (seconds), which
+    would turn a later case's race away."""
+    from karpenter_tpu_torch.solver.torch_solver import AOT_CACHE as table
+
+    table.clear()
+    yield
+    table.clear()

@@ -826,3 +826,16 @@ def test_live_http_reconcile_replays_offline_identically(pkg):
     assert diffs["unschedulable_match"] and report["match"]
     assert set(report["replayed"]["placements"]) == {f"e2e-{i}" for i in range(5)}
 
+
+
+@pytest.fixture(autouse=True)
+def _fresh_admission_table():
+    """Each case starts with the port's dispatch-latency table empty, as a
+    new process does: the table is process-wide, as the reference's is, and
+    a synchronous pass on the CPU times the plain chain (seconds), which
+    would turn a later case's race away."""
+    from karpenter_tpu_torch.solver.torch_solver import AOT_CACHE as table
+
+    table.clear()
+    yield
+    table.clear()

@@ -33,6 +33,7 @@ from karpenter_tpu_torch import configs
 from karpenter_tpu_torch.solver import TorchSolver, encode, validate
 from karpenter_tpu_torch.solver.host import solve_host
 from karpenter_tpu_torch.solver.solver import KERNEL_BOARD, GreedySolver
+from karpenter_tpu_torch.solver.torch_solver import AOT_CACHE
 from test_torch_solver import _build, _case, _ref_existing
 
 CASES = ["full_2k", "topology_1k", "crossgroup_1k", "existing_nodes"]
@@ -41,7 +42,9 @@ CASES = ["full_2k", "topology_1k", "crossgroup_1k", "existing_nodes"]
 def reset_caches():
     """Both packages' process-wide solver state: pattern pools, the repack
     and topology plan caches, the kernel breaker boards and the measured
-    device round trip."""
+    device round trip; and the port's dispatch-latency table (the
+    reference's executables stay: recompiling them would cost each case
+    seconds)."""
     for patterns, repack, topo in ((rpatterns, rrepack, rtopo), (ppatterns, prepack, ptopo)):
         patterns._pool_cache.clear()
         patterns._seen_problems.clear()
@@ -50,6 +53,7 @@ def reset_caches():
             mod._seen.clear()
     KERNEL_BOARD.reset()
     REF_BOARD.reset()
+    AOT_CACHE.clear()
     TorchSolver._device_rtt_s = None
     TPUSolver._device_rtt_s = None
 

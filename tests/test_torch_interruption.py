@@ -494,3 +494,16 @@ def test_close_joins_the_worker_pool():
     assert pool is not None
     e.intr.close(wait=True)
     assert e.intr._pool is None and pool._shutdown
+
+
+@pytest.fixture(autouse=True)
+def _fresh_admission_table():
+    """Each case starts with the port's dispatch-latency table empty, as a
+    new process does: the table is process-wide, as the reference's is, and
+    a synchronous pass on the CPU times the plain chain (seconds), which
+    would turn a later case's race away."""
+    from karpenter_tpu_torch.solver.torch_solver import AOT_CACHE as table
+
+    table.clear()
+    yield
+    table.clear()

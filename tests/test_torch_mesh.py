@@ -364,3 +364,16 @@ def test_mesh_superproblem_config_matches_the_bench_defaults():
     assert [p.name for p in provs][:2] == ["mesh-00", "mesh-01"]
     events = configs.churn_mesh_cells(cells, 0, n_pods=4000)
     assert list(events) == [0, 1, 2, 3] and all(len(r) == len(a) == 2 for r, a in events.values())
+
+
+@pytest.fixture(autouse=True)
+def _fresh_admission_table():
+    """Each case starts with the port's dispatch-latency table empty, as a
+    new process does: the table is process-wide, as the reference's is, and
+    a synchronous pass on the CPU times the plain chain (seconds), which
+    would turn a later case's race away."""
+    from karpenter_tpu_torch.solver.torch_solver import AOT_CACHE as table
+
+    table.clear()
+    yield
+    table.clear()

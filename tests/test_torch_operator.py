@@ -497,6 +497,27 @@ def test_default_solver_is_the_card_unless_asked():
         op.close()
 
 
+def test_aot_cache_capacity_is_read_from_the_settings():
+    """``Operator.new`` sizes each package's process-wide AOT cache from
+    ``aot_cache_capacity``: the reference's executables and their dispatch
+    latencies, the port's dispatch latencies alone."""
+    from karpenter_tpu.solver.jax_solver import AOT_CACHE as ref_table
+    from karpenter_tpu_torch.solver.torch_solver import AOT_CACHE as port_table
+
+    tables = {REF: ref_table, PORT: port_table}
+    before = {pkg: t.capacity for pkg, t in tables.items()}
+    try:
+        for pkg in PACKAGES:
+            m = pkg_mod(pkg)
+            provider = m.cloud.FakeCloudProvider(catalog=m.cloud.generate_catalog(n_types=5))
+            op = new_operator(m, provider, m.settings.Settings(aot_cache_capacity=48))
+            op.close()
+        assert ref_table.capacity == port_table.capacity == 48
+    finally:
+        for pkg, t in tables.items():
+            t.configure(capacity=before[pkg])
+
+
 @pytest.mark.parametrize("settings_kw", [dict(mesh_enabled=True)], ids=["mesh"])
 def test_unported_settings_raise(settings_kw, one_worker):
     """``mesh_enabled`` is honoured as the reference honours it, not
@@ -1273,3 +1294,16 @@ def test_config_operator_seed_is_the_operators_first_round(one_worker):
         assert not gone & set(provider.instances)
     finally:
         op.close()
+
+
+@pytest.fixture(autouse=True)
+def _fresh_admission_table():
+    """Each case starts with the port's dispatch-latency table empty, as a
+    new process does: the table is process-wide, as the reference's is, and
+    a synchronous pass on the CPU times the plain chain (seconds), which
+    would turn a later case's race away."""
+    from karpenter_tpu_torch.solver.torch_solver import AOT_CACHE as table
+
+    table.clear()
+    yield
+    table.clear()

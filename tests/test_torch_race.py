@@ -72,17 +72,18 @@ PINNED_RTT_S = 1e-4
 
 @pytest.fixture
 def pinned_admission(monkeypatch):
-    """Both races admit a dispatch on a measured latency: the port on its
-    process round trip (``TorchSolver.device_rtt``), the reference on its
-    bucket's dispatch latency, an average of the kernel solves timed
-    before (``AOT_CACHE.predicted_dispatch_s``), or else its round trip.
-    On a loaded worker one slow sample (a reference kernel solve past the
-    0.1 s budget) turns the dispatch away, and the race answers from the
-    host alone. Both inputs are pinned to an unloaded CPU's round trip, so
-    that every run admits the dispatch as an unloaded one does."""
+    """Both races admit a dispatch on a measured latency: their bucket's
+    dispatch latency, an average of the kernel solves timed before (each
+    package's ``AOT_CACHE.predicted_dispatch_s``), or else their process
+    round trip (``device_rtt``). On a loaded worker one slow sample (a
+    kernel solve past the 0.1 s budget) turns the dispatch away, and the
+    race answers from the host alone. Both packages' inputs are pinned to an
+    unloaded CPU's round trip, so that every run admits the dispatch as an
+    unloaded one does."""
     monkeypatch.setattr(TorchSolver, "_device_rtt_s", PINNED_RTT_S)
     monkeypatch.setattr(TPUSolver, "_device_rtt_s", PINNED_RTT_S)
     monkeypatch.setattr(AOT_CACHE, "predicted_dispatch_s", lambda *args, **kw: None)
+    monkeypatch.setattr(ts.AOT_CACHE, "predicted_dispatch_s", lambda *args, **kw: None)
 
 
 @pytest.mark.parametrize("name,winner", [

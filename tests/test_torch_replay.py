@@ -307,3 +307,16 @@ def test_sharded_fleet_round_replays_on_cell_clones(port, monkeypatch):
     report = port.replay.replay_capsule(capsule, solver="torch-quality", device="cpu")
     assert report["match"] is True, report["diffs"]
     assert len(fleets) - recorded == recorded
+
+
+@pytest.fixture(autouse=True)
+def _fresh_admission_table():
+    """Each case starts with the port's dispatch-latency table empty, as a
+    new process does: the table is process-wide, as the reference's is, and
+    a synchronous pass on the CPU times the plain chain (seconds), which
+    would turn a later case's race away."""
+    from karpenter_tpu_torch.solver.torch_solver import AOT_CACHE as table
+
+    table.clear()
+    yield
+    table.clear()

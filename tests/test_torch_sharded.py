@@ -626,3 +626,16 @@ def test_breakers_and_stager_keep_exact_books():
     off = DeviceStager(device="cpu", enabled=False)
     out = off.stage(("cell",), leaves[0])
     assert np.array_equal(out["x"].numpy(), leaves[0]["x"]) and off.resident_bytes() == 0
+
+
+@pytest.fixture(autouse=True)
+def _fresh_admission_table():
+    """Each case starts with the port's dispatch-latency table empty, as a
+    new process does: the table is process-wide, as the reference's is, and
+    a synchronous pass on the CPU times the plain chain (seconds), which
+    would turn a later case's race away."""
+    from karpenter_tpu_torch.solver.torch_solver import AOT_CACHE as table
+
+    table.clear()
+    yield
+    table.clear()

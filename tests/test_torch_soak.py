@@ -437,3 +437,16 @@ def test_soak_provisions_through_a_catalog_outage_after_boot(tmp_path):
     assert report["pending_end"] == 0 and report["pod_ready_samples"] >= 20
     assert report["restarts"]["operator_boot_exit"] == 0
     assert "instance-type refresh failed" in (tmp_path / "operator-0.log").read_text()
+
+
+@pytest.fixture(autouse=True)
+def _fresh_admission_table():
+    """Each case starts with the port's dispatch-latency table empty, as a
+    new process does: the table is process-wide, as the reference's is, and
+    a synchronous pass on the CPU times the plain chain (seconds), which
+    would turn a later case's race away."""
+    from karpenter_tpu_torch.solver.torch_solver import AOT_CACHE as table
+
+    table.clear()
+    yield
+    table.clear()

@@ -322,3 +322,16 @@ def test_unsupported_shape_and_empty_problems():
 
     empty = encode([], [(Provisioner(meta=ObjectMeta(name="d")), generate_catalog(n_types=5))], [])
     assert TorchSolver(device="cpu").solve(empty).stats["backend"] == 1.0
+
+
+@pytest.fixture(autouse=True)
+def _fresh_admission_table():
+    """Each case starts with the port's dispatch-latency table empty, as a
+    new process does: the table is process-wide, as the reference's is, and
+    a synchronous pass on the CPU times the plain chain (seconds), which
+    would turn a later case's race away."""
+    from karpenter_tpu_torch.solver.torch_solver import AOT_CACHE as table
+
+    table.clear()
+    yield
+    table.clear()
